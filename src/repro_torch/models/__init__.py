@@ -1,0 +1,14 @@
+"""PyTorch model stack: the dense decoder (block kind ``attn``)."""
+from .attention import blockwise_attention, decode_attention, project_qkv
+from .config import ATTN, ATTN_MOE, CROSS, SSM, SSM_MLP, SSM_MOE, ModelConfig
+from .convert import params_from_jax
+from .layers import apply_rope, rms_norm, swiglu
+from .transformer import (
+    Transformer,
+    forward_decode,
+    forward_prefill,
+    init_cache,
+    init_params,
+)
+
+__all__ = [k for k in dir() if not k.startswith("_")]

@@ -1,0 +1,110 @@
+"""Attention: GQA with RoPE / qk-norm / QKV-bias / sliding window.
+
+Port of ``repro.models.attention`` for self-attention. The prefill path,
+:func:`blockwise_attention`, is the flash kernel
+(:func:`repro_torch.kernels.ops.flash_attention_bshd`); the reference's
+pure-jnp blockwise loop is that kernel's oracle. The projections and decode
+attention stay plain PyTorch, as the reference leaves them to XLA.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from .layers import apply_rope, rms_norm
+
+Params = Dict[str, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one (D, H·hd) product."""
+    d, h, hd = w.shape
+    return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
+
+
+def project_qkv(
+    params: Params,
+    x: torch.Tensor,                     # (B, S, D)
+    positions: torch.Tensor,             # (B, S)
+    rope_theta: float = 10_000.0,
+    qk_norm: bool = False,
+    use_rope: bool = True,
+    norm_eps: float = 1e-5,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = _proj(x, params["wq"])
+    k = _proj(x, params["wk"])
+    v = _proj(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if qk_norm:                          # per head over hd, before RoPE
+        q = rms_norm(q, params["q_norm"], norm_eps)
+        k = rms_norm(k, params["k_norm"], norm_eps)
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def blockwise_attention(
+    q: torch.Tensor,                     # (B, Sq, H, hd)
+    k: torch.Tensor,                     # (B, Sk, Kv, hd)
+    v: torch.Tensor,                     # (B, Sk, Kv, hd)
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    q_block: int = 256,
+    kv_block: int = 256,
+) -> torch.Tensor:
+    """Flash attention; returns (B, Sq, H, hd).
+
+    ``q_offset`` is the absolute position of q[0] relative to k[0];
+    ``window``: attend only to keys within ``window`` positions behind the
+    query. ``q_block``/``kv_block`` keep the reference's signature; the
+    kernel picks its own tiles.
+    """
+    return ops.flash_attention_bshd(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+
+
+def attention_output(params: Params, attn: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one (H·hd, D) product."""
+    h, hd, d = params["wo"].shape
+    return attn.flatten(-2) @ params["wo"].reshape(h * hd, d)
+
+
+def decode_attention(
+    q: torch.Tensor,                     # (B, 1, H, hd)
+    cache_k: torch.Tensor,               # (B, S, Kv, hd)
+    cache_v: torch.Tensor,
+    cache_len: int,                      # valid slots
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One-token attention over the KV cache, GQA kept grouped.
+
+    With a window, only the last ``window`` slots ending at ``cache_len``
+    are read (the caller keeps the cache as a ring buffer).
+    """
+    b, sq, h, hd = q.shape
+    kv = cache_k.shape[2]
+    g = h // kv
+    scale = hd ** -0.5
+    if window is not None and cache_k.shape[1] > window:
+        # clamped into range, as jax.lax.dynamic_slice does
+        start = min(max(cache_len - window, 0), cache_k.shape[1] - window)
+        cache_k = cache_k[:, start:start + window]
+        cache_v = cache_v[:, start:start + window]
+        valid = torch.arange(cache_k.shape[1], device=q.device) < min(cache_len, window)
+    else:
+        valid = torch.arange(cache_k.shape[1], device=q.device) < cache_len
+    qg = q.reshape(b, sq, kv, g, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), cache_k.float()) * scale
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, cache_v.float())
+    return out.reshape(b, sq, h, hd).to(q.dtype)

@@ -1,0 +1,49 @@
+"""Load the reference's parameters into the port's model.
+
+The reference's parameter pytree, as nested dicts and tuples of numpy
+arrays in its layouts (``wq`` (D, H, hd); blocks stacked over pattern
+repetitions, ``blocks[j][...][r]``), becomes a :class:`Transformer` that
+computes the same function.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .transformer import Transformer
+
+
+def _tensor(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: reinterpret the bits
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    return t.to(device)
+
+
+def _unstack(tree: Dict[str, Any], r: int, device: torch.device) -> Dict[str, Any]:
+    return {k: _unstack(v, r, device) if isinstance(v, dict) else _tensor(v[r], device)
+            for k, v in tree.items()}
+
+
+def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
+                    device: Optional[torch.device | str] = None) -> Transformer:
+    dev = resolve_device(device)
+    tensors: Dict[str, Any] = {
+        "embed": _tensor(np_params["embed"], dev),
+        "final_norm": _tensor(np_params["final_norm"], dev),
+    }
+    if not cfg.tie_embeddings:
+        tensors["head"] = _tensor(np_params["head"], dev)
+    pattern = cfg.layout_pattern
+    tensors["blocks"] = [
+        _unstack(np_params["blocks"][layer % len(pattern)], layer // len(pattern), dev)
+        for layer in range(cfg.num_layers)
+    ]
+    return Transformer(cfg, tensors)

@@ -1,0 +1,54 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Imports no JAX, so it runs where only PyTorch is installed:
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
+Without a card every case skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention
+
+# (bh, sq, sk, hd, g): the shapes of tests/test_kernels.py
+SHAPES = [
+    (2, 128, 128, 64, 1),
+    (4, 256, 256, 128, 2),
+    (2, 100, 100, 64, 1),
+    (3, 64, 192, 32, 3),
+]
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CASES = [(dt, s, s[1] == s[2], None, 0) for dt in DTYPES for s in SHAPES] + [
+    ("float32", (2, 256, 256, 64, 1), True, 64, 0),      # sliding window
+    ("bfloat16", (2, 256, 256, 64, 1), True, 64, 0),
+    ("float32", (1, 32, 128, 64, 1), True, None, 96),    # q_offset continuation
+    ("float32", (2, 16, 40, 32, 1), True, None, -8),     # fully masked rows
+    ("bfloat16", (4, 130, 300, 128, 4), False, 100, 170),  # window, no causal, ragged
+]
+
+
+def _tol(name):
+    # bf16 output rounding; f32 differs only in summation order
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,causal,window,q_offset", CASES)
+def test_flash_kernel_matches_plain(dtype, shape, causal, window, q_offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh, sq, sk, hd, g = shape
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to("cuda", DTYPES[dtype])
+               for s in ((bh, sq, hd), (bh // g, sk, hd), (bh // g, sk, hd)))
+    kw = dict(q_heads_per_kv=g, causal=causal, window=window, q_offset=q_offset)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **_tol(dtype))
