@@ -6,17 +6,21 @@
 Run from the root of a checkout. Phases, one JSON line each:
 
 1. card: the device, and ``nvidia-smi``'s name and power limit;
-2. build: every CUDA kernel of the serve path, compiled from ``src/``;
+2. build: every CUDA kernel of the serve paths, compiled from ``src/``, one
+   ``nvcc`` per source, all at once;
 3. kernel checks: each kernel against its plain PyTorch version on the card,
    at the test shapes and at the serving shape, then timed at the serving
-   shape beside the plain version and one PyTorch library call;
-4. depth2: full-width qwen3-14b cut to 2 layers; prefill logits through the
-   kernel against the same model with the plain attention;
-5. serve: full qwen3-14b (40 layers, bf16, random weights from a seed)
-   serves 4 requests of 1024 prompt tokens + 32 greedy tokens through
-   ``repro_torch.launch.serve.generate``; kernel launch counts are zeroed
-   just before and read just after; then a ``torch.profiler`` pass over one
-   prefill and 8 decode steps gives the device's busy share.
+   shape beside the plain version and, where there is one, a PyTorch
+   library call (flash attention: K2; SSD chunk scan: K3);
+4. for each served model, qwen3-14b (K2) and then mamba2-1.3b (K3):
+   - depth2: the model at full width cut to 2 layers; prefill logits through
+     the kernel against the same model with the kernel's plain version;
+   - serve: the full model (bf16, random weights from a seed) serves 4
+     requests of 1024 prompt tokens + 32 greedy tokens through
+     ``repro_torch.launch.serve.generate``; every kernel's launch count is
+     zeroed just before and read just after;
+   - profile: a ``torch.profiler`` pass over one prefill and 8 decode steps
+     gives the device's busy share.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -48,6 +52,21 @@ CHECKS = [(dt, s, s[1] == s[2], None, 0) for dt in ("float32", "bfloat16") for s
     ("bfloat16", (160, 1000, 1000, 128, 5), True, None, 0),   # ragged serving shape
 ]
 SERVING = ("bfloat16", (160, 1024, 1024, 128, 5), True, None, 0)
+# (dtype, (bh, s, p, n, chunk, heads_per_group, initial state)): the test
+# shapes, a chunk that is no power of two, the warm-up's chunk 16 at the
+# serving widths, a carried-in state, and the serving shape (4 requests x 64
+# heads of one group, so heads_per_group 64)
+SSD_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+SSD_SERVING = ("bfloat16", (256, 1024, 64, 128, 128, 64, False))
+SSD_CHECKS = [(dt, s) for dt in ("float32", "bfloat16") for s in (
+    (2, 64, 32, 16, 16, 1, False), (4, 128, 64, 32, 32, 1, False),
+    (2, 128, 64, 128, 64, 1, False))] + [
+    ("float32", (2, 200, 64, 128, 100, 1, False)),
+    ("bfloat16", (256, 100, 64, 128, 100, 64, False)),
+    ("bfloat16", (256, 16, 64, 128, 16, 64, False)),
+    ("float32", (8, 256, 64, 128, 128, 4, True)),
+    SSD_SERVING,
+]
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -110,6 +129,41 @@ def attention_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
+def ssd_bound_ms(dtype: str, shape):
+    """Least time for the SSD scan's work: per (row, chunk) 2·Q²·N (C·Bᵀ),
+    2·Q²·P (W·X) and 2·Q·N·P each for C·state and Bᵀ·(decay·X); x, dt, A,
+    B and C (once per group) read once, y and the final state written once."""
+    bh, s, p, n, chunk, g, with_state = shape
+    flops = float(bh * (s // chunk)) * (2 * chunk * chunk * (n + p) + 4 * chunk * n * p)
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (size * (2 * bh * s * p + 2 * (bh // g) * s * n) + 4 * (bh * s + bh)
+              + 4 * bh * n * p * (2 if with_state else 1))
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def ssd_inputs(dtype: str, shape, gen):
+    """Inputs on the card. The serving shape takes the model's A (-1 … -16
+    per head), where exp(cum_i - cum_j) overflows above the diagonal."""
+    import torch
+    bh, s, p, n, chunk, g, with_state = shape
+    dev, tdt = torch.device("cuda"), getattr(torch, dtype)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev)
+    x = randn(bh, s, p).to(tdt)
+    dt = torch.nn.functional.softplus(randn(bh, s))
+    if g == 64:
+        A = -torch.linspace(1.0, 16.0, 64, device=dev).repeat(bh // 64)
+    else:
+        A = -torch.exp(randn(bh) * 0.3)
+    Bm, Cm = (randn(bh // g, s, n) * 0.3).to(tdt), (randn(bh // g, s, n) * 0.3).to(tdt)
+    kw = dict(chunk=chunk, heads_per_group=g,
+              initial_state=randn(bh, n, p) if with_state else None)
+    return (x, dt, A, Bm, Cm), kw
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -126,6 +180,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.launch.serve import generate
     from repro_torch.models import forward_decode, forward_prefill, init_params
     ops = importlib.import_module("repro_torch.kernels.ops")
@@ -141,7 +196,7 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention"])
+    logs = build.build(["flash_attention", "ssd_scan"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
@@ -171,6 +226,7 @@ def main() -> int:
         if (dtype, shape, causal, window, q_offset) == SERVING:
             serving_err = err
             serving_inputs = (q, k, v, kw)
+        del got, want
 
     q, k, v, kw = serving_inputs
     ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters=20)
@@ -186,81 +242,123 @@ def main() -> int:
           "bound_by": bound_by, "flops": flops, "bytes": nbytes,
           "tflops": flops / ms / 1e9, "smi": smi})
     del q, k, v, q4, k4, v4, serving_inputs
+    timings = {"flash_attention": dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=lib_ms)}
 
-    # 4. depth-2 full-width model: kernel against plain attention --------------
-    cfg = get_config("qwen3-14b")
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    model = init_params(cfg2, seed=0, device=dev)
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
-                           device=dev)
-    with torch.inference_mode():
-        lk = forward_prefill(model, tokens, SERVE_PROMPT + 1)[0].float()
-        with mock.patch.object(ops, "flash_attention", flash_attention_plain):
-            lp = forward_prefill(model, tokens, SERVE_PROMPT + 1)[0].float()
-    err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
-    ok = bool(torch.isfinite(lk).all()) and err <= 2e-2 * scale
-    emit({"phase": "depth2", "layers": 2, "max_abs_err": err, "max_abs_logit": scale,
-          "tol": 2e-2 * scale, "ok": ok})
-    if not ok:
-        raise AssertionError("depth-2 prefill through the kernel differs from plain attention")
-    del model, lk, lp
-    torch.cuda.empty_cache()
+    for dtype, shape in SSD_CHECKS:
+        args, kw = ssd_inputs(dtype, shape, gen)
+        y, st = ssd_scan(*args, **kw)
+        want_y, want_st = ssd_scan_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(float((y.float() - want_y.float()).abs().max()),
+                  float((st - want_st).abs().max()))
+        tol = SSD_TOL[dtype]
+        ok = (bool(torch.allclose(y.float(), want_y.float(), **tol))
+              and bool(torch.allclose(st, want_st, **tol)))
+        emit({"phase": "kernel_check", "kernel": "ssd_scan", "dtype": dtype, "shape": shape,
+              "max_abs_err": err, "tol": tol, "ok": ok})
+        if not ok:
+            raise AssertionError(f"ssd_scan differs from its plain version: {err}")
+        if (dtype, shape) == SSD_SERVING:
+            serving_err, serving_inputs = err, (args, kw)
+        del y, st, want_y, want_st
+    args, kw = serving_inputs
+    ms = cuda_ms(lambda: ssd_scan(*args, **kw), iters=20)
+    plain_ms = cuda_ms(lambda: ssd_scan_plain(*args, **kw), iters=5)
+    bound_ms, bound_by, flops, nbytes = ssd_bound_ms(*SSD_SERVING)
+    emit({"phase": "kernel_time", "kernel": "ssd_scan", "shape": SSD_SERVING[1],
+          "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+          "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+          "tflops": flops / ms / 1e9, "smi": smi})
+    del args, kw, serving_inputs
+    timings["ssd_scan"] = dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
-    # 5. serve: full qwen3-14b ---------------------------------------------------
-    t0 = time.perf_counter()
-    model = init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    warm = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device=dev)
-    generate(model, warm, 2)                       # warm-up: library handles, allocator
-    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
-                           device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    res = generate(model, tokens, SERVE_NEW)
-    launches = {"flash_attention": flash_attention.launches}
-    peak = torch.cuda.max_memory_allocated()
-    ok = (launches["flash_attention"] == cfg.num_layers
-          and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
-          and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
-          and bool(torch.isfinite(res.prefill_logits).all())
-          and bool(torch.isfinite(res.last_logits).all()))
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
-          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
-          "init_s": init_s, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
-          "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
-          "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
-          "peak_mem_gb": peak / 1e9, "launches": launches,
-          "sample_ids": res.ids[0, :8].tolist(), "device": name, "smi": smi, "ok": ok})
-    if not ok:
-        raise AssertionError(f"serve check failed: launches {launches}")
+    # 4. each served model: depth-2 check, serve, profile ----------------------
+    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    plain = {"flash_attention": flash_attention_plain, "ssd_scan": ssd_scan_plain}
+    launches = {}
+    for arch, kernel in (("qwen3-14b", "flash_attention"), ("mamba2-1.3b", "ssd_scan")):
+        cfg = get_config(arch)
+        model = init_params(dataclasses.replace(cfg, num_layers=2), seed=0, device=dev)
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                               device=dev)
+        with torch.inference_mode():
+            lk = forward_prefill(model, tokens, SERVE_PROMPT + 1)[0].float()
+            with mock.patch.object(ops, kernel, plain[kernel]):
+                lp = forward_prefill(model, tokens, SERVE_PROMPT + 1)[0].float()
+        err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
+        ok = bool(torch.isfinite(lk).all()) and err <= 2e-2 * scale
+        emit({"phase": "depth2", "arch": cfg.name, "kernel": kernel, "layers": 2,
+              "max_abs_err": err, "max_abs_logit": scale, "tol": 2e-2 * scale, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{arch}: depth-2 prefill through {kernel} differs from plain")
+        del model, lk, lp
+        torch.cuda.empty_cache()
 
-    # where the time goes: device kernel time per phase (outside the counted run)
-    with torch.inference_mode():
-        _, caches, clen = forward_prefill(model, tokens, SERVE_PROMPT + 9)
-        prefill_prof = device_profile(lambda: forward_prefill(model, tokens, SERVE_PROMPT + 1))
+        t0 = time.perf_counter()
+        model = init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        warm = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device=dev)
+        generate(model, warm, 2)                   # warm-up: library handles, allocator
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        res = generate(model, tokens, SERVE_NEW)
+        counts = {k: c.launches for k, c in counters.items()}
+        launches[kernel] = counts[kernel]
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: cfg.num_layers if k == kernel else 0 for k in counters}
+        ok = (counts == want
+              and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
+              and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
+              and bool(torch.isfinite(res.prefill_logits).all())
+              and bool(torch.isfinite(res.last_logits).all()))
+        emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+              "params": n_params, "param_count": cfg.param_count(),
+              "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+              "init_s": init_s, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+              "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
+              "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
+              "peak_mem_gb": peak / 1e9, "launches": counts,
+              "sample_ids": res.ids[0, :8].tolist(), "device": name, "smi": smi, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}")
 
-        def decode_steps():
-            c, n = caches, clen
-            for _ in range(8):
-                _, c, n = forward_decode(model, tokens[:, -1:], c, n)
-        decode_prof = device_profile(decode_steps)
-    emit({"phase": "profile", "prefill": prefill_prof, "decode_8_steps": decode_prof,
-          "unprofiled_prefill_ms": res.prefill_s * 1e3,
-          "unprofiled_decode_step_ms": res.decode_s / SERVE_NEW * 1e3,
-          "prefill_device_share": prefill_prof["device_busy_ms"] / (res.prefill_s * 1e3),
-          "decode_device_share":
-              decode_prof["device_busy_ms"] / 8 / (res.decode_s / SERVE_NEW * 1e3),
-          "smi": smi})
+        # where the time goes: device kernel time per phase (outside the counted run)
+        with torch.inference_mode():
+            _, caches, clen = forward_prefill(model, tokens, SERVE_PROMPT + 9)
+            prefill_prof = device_profile(
+                lambda: forward_prefill(model, tokens, SERVE_PROMPT + 1))
 
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:91",
-        "launches": launches["flash_attention"], "max_abs_err": serving_err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms}]})
+            def decode_steps():
+                c, n = caches, clen
+                for _ in range(8):
+                    _, c, n = forward_decode(model, tokens[:, -1:], c, n)
+            decode_prof = device_profile(decode_steps)
+        emit({"phase": "profile", "arch": cfg.name, "prefill": prefill_prof,
+              "decode_8_steps": decode_prof,
+              "unprofiled_prefill_ms": res.prefill_s * 1e3,
+              "unprofiled_decode_step_ms": res.decode_s / SERVE_NEW * 1e3,
+              "prefill_device_share": prefill_prof["device_busy_ms"] / (res.prefill_s * 1e3),
+              "decode_device_share":
+                  decode_prof["device_busy_ms"] / 8 / (res.decode_s / SERVE_NEW * 1e3),
+              "smi": smi})
+        del model, caches, res
+        torch.cuda.empty_cache()
+
+    emit({"kernels": [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:91",
+         "launches": launches["flash_attention"], **timings["flash_attention"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:87",
+         "launches": launches["ssd_scan"], **timings["ssd_scan"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

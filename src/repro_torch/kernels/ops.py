@@ -2,15 +2,18 @@
 
 They adapt model layouts to the kernels' layouts, e.g. (B, S, H, hd) GQA
 attention → the flattened (B·H, S, hd) layout of
-:func:`repro_torch.kernels.flash_attention.flash_attention`.
+:func:`repro_torch.kernels.flash_attention.flash_attention`. Each kernel is
+called as an attribute of this module, so a caller can swap in its plain
+version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 
 
 def flash_attention_bshd(
@@ -31,3 +34,32 @@ def flash_attention_bshd(
     out = flash_attention(qf, kf, vf, q_heads_per_kv=g, causal=causal,
                           window=window, q_offset=q_offset)
     return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def ssd_bshp(
+    x: torch.Tensor,                     # (B, S, H, P)
+    dt: torch.Tensor,                    # (B, S, H) f32
+    A: torch.Tensor,                     # (H,) f32
+    Bm: torch.Tensor,                    # (B, S, G, N)
+    Cm: torch.Tensor,                    # (B, S, G, N)
+    chunk: int = 128,
+    initial_state: Optional[torch.Tensor] = None,   # (B, H, P, N) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD on (B, S, H, P) + groups; returns (y (B, S, H, P),
+    final state (B, H, P, N) f32). The groups are not broadcast to heads:
+    the kernel reads group row ``bh // (H // G)``."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    xf = x.transpose(1, 2).reshape(b * h, s, p).contiguous()
+    dtf = dt.transpose(1, 2).reshape(b * h, s).contiguous()
+    Bf = Bm.transpose(1, 2).reshape(b * g, s, n).contiguous()
+    Cf = Cm.transpose(1, 2).reshape(b * g, s, n).contiguous()
+    Af = A.repeat(b)
+    init = None
+    if initial_state is not None:
+        init = initial_state.transpose(2, 3).reshape(b * h, n, p).contiguous()
+    y, state = ssd_scan(xf, dtf, Af, Bf, Cf, chunk=chunk, heads_per_group=h // g,
+                        initial_state=init)
+    y = y.reshape(b, h, s, p).transpose(1, 2)
+    state = state.reshape(b, h, n, p).transpose(2, 3)
+    return y, state

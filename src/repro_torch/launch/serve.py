@@ -1,7 +1,8 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Prefill + greedy decode, as ``repro.launch.serve`` does: the prompt goes
-through :func:`forward_prefill` (flash kernel in every layer), then each new
+through :func:`forward_prefill` (the flash-attention kernel in every
+``attn`` layer, the SSD scan kernel in every ``ssm`` layer), then each new
 token through :func:`forward_decode`. Runs on ``cuda`` unless ``--device``
 says otherwise.
 """

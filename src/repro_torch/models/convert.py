@@ -3,7 +3,8 @@
 The reference's parameter pytree, as nested dicts and tuples of numpy
 arrays in its layouts (``wq`` (D, H, hd); blocks stacked over pattern
 repetitions, ``blocks[j][...][r]``), becomes a :class:`Transformer` that
-computes the same function.
+computes the same function. Every array keeps its dtype: a bf16 model's
+``ssm`` subtree keeps ``A_log``, ``dt_bias`` and ``D`` in f32.
 """
 from __future__ import annotations
 

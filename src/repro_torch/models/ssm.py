@@ -1,0 +1,206 @@
+"""Mamba2 mixer via the SSD (state-space duality) chunked algorithm
+[arXiv:2405.21060].
+
+Port of ``repro.models.ssm``. The sequence is split into chunks of length
+Q; within a chunk the SSD computes an attention-like quadratic form, and a
+(B, H, P, N) state carries across chunks. :func:`mamba2_mixer`'s chunked
+scan is the SSD kernel (:func:`repro_torch.kernels.ops.ssd_bshp`);
+:func:`ssd_chunked`, the reference's pure-jnp scan, stays here as that
+kernel's model-level oracle. :func:`mamba2_decode_step` is plain PyTorch,
+as the reference leaves it to XLA.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .layers import dense_init, rms_norm
+
+Params = Dict[str, torch.Tensor]
+
+
+def init_mamba2(
+    gen: torch.Generator,
+    d_model: int,
+    d_inner: int,
+    ssm_state: int,
+    ssm_heads: int,
+    ssm_groups: int = 1,
+    conv_width: int = 4,
+    dtype: torch.dtype = torch.float32,
+) -> Params:
+    dev = gen.device
+    gn = ssm_groups * ssm_state
+    # in_proj packs [z (d_inner), x (d_inner), B (G*N), C (G*N), dt (H)]
+    proj_out = 2 * d_inner + 2 * gn + ssm_heads
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "in_proj": dense_init(gen, (d_model, proj_out), dtype=dtype),
+        "conv_w": dense_init(gen, (conv_width, d_inner + 2 * gn), scale=0.5, dtype=dtype),
+        "conv_b": torch.zeros((d_inner + 2 * gn,), dtype=dtype, device=dev),
+        # A_log, dt_bias and D stay f32 whatever the model's dtype
+        "A_log": torch.log(torch.linspace(1.0, 16.0, ssm_heads, **f32)),
+        "dt_bias": torch.zeros((ssm_heads,), **f32),
+        "D": torch.ones((ssm_heads,), **f32),
+        "norm": torch.ones((d_inner,), dtype=dtype, device=dev),
+        "out_proj": dense_init(gen, (d_inner, d_model), dtype=dtype),
+    }
+
+
+def _split_proj(proj: torch.Tensor, d_inner: int, gn: int, heads: int):
+    z = proj[..., :d_inner]
+    x = proj[..., d_inner:2 * d_inner]
+    b = proj[..., 2 * d_inner:2 * d_inner + gn]
+    c = proj[..., 2 * d_inner + gn:2 * d_inner + 2 * gn]
+    dt = proj[..., 2 * d_inner + 2 * gn:]
+    return z, x, b, c, dt
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over (B, S, C); returns (silu(y), new_state).
+
+    ``state`` is the trailing (width-1) inputs from the previous call (used
+    at decode time); None means zero history. The taps accumulate in x's
+    dtype, one rounding per tap, as the reference does.
+    """
+    width = w.shape[0]
+    bsz, s, c = x.shape
+    if state is None:
+        state = torch.zeros((bsz, width - 1, c), dtype=x.dtype, device=x.device)
+    xin = torch.cat([state, x], dim=1)                  # (B, S+w-1, C)
+    y = torch.zeros((bsz, s, c), dtype=x.dtype, device=x.device)
+    for i in range(width):
+        y = y + xin[:, i:i + s] * w[i]
+    y = y + b
+    new_state = xin[:, -(width - 1):] if width > 1 else state
+    return F.silu(y), new_state
+
+
+def segsum(x: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular cumulative sums: out[..., i, j] = sum x[j+1..i]."""
+    q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    return torch.where(mask, out, -torch.inf)
+
+
+def ssd_chunked(
+    x: torch.Tensor,                     # (B, S, H, P)
+    dt: torch.Tensor,                    # (B, S, H) softplus-ed step sizes
+    A: torch.Tensor,                     # (H,) negative decay rates
+    Bm: torch.Tensor,                    # (B, S, G, N)
+    Cm: torch.Tensor,                    # (B, S, G, N)
+    chunk: int = 128,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SSD chunked scan, plain. Returns (y (B,S,H,P), final_state (B,H,P,N)).
+
+    The reference's formulation, roundings included (C·Bᵀ in the inputs'
+    dtype); the SSD kernel is held to it.
+    """
+    b, s, h, p = x.shape
+    g = Bm.shape[2]
+    if s % chunk:
+        raise ValueError(f"seq {s} % chunk {chunk}")
+    reps = h // g
+    Bh = torch.repeat_interleave(Bm, reps, dim=2)       # (B, S, H, N)
+    Ch = torch.repeat_interleave(Cm, reps, dim=2)
+    state = (torch.zeros((b, h, p, Bm.shape[3]), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state)
+    ys = []
+    for t0 in range(0, s, chunk):
+        xq = x[:, t0:t0 + chunk]
+        dtq = dt[:, t0:t0 + chunk].float()
+        Bq, Cq = Bh[:, t0:t0 + chunk], Ch[:, t0:t0 + chunk]
+        dA = dtq * A[None, None, :]                     # (B, Q, H), negative
+        dA_cum = torch.cumsum(dA, dim=1)
+        total = dA_cum[:, -1]                           # (B, H)
+        L = torch.exp(segsum(dA.transpose(1, 2)))       # (B, H, Q, Q)
+        scores = torch.einsum("bqhn,bkhn->bhqk", Cq, Bq)
+        y_intra = torch.einsum("bhqk,bhqk,bkh,bkhp->bqhp", scores, L, dtq, xq.float())
+        y_inter = torch.einsum("bqhn,bhpn,bqh->bqhp", Cq.float(), state, torch.exp(dA_cum))
+        decay_to_end = torch.exp(total[:, None, :] - dA_cum)   # (B, Q, H)
+        chunk_state = torch.einsum("bqhn,bqh,bqh,bqhp->bhpn",
+                                   Bq.float(), decay_to_end, dtq, xq.float())
+        state = chunk_state + torch.exp(total)[:, :, None, None] * state
+        ys.append((y_intra + y_inter).to(x.dtype))
+    return torch.cat(ys, dim=1), state
+
+
+def mamba2_mixer(
+    params: Params,
+    xin: torch.Tensor,                   # (B, S, D)
+    cfg,
+    conv_state: Optional[torch.Tensor] = None,
+    ssm_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Full Mamba2 block body (pre-norm residual handled by caller)."""
+    d_inner = cfg.d_inner
+    gn = cfg.ssm_groups * cfg.ssm_state
+    heads = cfg.ssm_heads
+    proj = xin @ params["in_proj"]
+    z, x, bm, cm, dt = _split_proj(proj, d_inner, gn, heads)
+    xbc = torch.cat([x, bm, cm], dim=-1)
+    xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
+    x = xbc[..., :d_inner]
+    bm = xbc[..., d_inner:d_inner + gn]
+    cm = xbc[..., d_inner + gn:]
+    b_, s_, _ = x.shape
+    xh = x.reshape(b_, s_, heads, cfg.ssm_head_dim)
+    bmh = bm.reshape(b_, s_, cfg.ssm_groups, cfg.ssm_state)
+    cmh = cm.reshape(b_, s_, cfg.ssm_groups, cfg.ssm_state)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    y, new_ssm_state = ops.ssd_bshp(xh, dt, A, bmh, cmh, chunk=min(cfg.ssm_chunk, s_),
+                                    initial_state=ssm_state)
+    y = y + xh * params["D"][None, None, :, None]       # skip connection, in f32
+    y = y.reshape(b_, s_, d_inner).to(xin.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps).to(xin.dtype)
+    out = y @ params["out_proj"]
+    if return_state:
+        return out, (new_conv_state, new_ssm_state)
+    return out
+
+
+def mamba2_decode_step(
+    params: Params,
+    xin: torch.Tensor,                   # (B, 1, D)
+    cfg,
+    conv_state: torch.Tensor,            # (B, width-1, d_inner+2GN)
+    ssm_state: torch.Tensor,             # (B, H, P, N) f32
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """O(1) single-token recurrent update."""
+    d_inner = cfg.d_inner
+    gn = cfg.ssm_groups * cfg.ssm_state
+    heads = cfg.ssm_heads
+    proj = xin @ params["in_proj"]
+    z, x, bm, cm, dt = _split_proj(proj, d_inner, gn, heads)
+    xbc = torch.cat([x, bm, cm], dim=-1)
+    xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
+    x = xbc[..., :d_inner]
+    bm = xbc[..., d_inner:d_inner + gn]
+    cm = xbc[..., d_inner + gn:]
+    b_ = x.shape[0]
+    reps = heads // cfg.ssm_groups
+    xh = x.reshape(b_, heads, cfg.ssm_head_dim).float()            # S=1 squeezed
+    bmh = torch.repeat_interleave(bm.reshape(b_, cfg.ssm_groups, cfg.ssm_state), reps, dim=1)
+    cmh = torch.repeat_interleave(cm.reshape(b_, cfg.ssm_groups, cfg.ssm_state), reps, dim=1)
+    dt1 = F.softplus(dt.float() + params["dt_bias"])[:, 0]        # (B, H)
+    A = -torch.exp(params["A_log"])
+    decay = torch.exp(dt1 * A[None, :])                            # (B, H)
+    # h' = decay * h + dt * B ⊗ x
+    outer = torch.einsum("bh,bhn,bhp->bhpn", dt1, bmh.float(), xh)
+    new_state = decay[:, :, None, None] * ssm_state + outer
+    y = torch.einsum("bhn,bhpn->bhp", cmh.float(), new_state)
+    y = y + xh * params["D"][None, :, None]
+    y = y.reshape(b_, 1, d_inner).to(xin.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps).to(xin.dtype)
+    out = y @ params["out_proj"]
+    return out, (new_conv_state, new_state)

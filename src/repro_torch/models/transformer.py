@@ -1,18 +1,21 @@
-"""Model assembly for the dense decoder (block kind ``attn``).
+"""Model assembly for decoders of ``attn`` and ``ssm`` blocks.
 
-Port of ``repro.models.transformer``. The reference stacks parameters over
-pattern repetitions and scans; PyTorch runs eagerly, so the port keeps one
-:class:`Block` per layer in an ``nn.ModuleList`` (layer ``r·|pattern| + j``
-is repetition ``r`` of pattern position ``j``).
+Port of ``repro.models.transformer`` for the dense decoders (qwen3, phi4,
+...) and the attention-free Mamba2 stack (mamba2-1.3b). The reference
+stacks parameters over pattern repetitions and scans; PyTorch runs
+eagerly, so the port keeps one :class:`Block` per layer in an
+``nn.ModuleList`` (layer ``r·|pattern| + j`` is repetition ``r`` of
+pattern position ``j``).
 
 Entry points, as in the reference:
 * :func:`forward_prefill` — last-token logits + populated caches;
 * :func:`forward_decode` — one token against the caches (serve step).
 
-Caches are one ``{"k", "v"}`` dict per layer, (B, S, Kv, hd), holding
-post-RoPE keys. Unlike the reference's functional updates, the port
-preallocates them at the serving capacity and writes each decoded token in
-place.
+Caches are one dict per layer: ``{"k", "v"}`` (B, S, Kv, hd) for ``attn``,
+holding post-RoPE keys, and ``{"conv": (B, w-1, d_inner+2GN) in the model
+dtype, "state": (B, H, P, N) f32}`` for ``ssm``. Unlike the reference's
+functional updates, the port preallocates them (k/v at the serving
+capacity) and updates them in place at every decoded token.
 
 Other block kinds and the encoder-decoder stack raise
 ``NotImplementedError``: they are later slices of the port (ROADMAP.md).
@@ -26,14 +29,14 @@ from torch import nn
 
 from ..device import resolve_device
 from .attention import attention_output, blockwise_attention, decode_attention, project_qkv
-from .config import ATTN, ModelConfig
+from .config import ATTN, SSM, ModelConfig
 from .layers import dense_init, init_attention, init_mlp, rms_norm, swiglu
+from .ssm import init_mamba2, mamba2_decode_step, mamba2_mixer
 
 Cache = Dict[str, torch.Tensor]
 
 _NOT_PORTED = {
     "attn_moe": "MoE blocks (ROADMAP.md, Queue 1, slice 3)",
-    "ssm": "Mamba2 SSD blocks (ROADMAP.md, Queue 1, slice 2)",
     "ssm_moe": "hybrid SSM+MoE blocks (ROADMAP.md, Queue 1, slice 3)",
     "ssm_mlp": "hybrid SSM blocks (ROADMAP.md, Queue 1, slice 3)",
     "cross": "cross-attention blocks (ROADMAP.md, Queue 1, slice 3)",
@@ -51,7 +54,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: encoder-decoder models are not ported yet "
             "(ROADMAP.md, Queue 1, slice 3)")
     for kind in cfg.layout_pattern:
-        if kind != ATTN:
+        if kind not in (ATTN, SSM):
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
 
@@ -60,18 +63,25 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-class Block(nn.Module):
-    """One ``attn`` block: pre-norm self-attention + pre-norm SwiGLU."""
+def _frozen_dict(tensors: Dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: _frozen(v) for k, v in tensors.items()})
 
-    def __init__(self, tensors: Dict) -> None:
+
+class Block(nn.Module):
+    """One block: pre-norm self-attention (``attn``) or Mamba2 mixer
+    (``ssm``), then a pre-norm SwiGLU where the block has one."""
+
+    def __init__(self, kind: str, tensors: Dict) -> None:
         super().__init__()
+        self.kind = kind
         self.ln1 = _frozen(tensors["ln1"])
-        self.attn = nn.ParameterDict({k: _frozen(v) for k, v in tensors["attn"].items()})
+        self.attn = _frozen_dict(tensors["attn"]) if kind == ATTN else None
+        self.ssm = _frozen_dict(tensors["ssm"]) if kind == SSM else None
         self.ln2: Optional[nn.Parameter] = None
         self.mlp: Optional[nn.ParameterDict] = None
         if "mlp" in tensors:
             self.ln2 = _frozen(tensors["ln2"])
-            self.mlp = nn.ParameterDict({k: _frozen(v) for k, v in tensors["mlp"].items()})
+            self.mlp = _frozen_dict(tensors["mlp"])
 
     def ffn(self, x: torch.Tensor, eps: float) -> torch.Tensor:
         if self.mlp is None:
@@ -80,8 +90,14 @@ class Block(nn.Module):
         return x + swiglu(h, self.mlp["w_gate"], self.mlp["w_up"], self.mlp["w_down"])
 
 
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Block kind of every layer: the pattern, repeated."""
+    pattern = cfg.layout_pattern
+    return [pattern[layer % len(pattern)] for layer in range(cfg.num_layers)]
+
+
 class Transformer(nn.Module):
-    """Weights of a dense decoder, in the reference's layouts."""
+    """Weights of a decoder, in the reference's layouts."""
 
     def __init__(self, cfg: ModelConfig, tensors: Dict) -> None:
         super().__init__()
@@ -92,7 +108,8 @@ class Transformer(nn.Module):
         self.head = None if cfg.tie_embeddings else _frozen(tensors["head"])   # (D, V)
         if len(tensors["blocks"]) != cfg.num_layers:
             raise ValueError(f"{len(tensors['blocks'])} blocks for {cfg.num_layers} layers")
-        self.blocks = nn.ModuleList(Block(t) for t in tensors["blocks"])
+        self.blocks = nn.ModuleList(
+            Block(kind, t) for kind, t in zip(layer_kinds(cfg), tensors["blocks"]))
 
     @property
     def device(self) -> torch.device:
@@ -124,12 +141,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         tensors["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype=dt)
     blocks = []
-    for _ in range(cfg.num_layers):
+    for kind in layer_kinds(cfg):
         blk: Dict = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
-        blk["attn"] = init_attention(
-            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, dtype=dt)
-        if cfg.d_ff:
+        if kind == SSM:                  # the mixer is the whole block: no FFN
+            blk["ssm"] = init_mamba2(
+                gen, cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                cfg.ssm_groups, cfg.ssm_conv_width, dtype=dt)
+        else:
+            blk["attn"] = init_attention(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, dtype=dt)
+        if kind == ATTN and cfg.d_ff:
             blk["ln2"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
             blk["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype=dt)
         blocks.append(blk)
@@ -141,12 +163,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # caches
 # ---------------------------------------------------------------------------
 
-def _kv_cache(cfg: ModelConfig, batch: int, slots: int, dtype: torch.dtype,
-              device: torch.device) -> List[Cache]:
-    shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.num_layers)]
+def _caches(cfg: ModelConfig, batch: int, slots: int, dtype: torch.dtype,
+            device: torch.device) -> List[Cache]:
+    """Zeroed caches, one dict per layer, by block kind; ``slots`` k/v
+    positions for ``attn``."""
+    kv = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+    conv = (batch, cfg.ssm_conv_width - 1, cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
+    state = (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+    caches = []
+    for kind in layer_kinds(cfg):
+        if kind == SSM:
+            caches.append({"conv": torch.zeros(conv, dtype=dtype, device=device),
+                           "state": torch.zeros(state, dtype=torch.float32, device=device)})
+        else:
+            caches.append({"k": torch.zeros(kv, dtype=dtype, device=device),
+                           "v": torch.zeros(kv, dtype=dtype, device=device)})
+    return caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_cache_len: int,
@@ -156,7 +188,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_cache_len: int,
     models keep only the window."""
     check_supported(cfg)
     slots = min(max_cache_len, cfg.sliding_window) if cfg.sliding_window else max_cache_len
-    return _kv_cache(cfg, batch, slots, dtype or _dtype(cfg), resolve_device(device))
+    return _caches(cfg, batch, slots, dtype or _dtype(cfg), resolve_device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -167,23 +199,29 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor,
                     max_cache_len: int) -> Tuple[torch.Tensor, List[Cache], int]:
     """Returns (last-token logits (B, 1, V), caches, cache_len).
 
-    The caches hold ``max(max_cache_len, S)`` slots, the prompt's post-RoPE
-    k/v first and zeros after.
+    The k/v caches hold ``max(max_cache_len, S)`` slots, the prompt's
+    post-RoPE k/v first and zeros after; the SSM caches hold the conv and
+    scan states after the prompt.
     """
     cfg = model.cfg
     b, s = tokens.shape
     x = model.embed[tokens]
     pos = torch.arange(s, device=tokens.device).expand(b, s)
-    caches = _kv_cache(cfg, b, max(max_cache_len, s), x.dtype, x.device)
+    caches = _caches(cfg, b, max(max_cache_len, s), x.dtype, x.device)
     for blk, cache in zip(model.blocks, caches):
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        q, k, v = project_qkv(blk.attn, h, pos, cfg.rope_theta, cfg.qk_norm,
-                              use_rope=True, norm_eps=cfg.norm_eps)
-        attn = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window)
-        x = x + attention_output(blk.attn, attn)
-        cache["k"][:, :s] = k
-        cache["v"][:, :s] = v
-        x = blk.ffn(x, cfg.norm_eps)
+        if blk.kind == SSM:
+            y, (conv, state) = mamba2_mixer(blk.ssm, h, cfg, return_state=True)
+            cache["conv"].copy_(conv)
+            cache["state"].copy_(state)
+        else:
+            q, k, v = project_qkv(blk.attn, h, pos, cfg.rope_theta, cfg.qk_norm,
+                                  use_rope=True, norm_eps=cfg.norm_eps)
+            attn = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window)
+            y = attention_output(blk.attn, attn)
+            cache["k"][:, :s] = k
+            cache["v"][:, :s] = v
+        x = blk.ffn(x + y, cfg.norm_eps)
     return model.logits(x[:, -1:]), caches, s
 
 
@@ -198,17 +236,23 @@ def forward_decode(model: Transformer, token: torch.Tensor, caches: List[Cache],
     x = model.embed[token]
     pos = torch.full((b, 1), cache_len, dtype=torch.long, device=token.device)
     for blk, cache in zip(model.blocks, caches):
-        slots = cache["k"].shape[1]
-        write_pos = cache_len % slots if cfg.sliding_window else cache_len
-        if write_pos >= slots:
-            raise ValueError(f"cache full: {slots} slots, writing position {write_pos}")
         h = rms_norm(x, blk.ln1, cfg.norm_eps)
-        q, k, v = project_qkv(blk.attn, h, pos, cfg.rope_theta, cfg.qk_norm,
-                              use_rope=True, norm_eps=cfg.norm_eps)
-        cache["k"][:, write_pos] = k[:, 0]
-        cache["v"][:, write_pos] = v[:, 0]
-        attn = decode_attention(q, cache["k"], cache["v"], write_pos + 1,
-                                window=cfg.sliding_window)
-        x = x + attention_output(blk.attn, attn)
-        x = blk.ffn(x, cfg.norm_eps)
+        if blk.kind == SSM:
+            y, (conv, state) = mamba2_decode_step(blk.ssm, h, cfg, cache["conv"],
+                                                  cache["state"])
+            cache["conv"].copy_(conv)
+            cache["state"].copy_(state)
+        else:
+            slots = cache["k"].shape[1]
+            write_pos = cache_len % slots if cfg.sliding_window else cache_len
+            if write_pos >= slots:
+                raise ValueError(f"cache full: {slots} slots, writing position {write_pos}")
+            q, k, v = project_qkv(blk.attn, h, pos, cfg.rope_theta, cfg.qk_norm,
+                                  use_rope=True, norm_eps=cfg.norm_eps)
+            cache["k"][:, write_pos] = k[:, 0]
+            cache["v"][:, write_pos] = v[:, 0]
+            attn = decode_attention(q, cache["k"], cache["v"], write_pos + 1,
+                                    window=cfg.sliding_window)
+            y = attention_output(blk.attn, attn)
+        x = blk.ffn(x + y, cfg.norm_eps)
     return model.logits(x), caches, cache_len + 1

@@ -8,8 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention_plain
+from repro_torch.kernels import flash_attention_plain, ssd_scan_plain
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 # (bh, sq, sk, hd, g): the shapes of tests/test_kernels.py
 SHAPES = [
@@ -52,3 +53,53 @@ def test_flash_kernel_matches_plain(dtype, shape, causal, window, q_offset):
     want = flash_attention_plain(q, k, v, **kw)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                **_tol(dtype))
+
+
+# (bh, s, p, n, chunk, heads_per_group, initial state): the shapes of
+# tests/test_kernels.py, a chunk that is no power of two, the warm-up's
+# chunk 16 at the serving widths, groups, and a carried-in state
+SSD_SHAPES = [(2, 64, 32, 16, 16, 1, False), (4, 128, 64, 32, 32, 1, False),
+              (2, 128, 64, 128, 64, 1, False)]
+SSD_CASES = [(dt, s) for dt in DTYPES for s in SSD_SHAPES] + [
+    ("float32", (2, 200, 64, 128, 100, 1, False)),
+    ("bfloat16", (3, 100, 40, 24, 100, 1, False)),
+    ("bfloat16", (8, 16, 64, 128, 16, 1, False)),
+    ("float32", (8, 96, 64, 32, 32, 4, False)),
+    ("bfloat16", (8, 96, 96, 16, 48, 4, False)),
+    ("float32", (4, 64, 64, 128, 32, 2, True)),
+    ("bfloat16", (2, 256, 64, 128, 128, 1, True)),
+]
+
+
+def _ssd_tol(name):
+    # the tolerances of tests/test_kernels.py's SSD cases
+    return dict(rtol=3e-2, atol=3e-2) if name == "bfloat16" else dict(rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", SSD_CASES)
+def test_ssd_kernel_matches_plain(dtype, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh, s, p, n, chunk, g, with_state = shape
+    rng = np.random.default_rng(0)
+
+    def cuda(a, dt=torch.float32):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    x = cuda(rng.standard_normal((bh, s, p)), DTYPES[dtype])
+    dtv = cuda(np.log1p(np.exp(rng.standard_normal((bh, s)))))
+    A = cuda(-np.exp(rng.standard_normal(bh) * 0.3))
+    Bm = cuda(rng.standard_normal((bh // g, s, n)) * 0.3, DTYPES[dtype])
+    Cm = cuda(rng.standard_normal((bh // g, s, n)) * 0.3, DTYPES[dtype])
+    init = cuda(rng.standard_normal((bh, n, p))) if with_state else None
+    kw = dict(chunk=chunk, heads_per_group=g, initial_state=init)
+    before = ssd_scan.launches
+    y, st = ssd_scan(x, dtv, A, Bm, Cm, **kw)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape and st.shape == (bh, n, p)
+    want_y, want_st = ssd_scan_plain(x, dtv, A, Bm, Cm, **kw)
+    np.testing.assert_allclose(y.float().cpu().numpy(), want_y.float().cpu().numpy(),
+                               **_ssd_tol(dtype))
+    np.testing.assert_allclose(st.cpu().numpy(), want_st.cpu().numpy(), **_ssd_tol(dtype))
