@@ -6,12 +6,13 @@
 Run from the root of a checkout. Phases, one JSON line each:
 
 1. card: the device, and ``nvidia-smi``'s name and power limit;
-2. build: every CUDA kernel of the serve paths, compiled from ``src/``, one
+2. build: every CUDA kernel of the port, compiled from ``src/``, one
    ``nvcc`` per source, all at once;
 3. kernel checks: each kernel against its plain PyTorch version on the card,
-   at the test shapes and at the serving shape, then timed at the serving
-   shape beside the plain version and, where there is one, a PyTorch
-   library call (flash attention: K2; SSD chunk scan: K3);
+   at the test shapes and at the shape its path gives it, then timed at
+   that shape beside the plain version and, where there is one, a PyTorch
+   library call (flash attention: K2; SSD chunk scan: K3; int8 row
+   quantizer: K1, which must equal its plain version exactly);
 4. for each served model, qwen3-14b (K2) and then mamba2-1.3b (K3):
    - depth2: the model at full width cut to 2 layers; prefill logits through
      the kernel against the same model with the kernel's plain version;
@@ -20,7 +21,18 @@ Run from the root of a checkout. Phases, one JSON line each:
      ``repro_torch.launch.serve.generate``; every kernel's launch count is
      zeroed just before and read just after;
    - profile: a ``torch.profiler`` pass over one prefill and 8 decode steps
-     gives the device's busy share.
+     gives the device's busy share;
+5. runtime: Puzzle's ``PuzzleRuntime`` on the card, three zoo networks at
+   the paper's input resolution (yolov8n int8 on the ``default`` engine,
+   fast_scnn fp16 on ``xnnpack``, pose_det fp32 on ``nnapi``), each split in
+   two halves on two of the three Workers; 12 periodic requests of all
+   three networks in each of three runs: the reference's dtype boundary,
+   ``int8_staging`` (K1 on every boundary input of yolov8n's second half;
+   every kernel's launch count zeroed just before the requests and read
+   just after), and ``int8_staging`` with K1 swapped for its plain version.
+   Then a ``torch.profiler`` pass over one request, the output differences
+   between the runs, and the profiler backend's times beside the runtime's
+   measured costs.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -29,9 +41,11 @@ non-zero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,6 +81,26 @@ SSD_CHECKS = [(dt, s) for dt in ("float32", "bfloat16") for s in (
     ("float32", (8, 256, 64, 128, 128, 4, True)),
     SSD_SERVING,
 ]
+# (dtype, (rows, cols), values): the test shapes, a ragged shape, rows of
+# zeros and of values below the 1e-8 scale floor, values on exact .5 steps
+# (half to even), rows with a NaN or an inf (a block per row and a warp per
+# row), and the runtime's boundary shape: yolov8n's (1, 640, 640, 8)
+# activation as (N·H, W·C) rows
+QUANT_BOUNDARY = ("bfloat16", (640, 5120), "randn")
+QUANT_CHECKS = [("float32", s, "randn") for s in ((16, 64), (100, 128), (256, 32))] + [
+    ("float32", (1000, 333), "randn"), ("bfloat16", (1000, 333), "randn"),
+    ("float32", (64, 128), "zeros"), ("bfloat16", (64, 128), "zeros"),
+    ("float32", (96, 4096), "ties"), ("bfloat16", (96, 4096), "ties"),
+    ("float32", (64, 4096), "nonfinite"), ("bfloat16", (100, 333), "nonfinite"),
+    ("float32", (640, 5120), "randn"), QUANT_BOUNDARY,
+]
+# runtime: three zoo networks at the paper's input resolution, the zoo's 8
+# channels; (first half, second half) processors of each; 12 requests of
+# all three, one every RUNTIME_PERIOD seconds
+RUNTIME_NETS = ("yolov8n", "fast_scnn", "pose_det")
+RUNTIME_HOMES = ((0, 1), (1, 2), (2, 0))
+RUNTIME_DTYPE, RUNTIME_BACKEND = (2, 1, 0), (0, 1, 2)   # int8/fp16/fp32; default/xnnpack/nnapi
+RUNTIME_PERIOD, RUNTIME_REQUESTS = 0.05, 12
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -143,6 +177,222 @@ def ssd_bound_ms(dtype: str, shape):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
+def quant_bound_ms(dtype: str, shape):
+    """Least time for the quantizer's work: x read once, q and scale written
+    once; 6 f32 operations an element (abs, max; divide, round, 2 clamps)."""
+    rows, cols = shape
+    nbytes = rows * cols * ((2 if dtype == "bfloat16" else 4) + 1) + 4 * rows
+    flops = 6.0 * rows * cols
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def quant_inputs(dtype: str, shape, values: str, gen):
+    """x on the card. ``zeros``: a quarter of the rows zero and a quarter
+    below 1e-8 (the scale floor); ``ties``: each row holds 127·m (so the
+    scale is m, a power of two) and odd multiples of m/2, every one an exact
+    .5 step of round(x / scale); ``nonfinite``: a NaN in every fourth row
+    and an inf of either sign in the row after it."""
+    import torch
+    rows, cols = shape
+    dev, tdt = torch.device("cuda"), getattr(torch, dtype)
+    x = torch.randn(rows, cols, generator=gen, device=dev) * 3.0
+    if values == "nonfinite":
+        at = torch.randint(0, cols, (rows,), generator=gen, device=dev)
+        sign = torch.randint(0, 2, (rows,), generator=gen, device=dev).float() * 2 - 1
+        r = torch.arange(rows, device=dev)
+        x[r[0::4], at[0::4]] = float("nan")
+        x[r[1::4], at[1::4]] = float("inf") * sign[1::4]
+    elif values == "zeros":
+        x[: rows // 4] = 0.0
+        x[rows // 4: rows // 2] *= 1e-10
+    elif values == "ties":
+        m = 2.0 ** torch.randint(-3, 4, (rows, 1), generator=gen, device=dev).float()
+        k = torch.randint(-127, 127, (rows, cols), generator=gen, device=dev).float()
+        x = (k + 0.5) * m
+        x[:, 0] = 127.0 * m[:, 0]
+    return x.to(tdt)
+
+
+def check_int8_quant(gen, smi: str) -> dict:
+    """K1 against its plain version: scale equal bit for bit where finite and
+    NaN or inf where the plain version's is, q equal on the rows whose scale
+    is finite (elsewhere both cast a NaN to int8); then timed at the
+    runtime's boundary shape."""
+    import torch
+    from repro_torch.kernels.int8_quant import quantize_int8, quantize_int8_plain
+    for dtype, shape, values in QUANT_CHECKS:
+        x = quant_inputs(dtype, shape, values, gen)
+        q, scale = quantize_int8(x)
+        want_q, want_scale = quantize_int8_plain(x)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want_scale)
+        scale_equal = bool(torch.equal(torch.isnan(scale), torch.isnan(want_scale))
+                           and torch.equal(torch.isinf(scale), torch.isinf(want_scale))
+                           and torch.equal(scale[fin].view(torch.int32),
+                                           want_scale[fin].view(torch.int32)))
+        q_equal = bool(torch.equal(q[fin], want_q[fin]))
+        err = float((q[fin].float() * scale[fin, None]
+                     - want_q[fin].float() * want_scale[fin, None]).abs().max())
+        emit({"phase": "kernel_check", "kernel": "int8_quant", "dtype": dtype, "shape": shape,
+              "values": values, "q_equal": q_equal, "scale_bits_equal": scale_equal,
+              "nonfinite_rows": int((~fin).sum()),
+              "q_mismatches": int((q[fin] != want_q[fin]).sum()), "max_abs_err": err,
+              "ok": q_equal and scale_equal})
+        if not (q_equal and scale_equal):
+            raise AssertionError(f"int8_quant differs from its plain version at {shape} {dtype}")
+        if (dtype, shape, values) == QUANT_BOUNDARY:
+            boundary = (x, err)
+    x, err = boundary
+    ms = cuda_ms(lambda: quantize_int8(x), iters=200)
+    plain_ms = cuda_ms(lambda: quantize_int8_plain(x), iters=50)
+    bound_ms, bound_by, flops, nbytes = quant_bound_ms(*QUANT_BOUNDARY[:2])
+    # back to back, a launch is paced by the wrapper's host work; the
+    # profiler gives the kernel's own time on the device
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            quantize_int8(x)
+        torch.cuda.synchronize()
+    runs = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "quant_rows_kernel" in e.key]
+    device_ms = (sum(e.self_device_time_total for e in runs) / sum(e.count for e in runs) / 1e3
+                 if runs else None)
+    emit({"phase": "kernel_time", "kernel": "int8_quant", "shape": QUANT_BOUNDARY[1],
+          "dtype": QUANT_BOUNDARY[0], "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+          "bytes": nbytes, "gb_s": nbytes / ms / 1e6,
+          "smi": smi})
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def runtime_solution(graphs):
+    """Each network cut after layer ``num_layers // 2`` (every edge across
+    that point, so skip edges too), its halves on RUNTIME_HOMES."""
+    from repro_torch.core import Solution
+    partition, mapping = [], []
+    for g, (first, second) in zip(graphs, RUNTIME_HOMES):
+        h = g.num_layers // 2
+        partition.append([1 if e.src <= h < e.dst else 0 for e in g.edges])
+        mapping.append([first] * (h + 1) + [second] * (g.num_layers - h - 1))
+    return Solution(partition=partition, mapping=mapping, priority=[0, 1, 2],
+                    dtype=list(RUNTIME_DTYPE), backend=list(RUNTIME_BACKEND))
+
+
+def percentile(values, p: float) -> float:
+    """Nearest-rank percentile."""
+    ordered = sorted(values)
+    return ordered[max(0, math.ceil(p / 100 * len(ordered)) - 1)]
+
+
+def runtime_phase(smi: str, counters: dict) -> int:
+    """Puzzle's runtime on the card in three runs; returns K1's launches in
+    the int8-staging run."""
+    import torch
+    from repro_torch.core import TorchExecBackend, decode_solution, mobile_processors
+    from repro_torch.kernels.int8_quant import quantize_int8_plain
+    from repro_torch.runtime import PuzzleRuntime, RuntimeConfig
+    from repro_torch.zoo import MODEL_SPECS, ExecutableMobileModel
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    torch.backends.cudnn.deterministic = True
+    zoo = {n: ExecutableMobileModel(n, channels=8, spatial=MODEL_SPECS[n]["input"][1], seed=0)
+           for n in RUNTIME_NETS}
+    graphs = [zoo[n].graph for n in RUNTIME_NETS]
+    sol = runtime_solution(graphs)
+    placed = decode_solution(sol, graphs)
+    procs = mobile_processors()
+    macs = {n: sum(zoo[n].spatial ** 2 * 9 * 8 * 8 for layer in zoo[n].graph.layers
+                   if layer.op_type != "add_merge") for n in RUNTIME_NETS}
+    # K1 runs once per boundary input of an int8 subgraph, replicated to its arity
+    want_k1 = RUNTIME_REQUESTS * sum(
+        len(zoo[RUNTIME_NETS[n]].build_subgraph_fn(p.subgraph.layer_ids, p.dtype)[1])
+        for n, plist in enumerate(placed) for p in plist
+        if p.dtype == "int8" and p.subgraph.in_cut_edges())
+    emit({"phase": "runtime_setup", "networks": RUNTIME_NETS,
+          "spatial": [zoo[n].spatial for n in RUNTIME_NETS], "channels": 8,
+          "conv_gmac": {n: macs[n] / 1e9 for n in RUNTIME_NETS},
+          "placement": [[{"layers": [p.subgraph.layer_ids[0], p.subgraph.layer_ids[-1]],
+                          "processor": p.processor, "dtype": p.dtype, "backend": p.backend}
+                         for p in plist] for plist in placed],
+          "period_s": RUNTIME_PERIOD, "requests": RUNTIME_REQUESTS, "want_k1_launches": want_k1})
+
+    runs = {}
+    for label, staging, plain in (("default", False, False), ("int8", True, False),
+                                  ("int8_plain_k1", True, True)):
+        swap = (mock.patch.object(ops, "quantize_rows", quantize_int8_plain) if plain
+                else contextlib.nullcontext())
+        with swap, PuzzleRuntime(graphs, sol, procs, zoo,
+                                 RuntimeConfig(int8_staging=staging)) as rt:
+            rt.infer_sync([0, 1, 2])          # warm-up: eager algorithms, allocator
+            for c in counters.values():
+                c.launches = 0
+            states = rt.run_periodic([[0, 1, 2]], [RUNTIME_PERIOD],
+                                     num_requests=RUNTIME_REQUESTS)[0]
+            counts = {k: c.launches for k, c in counters.items()}
+            torch.cuda.synchronize()
+            spans = [st.makespan for st in states]
+            finals = [[st.outputs[(n, len(plist) - 1)] for n, plist in enumerate(placed)]
+                      for st in states]
+            costs = rt.measured_costs()
+            stats = rt.stats()
+            want = {k: (want_k1 if k == "int8_quant" and staging and not plain else 0)
+                    for k in counters}
+            ok = (len(states) == RUNTIME_REQUESTS and all(s is not None for s in spans)
+                  and counts == want and len(costs) == sum(len(pl) for pl in placed)
+                  and all(tuple(o.shape) == zoo[RUNTIME_NETS[n]].input_shape()
+                          and bool(torch.isfinite(o).all())
+                          for outs in finals for n, o in enumerate(outs)))
+            emit({"phase": "runtime", "run": label, "int8_staging": staging,
+                  "k1": "plain" if plain else "kernel",
+                  "makespan_mean_ms": sum(spans) / len(spans) * 1e3,
+                  "makespan_median_ms": percentile(spans, 50) * 1e3,
+                  "makespan_p95_ms": percentile(spans, 95) * 1e3,
+                  "makespans_ms": [s * 1e3 for s in spans], "stats": stats,
+                  "measured_cost_keys": len(costs), "placed_subgraphs":
+                      sum(len(pl) for pl in placed), "launches": counts, "want_launches": want,
+                  "max_abs_output": [float(max(float(outs[n].float().abs().max())
+                                                 for outs in finals))
+                                     for n in range(len(placed))],
+                  "smi": smi, "ok": ok})
+            if not ok:
+                raise AssertionError(f"runtime run {label} failed: launches {counts}, "
+                                     f"want {want}, {len(costs)} measured keys")
+            if label == "int8":
+                costs_int8, k1_launches = costs, counts["int8_quant"]
+                mean_ms = sum(spans) / len(spans) * 1e3
+                prof = device_profile(lambda: rt.infer_sync([0, 1, 2]))
+                emit({"phase": "runtime_profile", "run": label, "profile": prof,
+                      "unprofiled_makespan_mean_ms": mean_ms,
+                      "device_busy_share": prof["device_busy_ms"] / mean_ms, "smi": smi})
+            runs[label] = finals
+
+    def max_diff(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+    scale = max(float(o.float().abs().max()) for outs in runs["int8"] for o in outs)
+    err_plain = max_diff(runs["int8"], runs["int8_plain_k1"])
+    err_staging = max_diff(runs["default"], runs["int8"])
+    ok = err_plain <= 1e-6 * scale
+    emit({"phase": "runtime_compare", "int8_vs_int8_plain_k1": err_plain,
+          "tol": 1e-6 * scale, "default_vs_int8": err_staging, "max_abs_output": scale,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"runtime outputs through K1 differ from plain K1: {err_plain}")
+
+    backend = TorchExecBackend(zoo, repeats=5)
+    rows = [{"net": p.subgraph.graph.name, "sg": k, "processor": p.processor,
+             "dtype": p.dtype, "backend": p.backend,
+             "torch_exec_ms": backend.measure(p) * 1e3,
+             "measured_cost_ms": costs_int8[p.profile_key()] * 1e3}
+            for plist in placed for k, p in enumerate(plist)]
+    emit({"phase": "runtime_costs", "subgraphs": rows, "smi": smi})
+    torch.backends.cudnn.deterministic = False
+    return k1_launches
+
+
 def ssd_inputs(dtype: str, shape, gen):
     """Inputs on the card. The serving shape takes the model's A (-1 … -16
     per head), where exp(cum_i - cum_j) overflows above the diagonal."""
@@ -180,6 +430,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.int8_quant import quantize_int8
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.launch.serve import generate
     from repro_torch.models import forward_decode, forward_prefill, init_params
@@ -196,7 +447,7 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "ssd_scan"])
+    logs = build.build(["flash_attention", "ssd_scan", "int8_quant"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
@@ -274,9 +525,11 @@ def main() -> int:
     del args, kw, serving_inputs
     timings["ssd_scan"] = dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    timings["int8_quant"] = check_int8_quant(gen, smi)
 
     # 4. each served model: depth-2 check, serve, profile ----------------------
-    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan}
+    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+                "int8_quant": quantize_int8}
     plain = {"flash_attention": flash_attention_plain, "ssd_scan": ssd_scan_plain}
     launches = {}
     for arch, kernel in (("qwen3-14b", "flash_attention"), ("mamba2-1.3b", "ssd_scan")):
@@ -350,6 +603,9 @@ def main() -> int:
         del model, caches, res
         torch.cuda.empty_cache()
 
+    # 5. Puzzle's runtime -----------------------------------------------------
+    launches["int8_quant"] = runtime_phase(smi, counters)
+
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -358,7 +614,11 @@ def main() -> int:
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:87",
-         "launches": launches["ssd_scan"], **timings["ssd_scan"]}]})
+         "launches": launches["ssd_scan"], **timings["ssd_scan"]},
+        {"name": "int8_quant", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/int8_quant.cu",
+         "replaces": "src/repro/kernels/int8_quant.py:29",
+         "launches": launches["int8_quant"], **timings["int8_quant"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels, each with its plain PyTorch version.
 
-Ported: the flash-attention kernel (``repro.kernels.flash_attention``) and
-the Mamba2 SSD chunk scan (``repro.kernels.ssd_scan``).
-Not yet ported: ``int8_quant`` (see ROADMAP.md).
+Every Pallas TPU kernel of the JAX package has its counterpart here: the
+flash-attention kernel (``repro.kernels.flash_attention``), the Mamba2 SSD
+chunk scan (``repro.kernels.ssd_scan``) and the int8 row quantizer
+(``repro.kernels.int8_quant``).
 """
 from .flash_attention import flash_attention, flash_attention_plain
-from .ops import flash_attention_bshd, ssd_bshp
+from .int8_quant import quantize_int8, quantize_int8_plain
+from .ops import dequantize_rows, flash_attention_bshd, quantize_rows, ssd_bshp
 from .ref import attention_ref, ssd_ref
 from .ssd_scan import ssd_scan, ssd_scan_plain

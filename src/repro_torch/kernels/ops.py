@@ -4,7 +4,8 @@ They adapt model layouts to the kernels' layouts, e.g. (B, S, H, hd) GQA
 attention → the flattened (B·H, S, hd) layout of
 :func:`repro_torch.kernels.flash_attention.flash_attention`. Each kernel is
 called as an attribute of this module, so a caller can swap in its plain
-version.
+version; callers in turn call these entry points as attributes of this
+module (the runtime's Worker calls :func:`quantize_rows`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from .flash_attention import flash_attention
+from .int8_quant import quantize_int8
 from .ssd_scan import ssd_scan
 
 
@@ -63,3 +65,14 @@ def ssd_bshp(
     y = y.reshape(b, h, s, p).transpose(1, 2)
     state = state.reshape(b, h, n, p).transpose(2, 3)
     return y, state
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise int8 quantization of x (R, C): (q int8, scale f32 (R,))."""
+    return quantize_int8(x)
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``q * scale[:, None]`` in f32, rounded once into ``out``'s dtype when given."""
+    return torch.mul(q, scale[:, None], out=out)

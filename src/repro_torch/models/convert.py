@@ -1,4 +1,4 @@
-"""Load the reference's parameters into the port's model.
+"""Load the reference's parameters into the port's models.
 
 The reference's parameter pytree, as nested dicts and tuples of numpy
 arrays in its layouts (``wq`` (D, H, hd); blocks stacked over pattern
@@ -48,3 +48,13 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         for layer in range(cfg.num_layers)
     ]
     return Transformer(cfg, tensors)
+
+
+def zoo_weights_from_jax(model: Any) -> Dict[int, np.ndarray]:
+    """A reference ``ExecutableMobileModel``'s per-layer conv weights.
+
+    Read from its ``_weights`` (numpy float32, HWIO, one per ``conv`` /
+    ``dwconv`` layer), duck-typed; pass the result as ``weights`` to
+    :class:`repro_torch.zoo.ExecutableMobileModel` to get the same function.
+    """
+    return {int(lid): np.array(w, dtype=np.float32) for lid, w in model._weights.items()}

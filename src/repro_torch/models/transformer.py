@@ -36,10 +36,10 @@ from .ssm import init_mamba2, mamba2_decode_step, mamba2_mixer
 Cache = Dict[str, torch.Tensor]
 
 _NOT_PORTED = {
-    "attn_moe": "MoE blocks (ROADMAP.md, Queue 1, slice 3)",
-    "ssm_moe": "hybrid SSM+MoE blocks (ROADMAP.md, Queue 1, slice 3)",
-    "ssm_mlp": "hybrid SSM blocks (ROADMAP.md, Queue 1, slice 3)",
-    "cross": "cross-attention blocks (ROADMAP.md, Queue 1, slice 3)",
+    "attn_moe": "MoE blocks (ROADMAP.md, Queue 1, slice 4)",
+    "ssm_moe": "hybrid SSM+MoE blocks (ROADMAP.md, Queue 1, slice 4)",
+    "ssm_mlp": "hybrid SSM blocks (ROADMAP.md, Queue 1, slice 4)",
+    "cross": "cross-attention blocks (ROADMAP.md, Queue 1, slice 4)",
 }
 
 
@@ -52,7 +52,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet "
-            "(ROADMAP.md, Queue 1, slice 3)")
+            "(ROADMAP.md, Queue 1, slice 4)")
     for kind in cfg.layout_pattern:
         if kind not in (ATTN, SSM):
             raise NotImplementedError(

@@ -4,12 +4,16 @@ Imports no JAX, so it runs where only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
 Without a card every case skips.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
+from _quant_inputs import quant_input
 
 from repro_torch.kernels import flash_attention_plain, ssd_scan_plain
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.int8_quant import quantize_int8, quantize_int8_plain
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 # (bh, sq, sk, hd, g): the shapes of tests/test_kernels.py
@@ -103,3 +107,68 @@ def test_ssd_kernel_matches_plain(dtype, shape):
     np.testing.assert_allclose(y.float().cpu().numpy(), want_y.float().cpu().numpy(),
                                **_ssd_tol(dtype))
     np.testing.assert_allclose(st.cpu().numpy(), want_st.cpu().numpy(), **_ssd_tol(dtype))
+
+
+# (dtype, (rows, cols), values): chip_smoke.py's K1 shapes: the shapes of
+# tests/test_kernels.py, a ragged shape, rows of zeros and below the 1e-8
+# scale floor, exact .5 steps, rows with a NaN or an inf (a block per row and
+# a warp per row), and the runtime's boundary shape
+QUANT_CASES = [("float32", s, "randn") for s in ((16, 64), (100, 128), (256, 32))] + [
+    ("float32", (1000, 333), "randn"), ("bfloat16", (1000, 333), "randn"),
+    ("float32", (64, 128), "zeros"), ("bfloat16", (64, 128), "zeros"),
+    ("float32", (96, 4096), "ties"), ("bfloat16", (96, 4096), "ties"),
+    ("float32", (64, 4096), "nonfinite"), ("bfloat16", (100, 333), "nonfinite"),
+    ("float32", (640, 5120), "randn"), ("bfloat16", (640, 5120), "randn"),
+]
+
+
+def _assert_quant_equal(q, scale, want_q, want_scale):
+    """scale equal bit for bit where finite and NaN or inf where the plain
+    version's is; q equal on the rows whose scale is finite."""
+    assert torch.equal(torch.isnan(scale), torch.isnan(want_scale))
+    assert torch.equal(torch.isinf(scale), torch.isinf(want_scale))
+    fin = torch.isfinite(scale)
+    assert torch.equal(scale[fin].view(torch.int32), want_scale[fin].view(torch.int32))
+    assert torch.equal(q[fin], want_q[fin])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,values", QUANT_CASES)
+def test_quant_kernel_matches_plain(dtype, shape, values):
+    """q equal and scale equal bit for bit: a max and one IEEE division."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(quant_input(shape, values)).to("cuda", DTYPES[dtype])
+    before = quantize_int8.launches
+    q, scale = quantize_int8(x)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == before + 1
+    assert q.dtype == torch.int8 and q.shape == x.shape and scale.shape == (shape[0],)
+    _assert_quant_equal(q, scale, *quantize_int8_plain(x))
+
+
+@pytest.mark.cuda
+def test_quant_kernel_from_threads():
+    """Three threads on streams of their own, as the runtime's Workers stage
+    int8 inputs: every launch counted, every result right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    xs = [torch.from_numpy(quant_input((640, 5120), "randn", seed=i)).to("cuda", torch.bfloat16)
+          for i in range(3)]
+    each, got = 50, [None] * 3
+    before = quantize_int8.launches
+
+    def stage(i):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            for _ in range(each):
+                got[i] = quantize_int8(xs[i])
+            torch.cuda.current_stream().synchronize()
+
+    pool = [threading.Thread(target=stage, args=(i,)) for i in range(3)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    assert quantize_int8.launches == before + 3 * each
+    for x, (q, scale) in zip(xs, got):
+        _assert_quant_equal(q, scale, *quantize_int8_plain(x))
