@@ -11,15 +11,18 @@ Run from the root of a checkout. Phases, one JSON line each:
 3. kernel checks: each kernel against its plain PyTorch version on the card,
    at the test shapes and at the shape its path gives it, then timed at
    that shape beside the plain version and, where there is one, a PyTorch
-   library call (flash attention: K2; SSD chunk scan: K3; int8 row
-   quantizer: K1, which must equal its plain version exactly);
+   library call (flash attention: K2, whose bf16 cases take the ``sm90``
+   route and f32 cases the ``simt`` route, timed in turns with the ``simt``
+   kernel at bf16 beside it; SSD chunk scan: K3; int8 row quantizer: K1,
+   which must equal its plain version exactly);
 4. for each served model, qwen3-14b (K2) and then mamba2-1.3b (K3):
    - depth2: the model at full width cut to 2 layers; prefill logits through
      the kernel against the same model with the kernel's plain version;
    - serve: the full model (bf16, random weights from a seed) serves 4
      requests of 1024 prompt tokens + 32 greedy tokens through
      ``repro_torch.launch.serve.generate``; every kernel's launch count is
-     zeroed just before and read just after;
+     zeroed just before and read just after (qwen3's K2 launches must all
+     take the ``sm90`` route);
    - profile: a ``torch.profiler`` pass over one prefill and 8 decode steps
      gives the device's busy share;
 5. runtime: Puzzle's ``PuzzleRuntime`` on the card, three zoo networks at
@@ -46,6 +49,7 @@ import dataclasses
 import importlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -55,13 +59,18 @@ from unittest import mock
 ROOT = Path(__file__).resolve().parent
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 1024, 32
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
-# (dtype, (bh, sq, sk, hd, g), causal, window, q_offset)
+# (dtype, (bh, sq, sk, hd, g), causal, window, q_offset): bf16 takes the
+# sm90 kernel, f32 the simt kernel
 CHECKS = [(dt, s, s[1] == s[2], None, 0) for dt in ("float32", "bfloat16") for s in (
     (2, 128, 128, 64, 1), (4, 256, 256, 128, 2), (2, 100, 100, 64, 1), (3, 64, 192, 32, 3))] + [
     ("float32", (2, 256, 256, 64, 1), True, 64, 0),
     ("bfloat16", (2, 256, 256, 64, 1), True, 64, 0),
     ("float32", (1, 32, 128, 64, 1), True, None, 96),
+    ("bfloat16", (1, 32, 128, 64, 1), True, None, 96),
     ("float32", (2, 16, 40, 32, 1), True, None, -8),          # fully masked rows
+    ("bfloat16", (2, 16, 40, 64, 1), True, None, -8),
+    ("bfloat16", (2, 16, 40, 128, 1), True, None, -8),
+    ("bfloat16", (4, 130, 300, 128, 4), False, 100, 170),     # window, no causal, ragged
     ("bfloat16", (160, 1024, 1024, 128, 5), True, None, 0),   # serving shape
     ("bfloat16", (160, 1000, 1000, 128, 5), True, None, 0),   # ragged serving shape
 ]
@@ -123,9 +132,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_kernel",
+                "quant_rows_kernel")
+
+
 def device_profile(fn) -> dict:
     """Kernel time on the device (``torch.profiler``) against the host clock
-    for one call of ``fn``; the profiler's own host cost inflates the wall."""
+    for one call of ``fn``, with the port's own kernels apart; the
+    profiler's own host cost inflates the wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -138,9 +152,16 @@ def device_profile(fn) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    port = {}
+    for e in kernels:
+        for k in PORT_KERNELS:
+            if k + "<" in e.key:
+                ms, n = port.get(k, (0.0, 0))
+                port[k] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_launches":
             sum(e.count for e in kernels),
-            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top]}
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
+            "port_kernels_ms_launches": port}
 
 
 def attention_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
@@ -429,7 +450,8 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (ROUTES, _flash_attention_simt, _route,
+                                                     flash_attention, flash_attention_plain)
     from repro_torch.kernels.int8_quant import quantize_int8
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     from repro_torch.launch.serve import generate
@@ -447,11 +469,14 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "ssd_scan", "int8_quant"])
+    logs = build.build(["flash_attention", "flash_attention_sm90", "ssd_scan", "int8_quant"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
+    spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+                     for line in log.splitlines() if "bytes spill" in line]
+              for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
-          "registers": regs})
+          "registers": regs, "spill_bytes_per_kernel": spills})
 
     # 3. kernel against plain --------------------------------------------------
     gen = torch.Generator(device=dev)
@@ -463,15 +488,18 @@ def main() -> int:
         q, k, v = (torch.randn(s, generator=gen, device=dev).to(tdt)
                    for s in ((bh, sq, hd), (bh // g, sk, hd), (bh // g, sk, hd)))
         kw = dict(q_heads_per_kv=g, causal=causal, window=window, q_offset=q_offset)
+        route = _route(tdt, hd)
+        before = dict(flash_attention.launches_by_route)
         got = flash_attention(q, k, v, **kw).float()
+        took = {r: flash_attention.launches_by_route[r] - before[r] for r in ROUTES}
         want = flash_attention_plain(q, k, v, **kw).float()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         tol = TOL[dtype]
-        ok = bool(torch.allclose(got, want, **tol))
-        emit({"phase": "kernel_check", "kernel": "flash_attention", "dtype": dtype,
-              "shape": shape, "causal": causal, "window": window, "q_offset": q_offset,
-              "max_abs_err": err, "tol": tol, "ok": ok})
+        ok = bool(torch.allclose(got, want, **tol)) and took == {r: int(r == route) for r in ROUTES}
+        emit({"phase": "kernel_check", "kernel": "flash_attention", "route": route,
+              "dtype": dtype, "shape": shape, "causal": causal, "window": window,
+              "q_offset": q_offset, "max_abs_err": err, "tol": tol, "launches": took, "ok": ok})
         if not ok:
             raise AssertionError(f"flash_attention differs from its plain version: {err}")
         if (dtype, shape, causal, window, q_offset) == SERVING:
@@ -479,19 +507,30 @@ def main() -> int:
             serving_inputs = (q, k, v, kw)
         del got, want
 
+    # the serving shape: the sm90 kernel, the simt kernel at bf16, SDPA and
+    # the plain version in turns (a, b, c, d, d, c, b, a); each keeps its least
     q, k, v, kw = serving_inputs
-    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters=20)
-    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), iters=5)
     bh, sq, hd = q.shape
     b, g = 4, kw["q_heads_per_kv"]
     q4, k4, v4 = (t.view(b, t.shape[0] // b, t.shape[1], hd) for t in (q, k, v))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                                            enable_gqa=True), iters=20)
+    contenders = {
+        "sm90": (lambda: flash_attention(q, k, v, **kw), 50),
+        "simt": (lambda: _flash_attention_simt(q, k, v, **kw), 10),
+        "sdpa": (lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                        enable_gqa=True), 50),
+        "plain": (lambda: flash_attention_plain(q, k, v, **kw), 5)}
+    turns = {who: [] for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn, iters = contenders[who]
+        turns[who].append(cuda_ms(fn, iters=iters))
+    ms, simt_ms, lib_ms, plain_ms = (min(turns[n]) for n in ("sm90", "simt", "sdpa", "plain"))
     bound_ms, bound_by, flops, nbytes = attention_bound_ms(*SERVING)
-    emit({"phase": "kernel_time", "kernel": "flash_attention", "shape": SERVING[1],
-          "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-          "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-          "tflops": flops / ms / 1e9, "smi": smi})
+    emit({"phase": "kernel_time", "kernel": "flash_attention", "route": "sm90",
+          "shape": SERVING[1], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes,
+          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
+          "share_of_bound": bound_ms / ms, "speedup_over_simt": simt_ms / ms, "smi": smi})
     del q, k, v, q4, k4, v4, serving_inputs
     timings = {"flash_attention": dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
                                        bound_ms=bound_ms, bound_by=bound_by,
@@ -560,12 +599,15 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
         res = generate(model, tokens, SERVE_NEW)
         counts = {k: c.launches for k, c in counters.items()}
+        routes = dict(flash_attention.launches_by_route)
         launches[kernel] = counts[kernel]
         peak = torch.cuda.max_memory_allocated()
         want = {k: cfg.num_layers if k == kernel else 0 for k in counters}
-        ok = (counts == want
+        want_routes = {"sm90": want["flash_attention"], "simt": 0}
+        ok = (counts == want and routes == want_routes
               and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
               and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
               and bool(torch.isfinite(res.prefill_logits).all())
@@ -576,13 +618,22 @@ def main() -> int:
               "init_s": init_s, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
               "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
               "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
-              "peak_mem_gb": peak / 1e9, "launches": counts,
+              "peak_mem_gb": peak / 1e9, "launches": counts, "flash_attention_routes": routes,
               "sample_ids": res.ids[0, :8].tolist(), "device": name, "smi": smi, "ok": ok})
         if not ok:
-            raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}")
+            raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}; "
+                                 f"K2 routes {routes}, want {want_routes}")
 
-        # where the time goes: device kernel time per phase (outside the counted run)
+        # where the time goes: device kernel time per phase, and the prefill
+        # on the host clock a few more times (outside the counted run)
         with torch.inference_mode():
+            prefill_s = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward_prefill(model, tokens, SERVE_PROMPT + 1)
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t0)
             _, caches, clen = forward_prefill(model, tokens, SERVE_PROMPT + 9)
             prefill_prof = device_profile(
                 lambda: forward_prefill(model, tokens, SERVE_PROMPT + 1))
@@ -595,6 +646,7 @@ def main() -> int:
         emit({"phase": "profile", "arch": cfg.name, "prefill": prefill_prof,
               "decode_8_steps": decode_prof,
               "unprofiled_prefill_ms": res.prefill_s * 1e3,
+              "prefill_s_again": prefill_s,
               "unprofiled_decode_step_ms": res.decode_s / SERVE_NEW * 1e3,
               "prefill_device_share": prefill_prof["device_busy_ms"] / (res.prefill_s * 1e3),
               "decode_device_share":
@@ -608,7 +660,7 @@ def main() -> int:
 
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches["flash_attention"], **timings["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda",

@@ -12,7 +12,8 @@ import torch
 from _quant_inputs import quant_input
 
 from repro_torch.kernels import flash_attention_plain, ssd_scan_plain
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (ROUTES, _flash_attention_simt, _route,
+                                                 flash_attention)
 from repro_torch.kernels.int8_quant import quantize_int8, quantize_int8_plain
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -30,6 +31,11 @@ CASES = [(dt, s, s[1] == s[2], None, 0) for dt in DTYPES for s in SHAPES] + [
     ("float32", (1, 32, 128, 64, 1), True, None, 96),    # q_offset continuation
     ("float32", (2, 16, 40, 32, 1), True, None, -8),     # fully masked rows
     ("bfloat16", (4, 130, 300, 128, 4), False, 100, 170),  # window, no causal, ragged
+    ("bfloat16", (4, 130, 300, 64, 4), False, 100, 170),
+    ("bfloat16", (1, 32, 128, 64, 1), True, None, 96),    # the sm90 route's own edges
+    ("bfloat16", (2, 16, 40, 64, 1), True, None, -8),
+    ("bfloat16", (2, 16, 40, 128, 1), True, None, -8),
+    ("bfloat16", (10, 384, 384, 128, 5), True, None, 0),  # GQA 5, several q and kv tiles
 ]
 
 
@@ -50,13 +56,49 @@ def test_flash_kernel_matches_plain(dtype, shape, causal, window, q_offset):
                for s in ((bh, sq, hd), (bh // g, sk, hd), (bh // g, sk, hd)))
     kw = dict(q_heads_per_kv=g, causal=causal, window=window, q_offset=q_offset)
     before = flash_attention.launches
+    route = _route(DTYPES[dtype], hd)
+    before_route = flash_attention.launches_by_route[route]
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert flash_attention.launches_by_route[route] == before_route + 1
     assert got.dtype == q.dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, **kw)
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                **_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_flash_routes_are_counted_by_dtype():
+    """bf16 launches count on the sm90 route, f32 launches on the simt route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "simt")):
+        q = torch.randn(2, 64, 64, device="cuda").to(dtype)
+        before = dict(flash_attention.launches_by_route)
+        flash_attention(q, q, q)
+        assert flash_attention.launches_by_route == {
+            r: before[r] + (r == route) for r in ROUTES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 256, 256, 128, 2), (2, 100, 100, 64, 1)])
+def test_simt_kernel_at_bf16_matches_plain(shape):
+    """The CUDA-core kernel still takes bf16 when asked directly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh, sq, sk, hd, g = shape
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               .to("cuda", torch.bfloat16)
+               for s in ((bh, sq, hd), (bh // g, sk, hd), (bh // g, sk, hd)))
+    before = flash_attention.launches_by_route["simt"]
+    got = _flash_attention_simt(q, k, v, q_heads_per_kv=g)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route["simt"] == before + 1
+    want = flash_attention_plain(q, k, v, q_heads_per_kv=g)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               **_tol("bfloat16"))
 
 
 # (bh, s, p, n, chunk, heads_per_group, initial state): the shapes of
