@@ -13,16 +13,18 @@ Run from the root of a checkout. Phases, one JSON line each:
    that shape beside the plain version and, where there is one, a PyTorch
    library call (flash attention: K2, whose bf16 cases take the ``sm90``
    route and f32 cases the ``simt`` route, timed in turns with the ``simt``
-   kernel at bf16 beside it; SSD chunk scan: K3; int8 row quantizer: K1,
-   which must equal its plain version exactly);
+   kernel at bf16 beside it; SSD chunk scan: K3, likewise, bf16 on the
+   ``sm90`` route and f32 on the ``simt`` route, timed in turns with the
+   ``simt`` kernel at bf16; int8 row quantizer: K1, which must equal its
+   plain version exactly);
 4. for each served model, qwen3-14b (K2) and then mamba2-1.3b (K3):
    - depth2: the model at full width cut to 2 layers; prefill logits through
      the kernel against the same model with the kernel's plain version;
    - serve: the full model (bf16, random weights from a seed) serves 4
      requests of 1024 prompt tokens + 32 greedy tokens through
      ``repro_torch.launch.serve.generate``; every kernel's launch count is
-     zeroed just before and read just after (qwen3's K2 launches must all
-     take the ``sm90`` route);
+     zeroed just before and read just after (qwen3's K2 launches and
+     mamba2's K3 launches must all take the ``sm90`` route);
    - profile: a ``torch.profiler`` pass over one prefill and 8 decode steps
      gives the device's busy share;
 5. runtime: Puzzle's ``PuzzleRuntime`` on the card, three zoo networks at
@@ -76,9 +78,10 @@ CHECKS = [(dt, s, s[1] == s[2], None, 0) for dt in ("float32", "bfloat16") for s
 ]
 SERVING = ("bfloat16", (160, 1024, 1024, 128, 5), True, None, 0)
 # (dtype, (bh, s, p, n, chunk, heads_per_group, initial state)): the test
-# shapes, a chunk that is no power of two, the warm-up's chunk 16 at the
-# serving widths, a carried-in state, and the serving shape (4 requests x 64
-# heads of one group, so heads_per_group 64)
+# shapes, a chunk that is no power of two, the warm-up's chunk 16, chunks 1
+# and 64 and a carried-in state at the serving widths, P 96 with N 24, and
+# the serving shape (4 requests x 64 heads of one group, so heads_per_group
+# 64); bf16 takes the sm90 kernel, f32 the simt kernel
 SSD_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 SSD_SERVING = ("bfloat16", (256, 1024, 64, 128, 128, 64, False))
 SSD_CHECKS = [(dt, s) for dt in ("float32", "bfloat16") for s in (
@@ -88,6 +91,10 @@ SSD_CHECKS = [(dt, s) for dt in ("float32", "bfloat16") for s in (
     ("bfloat16", (256, 100, 64, 128, 100, 64, False)),
     ("bfloat16", (256, 16, 64, 128, 16, 64, False)),
     ("float32", (8, 256, 64, 128, 128, 4, True)),
+    ("bfloat16", (256, 64, 64, 128, 1, 64, False)),
+    ("bfloat16", (256, 256, 64, 128, 64, 64, False)),
+    ("bfloat16", (256, 256, 64, 128, 128, 64, True)),
+    ("bfloat16", (8, 256, 96, 24, 128, 4, False)),
     SSD_SERVING,
 ]
 # (dtype, (rows, cols), values): the test shapes, a ragged shape, rows of
@@ -132,8 +139,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_kernel",
-                "quant_rows_kernel")
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_sm90_kernel",
+                "ssd_scan_kernel", "quant_rows_kernel")
 
 
 def device_profile(fn) -> dict:
@@ -453,7 +460,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (ROUTES, _flash_attention_simt, _route,
                                                      flash_attention, flash_attention_plain)
     from repro_torch.kernels.int8_quant import quantize_int8
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
+    from repro_torch.kernels.ssd_scan import _route as ssd_route
+    from repro_torch.kernels.ssd_scan import _ssd_scan_simt, ssd_scan, ssd_scan_plain
     from repro_torch.launch.serve import generate
     from repro_torch.models import forward_decode, forward_prefill, init_params
     ops = importlib.import_module("repro_torch.kernels.ops")
@@ -469,7 +478,8 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "flash_attention_sm90", "ssd_scan", "int8_quant"])
+    logs = build.build(["flash_attention", "flash_attention_sm90", "ssd_scan", "ssd_scan_sm90",
+                        "int8_quant"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -538,29 +548,46 @@ def main() -> int:
 
     for dtype, shape in SSD_CHECKS:
         args, kw = ssd_inputs(dtype, shape, gen)
+        bh, s, p, n, chunk = shape[:5]
+        route = ssd_route(getattr(torch, dtype), p, n, chunk)
+        before = dict(ssd_scan.launches_by_route)
         y, st = ssd_scan(*args, **kw)
+        took = {r: ssd_scan.launches_by_route[r] - before[r] for r in SSD_ROUTES}
         want_y, want_st = ssd_scan_plain(*args, **kw)
         torch.cuda.synchronize()
         err = max(float((y.float() - want_y.float()).abs().max()),
                   float((st - want_st).abs().max()))
         tol = SSD_TOL[dtype]
         ok = (bool(torch.allclose(y.float(), want_y.float(), **tol))
-              and bool(torch.allclose(st, want_st, **tol)))
-        emit({"phase": "kernel_check", "kernel": "ssd_scan", "dtype": dtype, "shape": shape,
-              "max_abs_err": err, "tol": tol, "ok": ok})
+              and bool(torch.allclose(st, want_st, **tol))
+              and took == {r: int(r == route) for r in SSD_ROUTES})
+        emit({"phase": "kernel_check", "kernel": "ssd_scan", "route": route, "dtype": dtype,
+              "shape": shape, "max_abs_err": err, "tol": tol, "launches": took, "ok": ok})
         if not ok:
-            raise AssertionError(f"ssd_scan differs from its plain version: {err}")
+            raise AssertionError(f"ssd_scan {route} differs from its plain version at {shape}: "
+                                 f"{err}, launches {took}")
         if (dtype, shape) == SSD_SERVING:
             serving_err, serving_inputs = err, (args, kw)
         del y, st, want_y, want_st
+    # the serving shape: the sm90 kernel, the simt kernel at bf16 and the
+    # plain version in turns (a, b, c, c, b, a); each keeps its least
     args, kw = serving_inputs
-    ms = cuda_ms(lambda: ssd_scan(*args, **kw), iters=20)
-    plain_ms = cuda_ms(lambda: ssd_scan_plain(*args, **kw), iters=5)
+    contenders = {"sm90": (lambda: ssd_scan(*args, **kw), 50),
+                  "simt": (lambda: _ssd_scan_simt(*args, **kw), 10),
+                  "plain": (lambda: ssd_scan_plain(*args, **kw), 5)}
+    turns = {who: [] for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn, iters = contenders[who]
+        turns[who].append(cuda_ms(fn, iters=iters))
+    ms, simt_ms, plain_ms = (min(turns[n]) for n in ("sm90", "simt", "plain"))
     bound_ms, bound_by, flops, nbytes = ssd_bound_ms(*SSD_SERVING)
-    emit({"phase": "kernel_time", "kernel": "ssd_scan", "shape": SSD_SERVING[1],
-          "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-          "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-          "tflops": flops / ms / 1e9, "smi": smi})
+    emit({"phase": "kernel_time", "kernel": "ssd_scan", "route": "sm90",
+          "shape": SSD_SERVING[1], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+          "library_ms": None, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes,
+          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
+          "share_of_bound": {n: bound_ms / min(t) for n, t in turns.items()},
+          "speedup_over_simt": simt_ms / ms, "smi": smi})
     del args, kw, serving_inputs
     timings["ssd_scan"] = dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -600,13 +627,15 @@ def main() -> int:
         for c in counters.values():
             c.launches = 0
         flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+        ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
         res = generate(model, tokens, SERVE_NEW)
         counts = {k: c.launches for k, c in counters.items()}
-        routes = dict(flash_attention.launches_by_route)
+        routes = {"flash_attention": dict(flash_attention.launches_by_route),
+                  "ssd_scan": dict(ssd_scan.launches_by_route)}
         launches[kernel] = counts[kernel]
         peak = torch.cuda.max_memory_allocated()
         want = {k: cfg.num_layers if k == kernel else 0 for k in counters}
-        want_routes = {"sm90": want["flash_attention"], "simt": 0}
+        want_routes = {k: {"sm90": want[k], "simt": 0} for k in routes}
         ok = (counts == want and routes == want_routes
               and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
               and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
@@ -618,11 +647,11 @@ def main() -> int:
               "init_s": init_s, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
               "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
               "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
-              "peak_mem_gb": peak / 1e9, "launches": counts, "flash_attention_routes": routes,
+              "peak_mem_gb": peak / 1e9, "launches": counts, "routes": routes,
               "sample_ids": res.ids[0, :8].tolist(), "device": name, "smi": smi, "ok": ok})
         if not ok:
             raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}; "
-                                 f"K2 routes {routes}, want {want_routes}")
+                                 f"routes {routes}, want {want_routes}")
 
         # where the time goes: device kernel time per phase, and the prefill
         # on the host clock a few more times (outside the counted run)
@@ -664,7 +693,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:91",
          "launches": launches["flash_attention"], **timings["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:87",
          "launches": launches["ssd_scan"], **timings["ssd_scan"]},
         {"name": "int8_quant", "route": "cuda",

@@ -1,24 +1,39 @@
-"""Mamba2 SSD chunk scan: the CUDA kernel's wrapper and its plain PyTorch version.
+"""Mamba2 SSD chunk scan: the CUDA kernels' wrapper and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``_ssd_kernel`` / ``ssd_scan`` of
-``src/repro/kernels/ssd_scan.py``. The kernel is ``csrc/ssd_scan.cu`` (CUDA
-C++ for sm_90a, built by :mod:`repro_torch.kernels.build`); its header says
-what bounds it on the H100 and what its design does about that.
+``src/repro/kernels/ssd_scan.py``. Two CUDA C++ kernels for sm_90a, built by
+:mod:`repro_torch.kernels.build`, take a CUDA call by its dtype
+(:func:`_route`):
+
+- bf16 → ``sm90``: ``csrc/ssd_scan_sm90.cu``, all four products on
+  ``wgmma``, chunks by TMA through an mbarrier ring, warp-specialised; it
+  takes N and P in multiples of 8 up to 128;
+- f32 → ``simt``: ``csrc/ssd_scan.cu``, the products on the CUDA cores in f32.
+
+Each header says what bounds its kernel on the H100 and what its design
+does about that. A bf16 call that the ``sm90`` kernel cannot take raises;
+nothing falls back to the other kernel. :func:`_ssd_scan_simt` reaches the
+``simt`` kernel at bf16 too, for timing the two designs side by side; the
+main path never calls it.
 
 Layout: x (BH, S, P); dt (BH, S) f32, post-softplus; A (BH,) f32, negative;
 B and C (BH / heads_per_group, S, N), row ``i`` of x reading group row
 ``i // heads_per_group`` (with ``heads_per_group=1`` this is the TPU
 kernel's per-head interface). Returns y (BH, S, P) in x's dtype and the
 final state (BH, N, P) f32. ``S`` must be a multiple of ``chunk``; an
-optional ``initial_state`` (BH, N, P) f32 replaces the zero state.
+optional ``initial_state`` (BH, N, P) f32 replaces the zero state. The
+``sm90`` kernel rounds W, the state that C·state reads and the decayed X to
+bf16 before their products; the plain version keeps them in f32.
 
-A CPU tensor goes to :func:`ssd_scan_plain`; a CUDA tensor goes to the
-kernel or raises. ``ssd_scan.launches`` counts kernel launches.
+A CPU tensor goes to :func:`ssd_scan_plain`; a CUDA tensor goes to a kernel
+or raises. ``ssd_scan.launches`` counts kernel launches and
+``ssd_scan.launches_by_route`` splits them by route, under a lock.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -27,7 +42,10 @@ from .build import load_library
 
 MAX_CHUNK = 128
 MAX_STATE = 128
+SM90_MAX_WIDTH = 128                     # N and P of the sm90 kernel
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("sm90", "simt")
+_LAUNCH_LOCK = threading.Lock()
 
 
 def ssd_scan_plain(
@@ -100,6 +118,26 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"seq {s} is not a positive multiple of chunk {chunk}")
 
 
+def _route(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The kernel that takes a CUDA call: ``sm90`` for bf16, ``simt`` for f32.
+
+    Raises ``ValueError`` for a shape the chosen kernel cannot take."""
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} must be in 1..{MAX_CHUNK}")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"state size {n} must be in 1..{MAX_STATE}")
+    if dtype == torch.bfloat16:
+        if n % 8 or p % 8:
+            raise ValueError(f"the sm90 kernel takes N and P in multiples of 8 (16-byte rows "
+                             f"for TMA); got N {n}, P {p}")
+        if p > SM90_MAX_WIDTH:
+            raise ValueError(f"the sm90 kernel takes P up to {SM90_MAX_WIDTH}; got {p}")
+        return "sm90"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"no SSD scan kernel for {dtype}")
+
+
 def ssd_scan(
     x: torch.Tensor,                     # (BH, S, P)
     dt: torch.Tensor,                    # (BH, S)
@@ -119,9 +157,39 @@ def ssd_scan(
                               initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    route = _route(x.dtype, x.shape[2], Bm.shape[2], chunk)
+    return _launch(route, x, dt, A, Bm, Cm, chunk, g, initial_state)
+
+
+def _ssd_scan_simt(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    *,
+    chunk: int = 128,
+    heads_per_group: int = 1,
+    initial_state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA-core kernel at either dtype, bf16 included; for timing only."""
+    _check(x, dt, A, Bm, Cm, chunk, heads_per_group, initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"the simt kernel needs a CUDA tensor, got {x.device}")
+    return _launch("simt", x, dt, A, Bm, Cm, chunk, heads_per_group, initial_state)
+
+
+def _launch(route: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, chunk: int, g: int,
+            initial_state: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Checks what the kernel of ``route`` takes, then launches it on x's stream."""
     bh, s, p = x.shape
     n = Bm.shape[-1]
-    if chunk > MAX_CHUNK or n > MAX_STATE:
+    if route == "sm90":
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"the sm90 kernel takes bf16, got {x.dtype}")
+        _route(x.dtype, p, n, chunk)
+    elif chunk > MAX_CHUNK or n > MAX_STATE:
         raise ValueError(f"chunk {chunk} and state size {n} must be at most "
                          f"{MAX_CHUNK} and {MAX_STATE}")
     named = [("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm)]
@@ -130,21 +198,39 @@ def ssd_scan(
     for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if route == "sm90":                  # TMA reads x, B and C
+        for name, t in (("x", x), ("B", Bm), ("C", Cm)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     y = torch.empty_like(x)
     state = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
-    err = _lib().ssd_scan_fwd(
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-        None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), state.data_ptr(), _DTYPE_CODE[x.dtype], bh, s, p, n, chunk, g,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            y.data_ptr(), state.data_ptr())
+    shape = (bh, s, p, n, chunk, g, torch.cuda.current_stream(x.device).cuda_stream)
+    if route == "sm90":
+        lib = _lib_sm90()
+        err = lib.ssd_scan_sm90_fwd(*args, *shape)
+        error_string = lib.ssd_scan_sm90_error_string
+    else:
+        lib = _lib()
+        err = lib.ssd_scan_fwd(*args, _DTYPE_CODE[x.dtype], *shape)
+        error_string = lib.ssd_scan_error_string
     if err != 0:
-        msg = _lib().ssd_scan_error_string(err).decode()
-        raise RuntimeError(f"ssd_scan kernel launch failed: {msg} ({err})")
-    ssd_scan.launches += 1
+        raise RuntimeError(f"ssd_scan {route} kernel launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+    _count_launch(route)
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def _count_launch(route: str) -> None:
+    with _LAUNCH_LOCK:
+        ssd_scan.launches += 1
+        ssd_scan.launches_by_route[route] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,4 +240,15 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_scan_fwd.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_sm90() -> ctypes.CDLL:
+    lib = load_library("ssd_scan_sm90")
+    lib.ssd_scan_sm90_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                                      + [ctypes.c_void_p])
+    lib.ssd_scan_sm90_fwd.restype = ctypes.c_int
+    lib.ssd_scan_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_sm90_error_string.restype = ctypes.c_char_p
     return lib

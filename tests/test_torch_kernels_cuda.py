@@ -15,7 +15,9 @@ from repro_torch.kernels import flash_attention_plain, ssd_scan_plain
 from repro_torch.kernels.flash_attention import (ROUTES, _flash_attention_simt, _route,
                                                  flash_attention)
 from repro_torch.kernels.int8_quant import quantize_int8, quantize_int8_plain
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
+from repro_torch.kernels.ssd_scan import _route as _ssd_route
+from repro_torch.kernels.ssd_scan import _ssd_scan_simt, ssd_scan
 
 # (bh, sq, sk, hd, g): the shapes of tests/test_kernels.py
 SHAPES = [
@@ -103,7 +105,9 @@ def test_simt_kernel_at_bf16_matches_plain(shape):
 
 # (bh, s, p, n, chunk, heads_per_group, initial state): the shapes of
 # tests/test_kernels.py, a chunk that is no power of two, the warm-up's
-# chunk 16 at the serving widths, groups, and a carried-in state
+# chunk 16 at the serving widths, groups, a carried-in state, and for the
+# sm90 route chunks 1 and 64 and a carried-in state at the serving widths
+# (64 heads a group) and P 96 with N 24
 SSD_SHAPES = [(2, 64, 32, 16, 16, 1, False), (4, 128, 64, 32, 32, 1, False),
               (2, 128, 64, 128, 64, 1, False)]
 SSD_CASES = [(dt, s) for dt in DTYPES for s in SSD_SHAPES] + [
@@ -114,6 +118,10 @@ SSD_CASES = [(dt, s) for dt in DTYPES for s in SSD_SHAPES] + [
     ("bfloat16", (8, 96, 96, 16, 48, 4, False)),
     ("float32", (4, 64, 64, 128, 32, 2, True)),
     ("bfloat16", (2, 256, 64, 128, 128, 1, True)),
+    ("bfloat16", (64, 32, 64, 128, 1, 64, False)),
+    ("bfloat16", (64, 128, 64, 128, 64, 64, False)),
+    ("bfloat16", (64, 256, 64, 128, 128, 64, True)),
+    ("bfloat16", (4, 128, 96, 24, 64, 2, False)),
 ]
 
 
@@ -122,13 +130,9 @@ def _ssd_tol(name):
     return dict(rtol=3e-2, atol=3e-2) if name == "bfloat16" else dict(rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,shape", SSD_CASES)
-def test_ssd_kernel_matches_plain(dtype, shape):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _ssd_inputs(dtype, shape, seed=0):
     bh, s, p, n, chunk, g, with_state = shape
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
 
     def cuda(a, dt=torch.float32):
         return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
@@ -139,16 +143,58 @@ def test_ssd_kernel_matches_plain(dtype, shape):
     Bm = cuda(rng.standard_normal((bh // g, s, n)) * 0.3, DTYPES[dtype])
     Cm = cuda(rng.standard_normal((bh // g, s, n)) * 0.3, DTYPES[dtype])
     init = cuda(rng.standard_normal((bh, n, p))) if with_state else None
-    kw = dict(chunk=chunk, heads_per_group=g, initial_state=init)
-    before = ssd_scan.launches
-    y, st = ssd_scan(x, dtv, A, Bm, Cm, **kw)
-    torch.cuda.synchronize()
-    assert ssd_scan.launches == before + 1
-    assert y.dtype == x.dtype and y.shape == x.shape and st.shape == (bh, n, p)
-    want_y, want_st = ssd_scan_plain(x, dtv, A, Bm, Cm, **kw)
+    return (x, dtv, A, Bm, Cm), dict(chunk=chunk, heads_per_group=g, initial_state=init)
+
+
+def _assert_ssd_close(dtype, got, want):
+    (y, st), (want_y, want_st) = got, want
     np.testing.assert_allclose(y.float().cpu().numpy(), want_y.float().cpu().numpy(),
                                **_ssd_tol(dtype))
     np.testing.assert_allclose(st.cpu().numpy(), want_st.cpu().numpy(), **_ssd_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", SSD_CASES)
+def test_ssd_kernel_matches_plain(dtype, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bh, s, p, n, chunk, g, with_state = shape
+    args, kw = _ssd_inputs(dtype, shape)
+    before = ssd_scan.launches
+    route = _ssd_route(DTYPES[dtype], p, n, chunk)
+    before_route = ssd_scan.launches_by_route[route]
+    y, st = ssd_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert ssd_scan.launches_by_route[route] == before_route + 1
+    assert y.dtype == args[0].dtype and y.shape == args[0].shape and st.shape == (bh, n, p)
+    _assert_ssd_close(dtype, (y, st), ssd_scan_plain(*args, **kw))
+
+
+@pytest.mark.cuda
+def test_ssd_routes_are_counted_by_dtype():
+    """bf16 launches count on the sm90 route, f32 launches on the simt route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for dtype, route in (("bfloat16", "sm90"), ("float32", "simt")):
+        args, kw = _ssd_inputs(dtype, (2, 64, 32, 16, 16, 1, False))
+        before = dict(ssd_scan.launches_by_route)
+        ssd_scan(*args, **kw)
+        assert ssd_scan.launches_by_route == {
+            r: before[r] + (r == route) for r in SSD_ROUTES}
+
+
+@pytest.mark.cuda
+def test_ssd_simt_kernel_at_bf16_matches_plain():
+    """The CUDA-core kernel still takes bf16 when asked directly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = _ssd_inputs("bfloat16", (8, 96, 96, 16, 48, 4, False), seed=1)
+    before = ssd_scan.launches_by_route["simt"]
+    got = _ssd_scan_simt(*args, **kw)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches_by_route["simt"] == before + 1
+    _assert_ssd_close("bfloat16", got, ssd_scan_plain(*args, **kw))
 
 
 # (dtype, (rows, cols), values): chip_smoke.py's K1 shapes: the shapes of
