@@ -13,10 +13,13 @@ Run from the root of a checkout. Phases, one JSON line each:
    that shape beside the plain version and, where there is one, a PyTorch
    library call (flash attention: K2, whose bf16 cases take the ``sm90``
    route and f32 cases the ``simt`` route, timed in turns with the ``simt``
-   kernel at bf16 beside it; SSD chunk scan: K3, likewise, bf16 on the
-   ``sm90`` route and f32 on the ``simt`` route, timed in turns with the
-   ``simt`` kernel at bf16; int8 row quantizer: K1, which must equal its
-   plain version exactly);
+   kernel at bf16 beside it, at qwen3-14b's serving shape and at kimi-k2's
+   head_dim 112; SSD chunk scan: K3, likewise, bf16 on the ``sm90`` route
+   and f32 on the ``simt`` route, timed in turns with the ``simt`` kernel at
+   bf16; int8 row quantizer: K1, which must equal its plain version exactly
+   on either route, with and without the dequantized ``out``, timed with
+   ``out`` beside the two launches it replaces, with its host cost per
+   call);
 4. for each served model, qwen3-14b (K2) and then mamba2-1.3b (K3):
    - depth2: the model at full width cut to 2 layers; prefill logits through
      the kernel against the same model with the kernel's plain version;
@@ -32,9 +35,10 @@ Run from the root of a checkout. Phases, one JSON line each:
    fast_scnn fp16 on ``xnnpack``, pose_det fp32 on ``nnapi``), each split in
    two halves on two of the three Workers; 12 periodic requests of all
    three networks in each of three runs: the reference's dtype boundary,
-   ``int8_staging`` (K1 on every boundary input of yolov8n's second half;
-   every kernel's launch count zeroed just before the requests and read
-   just after), and ``int8_staging`` with K1 swapped for its plain version.
+   ``int8_staging`` (K1 on every boundary input of yolov8n's second half,
+   all on its ``sm90`` route; every kernel's launch count zeroed just before
+   the requests and read just after), and ``int8_staging`` with K1 swapped
+   for its plain version.
    Then a ``torch.profiler`` pass over one request, the output differences
    between the runs, and the profiler backend's times beside the runtime's
    measured costs.
@@ -75,8 +79,14 @@ CHECKS = [(dt, s, s[1] == s[2], None, 0) for dt in ("float32", "bfloat16") for s
     ("bfloat16", (4, 130, 300, 128, 4), False, 100, 170),     # window, no causal, ragged
     ("bfloat16", (160, 1024, 1024, 128, 5), True, None, 0),   # serving shape
     ("bfloat16", (160, 1000, 1000, 128, 5), True, None, 0),   # ragged serving shape
+    # head_dim 112: kimi-k2's attention (64 query heads, 8 kv heads, batch 1)
+    ("float32", (64, 1024, 1024, 112, 8), True, None, 0),
+    ("bfloat16", (8, 130, 300, 112, 8), False, 100, 170),
+    ("bfloat16", (2, 16, 40, 112, 1), True, None, -8),
+    ("bfloat16", (64, 1024, 1024, 112, 8), True, None, 0),
 ]
 SERVING = ("bfloat16", (160, 1024, 1024, 128, 5), True, None, 0)
+KIMI = ("bfloat16", (64, 1024, 1024, 112, 8), True, None, 0)
 # (dtype, (bh, s, p, n, chunk, heads_per_group, initial state)): the test
 # shapes, a chunk that is no power of two, the warm-up's chunk 16, chunks 1
 # and 64 and a carried-in state at the serving widths, P 96 with N 24, and
@@ -97,17 +107,21 @@ SSD_CHECKS = [(dt, s) for dt in ("float32", "bfloat16") for s in (
     ("bfloat16", (8, 256, 96, 24, 128, 4, False)),
     SSD_SERVING,
 ]
-# (dtype, (rows, cols), values): the test shapes, a ragged shape, rows of
-# zeros and of values below the 1e-8 scale floor, values on exact .5 steps
-# (half to even), rows with a NaN or an inf (a block per row and a warp per
-# row), and the runtime's boundary shape: yolov8n's (1, 640, 640, 8)
-# activation as (N·H, W·C) rows
+# (dtype, (rows, cols), values): the test shapes, a ragged shape (the simt
+# route), rows of zeros and of values below the 1e-8 scale floor, values on
+# exact .5 steps (half to even), rows with a NaN or an inf (a block per row
+# and a warp per row, on each route), rows of one whole 48 KB stage, many
+# rows (several to a tile), and the runtime's boundary shape: yolov8n's
+# (1, 640, 640, 8) activation as (N·H, W·C) rows
 QUANT_BOUNDARY = ("bfloat16", (640, 5120), "randn")
 QUANT_CHECKS = [("float32", s, "randn") for s in ((16, 64), (100, 128), (256, 32))] + [
     ("float32", (1000, 333), "randn"), ("bfloat16", (1000, 333), "randn"),
     ("float32", (64, 128), "zeros"), ("bfloat16", (64, 128), "zeros"),
     ("float32", (96, 4096), "ties"), ("bfloat16", (96, 4096), "ties"),
     ("float32", (64, 4096), "nonfinite"), ("bfloat16", (100, 333), "nonfinite"),
+    ("bfloat16", (100, 336), "nonfinite"), ("bfloat16", (96, 4096), "nonfinite"),
+    ("float32", (8, 12288), "randn"), ("bfloat16", (8, 24576), "ties"),
+    ("bfloat16", (20000, 512), "randn"), ("bfloat16", (8000, 2048), "randn"),
     ("float32", (640, 5120), "randn"), QUANT_BOUNDARY,
 ]
 # runtime: three zoo networks at the paper's input resolution, the zoo's 8
@@ -140,7 +154,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_sm90_kernel",
-                "ssd_scan_kernel", "quant_rows_kernel")
+                "ssd_scan_kernel", "quant_rows_sm90_kernel", "quant_rows_kernel")
 
 
 def device_profile(fn) -> dict:
@@ -169,6 +183,37 @@ def device_profile(fn) -> dict:
             sum(e.count for e in kernels),
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count] for e in top],
             "port_kernels_ms_launches": port}
+
+
+def time_attention(case, inputs, batch: int, smi: str) -> dict:
+    """K2 at ``case``: the sm90 kernel, the simt kernel at bf16, SDPA and the
+    plain version in turns (a, b, c, d, d, c, b, a); each keeps its least."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_flash_attention_simt, flash_attention,
+                                                     flash_attention_plain)
+    q, k, v, kw = inputs
+    hd = q.shape[2]
+    q4, k4, v4 = (t.view(batch, t.shape[0] // batch, t.shape[1], hd) for t in (q, k, v))
+    contenders = {
+        "sm90": (lambda: flash_attention(q, k, v, **kw), 50),
+        "simt": (lambda: _flash_attention_simt(q, k, v, **kw), 10),
+        "sdpa": (lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                        enable_gqa=True), 50),
+        "plain": (lambda: flash_attention_plain(q, k, v, **kw), 5)}
+    turns = {who: [] for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn, iters = contenders[who]
+        turns[who].append(cuda_ms(fn, iters=iters))
+    ms, simt_ms, lib_ms, plain_ms = (min(turns[n]) for n in ("sm90", "simt", "sdpa", "plain"))
+    bound_ms, bound_by, flops, nbytes = attention_bound_ms(*case)
+    emit({"phase": "kernel_time", "kernel": "flash_attention", "route": "sm90",
+          "shape": case[1], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes,
+          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
+          "share_of_bound": bound_ms / ms, "speedup_over_simt": simt_ms / ms, "smi": smi})
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
 
 
 def attention_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
@@ -205,12 +250,14 @@ def ssd_bound_ms(dtype: str, shape):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
-def quant_bound_ms(dtype: str, shape):
-    """Least time for the quantizer's work: x read once, q and scale written
-    once; 6 f32 operations an element (abs, max; divide, round, 2 clamps)."""
+def quant_bound_ms(dtype: str, shape, out_dtype=None):
+    """Least time for the quantizer's work: x read once, q and scale (and
+    ``out``) written once; 6 f32 operations an element (abs, max; divide,
+    round, 2 clamps), and one more (the product) with ``out``."""
     rows, cols = shape
-    nbytes = rows * cols * ((2 if dtype == "bfloat16" else 4) + 1) + 4 * rows
-    flops = 6.0 * rows * cols
+    size = {"bfloat16": 2, "float32": 4, None: 0}
+    nbytes = rows * cols * (size[dtype] + 1 + size[out_dtype]) + 4 * rows
+    flops = (6.0 + (out_dtype is not None)) * rows * cols
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
@@ -243,58 +290,144 @@ def quant_inputs(dtype: str, shape, values: str, gen):
     return x.to(tdt)
 
 
-def check_int8_quant(gen, smi: str) -> dict:
-    """K1 against its plain version: scale equal bit for bit where finite and
-    NaN or inf where the plain version's is, q equal on the rows whose scale
-    is finite (elsewhere both cast a NaN to int8); then timed at the
-    runtime's boundary shape."""
+def device_ms_per_call(fn, iters: int = 50):
+    """Device time per call of ``fn`` from ``torch.profiler``: (all its
+    kernels, K1's kernels alone), or None where the profiler saw none."""
     import torch
-    from repro_torch.kernels.int8_quant import quantize_int8, quantize_int8_plain
-    for dtype, shape, values in QUANT_CHECKS:
-        x = quant_inputs(dtype, shape, values, gen)
-        q, scale = quantize_int8(x)
-        want_q, want_scale = quantize_int8_plain(x)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(want_scale)
-        scale_equal = bool(torch.equal(torch.isnan(scale), torch.isnan(want_scale))
-                           and torch.equal(torch.isinf(scale), torch.isinf(want_scale))
-                           and torch.equal(scale[fin].view(torch.int32),
-                                           want_scale[fin].view(torch.int32)))
-        q_equal = bool(torch.equal(q[fin], want_q[fin]))
-        err = float((q[fin].float() * scale[fin, None]
-                     - want_q[fin].float() * want_scale[fin, None]).abs().max())
-        emit({"phase": "kernel_check", "kernel": "int8_quant", "dtype": dtype, "shape": shape,
-              "values": values, "q_equal": q_equal, "scale_bits_equal": scale_equal,
-              "nonfinite_rows": int((~fin).sum()),
-              "q_mismatches": int((q[fin] != want_q[fin]).sum()), "max_abs_err": err,
-              "ok": q_equal and scale_equal})
-        if not (q_equal and scale_equal):
-            raise AssertionError(f"int8_quant differs from its plain version at {shape} {dtype}")
-        if (dtype, shape, values) == QUANT_BOUNDARY:
-            boundary = (x, err)
-    x, err = boundary
-    ms = cuda_ms(lambda: quantize_int8(x), iters=200)
-    plain_ms = cuda_ms(lambda: quantize_int8_plain(x), iters=50)
-    bound_ms, bound_by, flops, nbytes = quant_bound_ms(*QUANT_BOUNDARY[:2])
-    # back to back, a launch is paced by the wrapper's host work; the
-    # profiler gives the kernel's own time on the device
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            quantize_int8(x)
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
-    runs = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "quant_rows_kernel" in e.key]
-    device_ms = (sum(e.self_device_time_total for e in runs) / sum(e.count for e in runs) / 1e3
-                 if runs else None)
-    emit({"phase": "kernel_time", "kernel": "int8_quant", "shape": QUANT_BOUNDARY[1],
-          "dtype": QUANT_BOUNDARY[0], "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-          "bytes": nbytes, "gb_s": nbytes / ms / 1e6,
-          "smi": smi})
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    runs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    k1 = [e for e in runs if "quant_rows_" in e.key]
+    if not k1:
+        return None, None
+    return (sum(e.self_device_time_total for e in runs) / iters / 1e3,
+            sum(e.self_device_time_total for e in k1) / iters / 1e3)
+
+
+def host_ms_per_call(fn, calls: int = 200) -> float:
+    """Host time to make one call of ``fn``, back to back: the wrapper's
+    own work, since the device keeps up."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
+
+
+def check_int8_quant(gen, smi: str) -> dict:
+    """K1 against its plain version, without ``out`` and with a bf16 and an
+    f32 ``out``: scale equal bit for bit where finite and NaN or inf where
+    the plain version's is, q and ``out`` equal on the rows whose scale is
+    finite (elsewhere both cast a NaN to int8), each launch counted on the
+    route its shape picks; then timed at the runtime's boundary shape, with
+    and without ``out``, beside the two launches (K1, then ``torch.mul``
+    into a bf16 buffer) that ``out`` replaces."""
+    import torch
+    from repro_torch.kernels.int8_quant import ROUTES, _route, quantize_int8, quantize_int8_plain
+    for dtype, shape, values in QUANT_CHECKS:
+        x = quant_inputs(dtype, shape, values, gen)
+        want_q, want_scale = quantize_int8_plain(x)
+        fin = torch.isfinite(want_scale)
+        for out_dtype in (None, "bfloat16", "float32"):
+            out = (None if out_dtype is None else
+                   torch.full(shape, 7.0, device=x.device, dtype=getattr(torch, out_dtype)))
+            route = _route(x, out)
+            before = dict(quantize_int8.launches_by_route)
+            q, scale = quantize_int8(x, out)
+            took = {r: quantize_int8.launches_by_route[r] - before[r] for r in ROUTES}
+            torch.cuda.synchronize()
+            scale_equal = bool(torch.equal(torch.isnan(scale), torch.isnan(want_scale))
+                               and torch.equal(torch.isinf(scale), torch.isinf(want_scale))
+                               and torch.equal(scale[fin].view(torch.int32),
+                                               want_scale[fin].view(torch.int32)))
+            q_equal = bool(torch.equal(q[fin], want_q[fin]))
+            out_equal = True
+            if out is not None:
+                want_out = torch.empty_like(out)
+                quantize_int8_plain(x, want_out)
+                out_equal = bool(torch.equal(out[fin].float().view(torch.int32),
+                                             want_out[fin].float().view(torch.int32)))
+            err = float((q[fin].float() * scale[fin, None]
+                         - want_q[fin].float() * want_scale[fin, None]).abs().max())
+            ok = (q_equal and scale_equal and out_equal
+                  and took == {r: int(r == route) for r in ROUTES}
+                  and (route == "sm90" or (dtype, shape, values) != QUANT_BOUNDARY))
+            emit({"phase": "kernel_check", "kernel": "int8_quant", "route": route,
+                  "dtype": dtype, "shape": shape, "values": values, "out": out_dtype,
+                  "q_equal": q_equal, "scale_bits_equal": scale_equal,
+                  "out_bits_equal": out_equal, "nonfinite_rows": int((~fin).sum()),
+                  "q_mismatches": int((q[fin] != want_q[fin]).sum()), "max_abs_err": err,
+                  "launches": took, "ok": ok})
+            if not ok:
+                raise AssertionError(f"int8_quant {route} differs from its plain version at "
+                                     f"{shape} {dtype} out={out_dtype}, launches {took}")
+        if (dtype, shape, values) == QUANT_BOUNDARY:
+            boundary = (x, err)
+        del x, want_q, want_scale, q, scale, out
+
+    # the boundary shape: K1 alone, K1 writing the Worker's bf16 buffer, and
+    # the two launches that replaces, in turns (a, b, c, c, b, a); each keeps
+    # its least device time (profiler), back-to-back time (CUDA events, paced
+    # by the host) and host time per call
+    x, err = boundary
+    out, buf = torch.empty_like(x), torch.empty_like(x)
+
+    def two_launches():
+        q, scale = quantize_int8(x)
+        torch.mul(q, scale[:, None], out=buf)
+    contenders = {"k1": lambda: quantize_int8(x), "k1_out": lambda: quantize_int8(x, out),
+                  "two_launches": two_launches}
+    turns = {who: {"device_ms": [], "k1_device_ms": [], "ms": [], "host_ms": []}
+             for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn = contenders[who]
+        total, k1 = device_ms_per_call(fn)
+        turns[who]["device_ms"].append(total)
+        turns[who]["k1_device_ms"].append(k1)
+        turns[who]["ms"].append(cuda_ms(fn, iters=200))
+        turns[who]["host_ms"].append(host_ms_per_call(fn))
+    least = {who: {k: (None if None in v else min(v)) for k, v in t.items()}
+             for who, t in turns.items()}
+    plain_ms = cuda_ms(lambda: quantize_int8_plain(x), iters=50)
+    dtype, shape = QUANT_BOUNDARY[:2]
+    bound_ms, bound_by, flops, nbytes = quant_bound_ms(dtype, shape)
+    out_bound_ms, out_bound_by, out_flops, out_nbytes = quant_bound_ms(dtype, shape, dtype)
+
+    def share(bound, t):
+        return None if t is None else bound / t
+    k1, k1_out, two = least["k1"], least["k1_out"], least["two_launches"]
+    emit({"phase": "kernel_time", "kernel": "int8_quant", "route": _route(x), "out": None,
+          "shape": shape, "dtype": dtype, "ms": k1["ms"], "device_ms": k1["device_ms"],
+          "host_ms_per_call": k1["host_ms"], "plain_ms": plain_ms, "library_ms": None,
+          "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+          "share_of_bound": share(bound_ms, k1["device_ms"]), "turns": turns["k1"], "smi": smi})
+    emit({"phase": "kernel_time", "kernel": "int8_quant", "route": _route(x, out),
+          "out": dtype, "shape": shape, "dtype": dtype, "ms": k1_out["ms"],
+          "device_ms": k1_out["device_ms"], "host_ms_per_call": k1_out["host_ms"],
+          "bound_ms": out_bound_ms, "bound_by": out_bound_by, "flops": out_flops,
+          "bytes": out_nbytes, "share_of_bound": share(out_bound_ms, k1_out["device_ms"]),
+          "turns": turns["k1_out"], "smi": smi})
+    emit({"phase": "kernel_time", "kernel": "int8_quant", "variant": "k1_then_torch_mul",
+          "out": dtype, "shape": shape, "dtype": dtype, "ms": two["ms"],
+          "device_ms": two["device_ms"], "k1_device_ms": two["k1_device_ms"],
+          "host_ms_per_call": two["host_ms"], "bound_ms": out_bound_ms,
+          "share_of_bound": share(out_bound_ms, two["device_ms"]),
+          "fused_over_two_launches": (None if None in (k1_out["device_ms"], two["device_ms"])
+                                      else k1_out["device_ms"] / two["device_ms"]),
+          "turns": turns["two_launches"], "smi": smi})
+    emit({"phase": "kernel_time", "kernel": "int8_quant", "variant": "host_cost",
+          "host_ms_per_call": {who: least[who]["host_ms"] for who in least},
+          "device_ms": {who: least[who]["device_ms"] for who in least}, "smi": smi})
+    return dict(max_abs_err=err, ms=k1["ms"], device_ms=k1["device_ms"], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 def runtime_solution(graphs):
@@ -316,12 +449,12 @@ def percentile(values, p: float) -> float:
     return ordered[max(0, math.ceil(p / 100 * len(ordered)) - 1)]
 
 
-def runtime_phase(smi: str, counters: dict) -> int:
+def runtime_phase(smi: str, counters: dict):
     """Puzzle's runtime on the card in three runs; returns K1's launches in
-    the int8-staging run."""
+    the int8-staging run, and their split by route."""
     import torch
     from repro_torch.core import TorchExecBackend, decode_solution, mobile_processors
-    from repro_torch.kernels.int8_quant import quantize_int8_plain
+    from repro_torch.kernels.int8_quant import ROUTES, quantize_int8, quantize_int8_plain
     from repro_torch.runtime import PuzzleRuntime, RuntimeConfig
     from repro_torch.zoo import MODEL_SPECS, ExecutableMobileModel
     ops = importlib.import_module("repro_torch.kernels.ops")
@@ -357,9 +490,11 @@ def runtime_phase(smi: str, counters: dict) -> int:
             rt.infer_sync([0, 1, 2])          # warm-up: eager algorithms, allocator
             for c in counters.values():
                 c.launches = 0
+            quantize_int8.launches_by_route = dict.fromkeys(ROUTES, 0)
             states = rt.run_periodic([[0, 1, 2]], [RUNTIME_PERIOD],
                                      num_requests=RUNTIME_REQUESTS)[0]
             counts = {k: c.launches for k, c in counters.items()}
+            k1_routes = dict(quantize_int8.launches_by_route)
             torch.cuda.synchronize()
             spans = [st.makespan for st in states]
             finals = [[st.outputs[(n, len(plist) - 1)] for n, plist in enumerate(placed)]
@@ -368,8 +503,11 @@ def runtime_phase(smi: str, counters: dict) -> int:
             stats = rt.stats()
             want = {k: (want_k1 if k == "int8_quant" and staging and not plain else 0)
                     for k in counters}
+            # every boundary shape of the run takes K1's sm90 route
+            want_k1_routes = {"sm90": want["int8_quant"], "simt": 0}
             ok = (len(states) == RUNTIME_REQUESTS and all(s is not None for s in spans)
-                  and counts == want and len(costs) == sum(len(pl) for pl in placed)
+                  and counts == want and k1_routes == want_k1_routes
+                  and len(costs) == sum(len(pl) for pl in placed)
                   and all(tuple(o.shape) == zoo[RUNTIME_NETS[n]].input_shape()
                           and bool(torch.isfinite(o).all())
                           for outs in finals for n, o in enumerate(outs)))
@@ -381,15 +519,17 @@ def runtime_phase(smi: str, counters: dict) -> int:
                   "makespans_ms": [s * 1e3 for s in spans], "stats": stats,
                   "measured_cost_keys": len(costs), "placed_subgraphs":
                       sum(len(pl) for pl in placed), "launches": counts, "want_launches": want,
+                  "k1_routes": k1_routes,
                   "max_abs_output": [float(max(float(outs[n].float().abs().max())
                                                  for outs in finals))
                                      for n in range(len(placed))],
                   "smi": smi, "ok": ok})
             if not ok:
                 raise AssertionError(f"runtime run {label} failed: launches {counts}, "
-                                     f"want {want}, {len(costs)} measured keys")
+                                     f"want {want}, K1 routes {k1_routes}, "
+                                     f"{len(costs)} measured keys")
             if label == "int8":
-                costs_int8, k1_launches = costs, counts["int8_quant"]
+                costs_int8, k1_launches = costs, (counts["int8_quant"], k1_routes)
                 mean_ms = sum(spans) / len(spans) * 1e3
                 prof = device_profile(lambda: rt.infer_sync([0, 1, 2]))
                 emit({"phase": "runtime_profile", "run": label, "profile": prof,
@@ -453,12 +593,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import (ROUTES, _flash_attention_simt, _route,
-                                                     flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_attention import (ROUTES, _route, flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.int8_quant import quantize_int8
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
     from repro_torch.kernels.ssd_scan import _route as ssd_route
@@ -479,7 +618,7 @@ def main() -> int:
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build(["flash_attention", "flash_attention_sm90", "ssd_scan", "ssd_scan_sm90",
-                        "int8_quant"])
+                        "int8_quant", "int8_quant_sm90"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -491,7 +630,7 @@ def main() -> int:
     # 3. kernel against plain --------------------------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    serving_err = None
+    timed = {}
     for dtype, shape, causal, window, q_offset in CHECKS:
         bh, sq, sk, hd, g = shape
         tdt = getattr(torch, dtype)
@@ -512,39 +651,16 @@ def main() -> int:
               "q_offset": q_offset, "max_abs_err": err, "tol": tol, "launches": took, "ok": ok})
         if not ok:
             raise AssertionError(f"flash_attention differs from its plain version: {err}")
-        if (dtype, shape, causal, window, q_offset) == SERVING:
-            serving_err = err
-            serving_inputs = (q, k, v, kw)
+        if (dtype, shape, causal, window, q_offset) in (SERVING, KIMI):
+            timed[shape] = (err, (q, k, v, kw))
         del got, want
 
-    # the serving shape: the sm90 kernel, the simt kernel at bf16, SDPA and
-    # the plain version in turns (a, b, c, d, d, c, b, a); each keeps its least
-    q, k, v, kw = serving_inputs
-    bh, sq, hd = q.shape
-    b, g = 4, kw["q_heads_per_kv"]
-    q4, k4, v4 = (t.view(b, t.shape[0] // b, t.shape[1], hd) for t in (q, k, v))
-    contenders = {
-        "sm90": (lambda: flash_attention(q, k, v, **kw), 50),
-        "simt": (lambda: _flash_attention_simt(q, k, v, **kw), 10),
-        "sdpa": (lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                                        enable_gqa=True), 50),
-        "plain": (lambda: flash_attention_plain(q, k, v, **kw), 5)}
-    turns = {who: [] for who in contenders}
-    for who in list(contenders) + list(reversed(contenders)):
-        fn, iters = contenders[who]
-        turns[who].append(cuda_ms(fn, iters=iters))
-    ms, simt_ms, lib_ms, plain_ms = (min(turns[n]) for n in ("sm90", "simt", "sdpa", "plain"))
-    bound_ms, bound_by, flops, nbytes = attention_bound_ms(*SERVING)
-    emit({"phase": "kernel_time", "kernel": "flash_attention", "route": "sm90",
-          "shape": SERVING[1], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
-          "library_ms": lib_ms, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
-          "flops": flops, "bytes": nbytes,
-          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
-          "share_of_bound": bound_ms / ms, "speedup_over_simt": simt_ms / ms, "smi": smi})
-    del q, k, v, q4, k4, v4, serving_inputs
-    timings = {"flash_attention": dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
-                                       bound_ms=bound_ms, bound_by=bound_by,
-                                       library_ms=lib_ms)}
+    # qwen3-14b's serving shape (batch 4), then kimi-k2's hd 112 (batch 1)
+    serving_err, serving_inputs = timed.pop(SERVING[1])
+    timings = {"flash_attention": dict(max_abs_err=serving_err,
+                                       **time_attention(SERVING, serving_inputs, 4, smi))}
+    time_attention(KIMI, timed.pop(KIMI[1])[1], 1, smi)
+    del q, k, v, serving_inputs
 
     for dtype, shape in SSD_CHECKS:
         args, kw = ssd_inputs(dtype, shape, gen)
@@ -685,7 +801,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # 5. Puzzle's runtime -----------------------------------------------------
-    launches["int8_quant"] = runtime_phase(smi, counters)
+    launches["int8_quant"], k1_routes = runtime_phase(smi, counters)
 
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -697,9 +813,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/ssd_scan.py:87",
          "launches": launches["ssd_scan"], **timings["ssd_scan"]},
         {"name": "int8_quant", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/int8_quant.cu",
+         "source": "src/repro_torch/kernels/csrc/int8_quant_sm90.cu",
          "replaces": "src/repro/kernels/int8_quant.py:29",
-         "launches": launches["int8_quant"], **timings["int8_quant"]}]})
+         "launches": launches["int8_quant"], "launches_by_route": k1_routes,
+         **timings["int8_quant"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

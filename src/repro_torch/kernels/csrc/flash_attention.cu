@@ -264,6 +264,7 @@ cudaError_t launch_hd(int head_dim, const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 32: return launch<T, 32>(q, k, v, o, bh, p, stream);
     case 64: return launch<T, 64>(q, k, v, o, bh, p, stream);
+    case 112: return launch<T, 112>(q, k, v, o, bh, p, stream);
     case 128: return launch<T, 128>(q, k, v, o, bh, p, stream);
     default: return cudaErrorInvalidValue;
   }

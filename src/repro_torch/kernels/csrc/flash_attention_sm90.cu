@@ -9,7 +9,14 @@
 // ragged Sq and Sk; f32 m, l and acc; masked scores are the finite -1e30, so
 // a row whose keys are all masked averages V over all Sk keys; keys past Sk
 // do not exist (p = 0); out = acc / max(l, 1e-30), rounded once to bf16.
-// Head dims 32, 64 and 128.
+// Head dims 32, 64, 112 and 128. A head of 112 sits in shared memory at a
+// padded width of 128, two 64-column panels: its tensor maps keep the true
+// inner extent (224-byte rows, a multiple of TMA's 16), so TMA zero-fills
+// columns 112-127 of every Q, K and V box. Q.K^T takes the 7 k16 steps of
+// the real columns; P.V runs at n128 over the zero columns, and the
+// epilogue stores the 112 real ones. A partly out-of-bounds box still
+// completes its full box bytes on the mbarrier, so expect_tx counts the
+// padded width.
 //
 // One new rounding point: P = exp(S - m) is rounded to bf16 before P.V, as
 // FlashAttention-2/3 and PyTorch's SDPA do; the row sum l is taken over the
@@ -76,11 +83,13 @@ template <int HD>
 struct Cfg {
   static constexpr int SW = HD * 2 < 128 ? HD * 2 : 128;  // swizzle span (bytes) = panel row
   static constexpr int PANEL = SW / 2;                     // columns per panel
-  static constexpr int NPANEL = HD / PANEL;
+  static constexpr int NPANEL = (HD + PANEL - 1) / PANEL;  // the last one may be partial
+  static constexpr int HDP = NPANEL * PANEL;               // padded width in shared memory
   static constexpr int KSTEPS_PER_PANEL = SW / 32;         // k16 steps of 32 bytes
   static constexpr uint64_t LAYOUT = SW == 128 ? 1 : 2;   // wgmma descriptor: B128, B64
-  static constexpr int Q_BYTES = BQ * HD * 2;
-  static constexpr int KV_BYTES = BK * HD * 2;
+  // whole boxes: TMA counts a box's zero-filled columns and rows too
+  static constexpr int Q_BYTES = BQ * HDP * 2;
+  static constexpr int KV_BYTES = BK * HDP * 2;
   static constexpr int BAR_BYTES = 8 * (1 + 3 * NSTAGES);
   // tiles from a 1024-byte aligned base (the swizzle atom), then the barriers
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * NSTAGES * KV_BYTES + BAR_BYTES;
@@ -258,11 +267,12 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2], const uint32_t (&a)[4],
+// N is the padded width: 32, 64 or 128
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (HD == 32) wgmma_rs_n32(d, a, desc_b);
-  else if constexpr (HD == 64) wgmma_rs_n64(d, a, desc_b);
+  if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
   else wgmma_rs_n128(d, a, desc_b);
 }
 
@@ -392,9 +402,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const long long wg_qlo = p.q_offset + q0 + wg * 64;
     const long long wg_qhi = wg_qlo + 63;
 
-    float o[HD / 2];
+    float o[C::HDP / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < C::HDP / 2; ++i) o[i] = 0.f;
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
     const uint32_t q_wg = sQ + wg * 64 * C::SW;
@@ -407,7 +417,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const uint32_t k_st = sK + s * C::KV_BYTES;
       const uint32_t v_st = sV + s * C::KV_BYTES;
 
-      // S = Q K^T over hd in k16 steps: 32 bytes along a panel, then the next panel
+      // S = Q K^T over the real hd in k16 steps: 32 bytes along a panel, then the next panel
       float sc[BK / 2];
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
@@ -471,7 +481,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       l0 = l0 * alpha0 + sum0;  // per-thread partial sums; the quad adds them at the end
       l1 = l1 * alpha1 + sum1;
 #pragma unroll
-      for (int r = 0; r < HD / 2; ++r) o[r] *= (r & 2) ? alpha1 : alpha0;
+      for (int r = 0; r < C::HDP / 2; ++r) o[r] *= (r & 2) ? alpha1 : alpha0;
 
       // O += P V over the tile's keys in k16 steps: 16 rows of V, two swizzle atoms
       mbar_wait(bar_v + 8 * s, phase);
@@ -481,7 +491,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t db = make_desc(v_st + kk * 16 * C::SW, BK * C::SW, 8 * C::SW, C::LAYOUT);
-        wgmma_pv<HD>(o, pa[kk], db);
+        wgmma_pv<C::HDP>(o, pa[kk], db);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -493,7 +503,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const float den1 = fmaxf(quad_sum(l1), 1e-30f);
     __nv_bfloat16* out = p.o + (static_cast<size_t>(row) * p.seq_q + q0) * HD;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {  // the real columns only
       const int col = 8 * j + c0;
       if (r0 < q_valid)
         *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0) * HD + col) =
@@ -530,7 +540,8 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (hd, seq, rows) bf16, contiguous; boxes of one panel x box_rows x 1.
+// (hd, seq, rows) bf16, contiguous; boxes of one panel x box_rows x 1. The
+// extent is the real hd: a box past it comes back zero-filled.
 template <int HD>
 int encode(CUtensorMap* map, const void* ptr, int seq, int rows, int box_rows) {
   using C = Cfg<HD>;
@@ -585,6 +596,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   switch (head_dim) {
     case 32: return launch<32>(q, k, v, bh, p, st);
     case 64: return launch<64>(q, k, v, bh, p, st);
+    case 112: return launch<112>(q, k, v, bh, p, st);
     case 128: return launch<128>(q, k, v, bh, p, st);
     default: return cudaErrorInvalidValue;
   }

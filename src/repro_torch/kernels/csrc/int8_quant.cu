@@ -1,7 +1,10 @@
-// Row-wise symmetric int8 quantization for Hopper (sm_90a), CUDA C++.
+// Row-wise symmetric int8 quantization on the CUDA cores (sm_90a), CUDA C++:
+// the `simt` route.
 //
 // Replaces the Pallas TPU kernel `_quant_kernel` driven by `quantize_int8`
-// (src/repro/kernels/int8_quant.py). Same function: x (R, C) f32 or bf16;
+// (src/repro/kernels/int8_quant.py) for the shapes that int8_quant_sm90.cu
+// does not take: rows that are not whole 16-byte pieces, rows over 48 KB,
+// or x or out not 16-byte aligned. Same function: x (R, C) f32 or bf16;
 // per row, absmax = max |x| in f32, scale = max(absmax, 1e-8) / 127 and
 // q = clip(round(x / scale), -127, 127) as int8, rounding half to even.
 // Outputs q (R, C) int8 and scale (R,) f32. The division is IEEE (`/`,
@@ -12,7 +15,10 @@
 // plain version's amax and the reference's jnp.max do (fmaxf would drop
 // it): a row that holds a NaN gets a NaN scale, one that holds an inf an
 // inf scale. q is defined only on rows whose scale is finite; elsewhere
-// every version casts a NaN to int8, which no two define alike.
+// every version casts a NaN to int8, which no two define alike. With `out`
+// (bf16 or f32, shaped like x) the second pass also writes out = q * scale,
+// one f32 product rounded once to out's type, as torch.mul(q, scale[:, None],
+// out=out) does.
 //
 // What bounds it on this card: every element is read once and written once
 // as one byte, with a handful of operations each, so bytes bound it. At the
@@ -40,6 +46,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NTHREADS = 256;
@@ -54,9 +62,16 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
 }
 
-__device__ __forceinline__ signed char quantize(float v, float scale) {
-  const float r = fminf(fmaxf(rintf(v / scale), -127.0f), 127.0f);
-  return static_cast<signed char>(static_cast<int>(r));
+// float(q) for q = clip(rint(v / scale), -127, 127); + 0: rint gives -0
+// where q is 0, and float(q) is +0
+__device__ __forceinline__ float quantize(float v, float scale) {
+  return fminf(fmaxf(rintf(v / scale), -127.0f), 127.0f) + 0.0f;
+}
+
+template <typename O> __device__ __forceinline__ O from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 // q values of one 16-byte load of x
@@ -83,11 +98,11 @@ __device__ __forceinline__ float group_max(float v) {
 }
 
 // GROUP threads per row; VEC: 16-byte loads (cols % (16 / sizeof(T)) == 0
-// and aligned pointers).
-template <typename T, int GROUP, bool VEC>
+// and aligned pointers); O: out's element type, void for none.
+template <typename T, int GROUP, bool VEC, typename O>
 __global__ void __launch_bounds__(NTHREADS)
     quant_rows_kernel(const T* __restrict__ x, signed char* __restrict__ q,
-                      float* __restrict__ scale, int rows, int cols) {
+                      float* __restrict__ scale, O* __restrict__ out, int rows, int cols) {
   constexpr int N = 16 / sizeof(T);
   const int row = blockIdx.x * (NTHREADS / GROUP) + threadIdx.x / GROUP;
   const int lane = threadIdx.x % GROUP;
@@ -96,6 +111,8 @@ __global__ void __launch_bounds__(NTHREADS)
   if (row >= rows) return;
   const T* xr = x + static_cast<size_t>(row) * cols;
   signed char* qr = q + static_cast<size_t>(row) * cols;
+  O* outr = nullptr;
+  if constexpr (!std::is_void_v<O>) outr = out + static_cast<size_t>(row) * cols;
 
   float amax = 0.0f;
   if constexpr (VEC) {
@@ -119,54 +136,78 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int i = lane; i < cols / N; i += GROUP) {
       const uint4 raw = __ldg(xv + i);
       const T* e = reinterpret_cast<const T*>(&raw);
-      QPack<N> out;
+      QPack<N> pack;
 #pragma unroll
-      for (int k = 0; k < N; ++k) out.v[k] = quantize(to_float(e[k]), s);
-      qv[i] = out;
+      for (int k = 0; k < N; ++k) {
+        const float t = quantize(to_float(e[k]), s);
+        pack.v[k] = static_cast<signed char>(static_cast<int>(t));
+        if constexpr (!std::is_void_v<O>) outr[i * N + k] = from_float<O>(t * s);
+      }
+      qv[i] = pack;
     }
   } else {
-    for (int i = lane; i < cols; i += GROUP) qr[i] = quantize(to_float(xr[i]), s);
+    for (int i = lane; i < cols; i += GROUP) {
+      const float t = quantize(to_float(xr[i]), s);
+      qr[i] = static_cast<signed char>(static_cast<int>(t));
+      if constexpr (!std::is_void_v<O>) outr[i] = from_float<O>(t * s);
+    }
   }
 }
 
-template <typename T, int GROUP>
-void launch_group(const T* x, signed char* q, float* scale, int rows, int cols, bool vec,
-                  cudaStream_t stream) {
+template <typename T, int GROUP, typename O>
+void launch_group(const T* x, signed char* q, float* scale, O* out, int rows, int cols,
+                  bool vec, cudaStream_t stream) {
   const dim3 grid((rows + NTHREADS / GROUP - 1) / (NTHREADS / GROUP));
   if (vec) {
-    quant_rows_kernel<T, GROUP, true><<<grid, NTHREADS, 0, stream>>>(x, q, scale, rows, cols);
+    quant_rows_kernel<T, GROUP, true, O><<<grid, NTHREADS, 0, stream>>>(x, q, scale, out, rows,
+                                                                         cols);
   } else {
-    quant_rows_kernel<T, GROUP, false><<<grid, NTHREADS, 0, stream>>>(x, q, scale, rows, cols);
+    quant_rows_kernel<T, GROUP, false, O><<<grid, NTHREADS, 0, stream>>>(x, q, scale, out, rows,
+                                                                          cols);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* x, void* q, void* scale, int rows, int cols, cudaStream_t stream) {
+template <typename T, typename O>
+cudaError_t launch(const void* x, void* q, void* scale, void* out, int rows, int cols,
+                   cudaStream_t stream) {
   constexpr int N = 16 / sizeof(T);
   const bool vec = cols % N == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(q) % N == 0;
   const T* xs = static_cast<const T*>(x);
   signed char* qs = static_cast<signed char*>(q);
   float* ss = static_cast<float*>(scale);
+  O* os = static_cast<O*>(out);
   if (cols >= BLOCK_ROW_MIN_COLS) {
-    launch_group<T, NTHREADS>(xs, qs, ss, rows, cols, vec, stream);
+    launch_group<T, NTHREADS>(xs, qs, ss, os, rows, cols, vec, stream);
   } else {
-    launch_group<T, WARP>(xs, qs, ss, rows, cols, vec, stream);
+    launch_group<T, WARP>(xs, qs, ss, os, rows, cols, vec, stream);
   }
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_out(const void* x, void* q, void* scale, void* out, int out_dtype, int rows,
+                       int cols, cudaStream_t stream) {
+  if (out == nullptr) return launch<T, void>(x, q, scale, out, rows, cols, stream);
+  switch (out_dtype) {
+    case 0: return launch<T, float>(x, q, scale, out, rows, cols, stream);
+    case 1: return launch<T, __nv_bfloat16>(x, q, scale, out, rows, cols, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x). x (rows, cols) contiguous; q (rows,
-// cols) int8 and scale (rows,) f32, both contiguous.
-extern "C" int int8_quant_rows(const void* x, void* q, void* scale, int dtype, int rows, int cols,
-                               void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (x); out_dtype likewise (out), read only
+// when out is not null. x (rows, cols) contiguous; q (rows, cols) int8,
+// scale (rows,) f32 and out (rows, cols), all contiguous.
+extern "C" int int8_quant_rows(const void* x, void* q, void* scale, void* out, int dtype,
+                               int out_dtype, int rows, int cols, void* stream) {
   if (rows <= 0 || cols <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(x, q, scale, rows, cols, st);
-    case 1: return launch<__nv_bfloat16>(x, q, scale, rows, cols, st);
+    case 0: return launch_out<float>(x, q, scale, out, out_dtype, rows, cols, st);
+    case 1: return launch_out<__nv_bfloat16>(x, q, scale, out, out_dtype, rows, cols, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -38,7 +38,7 @@ import torch
 from .build import load_library
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("sm90", "simt")
 _LAUNCH_LOCK = threading.Lock()

@@ -67,9 +67,12 @@ def ssd_bshp(
     return y, state
 
 
-def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Row-wise int8 quantization of x (R, C): (q int8, scale f32 (R,))."""
-    return quantize_int8(x)
+def quantize_rows(x: torch.Tensor, out: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row-wise int8 quantization of x (R, C): (q int8, scale f32 (R,)); with
+    ``out`` (bf16 or f32, shaped like x) the same launch also writes
+    ``q * scale[:, None]`` into it."""
+    return quantize_int8(x, out)
 
 
 def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,

@@ -64,6 +64,32 @@ def test_plain_matches_jax_kernel_and_oracle(bh, sq, sk, hd, g, dtype):
     np.testing.assert_allclose(_np(ref), _np(want_ref), **_tol(dtype))
 
 
+# (bh, sq, sk, hd, g, window): kimi-k2's head_dim 112 with its GQA 8, causal,
+# ragged over the kernel's blocks, and with a sliding window
+HD112_CASES = [
+    (16, 128, 128, 112, 8, None),
+    (8, 100, 100, 112, 8, None),
+    (16, 128, 128, 112, 8, 48),
+]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("bh,sq,sk,hd,g,window", HD112_CASES)
+def test_plain_head_dim_112_matches_jax_kernel_and_oracle(bh, sq, sk, hd, g, window, dtype):
+    tdt, jdt = DTYPES[dtype]
+    arrs = _inputs(bh, sq, sk, hd, g, seed=7)
+    kw = dict(q_heads_per_kv=g, causal=True, window=window)
+    got = flash_attention_plain(*_torch(arrs, tdt), **kw)
+    jq, jk, jv = _jax(arrs, jdt)
+    want_kernel = jax_flash_attention(jq, jk, jv, block_q=64, block_k=64, interpret=True, **kw)
+    want_ref = jax_attention_ref(jq, jk, jv, **kw)
+    assert got.dtype == tdt and got.shape == (bh, sq, hd)
+    np.testing.assert_allclose(_np(got), _np(want_kernel), **_tol(dtype))
+    np.testing.assert_allclose(_np(got), _np(want_ref), **_tol(dtype))
+    ref = attention_ref(*_torch(arrs, tdt), **kw)
+    np.testing.assert_allclose(_np(ref), _np(want_ref), **_tol(dtype))
+
+
 def test_plain_sliding_window():
     arrs = _inputs(2, 256, 256, 64, 1, seed=1)
     got = flash_attention_plain(*_torch(arrs, torch.float32), causal=True, window=64)

@@ -97,23 +97,27 @@ def test_plain_version_matches_oracle(dtype):
 
 
 def test_launch_count_is_exact_across_threads():
-    """Several Workers' staging threads launch the kernel at once; the
-    count loses none of their launches."""
+    """Several Workers' staging threads launch the kernels at once; the
+    count loses none of their launches, and the routes add up to it."""
     threads, each = 8, 5000
-    before, interval = int8_quant.quantize_int8.launches, sys.getswitchinterval()
+    k1 = int8_quant.quantize_int8
+    before, by_route = k1.launches, dict(k1.launches_by_route)
+    interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        pool = [threading.Thread(target=lambda: [int8_quant._count_launch()
-                                                 for _ in range(each)])
-                for _ in range(threads)]
+        pool = [threading.Thread(target=lambda r=int8_quant.ROUTES[i % 2]: [
+                    int8_quant._count_launch(r) for _ in range(each)])
+                for i in range(threads)]
         for t in pool:
             t.start()
         for t in pool:
             t.join()
     finally:
         sys.setswitchinterval(interval)
-    assert int8_quant.quantize_int8.launches == before + threads * each
-    int8_quant.quantize_int8.launches = before
+    assert k1.launches == before + threads * each
+    assert k1.launches_by_route == {r: by_route[r] + threads // 2 * each
+                                    for r in int8_quant.ROUTES}
+    k1.launches, k1.launches_by_route = before, by_route
 
 
 def test_dequantize_rows_matches_jax():
@@ -126,6 +130,40 @@ def test_dequantize_rows_matches_jax():
     assert dequantize_rows(q, s, out=out) is out
     np.testing.assert_array_equal(out.float().numpy(),
                                   torch.tensor(want).to(torch.bfloat16).float().numpy())
+
+
+OUT_CASES = [
+    ((100, 128), "float32", "randn"),
+    ((300, 77), "bfloat16", "randn"),           # ragged rows: the simt route's shape
+    ((64, 128), "bfloat16", "zeros"),
+    ((48, 96), "float32", "ties"),
+    ((48, 96), "bfloat16", "ties"),
+    ((100, 77), "bfloat16", "nonfinite"),
+]
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape,dtype,values", OUT_CASES)
+def test_quantize_rows_out_is_the_roundtrip(shape, dtype, values, out_dtype):
+    """``out`` holds ``dequantize_rows(*quantize_rows(x))`` bit for bit on
+    every row whose scale is finite, and JAX's ``dequantize_int8`` of its
+    own kernel's q and scale on every row whose two scales agree."""
+    x = quant_input(shape, values, seed=5)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    out = torch.full(shape, 7.0, dtype=getattr(torch, out_dtype))
+    q, s = quantize_rows(xt, out=out)
+    want_q, want_s = quantize_rows(xt)
+    assert torch.equal(q, want_q) and torch.equal(s.view(torch.int32), want_s.view(torch.int32))
+    want = dequantize_rows(want_q, want_s, out=torch.empty_like(out))
+    fin = torch.isfinite(s)
+    assert int((~fin).sum()) == (shape[0] // 2 if values == "nonfinite" else 0)
+    assert torch.equal(out[fin].float().view(torch.int32), want[fin].float().view(torch.int32))
+    _, _, qj, sj = _both(x, dtype, block_rows=64)
+    wj = np.array(dequantize_int8(jnp.asarray(qj), jnp.asarray(sj)))
+    wj = torch.from_numpy(wj).to(getattr(torch, out_dtype))
+    same = fin & (s.view(torch.int32) == torch.tensor(sj).view(torch.int32))
+    assert int(same.sum()) >= shape[0] // 4
+    assert torch.equal(out[same].float().view(torch.int32), wj[same].float().view(torch.int32))
 
 
 def test_roundtrip_error_bounded():
@@ -142,3 +180,74 @@ def test_wrapper_checks_its_input():
         quantize_rows(torch.zeros(4, 4, 4))
     with pytest.raises(ValueError):
         quantize_rows(torch.zeros(0, 4))
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """Any library load fails the test."""
+    def refuse():
+        raise AssertionError("a library was loaded")
+    monkeypatch.setattr(int8_quant, "_lib", refuse)
+    monkeypatch.setattr(int8_quant, "_lib_sm90", refuse)
+
+
+def _offset(t, nbytes):
+    """``t``'s shape and dtype, ``nbytes`` past a 16-byte aligned base."""
+    flat = torch.empty(t.numel() * t.element_size() + 64, dtype=torch.uint8)
+    view = flat[nbytes:nbytes + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    assert view.data_ptr() % 16 == nbytes % 16
+    return view
+
+
+# (dtype, (rows, cols), route): sm90 takes rows of whole 16-byte pieces up to
+# 48 KB (the boundary shape, the CPU runtime tests' yolov8n boundary rows, the
+# test shapes); simt takes ragged rows and rows over one stage
+ROUTE_CASES = [
+    ("bfloat16", (640, 5120), "sm90"), ("bfloat16", (8, 32), "sm90"),
+    ("float32", (100, 128), "sm90"), ("float32", (256, 4), "sm90"),
+    ("bfloat16", (4, 24576), "sm90"), ("float32", (4, 12288), "sm90"),
+    ("bfloat16", (1000, 333), "simt"), ("float32", (16, 6), "simt"),
+    ("bfloat16", (16, 12), "simt"),
+    ("bfloat16", (4, 24584), "simt"), ("float32", (4, 12292), "simt"),
+]
+
+
+@pytest.mark.parametrize("dtype,shape,route", ROUTE_CASES)
+def test_route_by_shape(no_library, dtype, shape, route):
+    x = torch.zeros(shape, dtype=getattr(torch, dtype))
+    assert int8_quant._route(x) == route
+    out = torch.zeros(shape, dtype=torch.bfloat16)
+    assert int8_quant._route(x, out) == route
+
+
+@pytest.mark.parametrize("which", ["x", "out"])
+def test_route_takes_misaligned_pointers_to_simt(no_library, which):
+    x, out = torch.zeros(640, 5120, dtype=torch.bfloat16), torch.zeros(640, 5120)
+    if which == "x":
+        x = _offset(x, 8)
+    else:
+        out = _offset(out, 4)
+    assert int8_quant._route(x, out) == "simt"
+    assert int8_quant._route(x) == ("simt" if which == "x" else "sm90")
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16, torch.float32])
+def test_cpu_call_takes_the_plain_version(no_library, out_dtype):
+    x = torch.from_numpy(quant_input((64, 128), "randn", seed=6)).to(torch.bfloat16)
+    k1 = int8_quant.quantize_int8
+    before = (k1.launches, dict(k1.launches_by_route))
+    out = None if out_dtype is None else torch.empty(64, 128, dtype=out_dtype)
+    want_out = None if out_dtype is None else torch.empty(64, 128, dtype=out_dtype)
+    q, s = k1(x, out)
+    want_q, want_s = int8_quant.quantize_int8_plain(x, want_out)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert out is None or torch.equal(out, want_out)
+    assert (k1.launches, k1.launches_by_route) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_wrapper_checks_out(bad):
+    x = torch.zeros(4, 8)
+    out = torch.zeros(4, 8, dtype=torch.float16) if bad == "dtype" else torch.zeros(4, 9)
+    with pytest.raises(TypeError if bad == "dtype" else ValueError, match="out"):
+        quantize_rows(x, out=out)

@@ -14,6 +14,8 @@ from _quant_inputs import quant_input
 from repro_torch.kernels import flash_attention_plain, ssd_scan_plain
 from repro_torch.kernels.flash_attention import (ROUTES, _flash_attention_simt, _route,
                                                  flash_attention)
+from repro_torch.kernels.int8_quant import ROUTES as QUANT_ROUTES
+from repro_torch.kernels.int8_quant import _route as _quant_route
 from repro_torch.kernels.int8_quant import quantize_int8, quantize_int8_plain
 from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
 from repro_torch.kernels.ssd_scan import _route as _ssd_route
@@ -38,6 +40,12 @@ CASES = [(dt, s, s[1] == s[2], None, 0) for dt in DTYPES for s in SHAPES] + [
     ("bfloat16", (2, 16, 40, 64, 1), True, None, -8),
     ("bfloat16", (2, 16, 40, 128, 1), True, None, -8),
     ("bfloat16", (10, 384, 384, 128, 5), True, None, 0),  # GQA 5, several q and kv tiles
+    # head_dim 112 (kimi-k2, GQA 8): a partial second 64-column panel
+    ("bfloat16", (16, 256, 256, 112, 8), True, None, 0),
+    ("float32", (16, 256, 256, 112, 8), True, None, 0),
+    ("bfloat16", (8, 130, 300, 112, 8), False, 100, 170),
+    ("bfloat16", (2, 16, 40, 112, 1), True, None, -8),
+    ("float32", (8, 100, 100, 112, 8), True, 48, 0),
 ]
 
 
@@ -84,7 +92,8 @@ def test_flash_routes_are_counted_by_dtype():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 256, 256, 128, 2), (2, 100, 100, 64, 1)])
+@pytest.mark.parametrize("shape", [(4, 256, 256, 128, 2), (2, 100, 100, 64, 1),
+                                   (16, 256, 256, 112, 8)])
 def test_simt_kernel_at_bf16_matches_plain(shape):
     """The CUDA-core kernel still takes bf16 when asked directly."""
     if not torch.cuda.is_available():
@@ -198,16 +207,22 @@ def test_ssd_simt_kernel_at_bf16_matches_plain():
 
 
 # (dtype, (rows, cols), values): chip_smoke.py's K1 shapes: the shapes of
-# tests/test_kernels.py, a ragged shape, rows of zeros and below the 1e-8
-# scale floor, exact .5 steps, rows with a NaN or an inf (a block per row and
-# a warp per row), and the runtime's boundary shape
+# tests/test_kernels.py, a ragged shape (the simt route), rows of zeros and
+# below the 1e-8 scale floor, exact .5 steps, rows with a NaN or an inf (a
+# block per row and a warp per row, on each route), the runtime's boundary
+# shape, rows of one whole stage (48 KB), and many rows, so that a tile holds
+# several (a warp per row and a block per row)
 QUANT_CASES = [("float32", s, "randn") for s in ((16, 64), (100, 128), (256, 32))] + [
     ("float32", (1000, 333), "randn"), ("bfloat16", (1000, 333), "randn"),
     ("float32", (64, 128), "zeros"), ("bfloat16", (64, 128), "zeros"),
     ("float32", (96, 4096), "ties"), ("bfloat16", (96, 4096), "ties"),
     ("float32", (64, 4096), "nonfinite"), ("bfloat16", (100, 333), "nonfinite"),
+    ("bfloat16", (100, 336), "nonfinite"), ("bfloat16", (96, 4096), "nonfinite"),
     ("float32", (640, 5120), "randn"), ("bfloat16", (640, 5120), "randn"),
+    ("float32", (8, 12288), "randn"), ("bfloat16", (8, 24576), "ties"),
+    ("bfloat16", (20000, 512), "randn"), ("bfloat16", (8000, 2048), "randn"),
 ]
+OUT_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def _assert_quant_equal(q, scale, want_q, want_scale):
@@ -227,12 +242,59 @@ def test_quant_kernel_matches_plain(dtype, shape, values):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     x = torch.from_numpy(quant_input(shape, values)).to("cuda", DTYPES[dtype])
-    before = quantize_int8.launches
+    route = _quant_route(x)
+    before = (quantize_int8.launches, dict(quantize_int8.launches_by_route))
     q, scale = quantize_int8(x)
     torch.cuda.synchronize()
-    assert quantize_int8.launches == before + 1
+    assert quantize_int8.launches == before[0] + 1
+    assert quantize_int8.launches_by_route == {r: before[1][r] + (r == route)
+                                               for r in QUANT_ROUTES}
     assert q.dtype == torch.int8 and q.shape == x.shape and scale.shape == (shape[0],)
     _assert_quant_equal(q, scale, *quantize_int8_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", list(OUT_DTYPES))
+@pytest.mark.parametrize("dtype,shape,values", QUANT_CASES)
+def test_quant_kernel_out_matches_plain(dtype, shape, values, out_dtype):
+    """With ``out``: q and scale as without it, and ``out`` equal bit for bit
+    to the plain version's ``q * scale`` on the rows whose scale is finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(quant_input(shape, values)).to("cuda", DTYPES[dtype])
+    out = torch.full(shape, 7.0, device="cuda", dtype=OUT_DTYPES[out_dtype])
+    route = _quant_route(x, out)
+    before = dict(quantize_int8.launches_by_route)
+    q, scale = quantize_int8(x, out)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches_by_route == {r: before[r] + (r == route) for r in QUANT_ROUTES}
+    want_out = torch.empty_like(out)
+    want_q, want_scale = quantize_int8_plain(x, want_out)
+    _assert_quant_equal(q, scale, want_q, want_scale)
+    fin = torch.isfinite(want_scale)
+    assert torch.equal(out[fin].float().view(torch.int32), want_out[fin].float().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_quant_routes_at_the_boundary_and_off_it():
+    """The runtime's boundary rows take sm90; a ragged row and an out that
+    is not 16-byte aligned take simt, and are right there too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.from_numpy(quant_input((640, 5120), "randn", seed=3)).to("cuda", torch.bfloat16)
+    flat = torch.empty(640 * 5120 + 8, device="cuda", dtype=torch.bfloat16)
+    cases = [(x, torch.empty_like(x), "sm90"), (x, flat[4:4 + x.numel()].view(x.shape), "simt"),
+             (x[:, :333].contiguous(), torch.empty(640, 333, device="cuda"), "simt")]
+    for xi, out, route in cases:
+        assert _quant_route(xi, out) == route
+        before = dict(quantize_int8.launches_by_route)
+        q, scale = quantize_int8(xi, out)
+        torch.cuda.synchronize()
+        assert quantize_int8.launches_by_route == {r: before[r] + (r == route)
+                                                   for r in QUANT_ROUTES}
+        want_out = torch.empty_like(out)
+        _assert_quant_equal(q, scale, *quantize_int8_plain(xi, want_out))
+        assert torch.equal(out.float().view(torch.int32), want_out.float().view(torch.int32))
 
 
 @pytest.mark.cuda

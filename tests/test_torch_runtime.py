@@ -346,6 +346,28 @@ def test_int8_staging_equals_jax_k1_at_the_staged_inputs(zoo, monkeypatch):
     assert stats["transport"]["zero_copies"] == 0
 
 
+def test_int8_staging_is_one_quantizer_call_per_input(zoo, monkeypatch):
+    """Each boundary input is staged by one ``quantize_rows`` call that
+    writes the dequantized rows into the pooled buffer itself; no separate
+    ``dequantize_rows`` pass remains."""
+    g = zoo["yolov8n"].graph
+    calls = []
+    quantize = ops.quantize_rows
+
+    def recording(x, out=None):
+        calls.append((tuple(x.shape), None if out is None else out.dtype))
+        return quantize(x, out=out)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("staging called dequantize_rows")
+    monkeypatch.setattr(ops, "quantize_rows", recording)
+    monkeypatch.setattr(ops, "dequantize_rows", refuse)
+    with _runtime([g], _halves(tc, g), zoo, tr.RuntimeConfig(int8_staging=True)) as rt:
+        st = rt.infer_sync([0])
+    assert st.makespan is not None
+    assert calls == [((8, 32), torch.bfloat16)] * 2
+
+
 def test_int8_staging_off_keeps_the_reference_path(zoo, monkeypatch):
     g = zoo["yolov8n"].graph
     calls = []
