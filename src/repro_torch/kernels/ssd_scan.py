@@ -3,18 +3,20 @@
 Replaces the Pallas TPU kernel ``_ssd_kernel`` / ``ssd_scan`` of
 ``src/repro/kernels/ssd_scan.py``. Two CUDA C++ kernels for sm_90a, built by
 :mod:`repro_torch.kernels.build`, take a CUDA call by its dtype
-(:func:`_route`):
+and shape (:func:`_route`):
 
-- bf16 → ``sm90``: ``csrc/ssd_scan_sm90.cu``, all four products on
-  ``wgmma``, chunks by TMA through an mbarrier ring, warp-specialised; it
-  takes N and P in multiples of 8 up to 128;
-- f32 → ``simt``: ``csrc/ssd_scan.cu``, the products on the CUDA cores in f32.
+- bf16 with N and P multiples of 8 and P ≤ 128 → ``sm90``:
+  ``csrc/ssd_scan_sm90.cu``, all four products on ``wgmma``, chunks by TMA
+  through an mbarrier ring, warp-specialised;
+- f32, and bf16 of any other N or P → ``simt``: ``csrc/ssd_scan.cu``, the
+  products on the CUDA cores in f32.
 
 Each header says what bounds its kernel on the H100 and what its design
-does about that. A bf16 call that the ``sm90`` kernel cannot take raises;
-nothing falls back to the other kernel. :func:`_ssd_scan_simt` reaches the
-``simt`` kernel at bf16 too, for timing the two designs side by side; the
-main path never calls it.
+does about that. The route is chosen from the shape before any launch;
+nothing falls back from one kernel to the other on failure. The limits
+both kernels share (chunk and N in 1..128) raise. :func:`_ssd_scan_simt`
+reaches the ``simt`` kernel at bf16 for any shape, for timing the two
+designs side by side; the main path never calls it.
 
 Layout: x (BH, S, P); dt (BH, S) f32, post-softplus; A (BH,) f32, negative;
 B and C (BH / heads_per_group, S, N), row ``i`` of x reading group row
@@ -118,21 +120,22 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"seq {s} is not a positive multiple of chunk {chunk}")
 
 
-def _route(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
-    """The kernel that takes a CUDA call: ``sm90`` for bf16, ``simt`` for f32.
+def _sm90_takes(p: int, n: int) -> bool:
+    """N and P in multiples of 8 (16-byte rows for TMA), P up to 128."""
+    return n % 8 == 0 and p % 8 == 0 and p <= SM90_MAX_WIDTH
 
-    Raises ``ValueError`` for a shape the chosen kernel cannot take."""
+
+def _route(dtype: torch.dtype, p: int, n: int, chunk: int) -> str:
+    """The kernel that takes a CUDA call: ``sm90`` for bf16 of a shape it
+    takes (:func:`_sm90_takes`), ``simt`` for f32 and every other bf16 shape.
+
+    Raises ``ValueError`` for a chunk or state size neither kernel takes."""
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk} must be in 1..{MAX_CHUNK}")
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"state size {n} must be in 1..{MAX_STATE}")
     if dtype == torch.bfloat16:
-        if n % 8 or p % 8:
-            raise ValueError(f"the sm90 kernel takes N and P in multiples of 8 (16-byte rows "
-                             f"for TMA); got N {n}, P {p}")
-        if p > SM90_MAX_WIDTH:
-            raise ValueError(f"the sm90 kernel takes P up to {SM90_MAX_WIDTH}; got {p}")
-        return "sm90"
+        return "sm90" if _sm90_takes(p, n) else "simt"
     if dtype == torch.float32:
         return "simt"
     raise TypeError(f"no SSD scan kernel for {dtype}")
@@ -186,9 +189,9 @@ def _launch(route: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: 
     bh, s, p = x.shape
     n = Bm.shape[-1]
     if route == "sm90":
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"the sm90 kernel takes bf16, got {x.dtype}")
-        _route(x.dtype, p, n, chunk)
+        if x.dtype != torch.bfloat16 or _route(x.dtype, p, n, chunk) != "sm90":
+            raise ValueError(f"the sm90 kernel takes bf16 with N and P multiples of 8 and "
+                             f"P up to {SM90_MAX_WIDTH}; got {x.dtype}, N {n}, P {p}")
     elif chunk > MAX_CHUNK or n > MAX_STATE:
         raise ValueError(f"chunk {chunk} and state size {n} must be at most "
                          f"{MAX_CHUNK} and {MAX_STATE}")

@@ -1,7 +1,7 @@
 """The runtime's clock (from ``repro.runtime.clock``).
 
 Only the wall clock for now; the virtual clock and the simulator-fed cost
-source come with the virtual-clock runtime (ROADMAP Queue 1, slice 6).
+source come with the virtual-clock runtime (ROADMAP Queue 1, slice 6b).
 """
 from __future__ import annotations
 

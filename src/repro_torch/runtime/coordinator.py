@@ -12,7 +12,7 @@ appended to ``self.trace`` in release order — the same schema and ordering
 the simulators produce. Tasks enter Worker queues with priority
 ``(0, network-priority, release-seq)``. The virtual-clock mode's dispatch
 tokens and the recovery path's ``redispatch`` come with the virtual-clock
-runtime (ROADMAP Queue 1, slice 6).
+runtime (ROADMAP Queue 1, slice 6b).
 """
 from __future__ import annotations
 

@@ -13,6 +13,8 @@ the same precision rules. New engines register via ``ENGINE_REGISTRY``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from collections import deque
@@ -76,6 +78,24 @@ class Engine:
         return out
 
 
+#: Captures run one at a time with Python's collector off: a collection
+#: inside one may destroy graphs of an earlier runtime still held in
+#: reference cycles, a call that invalidates the capture.
+_CAPTURE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_collection():
+    with _CAPTURE_LOCK:
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+        finally:
+            if enabled:
+                gc.enable()
+
+
 def _graphed(fn: Callable, example: Tuple) -> Callable:
     """``fn`` as a CUDA graph captured on a side stream after one warm-up.
 
@@ -91,7 +111,7 @@ def _graphed(fn: Callable, example: Tuple) -> Callable:
         fn(*static)       # warm-up: cuDNN picks its algorithms, the allocator its blocks
     torch.cuda.current_stream(device).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+    with _no_collection(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
         outs = fn(*static)
 
     def run(*args):

@@ -11,7 +11,7 @@ aggregates them into device-in-the-loop measurements for the ProfileDB
 feedback loop.
 
 The reference's virtual-clock mode, fault injection and recovery come
-with the virtual-clock runtime (ROADMAP Queue 1, slice 6); asking for them raises
+with the virtual-clock runtime (ROADMAP Queue 1, slice 6b); asking for them raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -34,7 +34,7 @@ from .engine import ENGINE_REGISTRY, make_engine
 from .tensorpool import SharedBufferTransport, TensorPool
 from .worker import Worker
 
-_LATER = "comes with the virtual-clock runtime (ROADMAP Queue 1, slice 6)"
+_LATER = "comes with the virtual-clock runtime (ROADMAP Queue 1, slice 6b)"
 
 
 @dataclass

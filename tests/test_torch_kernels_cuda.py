@@ -116,7 +116,8 @@ def test_simt_kernel_at_bf16_matches_plain(shape):
 # tests/test_kernels.py, a chunk that is no power of two, the warm-up's
 # chunk 16 at the serving widths, groups, a carried-in state, and for the
 # sm90 route chunks 1 and 64 and a carried-in state at the serving widths
-# (64 heads a group) and P 96 with N 24
+# (64 heads a group) and P 96 with N 24; last, bf16 at P 100 with N 24,
+# which the sm90 kernel cannot take and the simt kernel does by its route
 SSD_SHAPES = [(2, 64, 32, 16, 16, 1, False), (4, 128, 64, 32, 32, 1, False),
               (2, 128, 64, 128, 64, 1, False)]
 SSD_CASES = [(dt, s) for dt in DTYPES for s in SSD_SHAPES] + [
@@ -131,6 +132,7 @@ SSD_CASES = [(dt, s) for dt in DTYPES for s in SSD_SHAPES] + [
     ("bfloat16", (64, 128, 64, 128, 64, 64, False)),
     ("bfloat16", (64, 256, 64, 128, 128, 64, True)),
     ("bfloat16", (4, 128, 96, 24, 64, 2, False)),
+    ("bfloat16", (4, 128, 100, 24, 64, 2, False)),
 ]
 
 

@@ -10,6 +10,7 @@ int8 kernel's round trip at the staged inputs. Tolerances: fp32 rtol 1e-5 /
 atol 1e-6, bf16 rtol / atol 2e-2, on outputs divided by the reference's
 max |output|.
 """
+import gc
 import threading
 
 import jax.numpy as jnp
@@ -27,7 +28,7 @@ import repro_torch.runtime as tr
 import repro_torch.zoo as tz
 from repro.kernels import dequantize_int8, quantize_int8
 from repro_torch.models import zoo_weights_from_jax
-from repro_torch.runtime.engine import Engine
+from repro_torch.runtime.engine import Engine, _no_collection
 
 NAMES = ["face_det", "selfie_seg", "yolov8n"]
 
@@ -140,6 +141,20 @@ def test_no_leaked_threads_across_many_runtimes(zoo):
         with _runtime(graphs, _solution(tc, graphs), zoo) as rt:
             rt.infer_sync([0, 1])
     assert threading.active_count() <= base
+
+
+def test_capture_guard_pauses_collection_and_restores_it():
+    for was in (True, False):
+        (gc.enable if was else gc.disable)()
+        try:
+            with _no_collection():
+                assert not gc.isenabled()
+            assert gc.isenabled() == was
+            with pytest.raises(RuntimeError), _no_collection():
+                raise RuntimeError
+            assert gc.isenabled() == was
+        finally:
+            gc.enable()
 
 
 # -- real execution: engines, memory optimizations ---------------------------

@@ -1,8 +1,10 @@
 """How an SSD chunk-scan call picks its CUDA kernel, on the CPU.
 
-bf16 goes to the ``sm90`` kernel (wgmma + TMA), f32 to the ``simt`` kernel
-(CUDA cores); a call the chosen kernel cannot take raises ``ValueError``
-before any library is loaded. The kernels themselves run only on the card
+bf16 goes to the ``sm90`` kernel (wgmma + TMA) when N and P are multiples
+of 8 and P ≤ 128, every other bf16 shape and f32 to the ``simt`` kernel
+(CUDA cores); a chunk or state size neither kernel takes raises
+``ValueError`` before any library is loaded, and so does a launch of the
+``sm90`` kernel at a shape it cannot take. The kernels themselves run only on the card
 (``test_torch_kernels_cuda.py``).
 """
 import importlib
@@ -47,11 +49,27 @@ def test_route_by_dtype(dtype, route, p, n, chunk):
     assert _route(dtype, p, n, chunk) == route
 
 
-@pytest.mark.parametrize("p,n,match", [(64, 12, "multiples of 8"), (36, 128, "multiples of 8"),
-                                       (64, 136, "state size 136"), (136, 64, "P up to")])
-def test_sm90_route_refuses_shapes_it_cannot_take(p, n, match):
-    with pytest.raises(ValueError, match=match):
-        _route(torch.bfloat16, p, n, 128)
+@pytest.mark.parametrize("p,n,match", [(64, 12, "sm90 kernel takes"),
+                                       (36, 128, "sm90 kernel takes"),
+                                       (64, 136, "state size 136"),
+                                       (136, 64, "sm90 kernel takes")])
+def test_sm90_route_refuses_shapes_it_cannot_take(no_library, p, n, match):
+    """A launch of the sm90 kernel refuses bf16 shapes it cannot take; a
+    state size past 128, which neither kernel takes, the router refuses."""
+    if match == "sm90 kernel takes":
+        x, dt, A, Bm, Cm, _ = _inputs(p=p, n=n, s=128)
+        with pytest.raises(ValueError, match=match):
+            ss._launch("sm90", x, dt, A, Bm, Cm, 128, 2, None)
+    else:
+        with pytest.raises(ValueError, match=match):
+            _route(torch.bfloat16, p, n, 128)
+
+
+@pytest.mark.parametrize("p,n", [(64, 12), (36, 128), (136, 64)])
+def test_bf16_shapes_sm90_cannot_take_route_to_simt(p, n):
+    """bf16 with N or P not a multiple of 8, or P past 128, goes to the simt
+    kernel by its shape."""
+    assert _route(torch.bfloat16, p, n, 128) == "simt"
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
