@@ -53,8 +53,19 @@ Run from the root of a checkout. Phases, one JSON line each:
    at α = 1 on the runtime, beside the analyzer's prediction. Every kernel's
    launch count is zeroed just before the search and read after the last
    schedule; K1's launches must equal what the placements give, on the route
-   ``_route`` gives each boundary shape. Then K1 is held against its plain
-   version at every boundary shape the phase staged.
+   ``_route`` gives each boundary shape;
+7. conformance: the four schedules of ``search``, each through
+   ``StaticAnalyzer.validate_on_runtime`` twice: replayed on the
+   virtual-clock runtime, which must equal the simulator exactly (every
+   timestamp, makespan and busy time, the same release order), then run
+   on the card (``int8_staging``; every kernel's launch count zeroed just
+   before and read just after; K1's launches must equal what the placement
+   gives, K2's and K3's 0; both traces must hold the same task set, every
+   makespan finite). Printed: each report's summary (its ``passed`` at
+   ``rel_tol`` 0.35 is a finding), the per-task gap between the card's
+   trace and the simulator's per processor (execution time, queueing wait,
+   release time), and the static linter's codes. Then K1 is held against
+   its plain version at every boundary shape phases 6 and 7 staged.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -611,9 +622,10 @@ def runtime_phase(smi: str, counters: dict):
 
 def search_phase(smi: str, counters: dict):
     """Puzzle's scheduler on the card: profile, search with measurement
-    rounds on the runtime, then serve four schedules, then hold K1 against
-    its plain version at every boundary shape they staged; returns K1's
-    launches in this phase, their split by route, and K1's largest error."""
+    rounds on the runtime, then serve four schedules; returns K1's launches
+    in this phase, their split by route, and what the conformance phase
+    takes: the analyzer, the zoo, the four schedules and the boundary
+    shapes staged through K1."""
     import torch
     from repro_torch.core import (PAPER_COMM_MODEL, AnalyzerConfig, GAConfig, Profiler,
                                   StaticAnalyzer, TorchExecBackend, build_scenario,
@@ -803,15 +815,126 @@ def search_phase(smi: str, counters: dict):
                                           for k in counters}:
         raise AssertionError(f"search phase launches {counts}, K1 routes {routes}, "
                              f"want K1 {k1_search}")
+    torch.backends.cudnn.deterministic = False
+    return counts["int8_quant"], routes, dict(analyzer=analyzer, zoo=zoo,
+                                              schedules=schedules, staged=staged)
+
+
+def task_gap(report) -> dict:
+    """Per processor, the card's trace against the simulator's, task by task
+    (keyed by group, request, network, subgraph): measured over predicted
+    execution time, the queueing wait ``started - released`` and the release
+    time on each side (ms), each as median and max, and their sums, over
+    all tasks and over the requests after each group's first (which pays
+    the engines' CUDA-graph captures)."""
+    sim = {tuple(t[:4]): t for t in report.sim_trace["tasks"]}
+    rows = {}
+    for t in report.runtime_trace["tasks"]:
+        p = sim[tuple(t[:4])]
+        rows.setdefault(t[4], []).append((t, p))
+
+    def stats(values):
+        ordered = sorted(values)
+        return {"median": ordered[(len(ordered) - 1) // 2], "max": ordered[-1]}
+
+    def sums(pairs):
+        return {"exec_measured": sum(t[10] for t, _ in pairs) * 1e3,
+                "exec_predicted": sum(p[10] for _, p in pairs) * 1e3,
+                "wait_measured": sum(t[6] - t[5] for t, _ in pairs) * 1e3,
+                "wait_predicted": sum(p[6] - p[5] for _, p in pairs) * 1e3}
+    out = {}
+    for pid, pairs in sorted(rows.items()):
+        out[str(pid)] = {
+            "tasks": len(pairs),
+            "exec_measured_over_predicted": stats([t[10] / p[10] for t, p in pairs]),
+            "exec_ms": {"measured": stats([t[10] * 1e3 for t, _ in pairs]),
+                        "predicted": stats([p[10] * 1e3 for _, p in pairs])},
+            "wait_ms": {"measured": stats([(t[6] - t[5]) * 1e3 for t, _ in pairs]),
+                        "predicted": stats([(p[6] - p[5]) * 1e3 for _, p in pairs])},
+            "release_ms": {"measured": stats([t[5] * 1e3 for t, _ in pairs]),
+                           "predicted": stats([p[5] * 1e3 for _, p in pairs]),
+                           "late_by": stats([(t[5] - p[5]) * 1e3 for t, p in pairs])},
+            "quant_ms": {"measured": stats([t[9] * 1e3 for t, _ in pairs]),
+                         "predicted": stats([p[9] * 1e3 for _, p in pairs])},
+            "sum_ms": sums(pairs),
+            "sum_ms_after_first_request": sums([(t, p) for t, p in pairs if t[1] > 0]),
+        }
+    return out
+
+
+def conformance_phase(smi: str, counters: dict, analyzer, zoo, schedules, staged):
+    """Each schedule of ``search`` replayed on the virtual-clock runtime
+    (must equal the simulator exactly), then run on the card through the
+    same ``validate_on_runtime``, with the per-task gap between the two
+    traces and the linter's codes; then K1 held against its plain version
+    at every staged boundary shape. Returns K1's launches in the real runs,
+    their split by route, and K1's largest error."""
+    import torch
+    from repro_torch.core import decode_solution
+    from repro_torch.kernels.int8_quant import ROUTES, quantize_int8
+    torch.backends.cudnn.deterministic = True
+    graphs = analyzer.scenario.graphs
+    total = dict.fromkeys(ROUTES, 0)
+    for label, sol in schedules.items():
+        t0 = time.perf_counter()
+        virtual = analyzer.validate_on_runtime(sol, mode="virtual", measured=True,
+                                               num_requests=SEARCH_REQUESTS)
+        virtual_s = time.perf_counter() - t0
+        if not virtual.passed:
+            raise AssertionError(f"conformance {label}: the virtual replay differs from "
+                                 f"the simulator: {virtual.summary()}")
+        placed = decode_solution(sol, graphs)
+        want = dict.fromkeys(ROUTES, 0)
+        for g in analyzer.scenario.groups:
+            got, shapes = k1_staging(zoo, graphs, placed, g)
+            staged.update(shapes)
+            for r in ROUTES:
+                want[r] += SEARCH_REQUESTS * got[r]
+        for c in counters.values():
+            c.launches = 0
+        quantize_int8.launches_by_route = dict.fromkeys(ROUTES, 0)
+        t0 = time.perf_counter()
+        real = analyzer.validate_on_runtime(sol, mode="real", num_requests=SEARCH_REQUESTS)
+        real_s = time.perf_counter() - t0
+        counts = {k: c.launches for k, c in counters.items()}
+        routes = dict(quantize_int8.launches_by_route)
+        torch.cuda.synchronize()
+        for r in ROUTES:
+            total[r] += routes[r]
+        want_counts = {k: (sum(want.values()) if k == "int8_quant" else 0) for k in counters}
+        same_tasks = ({tuple(t[:4]) for t in real.runtime_trace["tasks"]}
+                      == {tuple(t[:4]) for t in real.sim_trace["tasks"]})
+        finite = all(m is not None and math.isfinite(m)
+                     for trace in (real.runtime_trace, real.sim_trace)
+                     for m in trace["makespans"])
+        lint = analyzer.lint(sol, alpha=1.0)
+        ok = counts == want_counts and routes == want and same_tasks and finite
+        emit({"phase": "conformance", "schedule": label,
+              "virtual": virtual.summary(), "virtual_seconds": virtual_s,
+              "real": real.summary(), "real_seconds": real_s,
+              "requests_per_group": SEARCH_REQUESTS,
+              "makespans_ms": {"measured": [None if m is None else m * 1e3
+                                            for m in real.runtime_trace["makespans"]],
+                               "predicted": [None if m is None else m * 1e3
+                                             for m in real.sim_trace["makespans"]]},
+              "task_gap": task_gap(real) if same_tasks else None,
+              "lint": {"counts": lint.counts(), "alpha_lower_bound": lint.alpha_lower_bound,
+                       "infeasible": lint.infeasible},
+              "launches": counts, "want_launches": want_counts, "k1": routes, "want_k1": want,
+              "same_tasks": same_tasks, "finite_makespans": finite, "smi": smi, "ok": ok})
+        if not ok:
+            raise AssertionError(f"conformance {label} on the card failed: launches {counts}, "
+                                 f"want {want_counts}; K1 {routes}, want {want}; same tasks "
+                                 f"{same_tasks}; finite makespans {finite}")
     analyzer.close()
     torch.backends.cudnn.deterministic = False
     # the dtype gene is one per network, so an int8 subgraph's producer is
     # int8 too and hands the Worker bf16 rows; these launches come after the
     # path's counts were read
     gen = torch.Generator(device="cuda").manual_seed(SEARCH_SEED)
-    err = max(hold_k1(quant_inputs("bfloat16", shape, "randn", gen), "randn", "search")
+    err = max(hold_k1(quant_inputs("bfloat16", shape, "randn", gen), "randn", "staged")
               for shape in sorted(staged))
-    return counts["int8_quant"], routes, err
+    return sum(total.values()), total, err
 
 
 def ssd_inputs(dtype: str, shape, gen):
@@ -1058,12 +1181,18 @@ def main() -> int:
 
     # 6. Puzzle's scheduler: search with the card in the loop, then serve ------
     t0 = time.perf_counter()
-    k1_search, k1_search_routes, k1_search_err = search_phase(smi, counters)
+    k1_search, k1_search_routes, searched = search_phase(smi, counters)
     emit({"phase": "search_done", "seconds": time.perf_counter() - t0})
-    launches["int8_quant"] = k1_runtime + k1_search
-    k1_routes = {r: k1_runtime_routes[r] + k1_search_routes[r] for r in k1_runtime_routes}
+
+    # 7. the searched schedules replayed exactly, then run on the card ---------
+    t0 = time.perf_counter()
+    k1_conf, k1_conf_routes, k1_staged_err = conformance_phase(smi, counters, **searched)
+    emit({"phase": "conformance_done", "seconds": time.perf_counter() - t0})
+    launches["int8_quant"] = k1_runtime + k1_search + k1_conf
+    k1_routes = {r: k1_runtime_routes[r] + k1_search_routes[r] + k1_conf_routes[r]
+                 for r in k1_runtime_routes}
     timings["int8_quant"]["max_abs_err"] = max(timings["int8_quant"]["max_abs_err"],
-                                               k1_search_err)
+                                               k1_staged_err)
 
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -1078,7 +1207,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/int8_quant_sm90.cu",
          "replaces": "src/repro/kernels/int8_quant.py:29",
          "launches": launches["int8_quant"], "launches_by_route": k1_routes,
-         "launches_by_path": {"runtime": k1_runtime, "search": k1_search},
+         "launches_by_path": {"runtime": k1_runtime, "search": k1_search,
+                              "conformance": k1_conf},
          **timings["int8_quant"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

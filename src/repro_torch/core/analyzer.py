@@ -11,15 +11,14 @@ evaluation entry points used by the experiments:
 * ``saturation(solution)`` — α* sweep for the headline metric.
 
 Copy of ``repro.core.analyzer``, verbatim in its arithmetic. The
-device-in-the-loop entry points build the port's
+device-in-the-loop entry points that execute (``measure_on_runtime`` and
+``validate_on_runtime(mode="real")``) build the port's
 :class:`~repro_torch.runtime.PuzzleRuntime`, on ``device`` (the card unless
 the caller asks for another) with ``runtime_config`` (``None`` = the
-reference's plain runtime); both are passed through unchanged. Left out,
-each raising :class:`NotImplementedError`: the schedule linter and the
-static pre-screen (``linter``, ``lint``, and ``alpha_floor`` /
-``prescreen_objectives`` with ``prescreen`` set) and the compiled batch
-engine, which come with slice 6c, and ``validate_on_runtime``, which needs
-the conformance harness of slice 6b (ROADMAP).
+reference's plain runtime); both are passed through unchanged.
+``validate_on_runtime(mode="virtual")`` executes nothing and needs no
+device. Left out, raising :class:`NotImplementedError`: the compiled batch
+engine, which comes with slice 6c (ROADMAP).
 """
 from __future__ import annotations
 
@@ -31,7 +30,9 @@ from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
 if TYPE_CHECKING:  # typing-only: core must not import these at runtime
     import torch
 
+    from ..analysis import LintReport, ScheduleLinter
     from ..runtime import RuntimeConfig
+    from ..runtime.conformance import ConformanceReport
     from .batchsim import BatchResult
 
 from .arrivals import ArrivalSpec
@@ -62,10 +63,6 @@ from .simulator import NoiseModel, RuntimeSimulator, SimResult
 #: pruned chromosome is dominated by (or ties) every simulated one and can
 #: never displace a feasible solution from the front.
 PRESCREEN_OBJECTIVE = 2.0e6
-
-#: What the static linter and pre-screen raise until ``analysis/`` is ported.
-LINT_LATER = ("the schedule linter and static pre-screen (reference "
-              "repro/analysis) are ported with slice 6c (ROADMAP)")
 
 
 @dataclass
@@ -189,6 +186,7 @@ class StaticAnalyzer:
         # invalid/absent samples skipped by the last apply_measured_costs
         self.measured_skips = 0
         self._batch_pool = None  # lazy ProcessPoolExecutor (batch_workers > 1)
+        self._linter = None  # lazy ScheduleLinter (prescreen / lint paths)
 
     # -- batch plumbing ------------------------------------------------------
     def _pool(self) -> Optional[object]:
@@ -453,30 +451,39 @@ class StaticAnalyzer:
         return saturation_multiplier_bisect(
             evaluate, skip_below=self.alpha_floor(solution))
 
-    # -- static pre-screen (reference repro.analysis; slice 6c) ---------------
-    def linter(self):
-        """The reference's ``ScheduleLinter``; not ported yet (slice 6c)."""
-        raise NotImplementedError(LINT_LATER)
+    # -- static pre-screen (repro_torch.analysis) -----------------------------
+    def linter(self) -> "ScheduleLinter":
+        """:class:`~repro_torch.analysis.ScheduleLinter` sharing this
+        analyzer's scenario context and SpecBuilder (lazy; import deferred so
+        the core package never depends on repro_torch.analysis at import
+        time)."""
+        if self._linter is None:
+            from ..analysis import ScheduleLinter
+            self._linter = ScheduleLinter.from_analyzer(self)
+        return self._linter
 
-    def lint(self, solution: Solution, alpha: Optional[float] = None):
-        """The reference's static ``LintReport``; not ported yet (slice 6c)."""
-        raise NotImplementedError(LINT_LATER)
+    def lint(self, solution: Solution,
+             alpha: Optional[float] = None) -> "LintReport":
+        """Static :class:`~repro_torch.analysis.LintReport` for ``solution``."""
+        return self.linter().lint(solution, alpha=alpha)
 
     def alpha_floor(self, solution: Solution) -> float:
         """Proven-infeasible α bound for probe skipping (0.0 when the
-        pre-screen is disabled; enabled, it waits for slice 6c)."""
+        pre-screen is disabled or nothing can be proven)."""
         if not self.cfg.prescreen:
             return 0.0
-        raise NotImplementedError(LINT_LATER)
+        return self.linter().alpha_lower_bound(self.solution_spec(solution))
 
     def prescreen_objectives(
         self, solution: Solution
     ) -> Optional[Tuple[float, ...]]:
         """Sound GA pre-screen: worst-rank objectives when the static
-        analyzer *proves* ``solution`` infeasible (:data:`PRESCREEN_OBJECTIVE`
-        per axis), else ``None``. Waits for slice 6c.
+        analyzer *proves* ``solution`` infeasible, else ``None`` (simulate).
         """
-        raise NotImplementedError(LINT_LATER)
+        report = self.linter().prescreen_report(solution)
+        if report is None:
+            return None
+        return (PRESCREEN_OBJECTIVE,) * (2 * self.scenario.num_groups)
 
     def simulate_batch(
         self,
@@ -608,13 +615,62 @@ class StaticAnalyzer:
         mode: str = "virtual",
         executables: Optional[Dict] = None,
         rel_tol: float = 0.35,
-    ):
-        """Diff a runtime execution of ``solution`` against the simulator's
-        prediction. Needs the conformance harness and the virtual clock,
-        which come with slice 6b (ROADMAP)."""
-        raise NotImplementedError(
-            "validate_on_runtime needs runtime/conformance.py, ported with "
-            "slice 6b (ROADMAP)")
+    ) -> "ConformanceReport":
+        """Execute ``solution`` on :class:`~repro_torch.runtime.PuzzleRuntime`
+        and diff its task trace against the simulator's prediction.
+
+        Returns a :class:`~repro_torch.runtime.conformance.ConformanceReport`
+        whose traces use the golden-trace schema (``tests/golden/``).
+
+        ``mode="virtual"`` replays this analyzer's own cost spec on the
+        runtime's virtual clock — the comparison is at **zero tolerance**
+        (identical ordering and timestamps; ``measured`` adds the same
+        noise stream and dispatch load to both sides); it executes nothing
+        and needs no device. ``mode="real"`` genuinely executes the models
+        (``executables`` or the analyzer's own) on ``device`` with
+        ``runtime_config``, under wall-clock timing, and checks per-request
+        makespans within ``rel_tol`` relative error.
+        """
+        from ..runtime import PuzzleRuntime  # lazy, as in the reference
+        from ..runtime.conformance import (
+            build_report, run_virtual_schedule, runtime_result,
+        )
+
+        num_requests = num_requests or self.cfg.fast_requests
+        periods = [alpha * p for p in self.base_periods]
+        sim = self.simulate(
+            solution, alpha, num_requests, measured=measured, seed=seed,
+            engine="fast", collect_tasks=True,
+        )
+        if mode == "virtual":
+            noise = (NoiseModel(self.cfg.noise.sigma_by_kind, seed=seed)
+                     if measured else None)
+            rt_res = run_virtual_schedule(
+                self.scenario.graphs, solution, self.processors,
+                self.solution_spec(solution), self.scenario.groups, periods,
+                num_requests, noise=noise,
+                dispatch_overhead=(self.cfg.dispatch_overhead
+                                   if measured else 0.0),
+                dispatch_pid=self.cfg.dispatch_pid,
+                arrivals=self.arrival,
+                faults=self.faults,
+            )
+            return build_report("virtual", rt_res, sim, rel_tol=0.0)
+        if mode != "real":
+            raise ValueError(f"unknown conformance mode {mode!r}")
+        executables = executables if executables is not None else self.executables
+        if executables is None:
+            raise ValueError("real-exec conformance needs executables")
+        with PuzzleRuntime(self.scenario.graphs, solution, self.processors,
+                           executables, self.runtime_config,
+                           device=self.device) as rt:
+            states = rt.run_periodic(
+                [list(g) for g in self.scenario.groups], periods,
+                num_requests=num_requests, arrivals=self.arrival,
+            )
+            rt_res = runtime_result(rt, states, periods, num_requests,
+                                    rebase=True, arrivals=self.arrival)
+        return build_report("real", rt_res, sim, rel_tol=rel_tol)
 
     def measure_on_runtime(
         self,

@@ -50,11 +50,11 @@ runtime, where an in-flight kernel cannot be recalled.
 
 The stream itself is recovery-agnostic. Recovery (retry, backoff, the
 dropout → backup-mapping remap) is a *policy* layered on the runtime and
-analyzer (:mod:`repro.runtime.recovery`); parity-oracle runs inject
+analyzer (:mod:`repro_torch.runtime.recovery`); parity-oracle runs inject
 faults without recovery so the four tiers stay bit-comparable.
 
-Copy of ``repro.core.faults``, verbatim. The port's simulators use it; the
-runtime's fault injection comes with slice 6b (ROADMAP).
+Copy of ``repro.core.faults``, verbatim. The port's simulators and its
+virtual-clock runtime use it.
 """
 from __future__ import annotations
 

@@ -59,8 +59,8 @@ class GAConfig:
     # the reference's compiled batch core, which comes with slice 6c and
     # raises until then.
     batch_eval: "bool | str" = False
-    # Route every chromosome through the static analyzer (the reference's
-    # analysis.schedlint; slice 6c) before objectives(): proven-infeasible
+    # Route every chromosome through the static analyzer
+    # (repro_torch.analysis.schedlint) before objectives(): proven-infeasible
     # candidates get worst-rank fitness without a single simulated event.
     # Sound-only by contract — the analyzer may only flag chromosomes the
     # simulator could never score feasible (structural corruption, memory

@@ -1,18 +1,21 @@
 """Coordinator: the Runtime's external interface (paper §5.2, Fig. 9); copy
-of ``repro.runtime.coordinator``, real-execution mode.
+of ``repro.runtime.coordinator``.
 
 Workflow: ① client request enters the queue → ② the coordinator finds
 subgraphs with resolved dependencies → ③ tasks go to Worker queues →
 ④ Workers (de)quantize + execute → ⑤ results update request state →
 ⑥ the final result returns to the client (a Future).
 
-All timestamps come from an injectable clock (wall time by default), and
+All timestamps come from an injectable clock (wall time by default, a
+:class:`~repro_torch.runtime.clock.VirtualClock` in conformance mode), and
 every released task gets a :class:`~repro_torch.core.simulator.TaskRecord`
 appended to ``self.trace`` in release order — the same schema and ordering
-the simulators produce. Tasks enter Worker queues with priority
-``(0, network-priority, release-seq)``. The virtual-clock mode's dispatch
-tokens and the recovery path's ``redispatch`` come with the virtual-clock
-runtime (ROADMAP Queue 1, slice 6b).
+the simulators produce, so a runtime execution diffs directly against a
+simulated one. In virtual mode the Coordinator also mirrors the
+simulators' queueing keys exactly: tasks enter Worker stores with priority
+``(0, network-priority, release-seq)`` and, when dispatch overhead is
+modeled, a ``(-1, 0, release-seq)`` dispatch token is pushed to the
+dispatch processor *before* each release (paper §6.3's Coordinator load).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 from ..core.chromosome import PlacedSubgraph
 from ..core.simulator import TaskRecord
 from .clock import WallClock
-from .worker import Worker
+from .worker import DISPATCH_TOKEN, Worker
 
 
 @dataclass
@@ -64,11 +67,17 @@ class Coordinator:
         workers: Dict[int, Worker],
         executables: Dict[str, Any],
         clock=None,
+        virtual: bool = False,
+        dispatch_overhead: float = 0.0,
+        dispatch_pid: int = 0,
     ):
         self.placed = placed
         self.workers = workers
         self.executables = executables
         self.clock = clock if clock is not None else WallClock()
+        self.virtual = virtual
+        self.dispatch_overhead = dispatch_overhead
+        self.dispatch_pid = dispatch_pid
         self._lock = threading.Lock()
         self._requests: Dict[int, RequestState] = {}
         self._next_id = 0
@@ -93,11 +102,12 @@ class Coordinator:
             self._deps.append(deps)
             self._succs.append(succs)
             self._owner.append(owner)
-        for plist in placed:
-            for p in plist:
-                w = workers[p.processor]
-                eng = w.engines[p.backend]
-                eng.load(p, executables)
+        if not virtual:  # virtual mode replays costs; nothing to compile
+            for plist in placed:
+                for p in plist:
+                    w = workers[p.processor]
+                    eng = w.engines[p.backend]
+                    eng.load(p, executables)
 
     # -- client API ------------------------------------------------------------
     def submit(self, networks: Sequence[int], group: int = 0) -> RequestState:
@@ -122,6 +132,28 @@ class Coordinator:
                     self._dispatch(st, n, k)
         return st
 
+    def redispatch(self, payload: Dict) -> int:
+        """Re-route an already-released task through the *current* placement.
+
+        The dropout-recovery path: after the runtime rewrites
+        ``self.placed`` for a dead processor, tasks drained from that
+        worker's queue (or intercepted mid-stall) re-enter here. The task
+        keeps its identity — request, record, release timestamp — but its
+        backend/dtype/engine key and target worker are re-read from the
+        re-placed subgraph. Returns the new processor id.
+        """
+        net, k = payload["net"], payload["sg"]
+        p = self.placed[net][k]
+        payload["backend"] = p.backend
+        payload["dtype"] = p.dtype
+        payload["engine_key"] = p.profile_key()
+        payload["record"].processor = p.processor
+        with self._lock:
+            self._seq += 1
+            seq = self._seq
+        self.workers[p.processor].submit((0, p.priority, seq), payload)
+        return p.processor
+
     def cancel_pending(self, reason: str = "PuzzleRuntime closed") -> int:
         """Fail every unfinished request's future; returns how many."""
         cancelled = 0
@@ -137,7 +169,7 @@ class Coordinator:
     def _dispatch(self, st: RequestState, net: int, k: int) -> None:
         p = self.placed[net][k]
         inputs = None
-        if self._deps[net][k]:
+        if self._deps[net][k] and not self.virtual:
             inputs = []
             for pk in self._deps[net][k]:
                 prod = self.placed[net][pk]
@@ -159,8 +191,16 @@ class Coordinator:
         )
         with self._lock:
             self.trace.append(rec)
+            if (self.virtual and self.dispatch_overhead > 0
+                    and self.dispatch_pid in self.workers):
+                self._seq += 1
+                token_key = (-1, 0, self._seq)
+            else:
+                token_key = None
             self._seq += 1
             seq = self._seq
+        if token_key is not None:
+            self.workers[self.dispatch_pid].submit(token_key, DISPATCH_TOKEN)
         payload = {
             "request": st.request_id,
             "net": net,
@@ -200,7 +240,7 @@ class Coordinator:
             now = self.clock.now()
             rec: TaskRecord = payload["record"]
             rec.finished = now
-            # quant time is only known at completion
+            # real-mode quant time is only known at completion
             rec.quant_time = quant_t
             rec.exec_time = payload.get("exec_s", exec_t)
             st.outputs[(net, k)] = result

@@ -394,13 +394,22 @@ def test_int8_staging_off_keeps_the_reference_path(zoo, monkeypatch):
     assert stats["transport"]["zero_copies"] == 2 and stats["pool"]["mallocs"] == 0
 
 
-def test_unported_modes_raise(zoo):
+def test_virtual_mode_needs_a_spec(zoo, ref_zoo):
+    """As in the reference: virtual mode without a FastSimSpec raises
+    ``ValueError``; real mode takes ``faults`` and ``recovery`` and only
+    names the faults at ``close()``."""
     graphs = _graphs(zoo)
     sol = _solution(tc, graphs)
-    for cfg in (tr.RuntimeConfig(virtual=True), tr.RuntimeConfig(faults=object()),
-                tr.RuntimeConfig(recovery=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _runtime(graphs, sol, zoo, cfg)
+    for pkg, rt_pkg, g, kw in ((tc, tr, graphs, {"device": "cpu"}),
+                               (rc, rr, _graphs(ref_zoo), {})):
+        with pytest.raises(ValueError, match="FastSimSpec"):
+            rt_pkg.PuzzleRuntime(g, _solution(pkg, g), pkg.mobile_processors(),
+                                 None, rt_pkg.RuntimeConfig(virtual=True), **kw)
+    faults = tc.FaultSpec(dropouts=((2, 0.5, None),), seed=1)
+    with _runtime(graphs, sol, zoo, tr.RuntimeConfig(
+            faults=faults, recovery=tr.RecoveryPolicy())) as rt:
+        st = rt.infer_sync([0, 1])
+    assert st.makespan is not None and rt.recovery_events == []
 
 
 def test_runtime_without_device_needs_a_card(zoo):

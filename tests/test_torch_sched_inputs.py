@@ -1,5 +1,6 @@
 """Inputs shared by the scheduler parity tests (``tests/test_torch_sim.py``,
-``test_torch_search.py``, ``test_torch_analyzer.py``); it holds no tests.
+``test_torch_search.py``, ``test_torch_analyzer.py``, and the virtual-clock
+runtime's, conformance's, recovery's and linter's); it holds no tests.
 
 Every function here takes the package (``repro.core`` or ``repro_torch.core``) and
 draws from a ``random.Random`` the test owns, so both packages get the same
@@ -7,36 +8,15 @@ nets, solutions, arrival processes and fault ensembles from one seed. The
 recipes are the reference tests' (``tests/test_batchsim_properties.py``,
 ``test_fault_differential.py``, ``test_fastsim.py``).
 """
-import math
 import random
 
 import repro.core as rc
 import repro_torch.core as tc
+# the golden-trace schema (``tests/golden/*.json``) of a SimResult; it reads
+# only attributes, so it serializes either package's results
+from repro_torch.runtime import serialize_result as serialize
 
 PKGS = {"ref": rc, "port": tc}
-
-
-def serialize(res):
-    """The golden-trace schema (``tests/golden/*.json``) of a SimResult."""
-    return {
-        "horizon": res.horizon,
-        "busy_time": {str(pid): t for pid, t in sorted(res.busy_time.items())},
-        "requests": [
-            [r.group, r.request, r.arrival, r.first_start, r.last_finish,
-             r.done_tasks, r.total_tasks]
-            for r in res.requests
-        ],
-        "makespans": [
-            None if math.isinf(r.makespan) else r.makespan
-            for r in res.requests
-        ],
-        "tasks": [
-            [t.group, t.request, t.network, t.sg_index, t.processor,
-             t.released, t.started, t.finished,
-             t.comm_time, t.quant_time, t.exec_time]
-            for t in res.tasks
-        ],
-    }
 
 
 def procs_and_profiler(pkg):
@@ -61,6 +41,18 @@ def tri_chain(pkg):
         pkg.chain_graph("alpha", [("conv", 4e6, 1000, 4000)] * 4),
         pkg.chain_graph("beta", [("fc", 8e6, 2000, 8000)] * 3),
         pkg.chain_graph("gamma", [("dw", 1.5e6, 600, 1800)] * 5),
+    ]
+
+
+def conformance_mix(pkg):
+    """The nets of the ``runtime_conformance`` golden
+    (``tests/test_golden_traces.py``)."""
+    return [
+        pkg.chain_graph("p", [("conv", 3e6, 900, 3000)] * 7),
+        pkg.branching_graph("q", [("conv", 2.5e6, 700, 2200)] * 8,
+                            [(0, 1), (0, 2), (1, 3), (2, 3), (3, 4), (4, 5),
+                             (3, 6), (5, 7), (6, 7)]),
+        pkg.chain_graph("r", [("fc", 6e6, 1500, 6000)] * 5),
     ]
 
 

@@ -5,8 +5,9 @@ and BatchSimulator are copies of ``repro.core``'s. The same nets, solutions,
 noise seeds, arrival processes and fault ensembles, built in both packages
 from one seed, must give the same ``SimResult`` in every tier: task
 records, request records, busy times and horizon, compared with ``==``
-(tolerance: none). The five simulator goldens of ``tests/golden/`` must
-come out of the port's three tiers bit for bit.
+(tolerance: none). The six goldens of ``tests/golden/`` must come out of
+the port's three simulator tiers and of its fourth tier, the virtual-clock
+``PuzzleRuntime`` (``run_virtual_schedule``), bit for bit.
 """
 import dataclasses
 import json
@@ -17,8 +18,10 @@ import pytest
 
 import repro.core as rc
 import repro_torch.core as tc
+from repro_torch.runtime import run_virtual_schedule, serialize_result
 from test_torch_sched_inputs import (
     PKGS,
+    conformance_mix,
     diamond_mix,
     procs_and_profiler,
     random_arrival,
@@ -105,6 +108,9 @@ def _golden_setup(pkg, name):
         "diamond_mix_overload": (
             diamond_mix(pkg), [[0, 1], [2, 3]], [2e-6, 2e-6], 30, None, 0.0, 0,
             None, None),
+        "runtime_conformance": (
+            conformance_mix(pkg), [[0, 2], [1]], [0.035, 0.05], 8, 3, 150e-6,
+            None, None, None),
         "poisson_burst_measured": (
             diamond_mix(pkg), [[0, 1], [2, 3]], [0.004, 0.006], 8, 5, 150e-6,
             None, pkg.ArrivalSpec(kind="poisson", seed=42), None),
@@ -120,11 +126,10 @@ def _golden_setup(pkg, name):
 
 
 GOLDENS = ("tri_chain_clean", "diamond_mix_measured", "diamond_mix_overload",
-           "poisson_burst_measured", "fault_dropout_mix")
+           "runtime_conformance", "poisson_burst_measured", "fault_dropout_mix")
 
 
-@pytest.mark.parametrize("name", GOLDENS)
-def test_port_tiers_reproduce_golden(name):
+def _golden_case(name):
     golden = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
     (nets, groups, periods, nr, noise_seed, dispatch, pin, arrivals,
      faults) = _golden_setup(tc, name)
@@ -132,11 +137,34 @@ def test_port_tiers_reproduce_golden(name):
     if pin is not None:
         sol.partition = [[1] * g.num_edges for g in nets]
         sol.mapping = [[pin] * g.num_layers for g in nets]
+    return golden, nets, sol, groups, periods, nr, noise_seed, dispatch, arrivals, faults
+
+
+@pytest.mark.parametrize("name", GOLDENS)
+def test_port_tiers_reproduce_golden(name):
+    (golden, nets, sol, groups, periods, nr, noise_seed, dispatch, arrivals,
+     faults) = _golden_case(name)
     tiers = three_tiers(tc, nets, sol, groups, periods, nr,
                         noise_seed=noise_seed, dispatch=dispatch,
                         arrivals=arrivals, faults=faults)
     for tier, got in tiers.items():
         assert got == golden, (name, tier)
+
+
+@pytest.mark.parametrize("name", GOLDENS)
+def test_virtual_runtime_reproduces_golden(name):
+    """The fourth tier: the port's Coordinator/Worker dispatch code replaying
+    the spec's costs on the virtual clock (no device)."""
+    (golden, nets, sol, groups, periods, nr, noise_seed, dispatch, arrivals,
+     faults) = _golden_case(name)
+    procs, prof = procs_and_profiler(tc)
+    spec = tc.build_spec(tc.decode_solution(sol, nets), procs, prof,
+                         tc.PAPER_COMM_MODEL)
+    noise = tc.NoiseModel(seed=noise_seed) if noise_seed is not None else None
+    got = run_virtual_schedule(nets, sol, procs, spec, groups, periods, nr,
+                               noise=noise, dispatch_overhead=dispatch,
+                               arrivals=arrivals, faults=faults)
+    assert serialize_result(got) == golden, name
 
 
 # -- port against reference, case by case ------------------------------------
