@@ -65,7 +65,25 @@ Run from the root of a checkout. Phases, one JSON line each:
    ``rel_tol`` 0.35 is a finding), the per-task gap between the card's
    trace and the simulator's per processor (execution time, queueing wait,
    release time), and the static linter's codes. Then K1 is held against
-   its plain version at every boundary shape phases 6 and 7 staged.
+   its plain version at every boundary shape phases 6 and 7 staged;
+8. sweep: the paper's evaluation (§6) with the compiled batch engine on the
+   card: the first 8 seed-0 scenarios of ``generate_scenario_specs`` (1-3
+   groups x 1-4 models, the default ``SweepConfig``) through ``run_sweep``
+   with ``use_batch`` and ``batch_engine="compiled"`` (the event-loop
+   kernel, every kernel's launch count zeroed just before and read just
+   after: more than 0 launches of ``batchsim_advance``, none of the others,
+   no fallback), then with the numpy engine. Per scenario and method α*,
+   satisfaction and seconds, both aggregates; α*, satisfaction and the
+   geo-means must be equal. Every batch of the first two scenarios is held
+   to ``BatchSimulator`` within ``COMPILED_REL_TOL``/``COMPILED_ABS_TOL``;
+   the widest α*-search batch of the second to the kernel's plain version
+   on the card (every output equal, per-lane events and ring pushes too),
+   both timed, with its bytes, operations and latency bounds (the longest
+   lane's events x the frontier's compares, one cycle each at the top SM
+   clock); then that batch tiled to 16, 64, 256
+   and 1024 lanes: the kernel's device time, the host preparation, the
+   whole compiled call, the numpy tier and the scalar ``FastSimulator``
+   loop, and the FIFO rings' bytes.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -162,6 +180,10 @@ RUNTIME_PERIOD, RUNTIME_REQUESTS = 0.05, 12
 SEARCH_SEED, SEARCH_REQUESTS = 2025, 12
 SEARCH_GA = dict(pop_size=12, max_generations=8, min_generations=4, patience=3, seed=0,
                  device_in_loop_interval=2)
+# sweep: the first 8 seed-0 scenarios of the paper's §6 protocol; the
+# α*-search batch widths of the timing table
+SWEEP_SCENARIOS, SWEEP_SEED = 8, 0
+SWEEP_WIDTHS = (16, 64, 256, 1024)
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -937,6 +959,217 @@ def conformance_phase(smi: str, counters: dict, analyzer, zoo, schedules, staged
     return sum(total.values()), total, err
 
 
+def batch_diff(ref, got) -> tuple:
+    """Largest absolute and relative difference between two BatchResults,
+    lane by lane, over every request's timestamps and makespan and every
+    busy time; whether each value is within the compiled tier's tolerance
+    (done counts exact, inf only against inf)."""
+    from repro_torch.core import COMPILED_ABS_TOL, COMPILED_REL_TOL
+    worst_abs = worst_rel = 0.0
+    ok = ref.width == got.width
+    for i in range(ref.width):
+        a, b = ref.result(i), got.result(i)
+        pairs = [(a.busy_time[p], b.busy_time[p]) for p in a.busy_time]
+        ok = ok and len(a.requests) == len(b.requests)
+        for qa, qb in zip(a.requests, b.requests):
+            ok = ok and qa.done_tasks == qb.done_tasks and qa.total_tasks == qb.total_tasks
+            pairs += [(getattr(qa, f), getattr(qb, f))
+                      for f in ("arrival", "first_start", "last_finish", "makespan")]
+        for x, y in pairs:
+            if math.isinf(x) or math.isinf(y):
+                ok = ok and x == y
+                continue
+            d = abs(x - y)
+            worst_abs = max(worst_abs, d)
+            worst_rel = max(worst_rel, d / max(abs(x), abs(y), 1e-300))
+            ok = ok and d <= COMPILED_ABS_TOL + COMPILED_REL_TOL * max(abs(x), abs(y))
+    return worst_abs, worst_rel, ok
+
+
+def sweep_phase(smi: str, counters: dict) -> dict:
+    """8. the paper's sweep with the compiled batch engine on the card.
+
+    The first SWEEP_SCENARIOS seed-0 scenarios (1-3 groups x 1-4 models, the
+    default SweepConfig) through ``run_sweep`` with ``use_batch`` on the
+    card's kernel and then on the numpy tier; their α*, satisfaction and
+    geo-means must be equal. Every batch of the first two scenarios is held
+    to ``BatchSimulator``; the widest α*-search batch of the second is held
+    to the kernel's plain version on the card, timed, and tiled to
+    SWEEP_WIDTHS lanes for the timing table. Returns the kernels-line entry.
+    """
+    import shutil
+
+    import torch
+
+    import repro_torch.core.batchsim_compiled as bsc
+    from repro_torch.core import BatchSimulator, FastSimulator
+    from repro_torch.experiments import (METHODS, SweepConfig, generate_scenario_specs,
+                                         run_sweep)
+    from repro_torch.kernels import batchsim_advance as kb
+
+    dev = torch.device("cuda")
+    specs = generate_scenario_specs(SWEEP_SCENARIOS, seed=SWEEP_SEED)
+    finished = []               # the sweep's log lines, one per finished scenario
+    captured = []               # (scenario, lanes, groups, processors, result)
+    real_run = bsc.run_batch_compiled
+
+    def capture(lanes, groups, processors, **kw):
+        res = real_run(lanes, groups, processors, **kw)
+        if len(finished) < 2 and res is not None:
+            captured.append((len(finished), list(lanes), groups, processors, res))
+        return res
+
+    def sweep(engine: str):
+        run_dir = ROOT / "build" / f"chip_smoke_sweep_{engine}"
+        shutil.rmtree(run_dir, ignore_errors=True)
+        finished.clear()
+        t0 = time.perf_counter()
+        doc = run_sweep(specs, SweepConfig(use_batch=True, batch_engine=engine),
+                        run_dir=str(run_dir), workers=1, force=True, log=finished.append)
+        return doc, time.perf_counter() - t0
+
+    fallbacks0 = dict(bsc.fallbacks)
+    for c in counters.values():
+        c.launches = 0
+    with mock.patch.object(bsc, "run_batch_compiled", capture):
+        compiled, compiled_s = sweep("compiled")
+    counts = {k: c.launches for k, c in counters.items()}
+    fallbacks = {r: bsc.fallbacks[r] - fallbacks0[r] for r in bsc.fallbacks}
+    numpy_doc, numpy_s = sweep("numpy")
+
+    keys = ("alpha_star", "alpha_star_best", "ratios", "satisfaction")
+    same = True
+    for rc, rn in zip(compiled["scenarios"], numpy_doc["scenarios"]):
+        eq = all(rc[k] == rn[k] for k in keys)
+        same = same and eq
+        emit({"phase": "sweep_scenario", "scenario": rc["spec"]["name"],
+              "groups": [len(g) for g in rc["spec"]["groups"]],
+              "alpha_star": {"compiled": rc["alpha_star"], "numpy": rn["alpha_star"]},
+              "satisfaction": {"compiled": rc["satisfaction"], "numpy": rn["satisfaction"]},
+              "seconds": {"compiled": rc["wall_s"], "numpy": rn["wall_s"]}, "equal": eq})
+    agg_keys = ("alpha_star", "speedup_geomean", "speedup_geomean_best", "speedup_mean",
+                "satisfaction_rate")
+    agg_same = all(compiled["aggregate"][k] == numpy_doc["aggregate"][k] for k in agg_keys)
+    emit({"phase": "sweep", "scenarios": len(specs), "seed": SWEEP_SEED,
+          "aggregate": {"compiled": {k: compiled["aggregate"][k] for k in agg_keys},
+                        "numpy": {k: numpy_doc["aggregate"][k] for k in agg_keys}},
+          "seconds": {"compiled": compiled_s, "numpy": numpy_s},
+          "launches": counts, "fallbacks": fallbacks, "methods": list(METHODS),
+          "scenarios_equal": same, "aggregates_equal": agg_same, "smi": smi})
+    if not (same and agg_same):
+        raise AssertionError("sweep: the kernel's run differs from the numpy engine's")
+    want = {k: 0 for k in counters if k != "batchsim_advance"}
+    if counts["batchsim_advance"] <= 0 or any(fallbacks.values()) or any(
+            counts[k] for k in want):
+        raise AssertionError(f"sweep: launches {counts}, fallbacks {fallbacks}")
+
+    # every batch of the first two scenarios against the numpy tier
+    worst_abs = worst_rel = 0.0
+    for scenario, lanes, groups, procs, res in captured:
+        a, r, ok = batch_diff(BatchSimulator(lanes, groups, procs).run(), res)
+        worst_abs, worst_rel = max(worst_abs, a), max(worst_rel, r)
+        if not ok:
+            raise AssertionError(f"sweep scenario {scenario}: a batch of {len(lanes)} lanes "
+                                 f"is outside the tolerance ({a}, {r})")
+    emit({"phase": "sweep_check", "batches": len(captured),
+          "lanes": sum(len(c[1]) for c in captured), "max_abs_err": worst_abs,
+          "max_rel_err": worst_rel, "tol": {"rel": bsc.COMPILED_REL_TOL,
+                                            "abs": bsc.COMPILED_ABS_TOL}})
+
+    # the widest α*-search batch of the second scenario: kernel against its
+    # plain version on the card, both timed
+    _, lanes, groups, procs, _ = max((c for c in captured if c[0] == 1),
+                                     key=lambda c: len(c[1]))
+    prep = bsc.prepare_batch(lanes, groups, procs)
+    buf = prep.packed.to(dev)
+    got = kb.batchsim_advance(buf, prep.sizes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sizes, tab = kb.unpack_tables(buf)
+    tab["itercap"] = torch.tensor(sizes["itercap"])
+    want_out = kb.advance_plain(kb.flags_of(sizes), tab)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_err = max(float((a.double() - b.double()).nan_to_num(posinf=0.0).abs().max())
+                    for a, b in zip(got[:5], want_out[:5]))
+    plain_same = all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, want_out))
+    ms = min(cuda_ms(lambda: kb.batchsim_advance(buf, prep.sizes), iters=5, warmup=1)
+             for _ in range(3))
+    events, longest = int(got[6].sum()), int(got[6].max())
+    C = sizes["G"] + sizes["P"] + 1
+    # bytes: the packed tables in, the outputs out, one ring word written and
+    # one read per pushed task, and S int32 pending counters written per
+    # arrived request (a request with a finished task; the decrements are
+    # left out, so this is a floor)
+    pushes = int(got[7].sum())
+    arrived = int((got[3] > 0).sum())
+    nbytes = (buf.numel() * 8 + sum(t.numel() * t.element_size() for t in got)
+              + 2 * 8 * pushes + 4 * sizes["S"] * arrived)
+    ops = 2 * C * events               # the frontier scan's compares, per event
+    # compares priced at the float32 rate, the guide's nearest: fp64 and int64
+    # run no faster, so the time is a floor
+    bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS) * 1e3
+    bound_by = "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32_FLOPS else "operations"
+    # latency: the longest lane's events, each C dependent compares of the
+    # frontier scan, at no less than one cycle each at the card's top SM clock
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True, timeout=60).stdout.split()[0])
+    latency_bound_ms = longest * C / (mhz * 1e6) * 1e3
+    emit({"phase": "kernel_check", "kernel": "batchsim_advance", "lanes": len(lanes),
+          "padded_lanes": sizes["W"], "events": events, "max_lane_events": longest,
+          "ring_pushes": pushes, "arrived_requests": arrived,
+          "max_abs_err": plain_err, "equal": plain_same, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+          "latency_bound_ms": latency_bound_ms, "sm_clock_max_mhz": mhz,
+          "us_per_event_longest_lane": ms * 1e3 / max(longest, 1), "smi": smi})
+    if not plain_same:
+        raise AssertionError(f"batchsim_advance differs from its plain version: {plain_err}")
+
+    # the timing table: the same batch tiled to each width
+    for width in SWEEP_WIDTHS:
+        tiled = [lanes[i % len(lanes)] for i in range(width)]
+        t0 = time.perf_counter()
+        tprep = bsc.prepare_batch(tiled, groups, procs)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tbuf = tprep.packed.to(dev)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) * 1e3
+        out = kb.batchsim_advance(tbuf, tprep.sizes)
+        kernel_ms = min(cuda_ms(lambda: kb.batchsim_advance(tbuf, tprep.sizes), iters=3,
+                                warmup=1) for _ in range(2))
+        t0 = time.perf_counter()
+        res = bsc.run_batch_compiled(tiled, groups, procs)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = BatchSimulator(tiled, groups, procs).run()
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for ln in tiled:
+            FastSimulator(ln.spec, groups=groups, periods=ln.periods,
+                          num_requests=ln.num_requests, noise=ln.noise,
+                          dispatch_overhead=ln.dispatch_overhead, arrivals=ln.arrivals,
+                          faults=ln.faults).run()
+        scalar_ms = (time.perf_counter() - t0) * 1e3
+        a, r, ok = batch_diff(ref, res)
+        ts = tprep.sizes
+        emit({"phase": "sweep_timing", "lanes": width, "padded_lanes": ts["W"],
+              "kernel_ms": kernel_ms, "host_prep_ms": host_ms, "h2d_ms": h2d_ms,
+              "compiled_call_ms": call_ms, "numpy_ms": numpy_ms, "scalar_ms": scalar_ms,
+              "lane_events_max": int(out[6].max()), "ring_bytes":
+                  ts["W"] * ts["P"] * ts["NP"] * ts["CAP"] * 8,
+              "scratch_bytes": kb.scratch_words(ts) * 8, "packed_bytes": tbuf.numel() * 8,
+              "max_abs_err": a, "ok": ok, "smi": smi})
+        if not ok:
+            raise AssertionError(f"sweep timing at {width} lanes: outside the tolerance")
+        del tbuf, out
+    torch.cuda.empty_cache()
+    return {"launches": counts["batchsim_advance"], "max_abs_err": max(worst_abs, plain_err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def ssd_inputs(dtype: str, shape, gen):
     """Inputs on the card. The serving shape takes the model's A (-1 … -16
     per head), where exp(cum_i - cum_j) overflows above the diagonal."""
@@ -974,6 +1207,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (ROUTES, _route, flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.batchsim_advance import batchsim_advance
     from repro_torch.kernels.int8_quant import quantize_int8
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
     from repro_torch.kernels.ssd_scan import _route as ssd_route
@@ -994,7 +1228,7 @@ def main() -> int:
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build(["flash_attention", "flash_attention_sm90", "ssd_scan", "ssd_scan_sm90",
-                        "int8_quant", "int8_quant_sm90"])
+                        "int8_quant", "int8_quant_sm90", "batchsim_advance"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -1087,7 +1321,7 @@ def main() -> int:
 
     # 4. each served model: depth-2 check, serve, profile ----------------------
     counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-                "int8_quant": quantize_int8}
+                "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance}
     plain = {"flash_attention": flash_attention_plain, "ssd_scan": ssd_scan_plain}
     launches = {}
     for arch, kernel in (("qwen3-14b", "flash_attention"), ("mamba2-1.3b", "ssd_scan")):
@@ -1188,6 +1422,11 @@ def main() -> int:
     t0 = time.perf_counter()
     k1_conf, k1_conf_routes, k1_staged_err = conformance_phase(smi, counters, **searched)
     emit({"phase": "conformance_done", "seconds": time.perf_counter() - t0})
+
+    # 8. the paper's sweep, the batch engine on the card ------------------------
+    t0 = time.perf_counter()
+    timings["batchsim_advance"] = sweep_phase(smi, counters)
+    emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
     launches["int8_quant"] = k1_runtime + k1_search + k1_conf
     k1_routes = {r: k1_runtime_routes[r] + k1_search_routes[r] + k1_conf_routes[r]
                  for r in k1_runtime_routes}
@@ -1209,7 +1448,11 @@ def main() -> int:
          "launches": launches["int8_quant"], "launches_by_route": k1_routes,
          "launches_by_path": {"runtime": k1_runtime, "search": k1_search,
                               "conformance": k1_conf},
-         **timings["int8_quant"]}]})
+         **timings["int8_quant"]},
+        {"name": "batchsim_advance", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/batchsim_advance.cu",
+         "replaces": "src/repro/core/batchsim_compiled.py:117",
+         **timings["batchsim_advance"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

@@ -14,8 +14,7 @@ and the α-probe skip (``bisect_alpha_probes(skip_below=...)``) to act on
 findings without changing search results. Warnings (e.g. capability
 fallbacks) carry no such guarantee and never prune.
 
-Port of ``repro.analysis``; its CLI (``repro.analysis.lint``) comes with
-slice 6c (ROADMAP).
+Port of ``repro.analysis``. CLI: ``python -m repro_torch.analysis.lint --help``.
 """
 from .diagnostics import CODES, Diagnostic, LintReport
 from .schedlint import (

@@ -5,10 +5,11 @@ Each module is a copy of its ``repro.core`` counterpart, held to it by the
 parity tests (``tests/test_torch_zoo.py``, ``test_torch_sim.py``,
 ``test_torch_search.py``, ``test_torch_analyzer.py``); the profiler's
 executing backend and the analyzer's device-in-the-loop rounds run on the
-card. Left out until slice 6c (ROADMAP): the compiled batch tier
-(``run_batch_compiled``, ``COMPILED_*``), ``TPU_COMM_MODEL``, ``tpu_lanes``
-and ``LaneRooflineBackend``; the reference's ``JaxExecBackend`` is
-:class:`TorchExecBackend` here.
+card, and so does the compiled batch tier (``run_batch_compiled``, an
+event-loop kernel written for the H100, held to the numpy tier within
+``COMPILED_*``). Left out until slice 6d (ROADMAP): ``TPU_COMM_MODEL``,
+``tpu_lanes`` and ``LaneRooflineBackend``; the reference's
+``JaxExecBackend`` is :class:`TorchExecBackend` here.
 """
 from .analyzer import AnalyzerConfig, StaticAnalyzer
 from .arrivals import (
@@ -25,6 +26,11 @@ from .batchsim import (
     BatchSimulator,
     batch_objectives,
     run_batch,
+)
+from .batchsim_compiled import (
+    COMPILED_ABS_TOL,
+    COMPILED_REL_TOL,
+    run_batch_compiled,
 )
 from .chromosome import (
     BACKENDS,

@@ -17,8 +17,9 @@ device-in-the-loop entry points that execute (``measure_on_runtime`` and
 the caller asks for another) with ``runtime_config`` (``None`` = the
 reference's plain runtime); both are passed through unchanged.
 ``validate_on_runtime(mode="virtual")`` executes nothing and needs no
-device. Left out, raising :class:`NotImplementedError`: the compiled batch
-engine, which comes with slice 6c (ROADMAP).
+device. The compiled batch engine (``batch_engine="compiled"`` or
+``ga.batch_eval="compiled"``) runs on the same ``device``: the event-loop
+kernel on the card, its plain torch pass with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ if TYPE_CHECKING:  # typing-only: core must not import these at runtime
 
 from .arrivals import ArrivalSpec
 from .baselines import best_mapping_solutions, npu_only_solution
-from .batchsim import COMPILED_LATER, BatchLane, batch_objectives, run_batch, spawn_pool
+from .batchsim import BatchLane, batch_objectives, run_batch, spawn_pool
 from .chromosome import Solution, SolutionFactory, decode_solution
 from .comm import PiecewiseLinearCommModel
 from .fastsim import FastSimSpec, FastSimulator, SpecBuilder
@@ -96,8 +97,12 @@ class AnalyzerConfig:
     # ``batchsim.SHARD_MIN_LANES`` lanes (measured crossover; below it the
     # in-process pass is faster — see BENCH_simspeed.json).
     batch_workers: int = 1
-    # Lock-step batch backend: "numpy" (bit-exact, the parity tier). The
-    # reference's "compiled" backend comes with slice 6c and raises here.
+    # Lock-step batch backend: "numpy" (bit-exact, the parity tier) or
+    # "compiled" (the event-loop kernel on the analyzer's ``device``,
+    # documented float tolerance, falls back to numpy when unsupported — see
+    # repro_torch.core.batchsim_compiled). Opt-in: the default stays "numpy"
+    # because every batched entry point is contractually bit-identical to
+    # its scalar counterpart; "compiled" trades that for throughput.
     batch_engine: str = "numpy"
     # Device-in-the-loop measurement rounds (used when the analyzer holds
     # executables and ga.device_in_loop_interval > 0): how many of the
@@ -113,10 +118,6 @@ class AnalyzerConfig:
     # construction: only probes the score contract already determines are
     # skipped, and only proven-infeasible chromosomes are pruned.
     prescreen: bool = False
-
-    def __post_init__(self) -> None:
-        if self.batch_engine == "compiled":
-            raise NotImplementedError(COMPILED_LATER)
 
 
 class StaticAnalyzer:
@@ -355,7 +356,9 @@ class StaticAnalyzer:
         ``engine="numpy"`` (or ``cfg.batch_engine``), per-solution results
         are bit-identical to calling :meth:`objectives` in a loop —
         enforced by the differential property suite. ``engine="compiled"``
-        waits for slice 6c and raises.
+        routes the misses through the compiled tier on the analyzer's
+        ``device`` instead (documented float tolerance, see
+        ``repro_torch.core.batchsim_compiled``).
         """
         alpha = alpha if alpha is not None else self.cfg.search_alpha
         num_requests = num_requests or self.cfg.fast_requests
@@ -387,7 +390,7 @@ class StaticAnalyzer:
             result = run_batch(
                 lanes, self.scenario.groups, self.processors,
                 workers=self.cfg.batch_workers, pool=self._pool(),
-                engine=engine or self.cfg.batch_engine,
+                engine=engine or self.cfg.batch_engine, device=self.device,
             )
             fresh = batch_objectives(result)
             for key, lane_ix in lane_of_key.items():
@@ -505,7 +508,7 @@ class StaticAnalyzer:
         return run_batch(
             lanes, self.scenario.groups, self.processors,
             workers=self.cfg.batch_workers, pool=self._pool(),
-            engine=self.cfg.batch_engine,
+            engine=self.cfg.batch_engine, device=self.device,
         )
 
     def score_batch(
@@ -538,7 +541,7 @@ class StaticAnalyzer:
         result = run_batch(
             lanes, self.scenario.groups, self.processors,
             workers=self.cfg.batch_workers, pool=self._pool(),
-            engine=self.cfg.batch_engine,
+            engine=self.cfg.batch_engine, device=self.device,
         )
         num_groups = self.scenario.num_groups
         lane_scores: List[float] = []
@@ -878,8 +881,8 @@ class StaticAnalyzer:
             # Whole-generation evaluation through the lock-step batch engine
             # (used when ga.batch_eval is set); bit-identical to the
             # per-child loop with the numpy backend. ga.batch_eval may also
-            # name the backend ("compiled" = the jitted core, documented
-            # float tolerance instead of bit-exactness).
+            # name the backend ("compiled" = the event-loop kernel on
+            # ``device``, documented float tolerance instead of bit-exactness).
             evaluate_batch=lambda sols, accurate: self.objectives_batch(
                 sols,
                 num_requests=(self.cfg.accurate_requests if accurate

@@ -46,20 +46,23 @@ running its own lock-step pass; sharding only engages at
 ``SHARD_MIN_LANES`` lanes and above — below that the fork/pickle round trip
 costs more than it saves.
 
-Copy of ``repro.core.batchsim``, verbatim in its arithmetic. The
-reference's opt-in ``engine="compiled"`` backend (a jitted
-``jax.lax.while_loop`` port of this pass) is left out: its float64
-torch-on-CUDA counterpart is slice 6c (ROADMAP), and ``engine="compiled"``
-raises :class:`NotImplementedError` until then.
+Copy of ``repro.core.batchsim``, verbatim in its arithmetic. The opt-in
+``engine="compiled"`` backend (:mod:`repro_torch.core.batchsim_compiled`)
+runs this pass as one hand-written kernel launch on the card, one thread
+per lane, or as a torch float64 lock-step pass with ``device="cpu"``; the
+bit-exact numpy path stays the default.
 """
 from __future__ import annotations
 
 import math
 import random
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+if TYPE_CHECKING:
+    import torch
 
 from .arrivals import ArrivalSpec, arrival_horizon, draw_arrivals
 from .fastsim import FastSimSpec
@@ -739,13 +742,6 @@ def batch_objectives(
     return out
 
 
-#: What ``engine="compiled"`` raises until its torch tier exists.
-COMPILED_LATER = (
-    "the compiled batch tier (reference core/batchsim_compiled.py) is ported "
-    "with slice 6c (ROADMAP); use engine='numpy'"
-)
-
-
 # -- process-pool sharding ---------------------------------------------------
 
 #: Minimum lane count before ``run_batch`` actually shards across worker
@@ -788,6 +784,7 @@ def run_batch(
     pool: Optional[object] = None,
     engine: str = "numpy",
     shard_min_lanes: Optional[int] = None,
+    device: Optional[Union[str, "torch.device"]] = None,
 ) -> BatchResult:
     """Run a batch, optionally sharded across a process pool.
 
@@ -799,12 +796,23 @@ def run_batch(
     and up — below the measured crossover the in-process pass is faster.
 
     ``engine`` selects the lock-step backend: ``"numpy"`` (default, the
-    bit-exact parity tier) or ``"compiled"``, which waits for slice 6c and
-    raises :class:`NotImplementedError`.
+    bit-exact parity tier) or ``"compiled"`` (the event-loop kernel from
+    :mod:`repro_torch.core.batchsim_compiled` on ``device``, documented
+    float tolerance; ``device=None`` is the card, and the CPU runs the plain
+    pass only for ``device="cpu"``). The compiled backend runs in-process;
+    before it launches anything it declines, counted by reason, a batch that
+    needs what it does not support (``collect_tasks``) or whose queue bound
+    passes its fixed ring capacity, and such a batch runs on numpy.
     """
     if engine == "compiled":
-        raise NotImplementedError(COMPILED_LATER)
-    if engine != "numpy":
+        from .batchsim_compiled import run_batch_compiled
+
+        res = run_batch_compiled(lanes, groups, processors,
+                                 collect_tasks=collect_tasks, device=device)
+        if res is not None:
+            return res
+        # declined before launch: the bit-exact numpy tier
+    elif engine != "numpy":
         raise ValueError(f"unknown batch engine {engine!r}")
     min_lanes = SHARD_MIN_LANES if shard_min_lanes is None else shard_min_lanes
     if workers <= 1 or len(lanes) < max(2 * workers, min_lanes):

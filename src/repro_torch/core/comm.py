@@ -10,7 +10,7 @@ this machine by timing serialize+copy round-trips, which is the
 device-in-the-loop way to calibrate the model where no Galaxy S23U exists.
 
 The reference's TPU lane-boundary model (``TPU_COMM_MODEL``) is left out;
-its H100 counterpart comes with slice 6c (ROADMAP).
+its H100 counterpart comes with slice 6d (ROADMAP).
 """
 from __future__ import annotations
 

@@ -56,8 +56,10 @@ class GAConfig:
     # values are identical either way (it is bit-exact; enforced by
     # tests/test_ga_determinism.py); only wall-clock and the evaluation
     # counter's cache interleaving differ. The string "compiled" selects
-    # the reference's compiled batch core, which comes with slice 6c and
-    # raises until then.
+    # the compiled batch core instead (repro_torch.core.batchsim_compiled,
+    # on the analyzer's device): a documented float tolerance rather than
+    # bit-exactness, so search trajectories may diverge from the scalar
+    # path after many generations.
     batch_eval: "bool | str" = False
     # Route every chromosome through the static analyzer
     # (repro_torch.analysis.schedlint) before objectives(): proven-infeasible

@@ -158,7 +158,7 @@ def random_scenarios(
     Single model group: ``num_groups=1`` with 6 models (paper §6.1).
     Multiple groups: ``num_groups=2`` with 3 models each. For the
     variable-size sweep recipe (1–3 groups × 1–4 models) see
-    :func:`sample_groups` and the reference's ``repro.experiments`` (slice 6c).
+    :func:`sample_groups` / :mod:`repro_torch.experiments`.
 
     Seed semantics: one ``random.Random(seed)`` stream drives all ``count``
     compositions, so scenario *i* depends on ``seed`` **and** on every draw

@@ -292,11 +292,14 @@ def test_batch_objectives_of_port_equal_reference():
     assert out["port"] == out["ref"]
 
 
-# -- what waits for slice 6c -----------------------------------------------------
+# -- the entry points that waited for slice 6c ----------------------------------
 
-def test_later_entry_points_raise():
-    """Only the compiled batch engine waits (slice 6c); the linter, the
-    pre-screen and ``validate_on_runtime`` are ported."""
+def test_later_entry_points_raise(monkeypatch):
+    """The entry points that once raised for want of a later slice all run
+    now: the linter, the pre-screen, ``validate_on_runtime`` and the
+    compiled batch engine on the analyzer's ``device``. The one raise left
+    is the compiled engine's without a card when no ``device="cpu"`` was
+    given. (The name is kept from when they all raised.)"""
     an = analyzer(tc)
     sol = an.factory.seeded_solution(0)
     assert an.validate_on_runtime(sol, num_requests=4).passed
@@ -304,13 +307,16 @@ def test_later_entry_points_raise():
     assert an.prescreen_objectives(sol) is None
     assert an.alpha_floor(sol) == 0.0
     assert analyzer(tc, prescreen=True).alpha_floor(sol) >= 0.0
-    with pytest.raises(NotImplementedError, match="6c"):
-        tc.AnalyzerConfig(batch_engine="compiled")
-    with pytest.raises(NotImplementedError, match="6c"):
-        an.objectives_batch([sol], engine="compiled")
-    with pytest.raises(NotImplementedError, match="6c"):
-        analyzer(tc, ga=tc.GAConfig(pop_size=4, max_generations=1,
-                                    batch_eval="compiled")).run_ga()
+    assert tc.AnalyzerConfig(batch_engine="compiled").batch_engine == "compiled"
+    an.device = "cpu"
+    assert an.objectives_batch([sol], engine="compiled") == analyzer(tc).objectives_batch([sol])
+    ga = analyzer(tc, ga=tc.GAConfig(pop_size=4, max_generations=1, batch_eval="compiled"))
+    ga.device = "cpu"
+    assert ga.run_ga().pareto
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        analyzer(tc, batch_engine="compiled").objectives_batch([sol])
 
 
 def test_measure_on_runtime_needs_executables():

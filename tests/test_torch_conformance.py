@@ -389,3 +389,35 @@ def test_validate_on_runtime_real_without_staging_calls_no_k1(zoo, monkeypatch):
     rep = an.validate_on_runtime(_split_int8(an.scenario.graphs), mode="real",
                                  num_requests=2)
     assert rep.runtime_tasks == rep.sim_tasks and not calls
+
+
+# -- sweep integration ----------------------------------------------------------
+
+def test_sweep_validate_runtime_records_conformance():
+    """``SweepConfig(validate_runtime=True)`` replays Puzzle's schedule on the
+    port's virtual runtime at zero tolerance; the recorded summary equals
+    the reference's."""
+    import repro.experiments as rx
+    import repro_torch.experiments as tx
+
+    def run(exp, validate):
+        spec = exp.generate_scenario_specs(1, seed=3)[0]
+        config = exp.SweepConfig(pop_size=6, max_generations=4, min_generations=2,
+                                 bm_max_evals=20, satisfaction_requests=10,
+                                 validate_runtime=validate)
+        return exp.evaluate_scenario(spec, config)
+
+    result = run(tx, True)
+    assert result.runtime_conformance is not None
+    assert result.runtime_conformance["passed"] is True
+    assert result.runtime_conformance["max_release_diff"] == 0.0
+    assert result.runtime_conformance == run(rx, True).runtime_conformance
+    # round-trips through JSON
+    doc = result.to_json()
+    assert doc["runtime_conformance"]["passed"] is True
+    back = tx.ScenarioResult.from_json(doc)
+    assert back.runtime_conformance == result.runtime_conformance
+    # and the default config records nothing
+    result2 = run(tx, False)
+    assert result2.runtime_conformance is None
+    assert "runtime_conformance" not in result2.to_json()

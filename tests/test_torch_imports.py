@@ -26,4 +26,45 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                          capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 58      # every submodule was walked
+    assert int(out.stdout.split()[-1]) >= 71      # every submodule was walked
+
+
+NEW_IN_6C = ("repro_torch.core.batchsim_compiled", "repro_torch.kernels.batchsim_advance",
+             "repro_torch.experiments", "repro_torch.experiments.specs",
+             "repro_torch.experiments.evaluate", "repro_torch.experiments.aggregate",
+             "repro_torch.experiments.sweep", "repro_torch.analysis.lint")
+
+PROBE_CLIS = """
+import runpy, sys
+sys.argv = ["lint", "--demo"]
+try:
+    runpy.run_module("repro_torch.analysis.lint", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+sys.argv = ["sweep", "--help"]
+try:
+    runpy.run_module("repro_torch.experiments.sweep", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+assert "jax" not in sys.modules, "jax imported"
+bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+assert not bad, bad
+"""
+
+
+def test_clis_run_without_jax_or_reference():
+    """The sweep and lint CLIs (and the compiled tier they load) import no
+    JAX and nothing of the JAX package."""
+    out = subprocess.run([sys.executable, "-c", PROBE_CLIS],
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "linted" in out.stdout and "--batch-engine" in out.stdout
+
+
+def test_new_modules_are_walked():
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
+    assert set(NEW_IN_6C) <= names

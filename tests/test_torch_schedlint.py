@@ -500,3 +500,89 @@ def test_ga_prescreen_prunes_only_provable_oom():
 
 def test_prescreen_objective_matches_reference():
     assert PRESCREEN_OBJECTIVE == REF_PRESCREEN_OBJECTIVE == 2.0e6
+
+
+# -- CLI --------------------------------------------------------------------------
+
+def test_cli_demo_smoke(capsys):
+    from repro_torch.analysis.lint import main
+    assert main(["--demo", "--alpha", "1.0"]) == 0
+    out = capsys.readouterr().out
+    assert "linted" in out and "demo/" in out
+
+
+def test_cli_golden_writes_report(tmp_path, capsys):
+    """The port's golden mode builds its own setups (no test module, no
+    ``repro``); its report equals the reference's, which imports
+    ``tests/test_golden_traces.py``."""
+    from repro.analysis.lint import main as ref_main
+    from repro_torch.analysis.lint import main
+    out_path = tmp_path / "lint_report.json"
+    assert main(["--golden", "--alpha", "1.0", "--out", str(out_path)]) == 0
+    doc = json.loads(out_path.read_text())
+    assert doc["mode"] == "golden"
+    names = {row["scenario"] for row in doc["schedules"]}
+    assert "tri_chain_clean" in names and "fault_dropout_mix" in names
+    for row in doc["schedules"]:
+        back = ta.LintReport.from_json(row["report"])
+        assert back.to_json()["counts"] == row["report"]["counts"]
+    ref_path = tmp_path / "ref_report.json"
+    assert ref_main(["--golden", "--alpha", "1.0", "--out", str(ref_path)]) == 0
+    assert doc == json.loads(ref_path.read_text())
+
+
+def test_cli_strict_flags_errors(capsys):
+    from repro_torch.analysis.lint import main
+    # the demo set contains provably-missed deadlines at α=1
+    assert main(["--demo", "--alpha", "1.0", "--strict"]) == 1
+    capsys.readouterr()
+    # without an α probe the demo schedules carry no error findings
+    assert main(["--demo", "--strict"]) == 0
+
+
+def test_cli_results_equals_reference(tmp_path, capsys):
+    """``--results`` over the committed sweep artifact: the same report as
+    the reference's CLI."""
+    from pathlib import Path
+
+    from repro.analysis.lint import main as ref_main
+    from repro_torch.analysis.lint import main
+    results = str(Path(__file__).resolve().parents[1] / "RESULTS_sweep.json")
+    docs = []
+    for fn, tag in ((main, "port"), (ref_main, "ref")):
+        out = tmp_path / f"{tag}.json"
+        assert fn(["--results", results, "--max-scenarios", "3", "--alpha", "1.0",
+                   "--out", str(out)]) == 0
+        docs.append(json.loads(out.read_text()))
+    assert docs[0] == docs[1] and docs[0]["mode"] == "results"
+
+
+@pytest.mark.parametrize("name", ["tri_chain_clean", "diamond_mix_measured",
+                                  "diamond_mix_overload", "runtime_conformance",
+                                  "poisson_burst_measured", "fault_dropout_mix"])
+def test_golden_builder_matches_test_recipe(name):
+    """The CLI's own builder of the golden setups gives what the reference's
+    recipe (``tests/test_golden_traces.py``'s ``SCENARIOS`` and
+    ``_solution``) gives: the same nets, groups, periods, seeds, arrivals,
+    faults and schedule."""
+    import test_golden_traces as ref_goldens
+    from repro_torch.analysis.lint import GOLDENS, golden_setup, golden_solution
+
+    assert name in GOLDENS and tuple(ref_goldens.SCENARIOS) == GOLDENS
+    (g_nets, groups, periods, nr, noise_seed, dispatch, pin, arrivals,
+     faults) = golden_setup(name)
+    (nets_fn, *want) = ref_goldens.SCENARIOS[name]
+    w_nets = nets_fn()
+    assert [groups, periods, nr, noise_seed, dispatch, pin] == want[:6]
+    for got, ref in ((arrivals, want[6]), (faults, want[7])):
+        assert (got is None) == (ref is None)
+        if got is not None:
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+    def graph(g):
+        return (g.name, [dataclasses.asdict(layer) for layer in g.layers],
+                [dataclasses.asdict(e) for e in g.edges])
+
+    assert [graph(g) for g in g_nets] == [graph(g) for g in w_nets]
+    sol = golden_solution(g_nets, pin=pin)
+    assert sol.key() == ref_goldens._solution(w_nets, seed=11, pin=pin).key()
