@@ -9,27 +9,39 @@ Run from the root of a checkout. Phases, one JSON line each:
 2. build: every CUDA kernel of the port, compiled from ``src/``, one
    ``nvcc`` per source, all at once;
 3. kernel checks: each kernel against its plain PyTorch version on the card,
-   at the test shapes and at the shape its path gives it, then timed at
-   that shape beside the plain version and, where there is one, a PyTorch
+   at the test shapes and at the shapes its paths give it, then timed at
+   those shapes beside the plain version and, where there is one, a PyTorch
    library call (flash attention: K2, whose bf16 cases take the ``sm90``
    route and f32 cases the ``simt`` route, timed in turns with the ``simt``
-   kernel at bf16 beside it, at qwen3-14b's serving shape and at kimi-k2's
-   head_dim 112; SSD chunk scan: K3, likewise, bf16 on the ``sm90`` route
-   and f32 on the ``simt`` route, timed in turns with the ``simt`` kernel at
-   bf16; int8 row quantizer: K1, which must equal its plain version exactly
-   on either route, with and without the dequantized ``out``, timed with
-   ``out`` beside the two launches it replaces, with its host cost per
-   call);
-4. for each served model, qwen3-14b (K2) and then mamba2-1.3b (K3):
-   - depth2: the model at full width cut to 2 layers; prefill logits through
-     the kernel against the same model with the kernel's plain version;
-   - serve: the full model (bf16, random weights from a seed) serves 4
-     requests of 1024 prompt tokens + 32 greedy tokens through
-     ``repro_torch.launch.serve.generate``; every kernel's launch count is
-     zeroed just before and read just after (qwen3's K2 launches and
-     mamba2's K3 launches must all take the ``sm90`` route);
-   - profile: a ``torch.profiler`` pass over one prefill and 8 decode steps
-     gives the device's busy share;
+   kernel at bf16 beside it, at qwen3-14b's serving shape, at kimi-k2's
+   head_dim 112 and at every shape of ``SERVED_K2``: olmoe, kimi-k2 and
+   jamba at batch 4, whisper's encoder, self- and cross-attention (Sk 1500),
+   llama-3.2-vision's self- and cross-attention (Sk 6404); SSD chunk scan:
+   K3, likewise, bf16 on the ``sm90`` route and f32 on the ``simt`` route,
+   timed in turns with the ``simt`` kernel at bf16, at mamba2's and jamba's
+   serving shapes (64 and 256 heads a group); int8 row quantizer: K1, which
+   must equal its plain version exactly on either route, with and without
+   the dequantized ``out``, timed with ``out`` beside the two launches it
+   replaces, with its host cost per call);
+4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
+   olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
+   positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
+   random weights from a seed (``serve_model``):
+   - depth_check: the model at full width cut to one layer of each block
+     kind, every ``attn_gate`` at 2.0, a random modality input; prefill
+     logits through the kernels against the same model with the kernels'
+     plain versions, and the launches the config gives;
+   - serve: the served model serves 4 requests of 1024 prompt tokens + 32
+     greedy tokens through ``repro_torch.launch.serve.generate``, with the
+     reference's stub modality input; every kernel's launch count is
+     zeroed just before and read just after: K2 and K3 launch as the config
+     gives (``expected_launches``), all on the ``sm90`` route; an MoE
+     model's prefill, run twice more, equals the served one bit for bit;
+   - profile (qwen3-14b, mamba2-1.3b, olmoe-1b-7b): a ``torch.profiler``
+     pass over one prefill and 8 decode steps gives the device's busy
+     share; olmoe's device time split into K2, the expert and router
+     products, the MoE dispatch, the other products and the rest
+     (``moe_profile``);
 5. runtime: Puzzle's ``PuzzleRuntime`` on the card, three zoo networks at
    the paper's input resolution (yolov8n int8 on the ``default`` engine,
    fast_scnn fp16 on ``xnnpack``, pose_det fp32 on ``nnapi``), each split in
@@ -85,7 +97,9 @@ Run from the root of a checkout. Phases, one JSON line each:
    whole compiled call, the numpy tier and the scalar ``FastSimulator``
    loop, and the FIFO rings' bytes.
 
-Then the ``kernels`` line, the ``nvidia-smi`` line, and as the last line
+Then the ``kernels`` line (K2's and K3's launches summed over the served
+models, ``launches_by_path`` one count per model), the ``nvidia-smi`` line,
+and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the repository beside it, it exits
 non-zero before printing any result.
@@ -94,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -129,6 +144,19 @@ CHECKS = [(dt, s, s[1] == s[2], None, 0) for dt in ("float32", "bfloat16") for s
 ]
 SERVING = ("bfloat16", (160, 1024, 1024, 128, 5), True, None, 0)
 KIMI = ("bfloat16", (64, 1024, 1024, 112, 8), True, None, 0)
+# the shapes that the served model families give K2 at batch 4 (1024-token
+# prompts): each is checked, then timed beside SDPA and the plain version
+SERVED_K2 = {
+    "olmoe-1b-7b": ("bfloat16", (64, 1024, 1024, 128, 1), True, None, 0),
+    "kimi-k2-1t-a32b": ("bfloat16", (256, 1024, 1024, 112, 8), True, None, 0),
+    "jamba-1.5-large-398b": ("bfloat16", (256, 1024, 1024, 128, 8), True, None, 0),
+    "whisper-medium encoder": ("bfloat16", (64, 1500, 1500, 64, 1), False, None, 0),
+    "whisper-medium self": ("bfloat16", (64, 1024, 1024, 64, 1), True, None, 0),
+    "whisper-medium cross": ("bfloat16", (64, 1024, 1500, 64, 1), False, None, 0),
+    "llama-3.2-vision-11b self": ("bfloat16", (128, 1024, 1024, 128, 4), True, None, 0),
+    "llama-3.2-vision-11b cross": ("bfloat16", (128, 1024, 6404, 128, 4), False, None, 0),
+}
+CHECKS += list(SERVED_K2.values())
 # (dtype, (bh, s, p, n, chunk, heads_per_group, initial state)): the test
 # shapes, a chunk that is no power of two, the warm-up's chunk 16, chunks 1
 # and 64 and a carried-in state at the serving widths, P 96 with N 24, and
@@ -137,6 +165,8 @@ KIMI = ("bfloat16", (64, 1024, 1024, 112, 8), True, None, 0)
 # with N 24 (no multiples of 8) the simt kernel by its shape
 SSD_TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 SSD_SERVING = ("bfloat16", (256, 1024, 64, 128, 128, 64, False))
+# jamba-1.5-large's Mamba layers at batch 4: 256 heads of one group
+SSD_JAMBA = ("bfloat16", (1024, 1024, 64, 128, 128, 256, False))
 SSD_CHECKS = [(dt, s) for dt in ("float32", "bfloat16") for s in (
     (2, 64, 32, 16, 16, 1, False), (4, 128, 64, 32, 32, 1, False),
     (2, 128, 64, 128, 64, 1, False))] + [
@@ -149,7 +179,7 @@ SSD_CHECKS = [(dt, s) for dt in ("float32", "bfloat16") for s in (
     ("bfloat16", (256, 256, 64, 128, 128, 64, True)),
     ("bfloat16", (8, 256, 96, 24, 128, 4, False)),
     ("bfloat16", (8, 256, 100, 24, 128, 4, False)),
-    SSD_SERVING,
+    SSD_SERVING, SSD_JAMBA,
 ]
 # (dtype, (rows, cols), values): the test shapes, a ragged shape (the simt
 # route), rows of zeros and of values below the 1e-8 scale floor, values on
@@ -184,6 +214,22 @@ SEARCH_GA = dict(pop_size=12, max_generations=8, min_generations=4, patience=3, 
 # α*-search batch widths of the timing table
 SWEEP_SCENARIOS, SWEEP_SEED = 8, 0
 SWEEP_WIDTHS = (16, 64, 256, 1024)
+# the served models, in order: (arch, the cut of the kernel-vs-plain check,
+# the cut served); a cut keeps every width and cuts depth only. The check
+# takes one layer of each block kind (whisper: two encoder and two decoder
+# layers; llama-3.2-vision: one period of its pattern); kimi-k2 serves one
+# layer of 61 (one is 38.8 GB of bf16 weights) and jamba the first three
+# positions of its pattern, one of each kind (a whole period is ~88 GB)
+SERVED_MODELS = (
+    ("qwen3-14b", dict(num_layers=2), {}),
+    ("mamba2-1.3b", dict(num_layers=2), {}),
+    ("olmoe-1b-7b", dict(num_layers=2), {}),
+    ("kimi-k2-1t-a32b", dict(num_layers=2), dict(num_layers=1)),
+    ("jamba-1.5-large-398b", "first3", "first3"),
+    ("whisper-medium", dict(num_layers=2, encoder_layers=2), {}),
+    ("llama-3.2-vision-11b", "period", {}),
+)
+PROFILED = ("qwen3-14b", "mamba2-1.3b", "olmoe-1b-7b")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -238,9 +284,10 @@ def device_profile(fn) -> dict:
             "port_kernels_ms_launches": port}
 
 
-def time_attention(case, inputs, batch: int, smi: str) -> dict:
-    """K2 at ``case``: the sm90 kernel, the simt kernel at bf16, SDPA and the
-    plain version in turns (a, b, c, d, d, c, b, a); each keeps its least."""
+def time_attention(case, inputs, batch: int, smi: str, path: str) -> dict:
+    """K2 at ``case`` (``batch`` sequences): the sm90 kernel, the simt kernel
+    at bf16, SDPA and the plain version in turns (a, b, c, d, d, c, b, a);
+    each keeps its least."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_flash_attention_simt, flash_attention,
                                                      flash_attention_plain)
@@ -250,7 +297,7 @@ def time_attention(case, inputs, batch: int, smi: str) -> dict:
     contenders = {
         "sm90": (lambda: flash_attention(q, k, v, **kw), 50),
         "simt": (lambda: _flash_attention_simt(q, k, v, **kw), 10),
-        "sdpa": (lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+        "sdpa": (lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=case[2],
                                                         enable_gqa=True), 50),
         "plain": (lambda: flash_attention_plain(q, k, v, **kw), 5)}
     turns = {who: [] for who in contenders}
@@ -259,14 +306,38 @@ def time_attention(case, inputs, batch: int, smi: str) -> dict:
         turns[who].append(cuda_ms(fn, iters=iters))
     ms, simt_ms, lib_ms, plain_ms = (min(turns[n]) for n in ("sm90", "simt", "sdpa", "plain"))
     bound_ms, bound_by, flops, nbytes = attention_bound_ms(*case)
-    emit({"phase": "kernel_time", "kernel": "flash_attention", "route": "sm90",
-          "shape": case[1], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+    emit({"phase": "kernel_time", "kernel": "flash_attention", "route": "sm90", "path": path,
+          "shape": case[1], "causal": case[2], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
           "library_ms": lib_ms, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
           "flops": flops, "bytes": nbytes,
           "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
           "share_of_bound": bound_ms / ms, "speedup_over_simt": simt_ms / ms, "smi": smi})
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms)
+
+
+def time_ssd(case, args, kw, smi: str, path: str) -> dict:
+    """K3 at ``case``: the sm90 kernel, the simt kernel at bf16 and the plain
+    version in turns (a, b, c, c, b, a); each keeps its least."""
+    from repro_torch.kernels.ssd_scan import _ssd_scan_simt, ssd_scan, ssd_scan_plain
+    contenders = {"sm90": (lambda: ssd_scan(*args, **kw), 50),
+                  "simt": (lambda: _ssd_scan_simt(*args, **kw), 10),
+                  "plain": (lambda: ssd_scan_plain(*args, **kw), 5)}
+    turns = {who: [] for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn, iters = contenders[who]
+        turns[who].append(cuda_ms(fn, iters=iters))
+    ms, simt_ms, plain_ms = (min(turns[n]) for n in ("sm90", "simt", "plain"))
+    bound_ms, bound_by, flops, nbytes = ssd_bound_ms(*case)
+    emit({"phase": "kernel_time", "kernel": "ssd_scan", "route": "sm90", "path": path,
+          "shape": case[1], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
+          "library_ms": None, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes,
+          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
+          "share_of_bound": {n: bound_ms / min(t) for n, t in turns.items()},
+          "speedup_over_simt": simt_ms / ms, "smi": smi})
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
 
 
 def attention_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
@@ -1170,9 +1241,296 @@ def sweep_phase(smi: str, counters: dict) -> dict:
             "library_ms": None}
 
 
+def cut_config(cfg, cut):
+    """``cfg`` cut in depth only: a dict of fields, ``"first3"`` (the first
+    three positions of the pattern, one layer each) or ``"period"`` (one
+    period of the pattern)."""
+    if cut == "first3":
+        return dataclasses.replace(cfg, layout_pattern=cfg.layout_pattern[:3], num_layers=3)
+    if cut == "period":
+        return dataclasses.replace(cfg, num_layers=len(cfg.layout_pattern))
+    return dataclasses.replace(cfg, **cut)
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one prefill, from the config: K2 once in every
+    self-attention, cross-attention and encoder layer, K3 once in every
+    Mamba2 layer; decode launches neither."""
+    from repro_torch.models.config import ATTN, ATTN_MOE, CROSS
+    from repro_torch.models.transformer import layer_kinds
+    kinds = layer_kinds(cfg)
+    self_attn = sum(k in (ATTN, ATTN_MOE) for k in kinds)
+    k2 = self_attn + sum(k == CROSS for k in kinds)
+    if cfg.is_encoder_decoder:
+        k2 += self_attn + cfg.encoder_layers         # cross-attention, then the encoder
+    return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
+            "int8_quant": 0, "batchsim_advance": 0}
+
+
+def random_cross_src(cfg, batch: int, gen):
+    """Random modality input (image or frame embeddings) in the model's
+    dtype, where the model takes one."""
+    import torch
+    from repro_torch.launch.serve import stub_cross_src
+    stub = stub_cross_src(cfg, batch, torch.device("cuda"))
+    if stub is None:
+        return None
+    return torch.randn(stub.shape, generator=gen, device=stub.device).to(
+        getattr(torch, cfg.dtype))
+
+
+def open_gates(model) -> None:
+    """Every cross-attention gate at 2.0 (zero at init, which would hide
+    the cross path from the logits)."""
+    for blk in model.blocks:
+        if blk.xattn is not None:
+            blk.xattn["attn_gate"].fill_(2.0)
+
+
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+MOE_RANGES = ("moe_ffn", "moe_experts")
+
+
+def moe_profile(fn) -> dict:
+    """Device ms of one call of ``fn`` split by what runs: K2, the expert
+    products (the GEMMs under ``expert_swiglu``), the router product (the
+    other GEMM under ``moe_ffn``), the dispatch (the rest of ``moe_ffn``:
+    top-k, sort, gathers, scatter, SiLU·up, the combine), the other GEMMs
+    (projections, LM head) and the rest (norms, RoPE, decode attention,
+    residuals, copies). ``moe_ffn`` and ``expert_swiglu`` run inside
+    ``record_function`` ranges for this call only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    moe = importlib.import_module("repro_torch.models.moe")
+    transformer = importlib.import_module("repro_torch.models.transformer")
+
+    def ranged(name, f):
+        def call(*args, **kw):
+            with record_function(name):
+                return f(*args, **kw)
+        return call
+    torch.cuda.synchronize()
+    with mock.patch.object(transformer, "moe_ffn", ranged("moe_ffn", moe.moe_ffn)), \
+            mock.patch.object(moe, "expert_swiglu", ranged("moe_experts", moe.expert_swiglu)), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key not in MOE_RANGES]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    k2 = sum(e.self_device_time_total for e in kernels if "flash_fwd" in e.key) / 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def inside(e, name):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == name:
+                return True
+            p = p.cpu_parent
+        return False
+    gemms = [e for e in events if e.name in GEMM_OPS]
+    experts = sum(e.device_time_total for e in gemms if inside(e, "moe_experts")) / 1e3
+    router = sum(e.device_time_total for e in gemms
+                 if inside(e, "moe_ffn") and not inside(e, "moe_experts")) / 1e3
+    other_gemm = sum(e.device_time_total for e in gemms if not inside(e, "moe_ffn")) / 1e3
+    moe_ms = sum(e.device_time_total for e in events if e.name == "moe_ffn") / 1e3
+    split = {"flash_attention": k2, "expert_products": experts, "router_product": router,
+             "dispatch": moe_ms - experts - router, "other_gemm": other_gemm,
+             "elementwise_and_other": busy - k2 - moe_ms - other_gemm}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "moe_ffn_ms": moe_ms,
+            "moe_calls": sum(e.name == "moe_ffn" for e in events), "split_ms": split,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]}
+
+
+def routing(mode: str, chosen: list):
+    """Pins an MoE model's expert choices across two prefills: ``record``
+    keeps ``router_topk``'s expert ids call by call, ``replay`` takes them
+    back in the same order, with the gates recomputed from this run's
+    router probabilities as ``router_topk`` normalises them. A top-k
+    near-tie or an expert at its capacity would otherwise turn a bf16
+    rounding difference into another expert for a token."""
+    import torch
+    moe = importlib.import_module("repro_torch.models.moe")
+    real = moe.router_topk
+
+    def record(x2d, router_w, k):
+        gates, idx, probs = real(x2d, router_w, k)
+        chosen.append(idx)
+        return gates, idx, probs
+
+    def replay(x2d, router_w, k):
+        probs = torch.softmax(x2d.float() @ router_w, dim=-1)
+        idx = chosen.pop(0)
+        gates = probs.gather(1, idx)
+        return gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9), idx, probs
+    return mock.patch.object(moe, "router_topk", record if mode == "record" else replay)
+
+
+def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) -> dict:
+    """One served model on the card; returns each kernel's launches in its
+    serve run.
+
+    - check: the model cut to ``check_cut`` (full width), every
+      ``attn_gate`` at 2.0 (zero at init, which would hide the cross
+      path), a random modality input; a prefill through the kernels
+      against the same prefill with ``ops.flash_attention`` and
+      ``ops.ssd_scan`` swapped for their plain versions, with the same
+      expert choices (``routing``), within 2e-2 of the largest logit;
+      launches as the config gives;
+    - serve: the model cut to ``serve_cut``, random weights from seed 0,
+      the reference's stub modality input; ``generate`` of 4 requests of
+      1024 prompt tokens + 32 greedy tokens, every kernel's count zeroed
+      just before and read just after: K2's and K3's launches as the
+      config gives, all on the ``sm90`` route; then an MoE model's
+      prefill twice more, bit for bit equal to the served one;
+    - profile (``PROFILED`` only): device time of one prefill and of 8
+      decode steps, split by kernel for an MoE model (``moe_profile``).
+    """
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_plain
+    from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.launch.serve import generate, stub_cross_src
+    from repro_torch.models import forward_decode, forward_prefill, init_params
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    dev = torch.device("cuda")
+    full = get_config(arch)
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+        flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+        ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    tokens = torch.randint(0, full.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                           device=dev)
+    # check: kernels against their plain versions, at full width
+    cfg = cut_config(full, check_cut)
+    model = init_params(cfg, seed=0, device=dev)
+    open_gates(model)
+    cross = random_cross_src(cfg, SERVE_BATCH, gen)
+    chosen = []
+    with torch.inference_mode():
+        zero()
+        with routing("record", chosen):
+            lk = forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)[0].float()
+        counts = {k: c.launches for k, c in counters.items()}
+        with mock.patch.object(ops, "flash_attention", flash_attention_plain), \
+                mock.patch.object(ops, "ssd_scan", ssd_scan_plain), routing("replay", chosen):
+            lp = forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)[0].float()
+    err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
+    want = expected_launches(cfg)
+    ok = bool(torch.isfinite(lk).all()) and err <= 2e-2 * scale and counts == want
+    emit({"phase": "depth_check", "arch": cfg.name, "layers": cfg.num_layers,
+          "encoder_layers": cfg.encoder_layers,
+          "pattern": cfg.layout_pattern, "gates": 2.0 if cfg.arch_type == "vlm" else None,
+          "routing_pinned": cfg.uses_moe,
+          "cross_len": None if cross is None else cross.shape[1],
+          "max_abs_err": err, "max_abs_logit": scale, "tol": 2e-2 * scale,
+          "launches": counts, "want_launches": want, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{arch}: the prefill through the kernels differs from the plain "
+                             f"one ({err} > {2e-2 * scale}) or launches {counts} != {want}")
+    del model, lk, lp, cross
+    free()
+
+    # serve
+    cfg = cut_config(full, serve_cut)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    dtype = getattr(torch, cfg.dtype)
+    cross = stub_cross_src(cfg, SERVE_BATCH, dev, dtype)
+    warm = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device=dev)
+    generate(model, warm, 2, stub_cross_src(cfg, 1, dev, dtype))   # library handles, allocator
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    res = generate(model, tokens, SERVE_NEW, cross)
+    counts = {k: c.launches for k, c in counters.items()}
+    routes = {"flash_attention": dict(flash_attention.launches_by_route),
+              "ssd_scan": dict(ssd_scan.launches_by_route)}
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches(cfg)
+    want_routes = {k: {"sm90": want[k], "simt": 0} for k in routes}
+    same_bits = None
+    if cfg.uses_moe:               # the MoE combine is deterministic: equal bits
+        with torch.inference_mode():
+            again = [forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)[0]
+                     for _ in range(2)]
+        same_bits = all(torch.equal(res.prefill_logits.view(torch.int16), a.view(torch.int16))
+                        for a in again)
+        del again
+    ok = (counts == want and routes == want_routes and same_bits in (None, True)
+          and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
+          and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
+          and bool(torch.isfinite(res.prefill_logits).all())
+          and bool(torch.isfinite(res.last_logits).all()))
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "encoder_layers": cfg.encoder_layers, "pattern": cfg.layout_pattern,
+          "cut": serve_cut or None, "params": n_params, "param_count": cfg.param_count(),
+          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+          "cross_len": None if cross is None else cross.shape[1],
+          "init_s": init_s, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+          "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
+          "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
+          "peak_mem_gb": peak / 1e9, "launches": counts, "routes": routes,
+          "prefills_bit_equal": same_bits,
+          "sample_ids": res.ids[0, :8].tolist(), "device": torch.cuda.get_device_name(0),
+          "smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}; "
+                             f"routes {routes}, want {want_routes}; equal bits {same_bits}")
+
+    if arch in PROFILED:
+        # where the time goes: device kernel time per phase, and the prefill
+        # on the host clock a few more times (outside the counted run)
+        with torch.inference_mode():
+            prefill_s = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)
+                torch.cuda.synchronize()
+                prefill_s.append(time.perf_counter() - t0)
+            _, caches, clen = forward_prefill(model, tokens, SERVE_PROMPT + 9, cross)
+            prof = moe_profile if cfg.uses_moe else device_profile
+            prefill_prof = prof(lambda: forward_prefill(model, tokens, SERVE_PROMPT + 1, cross))
+
+            def decode_steps():
+                c, n = caches, clen
+                for _ in range(8):
+                    _, c, n = forward_decode(model, tokens[:, -1:], c, n)
+            decode_prof = prof(decode_steps)
+        emit({"phase": "profile", "arch": cfg.name, "prefill": prefill_prof,
+              "decode_8_steps": decode_prof,
+              "unprofiled_prefill_ms": res.prefill_s * 1e3,
+              "prefill_s_again": prefill_s,
+              "unprofiled_decode_step_ms": res.decode_s / SERVE_NEW * 1e3,
+              "prefill_device_share": prefill_prof["device_busy_ms"] / (res.prefill_s * 1e3),
+              "decode_device_share":
+                  decode_prof["device_busy_ms"] / 8 / (res.decode_s / SERVE_NEW * 1e3),
+              "smi": smi})
+        del caches
+    del model, res, cross
+    free()
+    return {k: counts[k] for k in ("flash_attention", "ssd_scan")}
+
+
 def ssd_inputs(dtype: str, shape, gen):
-    """Inputs on the card. The serving shape takes the model's A (-1 … -16
-    per head), where exp(cum_i - cum_j) overflows above the diagonal."""
+    """Inputs on the card. The serving shapes (64 or 256 heads a group) take
+    the model's A (-1 … -16 over the heads), where exp(cum_i - cum_j)
+    overflows above the diagonal."""
     import torch
     bh, s, p, n, chunk, g, with_state = shape
     dev, tdt = torch.device("cuda"), getattr(torch, dtype)
@@ -1181,8 +1539,8 @@ def ssd_inputs(dtype: str, shape, gen):
         return torch.randn(size, generator=gen, device=dev)
     x = randn(bh, s, p).to(tdt)
     dt = torch.nn.functional.softplus(randn(bh, s))
-    if g == 64:
-        A = -torch.linspace(1.0, 16.0, 64, device=dev).repeat(bh // 64)
+    if g >= 64:
+        A = -torch.linspace(1.0, 16.0, g, device=dev).repeat(bh // g)
     else:
         A = -torch.exp(randn(bh) * 0.3)
     Bm, Cm = (randn(bh // g, s, n) * 0.3).to(tdt), (randn(bh // g, s, n) * 0.3).to(tdt)
@@ -1203,7 +1561,6 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (ROUTES, _route, flash_attention,
                                                      flash_attention_plain)
@@ -1211,10 +1568,7 @@ def main() -> int:
     from repro_torch.kernels.int8_quant import quantize_int8
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
     from repro_torch.kernels.ssd_scan import _route as ssd_route
-    from repro_torch.kernels.ssd_scan import _ssd_scan_simt, ssd_scan, ssd_scan_plain
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import forward_decode, forward_prefill, init_params
-    ops = importlib.import_module("repro_torch.kernels.ops")
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
     # 1. card -----------------------------------------------------------------
     dev = torch.device("cuda")
@@ -1237,9 +1591,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
           "registers": regs, "spill_bytes_per_kernel": spills})
 
-    # 3. kernel against plain --------------------------------------------------
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    timings = {}
+    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
+                "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance}
+
+    # 3. kernel against plain --------------------------------------------------
     timed = {}
     for dtype, shape, causal, window, q_offset in CHECKS:
         bh, sq, sk, hd, g = shape
@@ -1255,22 +1613,31 @@ def main() -> int:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         tol = TOL[dtype]
-        ok = bool(torch.allclose(got, want, **tol)) and took == {r: int(r == route) for r in ROUTES}
+        ok = (bool(torch.allclose(got, want, **tol))
+              and took == {r: int(r == route) for r in ROUTES})
         emit({"phase": "kernel_check", "kernel": "flash_attention", "route": route,
               "dtype": dtype, "shape": shape, "causal": causal, "window": window,
               "q_offset": q_offset, "max_abs_err": err, "tol": tol, "launches": took, "ok": ok})
         if not ok:
             raise AssertionError(f"flash_attention differs from its plain version: {err}")
-        if (dtype, shape, causal, window, q_offset) in (SERVING, KIMI):
+        if (dtype, shape, causal, window, q_offset) in (SERVING, KIMI, *SERVED_K2.values()):
             timed[shape] = (err, (q, k, v, kw))
         del got, want
 
-    # qwen3-14b's serving shape (batch 4), then kimi-k2's hd 112 (batch 1)
+    # qwen3-14b's serving shape (batch 4), kimi-k2's hd 112 at batch 1, then
+    # the shapes of the other served models (batch 4)
     serving_err, serving_inputs = timed.pop(SERVING[1])
-    timings = {"flash_attention": dict(max_abs_err=serving_err,
-                                       **time_attention(SERVING, serving_inputs, 4, smi))}
-    time_attention(KIMI, timed.pop(KIMI[1])[1], 1, smi)
-    del q, k, v, serving_inputs
+    timings["flash_attention"] = dict(max_abs_err=serving_err, **time_attention(
+        SERVING, serving_inputs, SERVE_BATCH, smi, "qwen3-14b"))
+    time_attention(KIMI, timed.pop(KIMI[1])[1], 1, smi, "kimi-k2-1t-a32b, batch 1")
+    served_ms = {}
+    for path, case in SERVED_K2.items():
+        err, inputs = timed.pop(case[1])
+        t = time_attention(case, inputs, SERVE_BATCH, smi, path)
+        served_ms[path] = dict(shape=case[1], causal=case[2], max_abs_err=err, **{
+            k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    timings["flash_attention"]["served_shapes"] = served_ms
+    del q, k, v, serving_inputs, inputs
 
     for dtype, shape in SSD_CHECKS:
         args, kw = ssd_inputs(dtype, shape, gen)
@@ -1292,123 +1659,28 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"ssd_scan {route} differs from its plain version at {shape}: "
                                  f"{err}, launches {took}")
-        if (dtype, shape) == SSD_SERVING:
-            serving_err, serving_inputs = err, (args, kw)
+        if (dtype, shape) in (SSD_SERVING, SSD_JAMBA):
+            timed[shape] = (err, (args, kw))
         del y, st, want_y, want_st
-    # the serving shape: the sm90 kernel, the simt kernel at bf16 and the
-    # plain version in turns (a, b, c, c, b, a); each keeps its least
-    args, kw = serving_inputs
-    contenders = {"sm90": (lambda: ssd_scan(*args, **kw), 50),
-                  "simt": (lambda: _ssd_scan_simt(*args, **kw), 10),
-                  "plain": (lambda: ssd_scan_plain(*args, **kw), 5)}
-    turns = {who: [] for who in contenders}
-    for who in list(contenders) + list(reversed(contenders)):
-        fn, iters = contenders[who]
-        turns[who].append(cuda_ms(fn, iters=iters))
-    ms, simt_ms, plain_ms = (min(turns[n]) for n in ("sm90", "simt", "plain"))
-    bound_ms, bound_by, flops, nbytes = ssd_bound_ms(*SSD_SERVING)
-    emit({"phase": "kernel_time", "kernel": "ssd_scan", "route": "sm90",
-          "shape": SSD_SERVING[1], "ms": ms, "simt_ms": simt_ms, "plain_ms": plain_ms,
-          "library_ms": None, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
-          "flops": flops, "bytes": nbytes,
-          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
-          "share_of_bound": {n: bound_ms / min(t) for n, t in turns.items()},
-          "speedup_over_simt": simt_ms / ms, "smi": smi})
-    del args, kw, serving_inputs
-    timings["ssd_scan"] = dict(max_abs_err=serving_err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    # mamba2-1.3b's serving shape, then jamba's
+    serving_err, serving_inputs = timed.pop(SSD_SERVING[1])
+    timings["ssd_scan"] = dict(max_abs_err=serving_err,
+                               **time_ssd(SSD_SERVING, *serving_inputs, smi, "mamba2-1.3b"))
+    err, inputs = timed.pop(SSD_JAMBA[1])
+    t = time_ssd(SSD_JAMBA, *inputs, smi, "jamba-1.5-large-398b")
+    timings["ssd_scan"]["served_shapes"] = {"jamba-1.5-large-398b": dict(
+        shape=SSD_JAMBA[1], max_abs_err=err,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})}
+    del serving_inputs, inputs
     timings["int8_quant"] = check_int8_quant(gen, smi)
 
-    # 4. each served model: depth-2 check, serve, profile ----------------------
-    counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-                "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance}
-    plain = {"flash_attention": flash_attention_plain, "ssd_scan": ssd_scan_plain}
-    launches = {}
-    for arch, kernel in (("qwen3-14b", "flash_attention"), ("mamba2-1.3b", "ssd_scan")):
-        cfg = get_config(arch)
-        model = init_params(dataclasses.replace(cfg, num_layers=2), seed=0, device=dev)
-        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
-                               device=dev)
-        with torch.inference_mode():
-            lk = forward_prefill(model, tokens, SERVE_PROMPT + 1)[0].float()
-            with mock.patch.object(ops, kernel, plain[kernel]):
-                lp = forward_prefill(model, tokens, SERVE_PROMPT + 1)[0].float()
-        err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
-        ok = bool(torch.isfinite(lk).all()) and err <= 2e-2 * scale
-        emit({"phase": "depth2", "arch": cfg.name, "kernel": kernel, "layers": 2,
-              "max_abs_err": err, "max_abs_logit": scale, "tol": 2e-2 * scale, "ok": ok})
-        if not ok:
-            raise AssertionError(f"{arch}: depth-2 prefill through {kernel} differs from plain")
-        del model, lk, lp
-        torch.cuda.empty_cache()
-
-        t0 = time.perf_counter()
-        model = init_params(cfg, seed=0, device=dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        n_params = sum(p.numel() for p in model.parameters())
-        warm = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen, device=dev)
-        generate(model, warm, 2)                   # warm-up: library handles, allocator
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
-        ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
-        res = generate(model, tokens, SERVE_NEW)
-        counts = {k: c.launches for k, c in counters.items()}
-        routes = {"flash_attention": dict(flash_attention.launches_by_route),
-                  "ssd_scan": dict(ssd_scan.launches_by_route)}
-        launches[kernel] = counts[kernel]
-        peak = torch.cuda.max_memory_allocated()
-        want = {k: cfg.num_layers if k == kernel else 0 for k in counters}
-        want_routes = {k: {"sm90": want[k], "simt": 0} for k in routes}
-        ok = (counts == want and routes == want_routes
-              and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
-              and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
-              and bool(torch.isfinite(res.prefill_logits).all())
-              and bool(torch.isfinite(res.last_logits).all()))
-        emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-              "params": n_params, "param_count": cfg.param_count(),
-              "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
-              "init_s": init_s, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
-              "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
-              "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
-              "peak_mem_gb": peak / 1e9, "launches": counts, "routes": routes,
-              "sample_ids": res.ids[0, :8].tolist(), "device": name, "smi": smi, "ok": ok})
-        if not ok:
-            raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}; "
-                                 f"routes {routes}, want {want_routes}")
-
-        # where the time goes: device kernel time per phase, and the prefill
-        # on the host clock a few more times (outside the counted run)
-        with torch.inference_mode():
-            prefill_s = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                forward_prefill(model, tokens, SERVE_PROMPT + 1)
-                torch.cuda.synchronize()
-                prefill_s.append(time.perf_counter() - t0)
-            _, caches, clen = forward_prefill(model, tokens, SERVE_PROMPT + 9)
-            prefill_prof = device_profile(
-                lambda: forward_prefill(model, tokens, SERVE_PROMPT + 1))
-
-            def decode_steps():
-                c, n = caches, clen
-                for _ in range(8):
-                    _, c, n = forward_decode(model, tokens[:, -1:], c, n)
-            decode_prof = device_profile(decode_steps)
-        emit({"phase": "profile", "arch": cfg.name, "prefill": prefill_prof,
-              "decode_8_steps": decode_prof,
-              "unprofiled_prefill_ms": res.prefill_s * 1e3,
-              "prefill_s_again": prefill_s,
-              "unprofiled_decode_step_ms": res.decode_s / SERVE_NEW * 1e3,
-              "prefill_device_share": prefill_prof["device_busy_ms"] / (res.prefill_s * 1e3),
-              "decode_device_share":
-                  decode_prof["device_busy_ms"] / 8 / (res.decode_s / SERVE_NEW * 1e3),
-              "smi": smi})
-        del model, caches, res
-        torch.cuda.empty_cache()
+    # 4. each served model: kernel-vs-plain check, serve, profile --------------
+    by_path = {"flash_attention": {}, "ssd_scan": {}}
+    for arch, check_cut, serve_cut in SERVED_MODELS:
+        for kernel, n in serve_model(arch, check_cut, serve_cut, gen, smi, counters).items():
+            if n:
+                by_path[kernel][arch] = n
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     # 5. Puzzle's runtime -----------------------------------------------------
     k1_runtime, k1_runtime_routes = runtime_phase(smi, counters)
@@ -1437,11 +1709,13 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
          "replaces": "src/repro/kernels/flash_attention.py:91",
-         "launches": launches["flash_attention"], **timings["flash_attention"]},
+         "launches": launches["flash_attention"],
+         "launches_by_path": by_path["flash_attention"], **timings["flash_attention"]},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan_sm90.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:87",
-         "launches": launches["ssd_scan"], **timings["ssd_scan"]},
+         "launches": launches["ssd_scan"], "launches_by_path": by_path["ssd_scan"],
+         **timings["ssd_scan"]},
         {"name": "int8_quant", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/int8_quant_sm90.cu",
          "replaces": "src/repro/kernels/int8_quant.py:29",

@@ -2,21 +2,23 @@
 
 Prefill + greedy decode, as ``repro.launch.serve`` does: the prompt goes
 through :func:`forward_prefill` (the flash-attention kernel in every
-``attn`` layer, the SSD scan kernel in every ``ssm`` layer), then each new
-token through :func:`forward_decode`. Runs on ``cuda`` unless ``--device``
-says otherwise.
+self-attention, cross-attention and encoder layer, the SSD scan kernel in
+every Mamba2 layer), then each new token through :func:`forward_decode`.
+A VLM or an encoder-decoder gets the reference's stub modality input
+(:func:`stub_cross_src`). Runs on ``cuda`` unless ``--device`` says
+otherwise.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..configs import ALIASES, get_smoke_config
 from ..device import resolve_device
-from ..models import Transformer, forward_decode, forward_prefill, init_params
+from ..models import ModelConfig, Transformer, forward_decode, forward_prefill, init_params
 
 
 class Generation(NamedTuple):
@@ -32,9 +34,26 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def stub_cross_src(cfg: ModelConfig, batch: int, device: torch.device,
+                   dtype: Optional[torch.dtype] = None) -> Optional[torch.Tensor]:
+    """The reference's stub modality input, 0.01 everywhere: image patch
+    embeddings (B, num_image_tokens, D) for a VLM, frame embeddings
+    (B, encoder_seq_len, D) for an encoder-decoder; None for the others."""
+    if cfg.arch_type == "vlm":
+        length = cfg.num_image_tokens
+    elif cfg.is_encoder_decoder:
+        length = cfg.encoder_seq_len
+    else:
+        return None
+    return torch.full((batch, length, cfg.d_model), 0.01, dtype=dtype or torch.float32,
+                      device=device)
+
+
 @torch.inference_mode()
-def generate(model: Transformer, tokens: torch.Tensor, new_tokens: int) -> Generation:
-    """Prefill ``tokens`` (B, S), then ``new_tokens`` greedy decode steps.
+def generate(model: Transformer, tokens: torch.Tensor, new_tokens: int,
+             cross_src: Optional[torch.Tensor] = None) -> Generation:
+    """Prefill ``tokens`` (B, S) (with ``cross_src``, see
+    :func:`forward_prefill`), then ``new_tokens`` greedy decode steps.
 
     The caches hold ``S + new_tokens + 1`` slots. The first id comes from
     the prefill logits and one more from each decode step.
@@ -43,7 +62,7 @@ def generate(model: Transformer, tokens: torch.Tensor, new_tokens: int) -> Gener
     _sync(dev)
     t0 = time.perf_counter()
     max_len = tokens.shape[1] + new_tokens + 1
-    logits, caches, clen = forward_prefill(model, tokens, max_len)
+    logits, caches, clen = forward_prefill(model, tokens, max_len, cross_src)
     prefill_logits = logits
     tok = torch.argmax(logits[:, -1:], dim=-1)
     _sync(dev)
@@ -73,7 +92,8 @@ def main() -> None:
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen).to(dev)
-    res = generate(model, tokens, args.new_tokens)
+    cross = stub_cross_src(cfg, args.batch, dev, model.embed.dtype)
+    res = generate(model, tokens, args.new_tokens, cross)
     print(f"[serve] arch={cfg.name} device={dev} generated {args.new_tokens} tokens × "
           f"batch {args.batch} in {res.decode_s:.2f}s "
           f"({args.new_tokens * args.batch / res.decode_s:.1f} tok/s)")

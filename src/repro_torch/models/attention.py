@@ -1,9 +1,10 @@
 """Attention: GQA with RoPE / qk-norm / QKV-bias / sliding window.
 
-Port of ``repro.models.attention`` for self-attention. The prefill path,
+Port of ``repro.models.attention``. The prefill path,
 :func:`blockwise_attention`, is the flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention_bshd`); the reference's
-pure-jnp blockwise loop is that kernel's oracle. The projections and decode
+pure-jnp blockwise loop is that kernel's oracle. :func:`cross_attention`
+takes the same kernel, non-causal with Sq ≠ Sk. The projections and decode
 attention stay plain PyTorch, as the reference leaves them to XLA.
 """
 from __future__ import annotations
@@ -108,3 +109,26 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, cache_v.float())
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def cross_attention(
+    params: Params,
+    x: torch.Tensor,                     # (B, S, D)
+    kv_src: torch.Tensor,                # (B, T, D) encoder or image embeddings
+    norm_eps: float = 1e-5,
+    qk_norm: bool = False,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Cross-attention: no RoPE on keys from another modality; the output
+    is scaled by ``tanh(attn_gate)`` where the block has a gate. ``kv``:
+    the keys and values of ``kv_src`` where the caller has them already
+    (before ``k_norm``)."""
+    q = _proj(x, params["wq"])
+    k, v = kv if kv is not None else (_proj(kv_src, params["wk"]), _proj(kv_src, params["wv"]))
+    if qk_norm:
+        q = rms_norm(q, params["q_norm"], norm_eps)
+        k = rms_norm(k, params["k_norm"], norm_eps)
+    y = attention_output(params, blockwise_attention(q, k, v, causal=False))
+    if "attn_gate" in params:
+        y = torch.tanh(params["attn_gate"]) * y
+    return y

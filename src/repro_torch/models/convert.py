@@ -2,9 +2,12 @@
 
 The reference's parameter pytree, as nested dicts and tuples of numpy
 arrays in its layouts (``wq`` (D, H, hd); blocks stacked over pattern
-repetitions, ``blocks[j][...][r]``), becomes a :class:`Transformer` that
-computes the same function. Every array keeps its dtype: a bf16 model's
-``ssm`` subtree keeps ``A_log``, ``dt_bias`` and ``D`` in f32.
+repetitions, ``blocks[j][...][r]``; an encoder's blocks stacked over its
+layers, ``encoder["blocks"][...][r]``), becomes a :class:`Transformer` that
+computes the same function. Every subtree of a block (``attn``, ``xattn``,
+``cross``, ``ssm``, ``mlp``, ``moe``, the norms) crosses over as it is.
+Every array keeps its dtype: a bf16 model's ``ssm`` subtree keeps
+``A_log``, ``dt_bias`` and ``D`` in f32, and its ``moe`` router is f32.
 """
 from __future__ import annotations
 
@@ -47,6 +50,12 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig,
         _unstack(np_params["blocks"][layer % len(pattern)], layer // len(pattern), dev)
         for layer in range(cfg.num_layers)
     ]
+    if cfg.is_encoder_decoder:
+        enc = np_params["encoder"]
+        tensors["encoder"] = {
+            "blocks": [_unstack(enc["blocks"], r, dev) for r in range(cfg.encoder_layers)],
+            "final_norm": _tensor(enc["final_norm"], dev),
+        }
     return Transformer(cfg, tensors)
 
 

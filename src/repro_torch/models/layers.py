@@ -1,4 +1,4 @@
-"""Basic building blocks: norms, RoPE, SwiGLU, parameter initialization.
+"""Basic building blocks: norms, RoPE, SwiGLU, GELU MLP, parameter initialization.
 
 Port of ``repro.models.layers``. Parameters keep the reference's layouts
 (e.g. ``wq`` is (D, H, hd)), so reference weights load unchanged. The
@@ -7,6 +7,7 @@ distributions and scales (not its bits: ``jax.random`` and torch differ).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,6 +28,13 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = x @ w_gate
     u = x @ w_up
     return (F.silu(g) * u) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` defaults to the tanh approximation, so this uses it too."""
+    h = F.gelu(x @ w_up + b_up, approximate="tanh")
+    return h @ w_down + b_down
 
 
 # -- RoPE -----------------------------------------------------------------
@@ -51,12 +59,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 # -- initializers -------------------------------------------------------------
 
+_DRAW_VALUES = 1 << 28                   # f32 values drawn at once: 1 GiB
+
+
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], scale: Optional[float] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Normal(0, 1) · scale (default ``fan_in ** -0.5``, fan_in = shape[0])."""
+    """Normal(0, 1) · scale (default ``fan_in ** -0.5``, fan_in = shape[0]).
+
+    Drawn in f32 and cast, in slices along the first axis of at most
+    ``_DRAW_VALUES`` values, so the f32 temporary stays small (kimi-k2's
+    expert tensors hold 5.6 G values each). For an expert tensor (E, D, F)
+    fan_in is E, as in the reference.
+    """
     s = scale if scale is not None else shape[0] ** -0.5
-    w = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return w.mul_(s).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    rows = max(1, _DRAW_VALUES // math.prod(shape[1:]))
+    for r0 in range(0, shape[0], rows):
+        part = out[r0:r0 + rows]
+        part.copy_(torch.randn(part.shape, generator=gen, device=gen.device).mul_(s))
+    return out
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
@@ -70,7 +91,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 def init_attention(gen: torch.Generator, d_model: int, num_heads: int, num_kv_heads: int,
                    head_dim: int, qkv_bias: bool = False, qk_norm: bool = False,
-                   dtype: torch.dtype = torch.float32) -> Params:
+                   gated: bool = False, dtype: torch.dtype = torch.float32) -> Params:
     dev = gen.device
     p: Params = {
         "wq": dense_init(gen, (d_model, num_heads, head_dim), dtype=dtype),
@@ -85,4 +106,6 @@ def init_attention(gen: torch.Generator, d_model: int, num_heads: int, num_kv_he
     if qk_norm:
         p["q_norm"] = torch.ones((head_dim,), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones((head_dim,), dtype=dtype, device=dev)
+    if gated:                            # llama-3.2-vision's cross-attention gate
+        p["attn_gate"] = torch.zeros((1,), dtype=dtype, device=dev)
     return p

@@ -46,6 +46,12 @@ CASES = [(dt, s, s[1] == s[2], None, 0) for dt in DTYPES for s in SHAPES] + [
     ("bfloat16", (8, 130, 300, 112, 8), False, 100, 170),
     ("bfloat16", (2, 16, 40, 112, 1), True, None, -8),
     ("float32", (8, 100, 100, 112, 8), True, 48, 0),
+    # the shapes the served model families give K2 at batch 4 (1024-token prompts)
+    ("bfloat16", (64, 1024, 1024, 128, 1), True, None, 0),     # olmoe-1b-7b
+    ("bfloat16", (256, 1024, 1024, 112, 8), True, None, 0),    # kimi-k2, hd 112
+    ("bfloat16", (64, 1500, 1500, 64, 1), False, None, 0),     # whisper's encoder
+    ("bfloat16", (64, 1024, 1500, 64, 1), False, None, 0),     # whisper's cross-attention
+    ("bfloat16", (128, 1024, 6404, 128, 4), False, None, 0),   # llama-3.2-vision's cross layers
 ]
 
 
@@ -116,8 +122,9 @@ def test_simt_kernel_at_bf16_matches_plain(shape):
 # tests/test_kernels.py, a chunk that is no power of two, the warm-up's
 # chunk 16 at the serving widths, groups, a carried-in state, and for the
 # sm90 route chunks 1 and 64 and a carried-in state at the serving widths
-# (64 heads a group) and P 96 with N 24; last, bf16 at P 100 with N 24,
-# which the sm90 kernel cannot take and the simt kernel does by its route
+# (64 heads a group) and P 96 with N 24; then bf16 at P 100 with N 24,
+# which the sm90 kernel cannot take and the simt kernel does by its route;
+# last, jamba's serving shape (4 requests x 256 heads of one group)
 SSD_SHAPES = [(2, 64, 32, 16, 16, 1, False), (4, 128, 64, 32, 32, 1, False),
               (2, 128, 64, 128, 64, 1, False)]
 SSD_CASES = [(dt, s) for dt in DTYPES for s in SSD_SHAPES] + [
@@ -133,6 +140,7 @@ SSD_CASES = [(dt, s) for dt in DTYPES for s in SSD_SHAPES] + [
     ("bfloat16", (64, 256, 64, 128, 128, 64, True)),
     ("bfloat16", (4, 128, 96, 24, 64, 2, False)),
     ("bfloat16", (4, 128, 100, 24, 64, 2, False)),
+    ("bfloat16", (1024, 1024, 64, 128, 128, 256, False)),   # jamba: 256 heads a group
 ]
 
 

@@ -102,3 +102,43 @@ def test_decode_attention(cache_len, window):
     want = jax_attention.decode_attention(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
                                           jnp.int32(cache_len), window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_gelu_mlp_uses_the_tanh_approximation():
+    rng = _rng(6)
+    x = _normal(rng, 2, 5, 48, scale=2.0)
+    w = [_normal(rng, 48, 80, scale=0.3), _normal(rng, 80), _normal(rng, 80, 48, scale=0.1),
+         _normal(rng, 48)]
+    got = layers.gelu_mlp(torch.from_numpy(x), *map(torch.from_numpy, w))
+    want = jax_layers.gelu_mlp(jnp.asarray(x), *map(jnp.asarray, w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_init_attention_gated_follows_reference():
+    import jax
+    gen = torch.Generator().manual_seed(0)
+    got = layers.init_attention(gen, 64, 4, 2, 16, qk_norm=True, gated=True)
+    want = jax_layers.init_attention(jax.random.PRNGKey(0), 64, 4, 2, 16, qk_norm=True,
+                                     gated=True)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        assert tuple(got[name].shape) == w.shape, name
+    np.testing.assert_array_equal(got["attn_gate"].numpy(), np.asarray(want["attn_gate"]))
+    assert float(got["attn_gate"][0]) == 0.0
+    assert "attn_gate" not in layers.init_attention(gen, 64, 4, 2, 16)
+
+
+@pytest.mark.parametrize("qk_norm,gate", [(False, None), (True, 2.0), (False, -0.5)])
+def test_cross_attention(qk_norm, gate):
+    """Non-causal, Sq ≠ Sk, GQA; no RoPE on the keys; tanh(gate) on the output."""
+    rng = _rng(7)
+    b, s, t, d, h, kv, hd = 2, 6, 11, 64, 4, 2, 16
+    p = _attn_params(rng, d, h, kv, hd, bias=False)
+    if gate is not None:
+        p["attn_gate"] = np.array([gate], np.float32)
+    x, src = _normal(rng, b, s, d), _normal(rng, b, t, d)
+    got = attention.cross_attention({k: torch.from_numpy(v) for k, v in p.items()},
+                                    torch.from_numpy(x), torch.from_numpy(src), 1e-5, qk_norm)
+    want = jax_attention.cross_attention({k: jnp.asarray(v) for k, v in p.items()},
+                                         jnp.asarray(x), jnp.asarray(src), 1e-5, qk_norm)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
