@@ -22,7 +22,12 @@ Run from the root of a checkout. Phases, one JSON line each:
    serving shapes (64 and 256 heads a group); int8 row quantizer: K1, which
    must equal its plain version exactly on either route, with and without
    the dequantized ``out``, timed with ``out`` beside the two launches it
-   replaces, with its host cost per call);
+   replaces, with its host cost per call; K2's backward
+   (``flash_attention_bwd``), from the forward kernel's output and
+   log-sum-exp (both held to the plain forward's), at phi4-mini-3.8b's
+   training shape, the 100M demo's f32 shape and the mask cases of
+   ``BWD_CHECKS``, then timed at the first two beside the autograd backward
+   of SDPA and the plain version);
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -42,6 +47,23 @@ Run from the root of a checkout. Phases, one JSON line each:
      share; olmoe's device time split into K2, the expert and router
      products, the MoE dispatch, the other products and the rest
      (``moe_profile``);
+   then training (``train_check``, ``train_phase``, ``train_ckpt_phase``):
+   - train_check: phi4-mini-3.8b at full width cut to one layer; the loss
+     and every parameter's gradient through K2's forward and backward
+     kernels against the plain forward differentiated by autograd, and the
+     same limits rejecting a backward whose dQ and dK are zeroed;
+   - train: phi4-mini-3.8b at full width and depth (32 layers, d 3072,
+     vocab 200064), bf16, AdamW, remat on, batch 4 x 1024 tokens from
+     ``MarkovDataset`` through ``repro_torch.train.train_step``: 2 warm-up
+     steps, then 8 with every kernel's count zeroed just before and read
+     just after (K2's forward 2 x 32 a step, all ``sm90``; its backward
+     kernel 32), the loss per step, step seconds, tokens/s, peak memory,
+     and one more step under the profiler split into K2's forward and
+     backward, cuBLAS, the optimizer and the rest;
+   - train_ckpt: the f32 100M demo of ``examples/train_100m_torch.py``
+     through ``repro_torch.train.train``, 60 steps with a checkpoint at 40,
+     then resumed from it: the resumed first loss equals the uninterrupted
+     run's at step 40 bit for bit, and the loss falls;
 5. runtime: Puzzle's ``PuzzleRuntime`` on the card, three zoo networks at
    the paper's input resolution (yolov8n int8 on the ``default`` engine,
    fast_scnn fp16 on ``xnnpack``, pose_det fp32 on ``nnapi``), each split in
@@ -98,7 +120,9 @@ Run from the root of a checkout. Phases, one JSON line each:
    loop, and the FIFO rings' bytes.
 
 Then the ``kernels`` line (K2's and K3's launches summed over the served
-models, ``launches_by_path`` one count per model), the ``nvidia-smi`` line,
+models and the two training runs, ``launches_by_path`` one count per path;
+K2's backward with its launches in the two training runs), the
+``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the repository beside it, it exits
@@ -230,6 +254,32 @@ SERVED_MODELS = (
     ("llama-3.2-vision-11b", "period", {}),
 )
 PROFILED = ("qwen3-14b", "mamba2-1.3b", "olmoe-1b-7b")
+# K2's backward, (dtype, (bh, sq, sk, hd, g), causal, window, q_offset):
+# phi4-mini-3.8b's training shape (batch 4 x 24 heads, GQA 3, hd 128), the
+# f32 100M demo's (batch 8 x 8 heads, GQA 4, hd 64, seq 128), then a sliding
+# window, a q_offset continuation, Sq != Sk without causal, fully masked rows
+# and hd 112, each in f32 and bf16. Tolerance: of the largest gradient
+BWD_PHI4 = ("bfloat16", (96, 1024, 1024, 128, 3), True, None, 0)
+BWD_DEMO = ("float32", (64, 128, 128, 64, 4), True, None, 0)
+BWD_CHECKS = [BWD_PHI4, BWD_DEMO] + [(dt, *c) for dt in ("float32", "bfloat16") for c in (
+    ((6, 256, 256, 64, 3), True, 32, 0),
+    ((2, 32, 128, 64, 1), True, None, 96),
+    ((4, 130, 300, 128, 4), False, None, 0),
+    ((2, 16, 40, 64, 1), True, None, -8),
+    ((16, 256, 256, 112, 8), True, None, 0))]
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# train: phi4-mini-3.8b at full width and depth, bf16, AdamW, remat on; warm-up
+# steps, then the counted and timed steps
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = "phi4-mini-3.8b", 4, 1024, 2, 8
+TRAIN_LR = 1e-3            # the launcher's default (repro_torch.launch.train)
+# train_check: phi4-mini-3.8b at full width cut to one layer; the loss through
+# the kernels within TRAIN_LOSS_TOL of the plain path's (relative), every
+# parameter's gradient within TRAIN_GRAD_TOL of the plain one's norm (bf16
+# rounding gives well under 1%; a lost dQ or dK gives 100% on wq or wk)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
+# train_ckpt: the 100M demo (f32) of examples/train_100m_torch.py at its batch
+# and sequence, a checkpoint at CKPT_AT of CKPT_STEPS, then the resume
+CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = 60, 40, 8, 128
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 
@@ -253,7 +303,8 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_sm90_kernel",
-                "ssd_scan_kernel", "quant_rows_sm90_kernel", "quant_rows_kernel")
+                "ssd_scan_kernel", "quant_rows_sm90_kernel", "quant_rows_kernel",
+                "dot_kernel", "dkdv_kernel", "dq_kernel")
 
 
 def device_profile(fn) -> dict:
@@ -1264,7 +1315,7 @@ def expected_launches(cfg) -> dict:
     if cfg.is_encoder_decoder:
         k2 += self_attn + cfg.encoder_layers         # cross-attention, then the encoder
     return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
-            "int8_quant": 0, "batchsim_advance": 0}
+            "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0}
 
 
 def random_cross_src(cfg, batch: int, gen):
@@ -1527,6 +1578,403 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     return {k: counts[k] for k in ("flash_attention", "ssd_scan")}
 
 
+def attention_bwd_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
+    """Least time for the backward of these inputs: 2.5x the forward's
+    operations (dQ, dK, dV and the recomputed S and dP: 10·hd per unmasked
+    (q, k) pair), and q, k, v, o, dO, lse read once and dq, dk, dv written
+    once."""
+    bh, sq, sk, hd, g = shape
+    fwd_flops = attention_bound_ms(dtype, shape, causal, window, q_offset)[2]
+    flops = 2.5 * fwd_flops
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * hd * (4 * bh * sq + 4 * (bh // g) * sk) + 4 * bh * sq
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def check_attention_bwd(gen, smi: str) -> dict:
+    """K2's backward kernel against its plain version at ``BWD_CHECKS``: both
+    take the same o and log-sum-exp (from the forward kernel, whose output is
+    held to the plain forward's within ``TOL``, as in ``CHECKS``, and to the
+    serving call's bits, and whose lse to the plain one's) and the same dO;
+    one launch each, the same bits on a second run; then timed at
+    phi4-mini-3.8b's and the demo's shapes. The result's ``forward`` holds
+    the forward's error at those two shapes."""
+    import torch
+    from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_plain)
+    dev = torch.device("cuda")
+    timed, worst, fwd_errs = {}, 0.0, {}
+    for case in BWD_CHECKS:
+        dtype, (bh, sq, sk, hd, g), causal, window, q_offset = case
+        tdt = getattr(torch, dtype)
+        q, do = (torch.randn((bh, sq, hd), generator=gen, device=dev).to(tdt) for _ in range(2))
+        k, v = (torch.randn((bh // g, sk, hd), generator=gen, device=dev).to(tdt)
+                for _ in range(2))
+        kw = dict(q_heads_per_kv=g, causal=causal, window=window, q_offset=q_offset)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        want_out, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+        out_err = float((out.float() - want_out.float()).abs().max())
+        out_ok = bool(torch.allclose(out.float(), want_out.float(), **TOL[dtype]))
+        dead = want_lse == NEG_INF
+        lse_err = float((lse - want_lse)[~dead].abs().max()) if bool((~dead).any()) else 0.0
+        lse_ok = bool(torch.equal(lse == NEG_INF, dead)) and lse_err <= (
+            2e-3 if dtype == "bfloat16" else 1e-4)
+        same_out = bool(torch.equal(out, flash_attention(q, k, v, **kw)))
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        took = flash_attention_bwd.launches - before
+        again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+        scales = [float(b.float().abs().max()) for b in want]
+        tol = BWD_TOL[dtype]
+        ok = (all(e <= tol * max(sc, 1e-6) for e, sc in zip(errs, scales)) and took == 1
+              and all(torch.equal(a, b) for a, b in zip(got, again)) and lse_ok and same_out
+              and out_ok and all(a.dtype == tdt for a in got))
+        emit({"phase": "kernel_check", "kernel": "flash_attention_bwd", "route": "cuda",
+              "dtype": dtype, "shape": case[1], "causal": causal, "window": window,
+              "q_offset": q_offset, "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
+              "max_abs_grad": dict(zip(("dq", "dk", "dv"), scales)), "tol_of_largest": tol,
+              "lse_max_abs_err": lse_err, "dead_rows": int(dead.sum()),
+              "forward_max_abs_err": out_err, "forward_tol": TOL[dtype],
+              "serving_output_bits_equal": same_out, "launches": took, "ok": ok})
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd differs from its plain version at {case}: "
+                                 f"{errs} (of {scales}), lse {lse_err}, forward {out_err}, "
+                                 f"launches {took}")
+        worst = max(worst, max(e / max(sc, 1e-6) for e, sc in zip(errs, scales)))
+        if case in (BWD_PHI4, BWD_DEMO):
+            timed[case] = (max(errs), (q, k, v, out, lse, do, kw))
+            fwd_errs[case] = out_err
+        del q, k, v, do, out, lse, got, again, want, want_out
+    err, inputs = timed.pop(BWD_PHI4)
+    result = dict(max_abs_err=err, worst_err_over_largest_grad=worst,
+                  **time_attention_bwd(BWD_PHI4, inputs, TRAIN_BATCH, smi, "phi4-mini-3.8b train"))
+    result["forward"] = {path: dict(shape=case[1], dtype=case[0], max_abs_err=fwd_errs[case],
+                                    tol=TOL[case[0]])
+                         for path, case in (("phi4-mini-3.8b train", BWD_PHI4),
+                                            ("demo-100m train", BWD_DEMO))}
+    err, inputs = timed.pop(BWD_DEMO)
+    t = time_attention_bwd(BWD_DEMO, inputs, CKPT_BATCH, smi, "demo-100m train")
+    result["demo_shape"] = dict(shape=BWD_DEMO[1], dtype=BWD_DEMO[0], max_abs_err=err,
+                                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
+    return result
+
+
+def time_attention_bwd(case, inputs, batch: int, smi: str, path: str) -> dict:
+    """K2's backward at ``case``: the kernel, the autograd backward of
+    ``F.scaled_dot_product_attention`` at the same shape (a yardstick the port
+    never calls) and the plain version in turns (a, b, c, c, b, a); each
+    keeps its least. The forward with its log-sum-exp is timed beside them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+    q, k, v, out, lse, do, kw = inputs
+    bh, sq, hd = q.shape
+    q4, k4, v4 = (t.view(batch, t.shape[0] // batch, t.shape[1], hd).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=case[2], enable_gqa=True)
+    do4 = do.view(batch, bh // batch, sq, hd)
+    contenders = {
+        "kernel": (lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw), 10),
+        "sdpa_bwd": (lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
+                                                 retain_graph=True), 20),
+        "plain": (lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), 3)}
+    turns = {who: [] for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn, iters = contenders[who]
+        turns[who].append(cuda_ms(fn, iters=iters))
+    fwd_lse_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw), iters=20)
+    fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters=20)
+    ms, lib_ms, plain_ms = (min(turns[n]) for n in ("kernel", "sdpa_bwd", "plain"))
+    bound_ms, bound_by, flops, nbytes = attention_bwd_bound_ms(*case)
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bwd", "route": "cuda",
+          "path": path, "dtype": case[0], "shape": case[1], "causal": case[2], "ms": ms,
+          "plain_ms": plain_ms, "library_ms": lib_ms, "library": "sdpa autograd backward",
+          "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+          "bytes": nbytes, "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
+          "share_of_bound": bound_ms / ms, "slower_than_sdpa_bwd": ms / lib_ms,
+          "forward_ms": fwd_ms, "forward_with_lse_ms": fwd_lse_ms, "smi": smi})
+    del sdpa_out, q4, k4, v4
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms)
+
+
+def train_profile(model, opt, state, tokens, labels) -> dict:
+    """Device ms of one train step split by what runs: K2's forward, K2's
+    backward (its three kernels), cuBLAS, the optimizer's update (the
+    kernels under its ``record_function`` range, for this call only) and the
+    rest (norms, RoPE, SwiGLU, the loss, the embedding's gradient, copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.train import train_step
+
+    def update(*args):
+        with record_function("optimizer"):
+            return opt[1](*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = train_step(model, (opt[0], update), state, tokens, labels, None,
+                                 remat=True)
+        float(loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key != "optimizer"]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def ms(pred):
+        return sum(e.self_device_time_total for e in kernels if pred(e.key)) / 1e3
+    fwd = ms(lambda key: "flash_fwd" in key)
+    bwd = ms(lambda key: any(n + "<" in key for n in ("dot_kernel", "dkdv_kernel", "dq_kernel")))
+    gemm = ms(lambda key: any(n in key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass")))
+    def inside(e, name):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == name:
+                return True
+            p = p.cpu_parent
+        return False
+    # each kernel once: the self device time of every op under the range
+    optimizer = sum(e.self_device_time_total for e in prof.events()
+                    if e.device_type == DeviceType.CPU and inside(e, "optimizer")) / 1e3
+    split = {"attention_forward": fwd, "attention_backward": bwd, "cublas": gemm,
+             "optimizer": optimizer, "rest": busy - fwd - bwd - gemm - optimizer}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "split_ms": split,
+            "device_share": busy / wall_ms,
+            "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+                    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]]}, state
+
+
+def train_check(counters: dict) -> None:
+    """phi4-mini-3.8b at full width cut to one layer, bf16, random weights
+    from seed 0, the first ``MarkovDataset`` batch of the train phase:
+    ``forward_train`` (remat on) and the loss's backward through K2's forward
+    and backward kernels (2 forward launches with remat, 1 backward), against
+    the same with ``ops.FlashAttentionFn`` swapped for the plain forward,
+    which autograd differentiates. The loss within ``TRAIN_LOSS_TOL`` and
+    every parameter's gradient within ``TRAIN_GRAD_TOL`` (relative L2).
+    Then the kernels again with the backward kernel's dQ and dK zeroed: the
+    same limits must reject that."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_train, init_params
+    from repro_torch.train import DataConfig, MarkovDataset, cross_entropy_loss
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    dev = torch.device("cuda")
+    cfg = cut_config(get_config(TRAIN_ARCH), {"num_layers": 1})
+    model = init_params(cfg, seed=0, device=dev)
+    model.requires_grad_(True)
+    data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    batch_size=TRAIN_BATCH, seed=0))
+    tokens, labels = (torch.from_numpy(a).to(dev, torch.int64) for a in next(data.batches()))
+
+    def run():
+        model.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss(forward_train(model, tokens, None, remat=True), labels)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    class PlainAttention:      # in place of FlashAttentionFn: autograd through the plain forward
+        @staticmethod
+        def apply(q, k, v, g, causal, window, q_offset):
+            return fa.flash_attention_plain(q, k, v, q_heads_per_kv=g, causal=causal,
+                                            window=window, q_offset=q_offset)
+
+    class LostDqDk(fa.FlashAttentionFn):     # the kernels, with the backward's dQ and dK zeroed
+        @staticmethod
+        def backward(ctx, do):
+            dq, dk, *rest = fa.FlashAttentionFn.backward(ctx, do)
+            return (torch.zeros_like(dq), torch.zeros_like(dk), *rest)
+
+    def rel(got, want):
+        return {n: float((got[n].float() - w.float()).norm() / w.float().norm().clamp_min(1e-30))
+                for n, w in want.items()}
+
+    for c in counters.values():
+        c.launches = 0
+    loss_k, grads_k = run()
+    counts = {k: c.launches for k, c in counters.items()}
+    with mock.patch.object(ops, "FlashAttentionFn", PlainAttention):
+        loss_p, grads_p = run()
+    with mock.patch.object(ops, "FlashAttentionFn", LostDqDk):
+        loss_z, grads_z = run()
+    torch.cuda.synchronize()
+    errs, errs_z = rel(grads_k, grads_p), rel(grads_z, grads_p)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=2, flash_attention_bwd=1)
+    finite = math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k.values())
+    rejects_lost = max(errs_z.values()) > TRAIN_GRAD_TOL
+    ok = (finite and loss_err <= TRAIN_LOSS_TOL and max(errs.values()) <= TRAIN_GRAD_TOL
+          and counts == want and rejects_lost
+          and len(grads_p) == sum(1 for _ in model.parameters()))
+    emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_err,
+          "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": errs, "grad_tol": TRAIN_GRAD_TOL,
+          "lost_dq_dk_grad_rel_err": errs_z, "lost_dq_dk_rejected": rejects_lost,
+          "launches": counts, "want_launches": want, "ok": ok})
+    if not ok:
+        raise AssertionError(f"train_check: loss {loss_k} vs {loss_p}, gradients {errs}, "
+                             f"launches {counts} (want {want}), lost dQ/dK rejected "
+                             f"{rejects_lost}")
+    del model, grads_k, grads_p, grads_z
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(smi: str, counters: dict) -> dict:
+    """phi4-mini-3.8b at full width and depth (32 layers, d 3072, vocab
+    200064), bf16, random weights from seed 0, the optimizer
+    ``optimizer_for_config`` picks (AdamW) at ``TRAIN_LR``, remat on,
+    batches of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` from ``MarkovDataset``:
+    ``TRAIN_WARMUP`` steps, then ``TRAIN_STEPS`` through ``train_step`` with
+    every kernel's count zeroed just before and read just after (K2's forward
+    2 x 32 a step, all ``sm90``, its backward 32), each step on the host
+    clock; the loss finite and falling (the last three steps' mean below the
+    first three's); the peak memory; then one more step
+    under the profiler. Returns the counted launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ROUTES, flash_attention
+    from repro_torch.models import init_params, param_leaves
+    from repro_torch.train import (DataConfig, MarkovDataset, make_optimizer,
+                                   optimizer_for_config, train_step)
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    model.requires_grad_(True)
+    opt_name = optimizer_for_config(cfg)
+    opt = make_optimizer(opt_name, lr=TRAIN_LR)
+    state = opt[0](param_leaves(model))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    batch_size=TRAIN_BATCH, seed=0))
+    it = data.batches()
+    batches = [tuple(torch.from_numpy(a).to(dev, torch.int64) for a in next(it))
+               for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for tokens, labels in batches[:TRAIN_WARMUP]:
+        state, loss = train_step(model, opt, state, tokens, labels, None, remat=True)
+        losses.append(float(loss))
+    for c in counters.values():
+        c.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    for tokens, labels in batches[TRAIN_WARMUP:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = train_step(model, opt, state, tokens, labels, None, remat=True)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = {k: c.launches for k, c in counters.items()}
+    routes = dict(flash_attention.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    layers = cfg.num_layers
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=2 * layers * TRAIN_STEPS, flash_attention_bwd=layers * TRAIN_STEPS)
+    prof, state = train_profile(model, opt, state, *batches[-1])
+    mean_s = sum(step_s) / len(step_s)
+    ok = (counts == want and routes == {"sm90": want["flash_attention"], "simt": 0}
+          and all(math.isfinite(x) for x in losses) and sum(losses[-3:]) < sum(losses[:3]))
+    emit({"phase": "train", "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "params": n_params, "dtype": cfg.dtype,
+          "optimizer": opt_name, "lr": TRAIN_LR, "remat": True, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "init_s": init_s, "state_gb_before_step": state_gb, "data_s": data_s,
+          "losses": losses, "ln_vocab": math.log(cfg.vocab_size), "loss_floor": data.entropy(),
+          "step_s": step_s, "mean_step_s": mean_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_s,
+          "peak_mem_gb": peak / 1e9, "launches": counts, "want_launches": want,
+          "routes": {"flash_attention": routes}, "profile": prof,
+          "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"train: launches {counts} (want {want}), routes {routes}, "
+                             f"losses {losses}")
+    del model, state, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_ckpt_phase(smi: str, counters: dict) -> dict:
+    """The 100M demo of ``examples/train_100m_torch.py`` (f32) through
+    ``repro_torch.train.train``: ``CKPT_STEPS`` steps with a checkpoint at
+    ``CKPT_AT``, then the same call again, which resumes from it. The
+    resumed run's first loss must equal the uninterrupted run's at that
+    step, bit for bit, and the loss must fall. Every kernel's count is zeroed
+    before the two runs and read after: K2's forward (``simt``, f32) and its
+    backward once per layer and step. Returns the counted launches."""
+    import importlib.util
+
+    import torch
+    from repro_torch.kernels.flash_attention import ROUTES, flash_attention
+    from repro_torch.train import TrainConfig, train
+    spec = importlib.util.spec_from_file_location("train_100m_torch",
+                                                  ROOT / "examples" / "train_100m_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = example.model_100m()
+    path = ROOT / "build" / "chip_smoke_train_100m.msgpack"
+    path.unlink(missing_ok=True)
+    tc = TrainConfig(steps=CKPT_STEPS, batch_size=CKPT_BATCH, seq_len=CKPT_SEQ, lr=1e-3,
+                     log_every=0, checkpoint_path=str(path), checkpoint_every=CKPT_AT)
+    for c in counters.values():
+        c.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    t0 = time.perf_counter()
+    whole = train(cfg, tc)
+    whole_s = time.perf_counter() - t0
+    ckpt_bytes = path.stat().st_size
+    t0 = time.perf_counter()
+    resumed = train(cfg, tc)
+    resumed_s = time.perf_counter() - t0
+    counts = {k: c.launches for k, c in counters.items()}
+    routes = dict(flash_attention.launches_by_route)
+    path.unlink()
+    steps = CKPT_STEPS + CKPT_STEPS - CKPT_AT
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=cfg.num_layers * steps, flash_attention_bwd=cfg.num_layers * steps)
+    tail = whole.losses[CKPT_AT:]
+    exact = resumed.losses[0] == whole.losses[CKPT_AT]
+    falling = sum(whole.losses[-5:]) < sum(whole.losses[:5])
+    ok = (exact and falling and len(resumed.losses) == CKPT_STEPS - CKPT_AT
+          and counts == want and routes == {"sm90": 0, "simt": want["flash_attention"]}
+          and all(math.isfinite(x) for x in whole.losses + resumed.losses))
+    emit({"phase": "train_ckpt", "model": cfg.name, "params": cfg.param_count(),
+          "dtype": cfg.dtype, "batch": CKPT_BATCH, "seq": CKPT_SEQ, "steps": CKPT_STEPS,
+          "checkpoint_at": CKPT_AT, "checkpoint_bytes": ckpt_bytes,
+          "losses_first5": whole.losses[:5], "losses_last5": whole.losses[-5:],
+          "loss_floor": whole.loss_floor, "loss_at_checkpoint": whole.losses[CKPT_AT],
+          "resumed_first_loss": resumed.losses[0], "resume_exact": exact,
+          "resumed_max_abs_diff": max(abs(a - b) for a, b in zip(resumed.losses, tail)),
+          "whole_s": whole_s, "resumed_s": resumed_s, "tokens_per_s": whole.tokens_per_s,
+          "launches": counts, "want_launches": want, "routes": {"flash_attention": routes},
+          "smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"train_ckpt: exact {exact}, falling {falling}, launches {counts} "
+                             f"(want {want}), routes {routes}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def ssd_inputs(dtype: str, shape, gen):
     """Inputs on the card. The serving shapes (64 or 256 heads a group) take
     the model's A (-1 … -16 over the heads), where exp(cum_i - cum_j)
@@ -1563,7 +2011,7 @@ def main() -> int:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (ROUTES, _route, flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_bwd, flash_attention_plain)
     from repro_torch.kernels.batchsim_advance import batchsim_advance
     from repro_torch.kernels.int8_quant import quantize_int8
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
@@ -1581,8 +2029,9 @@ def main() -> int:
 
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = build.build(["flash_attention", "flash_attention_sm90", "ssd_scan", "ssd_scan_sm90",
-                        "int8_quant", "int8_quant_sm90", "batchsim_advance"])
+    logs = build.build(["flash_attention", "flash_attention_sm90", "flash_attention_bwd",
+                        "ssd_scan", "ssd_scan_sm90", "int8_quant", "int8_quant_sm90",
+                        "batchsim_advance"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -1595,7 +2044,8 @@ def main() -> int:
     gen.manual_seed(0)
     timings = {}
     counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
-                "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance}
+                "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance,
+                "flash_attention_bwd": flash_attention_bwd}
 
     # 3. kernel against plain --------------------------------------------------
     timed = {}
@@ -1673,6 +2123,8 @@ def main() -> int:
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})}
     del serving_inputs, inputs
     timings["int8_quant"] = check_int8_quant(gen, smi)
+    timings["flash_attention_bwd"] = check_attention_bwd(gen, smi)
+    timings["flash_attention"]["train_shapes"] = timings["flash_attention_bwd"].pop("forward")
 
     # 4. each served model: kernel-vs-plain check, serve, profile --------------
     by_path = {"flash_attention": {}, "ssd_scan": {}}
@@ -1680,6 +2132,17 @@ def main() -> int:
         for kernel, n in serve_model(arch, check_cut, serve_cut, gen, smi, counters).items():
             if n:
                 by_path[kernel][arch] = n
+
+    # 4b. training: phi4-mini-3.8b at full width, then the demo's checkpoint
+    t0 = time.perf_counter()
+    train_check(counters)
+    trained = train_phase(smi, counters)
+    ckpt = train_ckpt_phase(smi, counters)
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
+    by_path["flash_attention"]["phi4-mini-3.8b train"] = trained["flash_attention"]
+    by_path["flash_attention"]["demo-100m train"] = ckpt["flash_attention"]
+    by_path["flash_attention_bwd"] = {"phi4-mini-3.8b train": trained["flash_attention_bwd"],
+                                      "demo-100m train": ckpt["flash_attention_bwd"]}
     launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     # 5. Puzzle's runtime -----------------------------------------------------
@@ -1726,7 +2189,13 @@ def main() -> int:
         {"name": "batchsim_advance", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/batchsim_advance.cu",
          "replaces": "src/repro/core/batchsim_compiled.py:117",
-         **timings["batchsim_advance"]}]})
+         **timings["batchsim_advance"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:58",
+         "launches": launches["flash_attention_bwd"],
+         "launches_by_path": by_path["flash_attention_bwd"],
+         **timings["flash_attention_bwd"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

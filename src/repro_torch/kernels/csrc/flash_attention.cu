@@ -26,6 +26,13 @@
 //   the work), unless a row of the block has no unmasked key at all.
 // wgmma, TMA and warp specialisation are for a later version.
 //
+// Optional output for training: the log-sum-exp of each query row, f32
+// (BH, Sq), m + log(l) in the natural-log domain, written only when its
+// pointer is not null (the serving path passes null). A row with no
+// unmasked key keeps m = -1e30 and gets exactly -1e30: the backward
+// (flash_attention_bwd.cu) reads that value as "every key masked" and gives
+// the row the forward's average over all Sk keys.
+//
 // Entry point: `flash_attention_fwd`, a plain C function that launches on
 // the given stream and returns cudaGetLastError().
 
@@ -59,6 +66,7 @@ struct Params {
   long long window;
   long long q_offset;
   float scale;
+  float* lse;       // (BH, seq_q) or null
 };
 
 // Copies `valid` rows of hd elements (contiguous, 16-byte aligned) into
@@ -240,6 +248,9 @@ __global__ void __launch_bounds__(NTHREADS)
       T* out = o + ((size_t)row * p.seq_q + q0 + r) * HD;
 #pragma unroll
       for (int c = 0; c < DC; ++c) out[tx + 16 * c] = from_float<T>(acc[i][c] / denom);
+      if (p.lse != nullptr && tx == 0)
+        p.lse[(size_t)row * p.seq_q + q0 + r] =
+            m[i] < 0.5f * NEG_INF ? NEG_INF : m[i] + logf(l[i]);
     }
   }
 }
@@ -274,15 +285,16 @@ cudaError_t launch_hd(int head_dim, const void* q, const void* k, const void* v,
 
 // dtype: 0 = float32, 1 = bfloat16. q (bh, seq_q, head_dim); k, v
 // (bh / group, seq_k, head_dim); o like q. All contiguous, 16-byte aligned.
+// lse: f32 (bh, seq_q), or null.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int bh, int seq_q, int seq_k, int head_dim,
+                                   float* lse, int dtype, int bh, int seq_q, int seq_k, int head_dim,
                                    int group, int causal, int has_window, long long window,
                                    long long q_offset, float scale, void* stream) {
   if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || group <= 0 || bh % group) {
     return cudaErrorInvalidValue;
   }
   if ((seq_q + BQ - 1) / BQ > 65535) return cudaErrorInvalidValue;
-  Params p{seq_q, seq_k, group, causal, has_window, window, q_offset, scale};
+  Params p{seq_q, seq_k, group, causal, has_window, window, q_offset, scale, lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_hd<float>(head_dim, q, k, v, o, bh, p, st);

@@ -53,6 +53,13 @@
 // softmax with the next product inside a warpgroup, persistent blocks, a
 // TMA store of O.
 //
+// Optional output for training: the log-sum-exp of each query row, f32
+// (BH, Sq), m * ln 2 + log(l) in the natural-log domain, written by the
+// quad's first lane only when its pointer is not null (the serving path
+// passes null). A row with no unmasked key keeps m = -1e30 and gets
+// exactly -1e30, which the backward (flash_attention_bwd.cu) reads as
+// "every key masked": the forward's average over all Sk keys.
+//
 // Entry point: `flash_attention_sm90_fwd`, a plain C function that builds
 // the tensor maps (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so no -lcuda), launches on the given stream and
@@ -76,6 +83,7 @@ constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;      // 128 * 40 + 256 * 232 <= 65536
 constexpr float NEG_INF = -1e30f;       // a masked score, as in the reference
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int ERR_ENTRY_POINT = 100000;  // cudaGetDriverEntryPoint failed
 constexpr int ERR_ENCODE = 200000;       // + CUresult of cuTensorMapEncodeTiled
 
@@ -107,6 +115,7 @@ struct Params {
   long long q_offset;
   float scale_log2;  // hd^-0.5 * log2(e)
   __nv_bfloat16* o;
+  float* lse;        // (rows, seq_q) or null
 };
 
 // ---- shared memory, mbarriers, TMA -----------------------------------------
@@ -499,8 +508,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_arrive(bar_e + 8 * s);
     }
 
-    const float den0 = fmaxf(quad_sum(l0), 1e-30f);
-    const float den1 = fmaxf(quad_sum(l1), 1e-30f);
+    const float tot0 = quad_sum(l0), tot1 = quad_sum(l1);
+    const float den0 = fmaxf(tot0, 1e-30f);
+    const float den1 = fmaxf(tot1, 1e-30f);
+    if (p.lse != nullptr && (lane & 3) == 0) {
+      float* lse = p.lse + static_cast<size_t>(row) * p.seq_q + q0;
+      if (r0 < q_valid) lse[r0] = m0 < 0.5f * NEG_INF ? NEG_INF : m0 * LN2 + logf(tot0);
+      if (r0 + 8 < q_valid) lse[r0 + 8] = m1 < 0.5f * NEG_INF ? NEG_INF : m1 * LN2 + logf(tot1);
+    }
     __nv_bfloat16* out = p.o + (static_cast<size_t>(row) * p.seq_q + q0) * HD;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {  // the real columns only
@@ -580,9 +595,10 @@ int launch(const void* q, const void* k, const void* v, int bh, const Params& p,
 }  // namespace
 
 // q (bh, seq_q, head_dim), k and v (bh / group, seq_k, head_dim), o like q;
-// bf16, contiguous, 16-byte aligned. scale is hd^-0.5.
+// bf16, contiguous, 16-byte aligned. scale is hd^-0.5. lse: f32 (bh, seq_q),
+// or null.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                        int bh, int seq_q, int seq_k, int head_dim, int group,
+                                        float* lse, int bh, int seq_q, int seq_k, int head_dim, int group,
                                         int causal, int has_window, long long window,
                                         long long q_offset, float scale, void* stream) {
   if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || group <= 0 || bh % group) {
@@ -591,7 +607,7 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   const int q_tiles = (seq_q + BQ - 1) / BQ;
   if (static_cast<long long>(bh) * q_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   Params p{seq_q, seq_k, group, bh, q_tiles, causal, has_window, window, q_offset,
-           scale * LOG2E, static_cast<__nv_bfloat16*>(o)};
+           scale * LOG2E, static_cast<__nv_bfloat16*>(o), lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32: return launch<32>(q, k, v, bh, p, st);

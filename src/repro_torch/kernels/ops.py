@@ -6,6 +6,15 @@ attention → the flattened (B·H, S, hd) layout of
 called as an attribute of this module, so a caller can swap in its plain
 version; callers in turn call these entry points as attributes of this
 module (the runtime's Worker calls :func:`quantize_rows`).
+
+Gradients: attention is differentiable through
+:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (K2's
+forward and its backward kernel), taken when grad mode is on and an input
+requires a gradient; serving stays on the plain forward call. The SSD scan
+and the int8 quantizer have no backward kernel yet: a CUDA input that
+requires a gradient raises (their outputs would carry no ``grad_fn`` and
+the gradient would be lost). On the CPU their plain versions are ordinary
+differentiable PyTorch.
 """
 from __future__ import annotations
 
@@ -13,9 +22,21 @@ from typing import Optional, Tuple
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import FlashAttentionFn, flash_attention
 from .int8_quant import quantize_int8
 from .ssd_scan import ssd_scan
+
+
+def _no_cuda_grad(name: str, later: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raises for a CUDA input that requires a gradient under grad mode: the
+    kernel has no backward, and its output would silently drop it."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.is_cuda and t.requires_grad:
+            raise NotImplementedError(
+                f"{name}: its kernel has no backward on the card ({later}); "
+                f"run it under torch.no_grad(), or on the CPU")
 
 
 def flash_attention_bshd(
@@ -33,8 +54,11 @@ def flash_attention_bshd(
     qf = q.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
     kf = k.transpose(1, 2).reshape(b * kv, k.shape[1], hd).contiguous()
     vf = v.transpose(1, 2).reshape(b * kv, v.shape[1], hd).contiguous()
-    out = flash_attention(qf, kf, vf, q_heads_per_kv=g, causal=causal,
-                          window=window, q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttentionFn.apply(qf, kf, vf, g, causal, window, q_offset)
+    else:
+        out = flash_attention(qf, kf, vf, q_heads_per_kv=g, causal=causal,
+                              window=window, q_offset=q_offset)
     return out.reshape(b, h, sq, hd).transpose(1, 2)
 
 
@@ -50,6 +74,8 @@ def ssd_bshp(
     """Mamba2 SSD on (B, S, H, P) + groups; returns (y (B, S, H, P),
     final state (B, H, P, N) f32). The groups are not broadcast to heads:
     the kernel reads group row ``bh // (H // G)``."""
+    _no_cuda_grad("ssd_bshp", "the K3 backward, a later slice after 5a, brings mamba2 and "
+                  "jamba training", x, dt, A, Bm, Cm, initial_state)
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     xf = x.transpose(1, 2).reshape(b * h, s, p).contiguous()
@@ -72,6 +98,8 @@ def quantize_rows(x: torch.Tensor, out: Optional[torch.Tensor] = None
     """Row-wise int8 quantization of x (R, C): (q int8, scale f32 (R,)); with
     ``out`` (bf16 or f32, shaped like x) the same launch also writes
     ``q * scale[:, None]`` into it."""
+    _no_cuda_grad("quantize_rows", "int8 quantization is not on any training path",
+                  x, out)
     return quantize_int8(x, out)
 
 

@@ -80,8 +80,10 @@ def ssd_scan_plain(
         bq, cq = bm[:, t0:t0 + chunk], cm[:, t0:t0 + chunk]
         cum = torch.cumsum(dtq * a, dim=-1)                    # (BH, Q)
         total = cum[:, -1:]
-        # select, never multiply: exp overflows to inf where j > i
-        L = torch.where(tri, torch.exp(cum[:, :, None] - cum[:, None, :]), 0.0)
+        # select, never multiply: exp overflows to inf where j > i; the
+        # exponent is selected too, so autograd's exp' there is not inf · 0
+        diff = torch.where(tri, cum[:, :, None] - cum[:, None, :], 0.0)
+        L = torch.where(tri, torch.exp(diff), 0.0)
         w = torch.bmm(cq, bq.transpose(1, 2)) * L * dtq[:, None, :]
         y = torch.bmm(w, xq) + torch.bmm(cq, state) * torch.exp(cum)[:, :, None]
         xw = xq * (torch.exp(total - cum) * dtq)[:, :, None]

@@ -1,1 +1,1 @@
-"""Launchers of the port: ``serve``."""
+"""Launchers of the port: ``serve``, ``train``."""

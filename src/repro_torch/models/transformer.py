@@ -12,9 +12,14 @@ Mamba2 mixer for ``ssm``/``ssm_mlp``/``ssm_moe``), then a dense SwiGLU
 cross-attends to the encoder's output after its self-attention.
 
 Entry points, as in the reference:
+* :func:`forward_train` — full-sequence logits (training / loss), with
+  remat over each pattern repetition;
 * :func:`encode` — the encoder stack over stub frame embeddings;
 * :func:`forward_prefill` — last-token logits + populated caches;
 * :func:`forward_decode` — one token against the caches (serve step).
+
+Parameters are built frozen, for serving; training makes them trainable
+(``model.requires_grad_(True)``, as ``repro_torch.train.train`` does).
 
 Caches are one dict per layer: ``{"k", "v"}`` (B, S, Kv, hd) for
 self-attention, holding post-RoPE keys; ``{"ck", "cv"}`` (B, T, Kv, hd) for
@@ -31,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import (
@@ -128,7 +134,8 @@ class Block(nn.Module):
     def prefill(self, x: torch.Tensor, pos: torch.Tensor, cross_src: Optional[torch.Tensor],
                 cfg: ModelConfig, cache: Optional[Cache] = None,
                 causal: bool = True) -> torch.Tensor:
-        """Full-sequence pass; fills ``cache`` where one is given."""
+        """Full-sequence pass (the reference's ``block_forward_full``): for
+        training without a cache, for prefill filling ``cache``."""
         eps = cfg.norm_eps
         h = rms_norm(x, self.ln1, eps)
         if self.attn is not None:
@@ -356,6 +363,49 @@ def encode(model: Transformer, frames: torch.Tensor) -> torch.Tensor:
     return rms_norm(x, model.encoder.final_norm, cfg.norm_eps)
 
 
+def _modality(model: Transformer, x: torch.Tensor,
+              cross_src: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``cross_src`` in the model's dtype, through the encoder where there is one."""
+    if cross_src is not None:
+        cross_src = cross_src.to(x.dtype)
+        if model.encoder is not None:
+            cross_src = encode(model, cross_src)
+    elif CROSS in model.cfg.layout_pattern:
+        raise ValueError(f"{model.cfg.name}: cross blocks need cross_src")
+    return cross_src
+
+
+def _repetition(blocks: List[Block], cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
+                cross_src: Optional[torch.Tensor]) -> torch.Tensor:
+    for blk in blocks:
+        x = blk.prefill(x, pos, cross_src, cfg)
+    return x
+
+
+def forward_train(model: Transformer, tokens: torch.Tensor,
+                  cross_src: Optional[torch.Tensor] = None, remat: bool = True) -> torch.Tensor:
+    """Full-sequence logits (B, S, V) for training: no caches.
+
+    ``remat`` recomputes each pattern repetition's activations in the
+    backward (``torch.utils.checkpoint``, non-reentrant) and keeps only its
+    input, where the reference wraps its scan body in ``jax.checkpoint``.
+    ``cross_src`` is cast to the model's dtype, as in :func:`forward_prefill`.
+    """
+    cfg = model.cfg
+    b, s = tokens.shape
+    x = model.embed[tokens]
+    pos = torch.arange(s, device=tokens.device).expand(b, s)
+    cross_src = _modality(model, x, cross_src)
+    period = len(cfg.layout_pattern)
+    for r in range(cfg.pattern_repeats):
+        blocks = list(model.blocks[r * period:(r + 1) * period])
+        if remat:
+            x = checkpoint(_repetition, blocks, cfg, x, pos, cross_src, use_reentrant=False)
+        else:
+            x = _repetition(blocks, cfg, x, pos, cross_src)
+    return model.logits(x)
+
+
 def forward_prefill(model: Transformer, tokens: torch.Tensor, max_cache_len: int,
                     cross_src: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, List[Cache], int]:
@@ -375,12 +425,7 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, max_cache_len: int
     b, s = tokens.shape
     x = model.embed[tokens]
     pos = torch.arange(s, device=tokens.device).expand(b, s)
-    if cross_src is not None:
-        cross_src = cross_src.to(x.dtype)
-        if model.encoder is not None:
-            cross_src = encode(model, cross_src)
-    elif CROSS in cfg.layout_pattern:
-        raise ValueError(f"{cfg.name}: cross blocks need cross_src")
+    cross_src = _modality(model, x, cross_src)
     cross_len = 0 if cross_src is None else cross_src.shape[1]
     caches = _caches(cfg, b, max(max_cache_len, s), cross_len, x.dtype, x.device)
     for blk, cache in zip(model.blocks, caches):

@@ -63,6 +63,16 @@ class Engine:
     def _prepare(self, fn: Callable, example: Tuple) -> Callable:
         raise NotImplementedError
 
+    def close(self) -> None:
+        """Frees every loaded subgraph: a captured CUDA graph is reset on
+        the spot, with its static inputs and outputs; ``exec_times`` stay."""
+        with self._lock:
+            for fn, _ in self._handles.values():
+                graph = getattr(fn, "graph", None)
+                if graph is not None:
+                    graph.reset()
+            self._handles.clear()
+
     def execute(self, key: str, inputs: Optional[Sequence] = None):
         fn, example = self._handles[key]
         args = inputs if inputs is not None else example
@@ -79,8 +89,10 @@ class Engine:
 
 
 #: Captures run one at a time with Python's collector off: a collection
-#: inside one may destroy graphs of an earlier runtime still held in
-#: reference cycles, a call that invalidates the capture.
+#: inside one may destroy a graph that some caller left in a reference
+#: cycle, a call that invalidates the capture. The runtime itself leaves
+#: none: ``PuzzleRuntime.close()`` resets its graphs, and a closed runtime
+#: is freed by reference counting.
 _CAPTURE_LOCK = threading.Lock()
 
 
@@ -102,6 +114,8 @@ def _graphed(fn: Callable, example: Tuple) -> Callable:
     The graph owns static copies of the example inputs; a call copies its
     arguments into them, replays on the current stream and returns clones
     of the outputs, because the next replay overwrites the graph's own.
+    The graph is the function's ``graph`` attribute, for
+    :meth:`Engine.close`.
     """
     static = tuple(a.clone() for a in example)
     device = static[0].device
@@ -121,6 +135,7 @@ def _graphed(fn: Callable, example: Tuple) -> Callable:
         if isinstance(outs, tuple):
             return tuple(o.clone() for o in outs)
         return outs.clone()
+    run.graph = graph
     return run
 
 

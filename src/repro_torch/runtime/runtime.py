@@ -71,6 +71,10 @@ class RuntimeConfig:
     int8_staging: bool = False
 
 
+def _ignore(*args) -> None:
+    """A closed runtime's Worker callback."""
+
+
 class PuzzleRuntime:
     """Executes a Static Analyzer solution against real (reduced) models."""
 
@@ -423,7 +427,8 @@ class PuzzleRuntime:
         """Stop and join worker threads, drain queues, fail pending futures.
 
         Idempotent; safe mid-request (the stop sentinel outranks queued
-        tasks). After close no worker thread is alive and every unfinished
+        tasks). After close no worker thread is alive, every engine has
+        freed its CUDA graphs and their static buffers, and every unfinished
         request's future carries a ``RuntimeError``.
         """
         if self._closed:
@@ -431,6 +436,15 @@ class PuzzleRuntime:
         self._closed = True
         for w in self.workers.values():
             w.stop(join=True)
+        for w in self.workers.values():
+            for eng in w.engines.values():
+                eng.close()
+            # the callbacks close over this runtime (runtime → Worker →
+            # callback → runtime): dropped, a closed runtime is freed by
+            # reference counting, never by a collection inside a later
+            # CUDA graph capture
+            w.on_done = w.on_start = _ignore
+            w.on_stalled = w.on_recovery = None
         if self._coordinator is not None:
             reason = "PuzzleRuntime closed"
             faults = self.cfg.faults
