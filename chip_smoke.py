@@ -23,11 +23,14 @@ Run from the root of a checkout. Phases, one JSON line each:
    must equal its plain version exactly on either route, with and without
    the dequantized ``out``, timed with ``out`` beside the two launches it
    replaces, with its host cost per call; K2's backward
-   (``flash_attention_bwd``), from the forward kernel's output and
+   (``flash_attention_bwd``: bf16 on the ``sm90`` route, wgmma + TMA, f32 on
+   the ``simt`` route, CUDA cores), from the forward kernel's output and
    log-sum-exp (both held to the plain forward's), at phi4-mini-3.8b's
    training shape, the 100M demo's f32 shape and the mask cases of
-   ``BWD_CHECKS``, then timed at the first two beside the autograd backward
-   of SDPA and the plain version);
+   ``BWD_CHECKS``, every bf16 case on both routes (the ``simt`` kernel
+   through ``_flash_attention_bwd_simt``), then timed at the first two in
+   turns with the ``simt`` kernel at bf16, the autograd backward of SDPA and
+   the plain version);
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -57,13 +60,14 @@ Run from the root of a checkout. Phases, one JSON line each:
      ``MarkovDataset`` through ``repro_torch.train.train_step``: 2 warm-up
      steps, then 8 with every kernel's count zeroed just before and read
      just after (K2's forward 2 x 32 a step, all ``sm90``; its backward
-     kernel 32), the loss per step, step seconds, tokens/s, peak memory,
+     32, all ``sm90``), the loss per step, step seconds, tokens/s, peak memory,
      and one more step under the profiler split into K2's forward and
      backward, cuBLAS, the optimizer and the rest;
    - train_ckpt: the f32 100M demo of ``examples/train_100m_torch.py``
      through ``repro_torch.train.train``, 60 steps with a checkpoint at 40,
      then resumed from it: the resumed first loss equals the uninterrupted
-     run's at step 40 bit for bit, and the loss falls;
+     run's at step 40 bit for bit, and the loss falls; K2's forward and
+     backward all on the ``simt`` route;
 5. runtime: Puzzle's ``PuzzleRuntime`` on the card, three zoo networks at
    the paper's input resolution (yolov8n int8 on the ``default`` engine,
    fast_scnn fp16 on ``xnnpack``, pose_det fp32 on ``nnapi``), each split in
@@ -121,7 +125,8 @@ Run from the root of a checkout. Phases, one JSON line each:
 
 Then the ``kernels`` line (K2's and K3's launches summed over the served
 models and the two training runs, ``launches_by_path`` one count per path;
-K2's backward with its launches in the two training runs), the
+K2's backward with its launches in the two training runs, both sources and
+its launches by route), the
 ``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -302,9 +307,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# K2's backward: the simt route's three kernels, then the sm90 route's
+BWD_KERNELS = ("dot_kernel", "dkdv_kernel", "dq_kernel", "bwd_prep_sm90_kernel",
+               "dkdv_sm90_kernel", "dq_sm90_kernel")
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_sm90_kernel",
-                "ssd_scan_kernel", "quant_rows_sm90_kernel", "quant_rows_kernel",
-                "dot_kernel", "dkdv_kernel", "dq_kernel")
+                "ssd_scan_kernel", "quant_rows_sm90_kernel", "quant_rows_kernel") + BWD_KERNELS
 
 
 def device_profile(fn) -> dict:
@@ -1594,20 +1601,24 @@ def attention_bwd_bound_ms(dtype: str, shape, causal: bool, window, q_offset: in
 
 
 def check_attention_bwd(gen, smi: str) -> dict:
-    """K2's backward kernel against its plain version at ``BWD_CHECKS``: both
-    take the same o and log-sum-exp (from the forward kernel, whose output is
-    held to the plain forward's within ``TOL``, as in ``CHECKS``, and to the
-    serving call's bits, and whose lse to the plain one's) and the same dO;
-    one launch each, the same bits on a second run; then timed at
+    """K2's backward kernels against their plain version at ``BWD_CHECKS``:
+    each takes the same o and log-sum-exp (from the forward kernel, whose
+    output is held to the plain forward's within ``TOL``, as in ``CHECKS``,
+    and to the serving call's bits, and whose lse to the plain one's) and the
+    same dO. ``flash_attention_bwd`` launches once on the route ``_route``
+    gives the dtype; a bf16 case also takes the ``simt`` kernel through
+    ``_flash_attention_bwd_simt``. Each route within ``BWD_TOL`` of the
+    largest gradient and the same bits on a second run; then timed at
     phi4-mini-3.8b's and the demo's shapes. The result's ``forward`` holds
     the forward's error at those two shapes."""
     import torch
-    from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
-                                                     flash_attention_bwd,
+    from repro_torch.kernels.flash_attention import (NEG_INF, ROUTES,
+                                                     _flash_attention_bwd_simt, _route,
+                                                     flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_plain)
     dev = torch.device("cuda")
-    timed, worst, fwd_errs = {}, 0.0, {}
+    timed, worst, fwd_errs = {}, {}, {}
     for case in BWD_CHECKS:
         dtype, (bh, sq, sk, hd, g), causal, window, q_offset = case
         tdt = getattr(torch, dtype)
@@ -1624,34 +1635,42 @@ def check_attention_bwd(gen, smi: str) -> dict:
         lse_ok = bool(torch.equal(lse == NEG_INF, dead)) and lse_err <= (
             2e-3 if dtype == "bfloat16" else 1e-4)
         same_out = bool(torch.equal(out, flash_attention(q, k, v, **kw)))
-        before = flash_attention_bwd.launches
+        route = _route(tdt, hd)
+        before = dict(flash_attention_bwd.launches_by_route)
         got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
-        took = flash_attention_bwd.launches - before
-        again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        took = {r: flash_attention_bwd.launches_by_route[r] - before[r] for r in ROUTES}
+        runs = {route: (got, flash_attention_bwd(q, k, v, out, lse, do, **kw))}
+        if dtype == "bfloat16":
+            runs["simt"] = tuple(_flash_attention_bwd_simt(q, k, v, out, lse, do, **kw)
+                                 for _ in range(2))
         want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
-        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
         scales = [float(b.float().abs().max()) for b in want]
         tol = BWD_TOL[dtype]
-        ok = (all(e <= tol * max(sc, 1e-6) for e, sc in zip(errs, scales)) and took == 1
-              and all(torch.equal(a, b) for a, b in zip(got, again)) and lse_ok and same_out
-              and out_ok and all(a.dtype == tdt for a in got))
-        emit({"phase": "kernel_check", "kernel": "flash_attention_bwd", "route": "cuda",
-              "dtype": dtype, "shape": case[1], "causal": causal, "window": window,
-              "q_offset": q_offset, "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
-              "max_abs_grad": dict(zip(("dq", "dk", "dv"), scales)), "tol_of_largest": tol,
-              "lse_max_abs_err": lse_err, "dead_rows": int(dead.sum()),
-              "forward_max_abs_err": out_err, "forward_tol": TOL[dtype],
-              "serving_output_bits_equal": same_out, "launches": took, "ok": ok})
-        if not ok:
-            raise AssertionError(f"flash_attention_bwd differs from its plain version at {case}: "
-                                 f"{errs} (of {scales}), lse {lse_err}, forward {out_err}, "
-                                 f"launches {took}")
-        worst = max(worst, max(e / max(sc, 1e-6) for e, sc in zip(errs, scales)))
-        if case in (BWD_PHI4, BWD_DEMO):
-            timed[case] = (max(errs), (q, k, v, out, lse, do, kw))
-            fwd_errs[case] = out_err
-        del q, k, v, do, out, lse, got, again, want, want_out
+        for r, (first, second) in runs.items():
+            errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(first, want)]
+            same = all(torch.equal(a, b) for a, b in zip(first, second))
+            ok = (all(e <= tol * max(sc, 1e-6) for e, sc in zip(errs, scales)) and same
+                  and took == {x: int(x == route) for x in ROUTES} and lse_ok and same_out
+                  and out_ok and all(a.dtype == tdt for a in first))
+            emit({"phase": "kernel_check", "kernel": "flash_attention_bwd", "route": r,
+                  "dtype": dtype, "shape": case[1], "causal": causal, "window": window,
+                  "q_offset": q_offset, "max_abs_err": dict(zip(("dq", "dk", "dv"), errs)),
+                  "max_abs_grad": dict(zip(("dq", "dk", "dv"), scales)), "tol_of_largest": tol,
+                  "same_bits_twice": same, "lse_max_abs_err": lse_err, "dead_rows": int(dead.sum()),
+                  "forward_max_abs_err": out_err, "forward_tol": TOL[dtype],
+                  "serving_output_bits_equal": same_out, "launches": took, "ok": ok})
+            if not ok:
+                raise AssertionError(
+                    f"flash_attention_bwd {r} differs from its plain version at {case}: "
+                    f"{errs} (of {scales}), same bits {same}, lse {lse_err}, forward {out_err}, "
+                    f"launches {took}")
+            worst[r] = max(worst.get(r, 0.0),
+                           max(e / max(sc, 1e-6) for e, sc in zip(errs, scales)))
+            if r == route and case in (BWD_PHI4, BWD_DEMO):
+                timed[case] = (max(errs), (q, k, v, out, lse, do, kw))
+                fwd_errs[case] = out_err
+        del q, k, v, do, out, lse, got, runs, want, want_out
     err, inputs = timed.pop(BWD_PHI4)
     result = dict(max_abs_err=err, worst_err_over_largest_grad=worst,
                   **time_attention_bwd(BWD_PHI4, inputs, TRAIN_BATCH, smi, "phi4-mini-3.8b train"))
@@ -1661,31 +1680,38 @@ def check_attention_bwd(gen, smi: str) -> dict:
                                             ("demo-100m train", BWD_DEMO))}
     err, inputs = timed.pop(BWD_DEMO)
     t = time_attention_bwd(BWD_DEMO, inputs, CKPT_BATCH, smi, "demo-100m train")
-    result["demo_shape"] = dict(shape=BWD_DEMO[1], dtype=BWD_DEMO[0], max_abs_err=err,
+    result["demo_shape"] = dict(shape=BWD_DEMO[1], dtype=BWD_DEMO[0], route="simt",
+                                max_abs_err=err,
                                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")})
     return result
 
 
 def time_attention_bwd(case, inputs, batch: int, smi: str, path: str) -> dict:
-    """K2's backward at ``case``: the kernel, the autograd backward of
+    """K2's backward at ``case``: the kernel of the dtype's route, the
+    ``simt`` kernel at bf16 (a bf16 case only), the autograd backward of
     ``F.scaled_dot_product_attention`` at the same shape (a yardstick the port
-    never calls) and the plain version in turns (a, b, c, c, b, a); each
-    keeps its least. The forward with its log-sum-exp is timed beside them."""
+    never calls) and the plain version in turns (a, b, c, d, d, c, b, a);
+    each keeps its least. The forward with its log-sum-exp is timed beside
+    them."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+    from repro_torch.kernels.flash_attention import (_flash_attention_bwd_simt, _route,
+                                                     flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_plain)
     q, k, v, out, lse, do, kw = inputs
     bh, sq, hd = q.shape
+    route = _route(q.dtype, hd)
     q4, k4, v4 = (t.view(batch, t.shape[0] // batch, t.shape[1], hd).detach().requires_grad_()
                   for t in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=case[2], enable_gqa=True)
     do4 = do.view(batch, bh // batch, sq, hd)
-    contenders = {
-        "kernel": (lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw), 10),
+    contenders = {"kernel": (lambda: flash_attention_bwd(q, k, v, out, lse, do, **kw), 20)}
+    if route != "simt":
+        contenders["simt"] = (lambda: _flash_attention_bwd_simt(q, k, v, out, lse, do, **kw), 5)
+    contenders.update({
         "sdpa_bwd": (lambda: torch.autograd.grad(sdpa_out, (q4, k4, v4), do4,
                                                  retain_graph=True), 20),
-        "plain": (lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), 3)}
+        "plain": (lambda: flash_attention_bwd_plain(q, k, v, out, lse, do, **kw), 3)})
     turns = {who: [] for who in contenders}
     for who in list(contenders) + list(reversed(contenders)):
         fn, iters = contenders[who]
@@ -1693,24 +1719,28 @@ def time_attention_bwd(case, inputs, batch: int, smi: str, path: str) -> dict:
     fwd_lse_ms = cuda_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw), iters=20)
     fwd_ms = cuda_ms(lambda: flash_attention(q, k, v, **kw), iters=20)
     ms, lib_ms, plain_ms = (min(turns[n]) for n in ("kernel", "sdpa_bwd", "plain"))
+    simt_ms = min(turns["simt"]) if "simt" in turns else ms
     bound_ms, bound_by, flops, nbytes = attention_bwd_bound_ms(*case)
-    emit({"phase": "kernel_time", "kernel": "flash_attention_bwd", "route": "cuda",
+    emit({"phase": "kernel_time", "kernel": "flash_attention_bwd", "route": route,
           "path": path, "dtype": case[0], "shape": case[1], "causal": case[2], "ms": ms,
-          "plain_ms": plain_ms, "library_ms": lib_ms, "library": "sdpa autograd backward",
-          "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
-          "bytes": nbytes, "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
+          "simt_ms": simt_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "library": "sdpa autograd backward", "turns_ms": turns, "bound_ms": bound_ms,
+          "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
           "share_of_bound": bound_ms / ms, "slower_than_sdpa_bwd": ms / lib_ms,
-          "forward_ms": fwd_ms, "forward_with_lse_ms": fwd_lse_ms, "smi": smi})
+          "speedup_over_simt": simt_ms / ms, "forward_ms": fwd_ms,
+          "forward_with_lse_ms": fwd_lse_ms, "smi": smi})
     del sdpa_out, q4, k4, v4
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+    return dict(ms=ms, simt_ms=simt_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=lib_ms)
 
 
 def train_profile(model, opt, state, tokens, labels) -> dict:
     """Device ms of one train step split by what runs: K2's forward, K2's
-    backward (its three kernels), cuBLAS, the optimizer's update (the
-    kernels under its ``record_function`` range, for this call only) and the
-    rest (norms, RoPE, SwiGLU, the loss, the embedding's gradient, copies)."""
+    backward (its three kernels on either route, also apart), cuBLAS, the
+    optimizer's update (the kernels under its ``record_function`` range, for
+    this call only) and the rest (norms, RoPE, SwiGLU, the loss, the
+    embedding's gradient, copies)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -1734,7 +1764,8 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     def ms(pred):
         return sum(e.self_device_time_total for e in kernels if pred(e.key)) / 1e3
     fwd = ms(lambda key: "flash_fwd" in key)
-    bwd = ms(lambda key: any(n + "<" in key for n in ("dot_kernel", "dkdv_kernel", "dq_kernel")))
+    bwd = ms(lambda key: any(n + "<" in key for n in BWD_KERNELS))
+    bwd_by_kernel = {n: ms(lambda key, n=n: n + "<" in key) for n in BWD_KERNELS}
     gemm = ms(lambda key: any(n in key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass")))
     def inside(e, name):
         p = e.cpu_parent
@@ -1749,6 +1780,7 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     split = {"attention_forward": fwd, "attention_backward": bwd, "cublas": gemm,
              "optimizer": optimizer, "rest": busy - fwd - bwd - gemm - optimizer}
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "split_ms": split,
+            "attention_backward_ms": {n: t for n, t in bwd_by_kernel.items() if t},
             "device_share": busy / wall_ms,
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]]}, state
@@ -1758,7 +1790,8 @@ def train_check(counters: dict) -> None:
     """phi4-mini-3.8b at full width cut to one layer, bf16, random weights
     from seed 0, the first ``MarkovDataset`` batch of the train phase:
     ``forward_train`` (remat on) and the loss's backward through K2's forward
-    and backward kernels (2 forward launches with remat, 1 backward), against
+    and backward kernels (2 forward launches with remat, 1 backward, on the
+    ``sm90`` route), against
     the same with ``ops.FlashAttentionFn`` swapped for the plain forward,
     which autograd differentiates. The loss within ``TRAIN_LOSS_TOL`` and
     every parameter's gradient within ``TRAIN_GRAD_TOL`` (relative L2).
@@ -1804,8 +1837,10 @@ def train_check(counters: dict) -> None:
 
     for c in counters.values():
         c.launches = 0
+    fa.flash_attention_bwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
     loss_k, grads_k = run()
     counts = {k: c.launches for k, c in counters.items()}
+    bwd_routes = dict(fa.flash_attention_bwd.launches_by_route)
     with mock.patch.object(ops, "FlashAttentionFn", PlainAttention):
         loss_p, grads_p = run()
     with mock.patch.object(ops, "FlashAttentionFn", LostDqDk):
@@ -1818,18 +1853,19 @@ def train_check(counters: dict) -> None:
     finite = math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k.values())
     rejects_lost = max(errs_z.values()) > TRAIN_GRAD_TOL
     ok = (finite and loss_err <= TRAIN_LOSS_TOL and max(errs.values()) <= TRAIN_GRAD_TOL
-          and counts == want and rejects_lost
+          and counts == want and rejects_lost and bwd_routes == {"sm90": 1, "simt": 0}
           and len(grads_p) == sum(1 for _ in model.parameters()))
     emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": TRAIN_BATCH,
           "seq": TRAIN_SEQ, "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_err,
           "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": errs, "grad_tol": TRAIN_GRAD_TOL,
           "lost_dq_dk_grad_rel_err": errs_z, "lost_dq_dk_rejected": rejects_lost,
-          "launches": counts, "want_launches": want, "ok": ok})
+          "launches": counts, "want_launches": want,
+          "routes": {"flash_attention_bwd": bwd_routes}, "ok": ok})
     if not ok:
         raise AssertionError(f"train_check: loss {loss_k} vs {loss_p}, gradients {errs}, "
-                             f"launches {counts} (want {want}), lost dQ/dK rejected "
-                             f"{rejects_lost}")
+                             f"launches {counts} (want {want}), backward routes {bwd_routes}, "
+                             f"lost dQ/dK rejected {rejects_lost}")
     del model, grads_k, grads_p, grads_z
     gc.collect()
     torch.cuda.empty_cache()
@@ -1842,13 +1878,13 @@ def train_phase(smi: str, counters: dict) -> dict:
     batches of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` from ``MarkovDataset``:
     ``TRAIN_WARMUP`` steps, then ``TRAIN_STEPS`` through ``train_step`` with
     every kernel's count zeroed just before and read just after (K2's forward
-    2 x 32 a step, all ``sm90``, its backward 32), each step on the host
+    2 x 32 a step and its backward 32, all ``sm90``), each step on the host
     clock; the loss finite and falling (the last three steps' mean below the
     first three's); the peak memory; then one more step
     under the profiler. Returns the counted launches."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ROUTES, flash_attention
+    from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_bwd
     from repro_torch.models import init_params, param_leaves
     from repro_torch.train import (DataConfig, MarkovDataset, make_optimizer,
                                    optimizer_for_config, train_step)
@@ -1879,6 +1915,7 @@ def train_phase(smi: str, counters: dict) -> dict:
     for c in counters.values():
         c.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     for tokens, labels in batches[TRAIN_WARMUP:-1]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1888,6 +1925,7 @@ def train_phase(smi: str, counters: dict) -> dict:
         step_s.append(time.perf_counter() - t0)
     counts = {k: c.launches for k, c in counters.items()}
     routes = dict(flash_attention.launches_by_route)
+    bwd_routes = dict(flash_attention_bwd.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.num_layers
     want = {k: 0 for k in counters}
@@ -1895,6 +1933,7 @@ def train_phase(smi: str, counters: dict) -> dict:
     prof, state = train_profile(model, opt, state, *batches[-1])
     mean_s = sum(step_s) / len(step_s)
     ok = (counts == want and routes == {"sm90": want["flash_attention"], "simt": 0}
+          and bwd_routes == {"sm90": want["flash_attention_bwd"], "simt": 0}
           and all(math.isfinite(x) for x in losses) and sum(losses[-3:]) < sum(losses[:3]))
     emit({"phase": "train", "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab_size, "params": n_params, "dtype": cfg.dtype,
@@ -1903,11 +1942,12 @@ def train_phase(smi: str, counters: dict) -> dict:
           "losses": losses, "ln_vocab": math.log(cfg.vocab_size), "loss_floor": data.entropy(),
           "step_s": step_s, "mean_step_s": mean_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_s,
           "peak_mem_gb": peak / 1e9, "launches": counts, "want_launches": want,
-          "routes": {"flash_attention": routes}, "profile": prof,
+          "routes": {"flash_attention": routes, "flash_attention_bwd": bwd_routes},
+          "profile": prof,
           "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok})
     if not ok:
         raise AssertionError(f"train: launches {counts} (want {want}), routes {routes}, "
-                             f"losses {losses}")
+                             f"backward routes {bwd_routes}, losses {losses}")
     del model, state, opt, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -1920,12 +1960,13 @@ def train_ckpt_phase(smi: str, counters: dict) -> dict:
     ``CKPT_AT``, then the same call again, which resumes from it. The
     resumed run's first loss must equal the uninterrupted run's at that
     step, bit for bit, and the loss must fall. Every kernel's count is zeroed
-    before the two runs and read after: K2's forward (``simt``, f32) and its
-    backward once per layer and step. Returns the counted launches."""
+    before the two runs and read after: K2's forward and its backward once
+    per layer and step, both on the ``simt`` route (f32). Returns the
+    counted launches."""
     import importlib.util
 
     import torch
-    from repro_torch.kernels.flash_attention import ROUTES, flash_attention
+    from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_bwd
     from repro_torch.train import TrainConfig, train
     spec = importlib.util.spec_from_file_location("train_100m_torch",
                                                   ROOT / "examples" / "train_100m_torch.py")
@@ -1939,6 +1980,7 @@ def train_ckpt_phase(smi: str, counters: dict) -> dict:
     for c in counters.values():
         c.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     t0 = time.perf_counter()
     whole = train(cfg, tc)
     whole_s = time.perf_counter() - t0
@@ -1948,6 +1990,7 @@ def train_ckpt_phase(smi: str, counters: dict) -> dict:
     resumed_s = time.perf_counter() - t0
     counts = {k: c.launches for k, c in counters.items()}
     routes = dict(flash_attention.launches_by_route)
+    bwd_routes = dict(flash_attention_bwd.launches_by_route)
     path.unlink()
     steps = CKPT_STEPS + CKPT_STEPS - CKPT_AT
     want = {k: 0 for k in counters}
@@ -1957,6 +2000,7 @@ def train_ckpt_phase(smi: str, counters: dict) -> dict:
     falling = sum(whole.losses[-5:]) < sum(whole.losses[:5])
     ok = (exact and falling and len(resumed.losses) == CKPT_STEPS - CKPT_AT
           and counts == want and routes == {"sm90": 0, "simt": want["flash_attention"]}
+          and bwd_routes == {"sm90": 0, "simt": want["flash_attention_bwd"]}
           and all(math.isfinite(x) for x in whole.losses + resumed.losses))
     emit({"phase": "train_ckpt", "model": cfg.name, "params": cfg.param_count(),
           "dtype": cfg.dtype, "batch": CKPT_BATCH, "seq": CKPT_SEQ, "steps": CKPT_STEPS,
@@ -1966,11 +2010,12 @@ def train_ckpt_phase(smi: str, counters: dict) -> dict:
           "resumed_first_loss": resumed.losses[0], "resume_exact": exact,
           "resumed_max_abs_diff": max(abs(a - b) for a, b in zip(resumed.losses, tail)),
           "whole_s": whole_s, "resumed_s": resumed_s, "tokens_per_s": whole.tokens_per_s,
-          "launches": counts, "want_launches": want, "routes": {"flash_attention": routes},
+          "launches": counts, "want_launches": want,
+          "routes": {"flash_attention": routes, "flash_attention_bwd": bwd_routes},
           "smi": smi, "ok": ok})
     if not ok:
         raise AssertionError(f"train_ckpt: exact {exact}, falling {falling}, launches {counts} "
-                             f"(want {want}), routes {routes}")
+                             f"(want {want}), routes {routes}, backward routes {bwd_routes}")
     torch.cuda.empty_cache()
     return counts
 
@@ -2030,15 +2075,19 @@ def main() -> int:
     # 2. build ----------------------------------------------------------------
     t0 = time.perf_counter()
     logs = build.build(["flash_attention", "flash_attention_sm90", "flash_attention_bwd",
-                        "ssd_scan", "ssd_scan_sm90", "int8_quant", "int8_quant_sm90",
+                        "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "int8_quant", "int8_quant_sm90",
                         "batchsim_advance"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
                      for line in log.splitlines() if "bytes spill" in line]
               for name, log in logs.items()}
+    # ptxas warnings, e.g. C7515: a wgmma serialized
+    warnings = {name: [line.strip() for line in log.splitlines() if "warning" in line.lower()]
+                for name, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
-          "registers": regs, "spill_bytes_per_kernel": spills})
+          "registers": regs, "spill_bytes_per_kernel": spills,
+          "ptxas_warnings": {name: w for name, w in warnings.items() if w}})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2191,9 +2240,14 @@ def main() -> int:
          "replaces": "src/repro/core/batchsim_compiled.py:117",
          **timings["batchsim_advance"]},
         {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+         "sources_by_route": {
+             "sm90": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+             "simt": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
          "replaces": "src/repro/models/attention.py:58",
          "launches": launches["flash_attention_bwd"],
+         "launches_by_route": {"sm90": by_path["flash_attention_bwd"]["phi4-mini-3.8b train"],
+                               "simt": by_path["flash_attention_bwd"]["demo-100m train"]},
          "launches_by_path": by_path["flash_attention_bwd"],
          **timings["flash_attention_bwd"]}]})
     print(smi, flush=True)

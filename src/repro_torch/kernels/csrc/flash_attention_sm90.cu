@@ -605,6 +605,14 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
     return cudaErrorInvalidValue;
   }
   const int q_tiles = (seq_q + BQ - 1) / BQ;
+  // The tensor maps are encoded through the driver API, which needs a current
+  // context. A thread that has made no runtime call yet (autograd's worker
+  // thread can be one) has none until cudaSetDevice binds its device's
+  // primary context.
+  int device = 0;
+  cudaError_t cerr = cudaGetDevice(&device);
+  if (cerr == cudaSuccess) cerr = cudaSetDevice(device);
+  if (cerr != cudaSuccess) return cerr;
   if (static_cast<long long>(bh) * q_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   Params p{seq_q, seq_k, group, bh, q_tiles, causal, has_window, window, q_offset,
            scale * LOG2E, static_cast<__nv_bfloat16*>(o), lse};

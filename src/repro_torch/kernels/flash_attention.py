@@ -28,12 +28,24 @@ kernel or raises. ``flash_attention.launches`` counts kernel launches and
 
 Training: with ``return_lse=True`` the forward also returns each query
 row's log-sum-exp (f32 (BH, Sq), natural log; exactly ``NEG_INF`` for a row
-with no unmasked key). :func:`flash_attention_bwd` is the gradient as a
-third CUDA kernel, ``csrc/flash_attention_bwd.cu`` (f32 and bf16, CUDA
-cores), with :func:`flash_attention_bwd_plain` beside it, and
-:class:`FlashAttentionFn` ties the two directions together for autograd.
-The TPU package has no backward kernel: XLA differentiates its pure-jnp
-``blockwise_attention`` (``src/repro/models/attention.py``).
+with no unmasked key). :func:`flash_attention_bwd` is the gradient, routed
+by the same :func:`_route`:
+
+- bf16 → ``sm90``: ``csrc/flash_attention_bwd_sm90.cu``, every product on
+  ``wgmma`` (dK/dV in the transposed frame, then dQ), tiles by TMA through
+  an mbarrier ring, warp-specialised; P and dS rounded to bf16 before the
+  products that take them, as FlashAttention-2/3 and SDPA do;
+- f32 → ``simt``: ``csrc/flash_attention_bwd.cu``, CUDA cores in f32.
+
+Both take the same three passes (D = rowsum(dO∘O), dK/dV over all g heads
+of a kv tile, dQ) without atomics, so two runs give the same bits. A bf16
+call the ``sm90`` backward cannot take raises; nothing falls back.
+:func:`_flash_attention_bwd_simt` reaches the ``simt`` backward at bf16 for
+timing only. :func:`flash_attention_bwd_plain` is the plain version beside
+both, ``flash_attention_bwd.launches`` and ``.launches_by_route`` count
+launches, and :class:`FlashAttentionFn` ties the two directions together
+for autograd. The TPU package has no backward kernel: XLA differentiates
+its pure-jnp ``blockwise_attention`` (``src/repro/models/attention.py``).
 """
 from __future__ import annotations
 
@@ -326,11 +338,43 @@ def flash_attention_bwd(
     ``o``, its log-sum-exp ``lse`` and the output's gradient ``do``.
 
     A CPU tensor goes to :func:`flash_attention_bwd_plain`; a CUDA tensor
-    launches ``csrc/flash_attention_bwd.cu`` (f32 or bf16, head dims
-    ``HEAD_DIMS``) or raises. ``flash_attention_bwd.launches`` counts calls
-    that launched it, under the forward's lock.
+    launches the backward kernel of ``_route(dtype, hd)`` (bf16 → ``sm90``,
+    f32 → ``simt``) or raises. ``flash_attention_bwd.launches`` and
+    ``.launches_by_route`` count calls that launched, under the forward's
+    lock.
     """
     g = q_heads_per_kv
+    _check_bwd(q, k, v, o, lse, do, g)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, q_heads_per_kv=g, causal=causal,
+                                         window=window, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch_bwd(_route(q.dtype, q.shape[2]), q, k, v, o, lse, do, g, causal, window,
+                       q_offset)
+
+
+def _flash_attention_bwd_simt(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    q_heads_per_kv: int = 1,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+):
+    """The CUDA-core backward at either dtype, bf16 included; for timing only."""
+    _check_bwd(q, k, v, o, lse, do, q_heads_per_kv)
+    if q.device.type != "cuda":
+        raise ValueError(f"the simt kernel needs a CUDA tensor, got {q.device}")
+    return _launch_bwd("simt", q, k, v, o, lse, do, q_heads_per_kv, causal, window, q_offset)
+
+
+def _check_bwd(q, k, v, o, lse, do, g: int) -> None:
     _check(q, k, v, g)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o and do must match q {tuple(q.shape)} {q.dtype}; got "
@@ -339,33 +383,53 @@ def flash_attention_bwd(
         raise ValueError(f"lse must be f32 {tuple(q.shape[:2])}, got {tuple(lse.shape)} {lse.dtype}")
     if not (o.device == lse.device == do.device == q.device):
         raise ValueError("q, o, lse and do on different devices")
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, q_heads_per_kv=g, causal=causal,
-                                         window=window, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+
+
+def _launch_bwd(route: str, q, k, v, o, lse, do, g: int, causal: bool, window: Optional[int],
+                q_offset: int):
+    """Checks what the backward kernel of ``route`` takes, then launches it
+    on q's stream."""
     bh, sq, hd = q.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if route == "sm90" and q.dtype != torch.bfloat16:
+        raise ValueError(f"the sm90 backward takes bf16, got {q.dtype}")
     _check_cuda_operands(q=q, k=k, v=v, o=o, lse=lse, do=do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dsum = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    lib = _lib_bwd()
-    err = lib.flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype],
-        bh, sq, k.shape[1], hd, g, int(causal), int(window is not None), int(window or 0),
-        int(q_offset), hd ** -0.5, stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    params = (bh, sq, k.shape[1], hd, g, int(causal), int(window is not None),
+              int(window or 0), int(q_offset), hd ** -0.5, stream)
+    if route == "sm90":
+        lib = _lib_bwd_sm90()
+        pad = lib.flash_attention_bwd_sm90_pad()
+        # lse·log2(e) and D = rowsum(dO∘O), rows padded to a multiple of pad
+        aux = torch.empty(2 * bh * (-(-sq // pad) * pad), dtype=torch.float32, device=q.device)
+        err = lib.flash_attention_bwd_sm90(*ptrs, aux.data_ptr(), *outs, *params)
+        error_string = lib.flash_attention_bwd_sm90_error_string
+    else:
+        lib = _lib_bwd()
+        dsum = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        err = lib.flash_attention_bwd(*ptrs, dsum.data_ptr(), *outs, _DTYPE_CODE[q.dtype],
+                                      *params)
+        error_string = lib.flash_attention_bwd_error_string
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
-                           f"{lib.flash_attention_bwd_error_string(err).decode()} ({err})")
-    with _LAUNCH_LOCK:
-        flash_attention_bwd.launches += 1
+        raise RuntimeError(f"flash_attention_bwd {route} kernel launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+    _count_bwd_launch(route)
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def _count_bwd_launch(route: str) -> None:
+    with _LAUNCH_LOCK:
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.launches_by_route[route] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -377,6 +441,20 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.flash_attention_bwd.restype = ctypes.c_int
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd_sm90() -> ctypes.CDLL:
+    lib = load_library("flash_attention_bwd_sm90")
+    lib.flash_attention_bwd_sm90.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_bwd_sm90.restype = ctypes.c_int
+    lib.flash_attention_bwd_sm90_pad.argtypes = []
+    lib.flash_attention_bwd_sm90_pad.restype = ctypes.c_int
+    lib.flash_attention_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_sm90_error_string.restype = ctypes.c_char_p
     return lib
 
 

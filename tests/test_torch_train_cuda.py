@@ -8,8 +8,11 @@ Without a card every case skips.
 
 Tolerances: the backward kernel and its plain version take the same o, lse
 and dO and sum in f32 in other orders: 1e-4 of the largest gradient in f32;
-in bf16 each gradient is rounded once to bf16 (2^-8 relative), 1e-2 of the
-largest. Through the forward kernels (``FlashAttentionFn``) the bf16 route
+in bf16 each gradient is rounded once to bf16 (2^-8 relative), and the
+``sm90`` route also rounds P and dS to bf16 before the products that take
+them: 1e-2 of the largest. bf16 takes the ``sm90`` backward (wgmma + TMA),
+f32 the ``simt`` one (CUDA cores); ``_flash_attention_bwd_simt`` holds the
+``simt`` kernel at bf16 too. Through the forward kernels (``FlashAttentionFn``) the bf16 route
 also rounds P to bf16 before P·V: 3e-2.
 """
 import gc
@@ -22,7 +25,9 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     NEG_INF,
+    ROUTES,
     FlashAttentionFn,
+    _flash_attention_bwd_simt,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -87,6 +92,76 @@ def test_backward_kernel_matches_plain(case, dtype):
     # the same bits on a second run: no atomics
     again = flash_attention_bwd(q, k, v, out, lse, do, **_opts(case))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_simt_backward_kernel_at_bf16_matches_plain(case):
+    """The CUDA-core backward, which bf16 calls do not take, stays held at bf16."""
+    q, k, v, do = _inputs(case, torch.bfloat16)
+    out, lse = flash_attention(q, k, v, return_lse=True, **_opts(case))
+    before = dict(flash_attention_bwd.launches_by_route)
+    got = _flash_attention_bwd_simt(q, k, v, out, lse, do, **_opts(case))
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches_by_route == {**before, "simt": before["simt"] + 1}
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **_opts(case))
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    _close(got, want, 1e-2)
+
+
+@pytest.mark.parametrize("case", [CASES[10], CASES[6], CASES[7]], ids=str)
+def test_sm90_backward_gives_the_same_bits_twice(case):
+    """At phi4's shape and where rows have no unmasked key: no atomics."""
+    q, k, v, do = _inputs(case, torch.bfloat16, seed=1)
+    out, lse = flash_attention(q, k, v, return_lse=True, **_opts(case))
+    before = dict(flash_attention_bwd.launches_by_route)
+    first = flash_attention_bwd(q, k, v, out, lse, do, **_opts(case))
+    second = flash_attention_bwd(q, k, v, out, lse, do, **_opts(case))
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches_by_route == {**before, "sm90": before["sm90"] + 2}
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(bool(torch.isfinite(a).all()) for a in first)
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_sm90_kernels_run_from_a_fresh_thread(direction):
+    """A thread that has made no CUDA call yet (as autograd's worker thread
+    can be) encodes its tensor maps and gives the main thread's bits."""
+    import threading
+    case = CASES[0]
+    q, k, v, do = _inputs(case, torch.bfloat16)
+    out, lse = flash_attention(q, k, v, return_lse=True, **_opts(case))
+    if direction == "forward":
+        call = lambda: (flash_attention(q, k, v, **_opts(case)),)          # noqa: E731
+    else:
+        call = lambda: flash_attention_bwd(q, k, v, out, lse, do, **_opts(case))  # noqa: E731
+    want = call()
+    got = []
+
+    def run():
+        try:
+            got.append(call())
+        except Exception as e:     # reported below, in the test's own thread
+            got.append(e)
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join(timeout=120)
+    torch.cuda.synchronize()
+    assert got and not isinstance(got[0], Exception), got
+    assert all(torch.equal(a, b) for a, b in zip(got[0], want))
+
+
+def test_backward_routes_are_counted_by_dtype():
+    """One ``sm90`` launch per bf16 call, one ``simt`` launch per f32 call."""
+    case = CASES[0]
+    for dtype, route in ((torch.bfloat16, "sm90"), (torch.float32, "simt")):
+        q, k, v, do = _inputs(case, dtype)
+        out, lse = flash_attention(q, k, v, return_lse=True, **_opts(case))
+        before = (flash_attention_bwd.launches, dict(flash_attention_bwd.launches_by_route))
+        for _ in range(3):
+            flash_attention_bwd(q, k, v, out, lse, do, **_opts(case))
+        assert flash_attention_bwd.launches == before[0] + 3
+        assert flash_attention_bwd.launches_by_route == {
+            r: before[1][r] + 3 * (r == route) for r in ROUTES}
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
