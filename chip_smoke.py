@@ -115,13 +115,16 @@ Run from the root of a checkout. Phases, one JSON line each:
    geo-means must be equal. Every batch of the first two scenarios is held
    to ``BatchSimulator`` within ``COMPILED_REL_TOL``/``COMPILED_ABS_TOL``;
    the widest α*-search batch of the second to the kernel's plain version
-   on the card (every output equal, per-lane events and ring pushes too),
-   both timed, with its bytes, operations and latency bounds (the longest
-   lane's events x the frontier's compares, one cycle each at the top SM
-   clock); then that batch tiled to 16, 64, 256
-   and 1024 lanes: the kernel's device time, the host preparation, the
-   whole compiled call, the numpy tier and the scalar ``FastSimulator``
-   loop, and the FIFO rings' bytes.
+   on the card (every output equal, per-lane events and ring pushes too)
+   and to the thread-per-lane kernel the warp-per-lane design replaced
+   (``_batchsim_advance_thread``, equal outputs; never launched by the
+   sweep), the two kernels timed in turns, with the bytes, operations and
+   latency bounds (the longest lane's events x the frontier's compares, one
+   cycle each at the top SM clock), the time per event of the longest lane
+   and ptxas's registers and spills; then that batch tiled to 16, 64, 256
+   and 1024 lanes: both kernels' device time in turns, the host
+   preparation, the whole compiled call, the numpy tier and the scalar
+   ``FastSimulator`` loop, and the FIFO rings' bytes.
 
 Then the ``kernels`` line (K2's and K3's launches summed over the served
 models and the two training runs, ``launches_by_path`` one count per path;
@@ -1115,7 +1118,37 @@ def batch_diff(ref, got) -> tuple:
     return worst_abs, worst_rel, ok
 
 
-def sweep_phase(smi: str, counters: dict) -> dict:
+def in_turns(first, second, iters: int, rounds: int = 3):
+    """Device ms per call of two functions, timed in turns (first, second,
+    second, first) ``rounds`` times: every time of each."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(cuda_ms(first, iters=iters, warmup=1))
+        b.append(cuda_ms(second, iters=iters, warmup=1))
+        b.append(cuda_ms(second, iters=iters, warmup=1))
+        a.append(cuda_ms(first, iters=iters, warmup=1))
+    return a, b
+
+
+def ptxas_by_function(log: str) -> dict:
+    """Registers, stack and spill bytes per entry function of one ``nvcc
+    -Xptxas -v`` log."""
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            found[name] = {}
+        elif name and "bytes spill" in line:
+            found[name]["stack_bytes"] = int(re.search(r"(\d+) bytes stack frame", line).group(1))
+            found[name]["spill_bytes"] = sum(
+                int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
+        elif name and "Used " in line:
+            found[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return found
+
+
+def sweep_phase(smi: str, counters: dict, ptxas: dict) -> dict:
     """8. the paper's sweep with the compiled batch engine on the card.
 
     The first SWEEP_SCENARIOS seed-0 scenarios (1-3 groups x 1-4 models, the
@@ -1158,11 +1191,12 @@ def sweep_phase(smi: str, counters: dict) -> dict:
         return doc, time.perf_counter() - t0
 
     fallbacks0 = dict(bsc.fallbacks)
-    for c in counters.values():
+    for c in (*counters.values(), kb._batchsim_advance_thread):
         c.launches = 0
     with mock.patch.object(bsc, "run_batch_compiled", capture):
         compiled, compiled_s = sweep("compiled")
     counts = {k: c.launches for k, c in counters.items()}
+    counts["batchsim_advance_thread"] = kb._batchsim_advance_thread.launches
     fallbacks = {r: bsc.fallbacks[r] - fallbacks0[r] for r in bsc.fallbacks}
     numpy_doc, numpy_s = sweep("numpy")
 
@@ -1187,9 +1221,8 @@ def sweep_phase(smi: str, counters: dict) -> dict:
           "scenarios_equal": same, "aggregates_equal": agg_same, "smi": smi})
     if not (same and agg_same):
         raise AssertionError("sweep: the kernel's run differs from the numpy engine's")
-    want = {k: 0 for k in counters if k != "batchsim_advance"}
     if counts["batchsim_advance"] <= 0 or any(fallbacks.values()) or any(
-            counts[k] for k in want):
+            n for k, n in counts.items() if k != "batchsim_advance"):
         raise AssertionError(f"sweep: launches {counts}, fallbacks {fallbacks}")
 
     # every batch of the first two scenarios against the numpy tier
@@ -1222,8 +1255,12 @@ def sweep_phase(smi: str, counters: dict) -> dict:
     plain_err = max(float((a.double() - b.double()).nan_to_num(posinf=0.0).abs().max())
                     for a, b in zip(got[:5], want_out[:5]))
     plain_same = all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, want_out))
-    ms = min(cuda_ms(lambda: kb.batchsim_advance(buf, prep.sizes), iters=5, warmup=1)
-             for _ in range(3))
+    # the thread-per-lane kernel the warp design replaced: the same outputs,
+    # then both timed in turns on the same buffer
+    thread_same = all(torch.equal(a, b) for a, b in
+                      zip(got, kb._batchsim_advance_thread(buf, prep.sizes)))
+    ms, thread_ms = in_turns(lambda: kb.batchsim_advance(buf, prep.sizes),
+                             lambda: kb._batchsim_advance_thread(buf, prep.sizes), iters=5)
     events, longest = int(got[6].sum()), int(got[6].max())
     C = sizes["G"] + sizes["P"] + 1
     # bytes: the packed tables in, the outputs out, one ring word written and
@@ -1245,15 +1282,26 @@ def sweep_phase(smi: str, counters: dict) -> dict:
                                 "--format=csv,noheader,nounits"], capture_output=True,
                                text=True, check=True, timeout=60).stdout.split()[0])
     latency_bound_ms = longest * C / (mhz * 1e6) * 1e3
+
+    def per_event(t):
+        return {"ms": min(t), "ms_range": [min(t), max(t)],
+                "us_per_event_longest_lane": min(t) * 1e3 / max(longest, 1),
+                "cycles_per_event_longest_lane": min(t) * 1e-3 * mhz * 1e6 / max(longest, 1),
+                "x_latency_bound": min(t) / latency_bound_ms}
+    warp, thread = per_event(ms), per_event(thread_ms)
     emit({"phase": "kernel_check", "kernel": "batchsim_advance", "lanes": len(lanes),
           "padded_lanes": sizes["W"], "events": events, "max_lane_events": longest,
           "ring_pushes": pushes, "arrived_requests": arrived,
-          "max_abs_err": plain_err, "equal": plain_same, "ms": ms, "plain_ms": plain_ms,
+          "max_abs_err": plain_err, "equal": plain_same, "thread_kernel_equal": thread_same,
+          "warp_per_lane": warp, "thread_per_lane": thread,
+          "thread_over_warp": thread["ms"] / warp["ms"], "plain_ms": plain_ms,
           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops,
           "latency_bound_ms": latency_bound_ms, "sm_clock_max_mhz": mhz,
-          "us_per_event_longest_lane": ms * 1e3 / max(longest, 1), "smi": smi})
-    if not plain_same:
-        raise AssertionError(f"batchsim_advance differs from its plain version: {plain_err}")
+          "shared_bytes_per_block": kb.shared_bytes(sizes),
+          "lanes_per_block": kb.LANES_PER_BLOCK, "ptxas": ptxas, "smi": smi})
+    if not (plain_same and thread_same):
+        raise AssertionError(f"batchsim_advance differs from its plain version ({plain_err}) "
+                             f"or from the thread-per-lane kernel ({thread_same})")
 
     # the timing table: the same batch tiled to each width
     for width in SWEEP_WIDTHS:
@@ -1266,8 +1314,9 @@ def sweep_phase(smi: str, counters: dict) -> dict:
         torch.cuda.synchronize()
         h2d_ms = (time.perf_counter() - t0) * 1e3
         out = kb.batchsim_advance(tbuf, tprep.sizes)
-        kernel_ms = min(cuda_ms(lambda: kb.batchsim_advance(tbuf, tprep.sizes), iters=3,
-                                warmup=1) for _ in range(2))
+        kernel_ms, old_ms = in_turns(lambda: kb.batchsim_advance(tbuf, tprep.sizes),
+                                     lambda: kb._batchsim_advance_thread(tbuf, tprep.sizes),
+                                     iters=3)
         t0 = time.perf_counter()
         res = bsc.run_batch_compiled(tiled, groups, procs)
         call_ms = (time.perf_counter() - t0) * 1e3
@@ -1284,7 +1333,8 @@ def sweep_phase(smi: str, counters: dict) -> dict:
         a, r, ok = batch_diff(ref, res)
         ts = tprep.sizes
         emit({"phase": "sweep_timing", "lanes": width, "padded_lanes": ts["W"],
-              "kernel_ms": kernel_ms, "host_prep_ms": host_ms, "h2d_ms": h2d_ms,
+              "kernel_ms": min(kernel_ms), "thread_kernel_ms": min(old_ms),
+              "host_prep_ms": host_ms, "h2d_ms": h2d_ms,
               "compiled_call_ms": call_ms, "numpy_ms": numpy_ms, "scalar_ms": scalar_ms,
               "lane_events_max": int(out[6].max()), "ring_bytes":
                   ts["W"] * ts["P"] * ts["NP"] * ts["CAP"] * 8,
@@ -1294,8 +1344,12 @@ def sweep_phase(smi: str, counters: dict) -> dict:
             raise AssertionError(f"sweep timing at {width} lanes: outside the tolerance")
         del tbuf, out
     torch.cuda.empty_cache()
-    return {"launches": counts["batchsim_advance"], "max_abs_err": max(worst_abs, plain_err),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"design": "one warp per lane, the lane's event state in shared memory",
+            "launches": counts["batchsim_advance"], "max_abs_err": max(worst_abs, plain_err),
+            "ms": warp["ms"], "thread_kernel_ms": thread["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "latency_bound_ms": latency_bound_ms,
+            "us_per_event_longest_lane": warp["us_per_event_longest_lane"],
+            "thread_kernel_us_per_event_longest_lane": thread["us_per_event_longest_lane"],
             "library_ms": None}
 
 
@@ -2085,9 +2139,11 @@ def main() -> int:
     # ptxas warnings, e.g. C7515: a wgmma serialized
     warnings = {name: [line.strip() for line in log.splitlines() if "warning" in line.lower()]
                 for name, log in logs.items()}
+    b1_ptxas = ptxas_by_function(logs.get("batchsim_advance", ""))
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
           "registers": regs, "spill_bytes_per_kernel": spills,
-          "ptxas_warnings": {name: w for name, w in warnings.items() if w}})
+          "ptxas_warnings": {name: w for name, w in warnings.items() if w},
+          "batchsim_advance_ptxas": b1_ptxas})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -2209,7 +2265,7 @@ def main() -> int:
 
     # 8. the paper's sweep, the batch engine on the card ------------------------
     t0 = time.perf_counter()
-    timings["batchsim_advance"] = sweep_phase(smi, counters)
+    timings["batchsim_advance"] = sweep_phase(smi, counters, b1_ptxas)
     emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
     launches["int8_quant"] = k1_runtime + k1_search + k1_conf
     k1_routes = {r: k1_runtime_routes[r] + k1_search_routes[r] + k1_conf_routes[r]

@@ -4,7 +4,7 @@
 masked numpy array ops: correct and bit-exact, but interpreter-bound. The
 reference (``repro.core.batchsim_compiled``) ports that pass into one
 ``jax.lax.while_loop`` compiled by XLA. Here it becomes a kernel written by
-hand for the H100, ``kernels/csrc/batchsim_advance.cu``, in which one thread
+hand for the H100, ``kernels/csrc/batchsim_advance.cu``, in which one warp
 runs one lane's whole event loop, and on the CPU the plain pass
 :func:`~repro_torch.kernels.batchsim_advance.advance_plain`, the reference's
 lock-step loop in torch float64 (see :mod:`repro_torch.kernels.batchsim_advance`).

@@ -8,9 +8,9 @@ prepares them) travel as one packed buffer of 64-bit words, a header of
 sizes and table offsets first (:data:`HEADER`, :data:`TABLES`), so a card
 takes them in one transfer:
 
-- on the card, ``csrc/batchsim_advance.cu``: one thread per lane runs that
-  lane's whole event loop, the batch in one launch; its header says what
-  bounds it;
+- on the card, ``csrc/batchsim_advance.cu``: one warp per lane runs that
+  lane's whole event loop, the lane's event state in shared memory, the
+  batch in one launch; its header says what bounds it;
 - on the CPU, :func:`advance_plain`: the reference's lock-step pass in torch
   float64, every lane advanced one event per iteration by masked updates.
 
@@ -22,7 +22,9 @@ the last bit on every case the tests hold them to; the contract is
 
 :func:`batchsim_advance` takes the packed buffer: on the CPU it runs
 :func:`advance_plain`, on a CUDA tensor it launches the kernel or raises.
-``batchsim_advance.launches`` counts kernel launches, under a lock.
+``batchsim_advance.launches`` counts kernel launches, under a lock. The
+thread-per-lane kernel the warp design replaced stays in the same library,
+reached only by :func:`_batchsim_advance_thread` for timing beside it.
 """
 from __future__ import annotations
 
@@ -58,6 +60,8 @@ TABLES = (
     ("drop_pid", "i8", ("W", "D")), ("drop_t0", "f8", ("W", "D")),
     ("drop_t1", "f8", ("W", "D")), ("idle0", "b", ("P",)),
 )
+#: Lanes (warps) a block of the kernel: the ``.cu``'s ``LANES_PER_BLOCK``.
+LANES_PER_BLOCK = 2
 #: The ring payload packs (g + 1) << 21 | (rr + 1) into one word.
 PACK_LIMIT = 1 << 21
 _BIGSEQ = 1 << 62
@@ -426,7 +430,7 @@ def batchsim_advance(packed: torch.Tensor,
     """Advance every lane of a packed batch to quiescence.
 
     A CPU buffer runs :func:`advance_plain`; a CUDA buffer launches the
-    kernel, one thread per lane, or raises. ``sizes`` is the buffer's
+    kernel, one warp per lane, or raises. ``sizes`` is the buffer's
     header as the host packed it (read from the buffer when not given).
     Returns ``(arrival, first_start, last_finish, done, busy, overflow,
     iters, pushes)`` on the buffer's device, as :func:`advance_plain`
@@ -452,26 +456,38 @@ def flags_of(sizes: Dict[str, int]) -> Tuple:
 
 
 def scratch_words(sizes: Dict[str, int]) -> int:
-    """The kernel's scratch in 64-bit words: per-lane frontier and FIFO
-    state, the pending-dependency counters and the FIFO rings."""
-    args = [int(sizes[k]) for k in ("W", "G", "P", "NP", "CAP", "S", "NR")]
-    return int(_lib().batchsim_advance_scratch_words(*args))
+    """The kernel's scratch in 64-bit words: the pending-dependency counters
+    and the FIFO rings, each lane's contiguous."""
+    return int(_lib().batchsim_advance_scratch_words(*_scratch_args(sizes)))
 
 
-def _launch(packed: torch.Tensor, sizes: Dict[str, int]) -> Outputs:
+def shared_words(G: int, P: int, NP: int) -> int:
+    """One lane's mutable event state in the kernel's shared memory, in
+    64-bit words: the frontier's times and seqs (C = G + P + 1 each), busy,
+    src_rid, idle, end_g and end_rr, the delivery ring (P + 1) and the FIFO
+    heads and tails (P x NP each)."""
+    C = G + P + 1
+    return 2 * C + P + G + 3 * P + (P + 1) + 2 * P * NP
+
+
+def shared_bytes(sizes: Dict[str, int]) -> int:
+    """The dynamic shared memory a block of the kernel needs, in bytes."""
+    return 8 * LANES_PER_BLOCK * shared_words(sizes["G"], sizes["P"], sizes["NP"])
+
+
+def _scratch_args(sizes: Dict[str, int]):
+    return [int(sizes[k]) for k in ("W", "G", "P", "NP", "CAP", "S", "NR")]
+
+
+def _outputs(packed: torch.Tensor, sizes: Dict[str, int]) -> torch.Tensor:
     W, P, R = sizes["W"], sizes["P"], sizes["G"] * sizes["NR"]
     if W >= 2**31:
         raise ValueError(f"{W} lanes exceed the kernel's int lane count")
-    out = torch.empty(4 * W * R + W * P + 3 * W, dtype=torch.int64, device=packed.device)
-    scratch = torch.empty(scratch_words(sizes), dtype=torch.int64, device=packed.device)
-    stream = torch._C._cuda_getCurrentRawStream(packed.get_device())
-    lib = _lib()
-    err = lib.batchsim_advance(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(), W, stream)
-    if err != 0:
-        raise RuntimeError(f"batchsim_advance kernel launch failed: "
-                           f"{lib.batchsim_advance_error_string(err).decode()} ({err})")
-    with _LAUNCH_LOCK:
-        batchsim_advance.launches += 1
+    return torch.empty(4 * W * R + W * P + 3 * W, dtype=torch.int64, device=packed.device)
+
+
+def _views(out: torch.Tensor, sizes: Dict[str, int]) -> Outputs:
+    W, P, R = sizes["W"], sizes["P"], sizes["G"] * sizes["NR"]
     wr = W * R
     f = out.view(torch.float64)
     flags = out[4 * wr + W * P:].view(3, W)
@@ -480,17 +496,82 @@ def _launch(packed: torch.Tensor, sizes: Dict[str, int]) -> Outputs:
             flags[0] != 0, flags[1], flags[2])
 
 
+def _check(lib: ctypes.CDLL, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.batchsim_advance_error_string(err).decode()} ({err})")
+
+
+def _launch(packed: torch.Tensor, sizes: Dict[str, int]) -> Outputs:
+    lib = _lib()
+    nbytes = shared_bytes(sizes)
+    limit = _shared_limit(packed.get_device())
+    if nbytes > limit:
+        raise ValueError(
+            f"batchsim_advance needs {nbytes} bytes of shared memory a block "
+            f"({LANES_PER_BLOCK} lanes of G {sizes['G']}, P {sizes['P']}, NP {sizes['NP']}); "
+            f"the card allows {limit}")
+    out = _outputs(packed, sizes)
+    scratch = torch.empty(scratch_words(sizes), dtype=torch.int64, device=packed.device)
+    stream = torch._C._cuda_getCurrentRawStream(packed.get_device())
+    _check(lib, lib.batchsim_advance(packed.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                     sizes["W"], nbytes, stream), "batchsim_advance")
+    with _LAUNCH_LOCK:
+        batchsim_advance.launches += 1
+    return _views(out, sizes)
+
+
 batchsim_advance.launches = 0
+
+
+def _batchsim_advance_thread(packed: torch.Tensor, sizes: Dict[str, int]) -> Outputs:
+    """The thread-per-lane kernel the warp-per-lane design replaced, on a
+    CUDA buffer, for timing beside :func:`batchsim_advance` only: the same
+    outputs, its own scratch (its lane-minor state first). Nothing in the
+    port calls it."""
+    if not packed.is_cuda:
+        raise ValueError("the thread-per-lane kernel takes a CUDA buffer")
+    lib = _lib()
+    out = _outputs(packed, sizes)
+    words = int(lib.batchsim_advance_thread_scratch_words(*_scratch_args(sizes)))
+    scratch = torch.empty(words, dtype=torch.int64, device=packed.device)
+    stream = torch._C._cuda_getCurrentRawStream(packed.get_device())
+    _check(lib, lib.batchsim_advance_thread(packed.data_ptr(), out.data_ptr(),
+                                            scratch.data_ptr(), sizes["W"], stream),
+           "batchsim_advance_thread")
+    with _LAUNCH_LOCK:
+        _batchsim_advance_thread.launches += 1
+    return _views(out, sizes)
+
+
+_batchsim_advance_thread.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _shared_limit(device: int) -> int:
+    lib = _lib()
+    limit = ctypes.c_int(0)
+    _check(lib, lib.batchsim_advance_shared_limit(device, ctypes.byref(limit)),
+           "cudaDeviceGetAttribute")
+    return limit.value
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("batchsim_advance")
-    # tab, out, scratch, lanes, stream
-    lib.batchsim_advance.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    # tab, out, scratch, lanes, shared bytes, stream
+    lib.batchsim_advance.argtypes = ([ctypes.c_void_p] * 3
+                                     + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p])
     lib.batchsim_advance.restype = ctypes.c_int
-    lib.batchsim_advance_scratch_words.argtypes = [ctypes.c_int] * 7
-    lib.batchsim_advance_scratch_words.restype = ctypes.c_longlong
+    # tab, out, scratch, lanes, stream
+    lib.batchsim_advance_thread.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                                    ctypes.c_void_p]
+    lib.batchsim_advance_thread.restype = ctypes.c_int
+    for fn in (lib.batchsim_advance_scratch_words, lib.batchsim_advance_thread_scratch_words):
+        fn.argtypes = [ctypes.c_int] * 7
+        fn.restype = ctypes.c_longlong
+    lib.batchsim_advance_shared_limit.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.batchsim_advance_shared_limit.restype = ctypes.c_int
     lib.batchsim_advance_error_string.argtypes = [ctypes.c_int]
     lib.batchsim_advance_error_string.restype = ctypes.c_char_p
     return lib

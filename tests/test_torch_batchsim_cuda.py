@@ -11,7 +11,15 @@ ensembles, overload), and to its plain version on the card on the same
 packed tables; ``last_stats`` and the launch counter show that the kernel,
 not a fallback, produced each result, and a planted ring overflow or
 iteration cap raises.
+
+The kernel runs one warp per lane; the thread-per-lane kernel it replaced
+stays reachable only through ``_batchsim_advance_thread``, for timing, and
+is held to it here. Further cases: strongly uneven lanes at a width that
+is no multiple of the lanes a block holds, more fault windows than one
+ballot covers, a batch at the sweep's shapes, two launches giving the same
+bits, and a block's shared memory past the card's limit.
 """
+import dataclasses
 import json
 import math
 import random
@@ -245,3 +253,173 @@ def test_analyzer_compiled_objectives_on_card():
     scalar = [analyzer().objectives(s) for s in sols]
     for b, s in zip(batch, scalar):
         assert all(_close(x, y) for x, y in zip(b, s))
+
+
+def _plain(buf):
+    sizes, tab = kb.unpack_tables(buf)
+    tab["itercap"] = torch.tensor(sizes["itercap"])
+    return kb.advance_plain(kb.flags_of(sizes), tab)
+
+
+def _assert_all_equal(got, want, tag):
+    """All eight outputs equal, the flags, events and ring pushes too."""
+    assert len(got) == len(want) == 8
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape, (tag, i)
+        assert torch.equal(a, b.to(a.dtype)), (tag, i, (a.double() - b.double()).abs().max())
+
+
+def _cut(packed, width):
+    """A packed batch cut to its first ``width`` lanes (``prepare_batch``
+    pads a batch to a multiple of 16 lanes)."""
+    sizes, tab = kb.unpack_tables(packed)
+    tabs = {name: (tab[name][:width] if shape[0] == "W" else tab[name]).numpy()
+            for name, _, shape in kb.TABLES}
+    return kb.pack_tables(dict(sizes, W=width), tabs)
+
+
+@pytest.mark.cuda
+def test_kernel_uneven_lanes_odd_width():
+    """Nine lanes, one with 10x the requests of the rest (faults, noise and
+    non-periodic arrivals on): every output equal to the plain pass's, at a
+    width that leaves the last block a lane short."""
+    _card()
+    lanes, groups = _random_lanes(random.Random(4242), 9, True, True, True, nr=4)
+    lanes[3] = dataclasses.replace(lanes[3], num_requests=40)
+    buf = _cut(bsc.prepare_batch(lanes, groups, PROCS).packed, 9).to("cuda")
+    assert 9 % kb.LANES_PER_BLOCK != 0
+    before = kb.batchsim_advance.launches
+    got = kb.batchsim_advance(buf)
+    assert kb.batchsim_advance.launches == before + 1
+    iters = got[6].tolist()
+    assert iters[3] == max(iters) and iters[3] >= 3 * sorted(iters)[4], iters
+    _assert_all_equal(got, _plain(buf), "uneven")
+
+
+@pytest.mark.cuda
+def test_kernel_many_fault_windows():
+    """40 throttle and 35 dropout windows on every second lane, more than one
+    ballot covers: the factors multiplied in index order, the first
+    dropout winning, as the plain pass and the numpy tier do."""
+    _card()
+    rng = random.Random(11)
+    lanes, groups = _random_lanes(rng, 12, True, True, False, nr=6)
+    for i, ln in enumerate(lanes):
+        nt, nd = (40, 35) if i % 2 == 0 else (3, 2)
+        lanes[i] = dataclasses.replace(ln, faults=tc.FaultSpec(
+            throttles=tuple((rng.randrange(3), rng.uniform(0, 0.01), rng.uniform(0.01, 0.03),
+                             rng.uniform(1.1, 2.0)) for _ in range(nt)),
+            dropouts=tuple((rng.randrange(3), rng.uniform(0, 0.02), rng.uniform(0.0005, 0.002))
+                           for _ in range(nd)),
+            straggler_prob=0.3, straggler_shape=1.5, seed=i))
+    prep = bsc.prepare_batch(lanes, groups, PROCS)
+    assert (prep.sizes["T"], prep.sizes["D"]) == (40, 35)
+    buf = prep.packed.to("cuda")
+    _assert_all_equal(kb.batchsim_advance(buf), _plain(buf), "windows")
+    _assert_batch_close(tc.BatchSimulator(lanes, groups, PROCS).run(),
+                        bsc.run_prepared(prep, torch.device("cuda")), "windows")
+
+
+@pytest.mark.cuda
+def test_kernel_at_the_sweep_shape(monkeypatch):
+    """A satisfaction batch of sweep scenario 1 (the first of the seed-0
+    specs with three groups): G 3, S 32, NR 64, CAP 1024, noise on. Held to
+    the numpy tier within the tolerance and to the plain pass exactly; the
+    thread-per-lane kernel is never launched."""
+    _card()
+    from repro_torch.experiments import generate_scenario_specs
+    from repro_torch.experiments.evaluate import default_context
+    spec = generate_scenario_specs(2, seed=0)[1]
+    ctx = default_context("cuda")
+    scen = tc.build_scenario(spec.name, [list(g) for g in spec.groups], ctx.graphs,
+                             arrival=spec.arrival, faults=spec.faults)
+    an = tc.StaticAnalyzer(scen, ctx.processors, ctx.profiler, ctx.comm_model,
+                           tc.AnalyzerConfig(batch_engine="compiled"), device="cuda")
+    an.factory.rng = random.Random(5)
+    sols = [an.factory.random_solution() for _ in range(6)]
+    preps = []
+    real = bsc.prepare_batch
+    monkeypatch.setattr(bsc, "prepare_batch",
+                        lambda *a, **kw: preps.append(real(*a, **kw)) or preps[-1])
+    thread_before = kb._batchsim_advance_thread.launches
+    an.simulate_batch([(s, 1.0) for s in sols], 36, measured=True, seed=spec.seed)
+    assert kb._batchsim_advance_thread.launches == thread_before
+    prep = preps[0]
+    assert {k: prep.sizes[k] for k in ("G", "P", "NP", "S", "NR", "CAP")} == dict(
+        G=3, P=3, NP=6, S=32, NR=64, CAP=1024)
+    assert prep.sizes["any_noise"]
+    _assert_batch_close(tc.BatchSimulator(prep.lanes, prep.groups, PROCS).run(),
+                        bsc.run_prepared(prep, torch.device("cuda")), "sweep shape")
+    buf = prep.packed.to("cuda")
+    _assert_all_equal(kb.batchsim_advance(buf), _plain(buf), "sweep shape")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["golden", "faults"])
+def test_kernel_same_bits_twice(kind):
+    _card()
+    if kind == "golden":
+        lane, groups = _golden_lane("diamond_mix_overload")
+        lanes = [lane]
+    else:
+        lanes, groups = _random_lanes(random.Random(7003), 24, True, True, True)
+    buf = bsc.prepare_batch(lanes, groups, PROCS).packed.to("cuda")
+    first = [t.clone() for t in kb.batchsim_advance(buf)]
+    _assert_all_equal(kb.batchsim_advance(buf), first, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GOLDENS)
+def test_thread_kernel_equals_warp_kernel(name):
+    """The thread-per-lane kernel, through its timing entry, computes what
+    the warp-per-lane kernel does: the yardstick times the same work."""
+    _card()
+    lane, groups = _golden_lane(name)
+    prep = bsc.prepare_batch([lane], groups, PROCS)
+    buf = prep.packed.to("cuda")
+    before, thread_before = kb.batchsim_advance.launches, kb._batchsim_advance_thread.launches
+    old = kb._batchsim_advance_thread(buf, prep.sizes)
+    assert kb._batchsim_advance_thread.launches == thread_before + 1
+    assert kb.batchsim_advance.launches == before
+    _assert_all_equal(kb.batchsim_advance(buf, prep.sizes), old, name)
+
+
+@pytest.mark.cuda
+def test_shared_bytes_past_the_limit_raise(monkeypatch):
+    """A block that needs more shared memory than the card allows is never
+    launched: the call raises and names the sizes."""
+    _card()
+    lane, groups = _golden_lane("tri_chain_clean")
+    buf = bsc.prepare_batch([lane], groups, PROCS).packed.to("cuda")
+    monkeypatch.setattr(kb, "_shared_limit", lambda device: 64)
+    before, thread_before = kb.batchsim_advance.launches, kb._batchsim_advance_thread.launches
+    with pytest.raises(ValueError, match=r"bytes of shared memory a block .*G 1, P 3, NP 3"):
+        kb.batchsim_advance(buf)
+    assert kb.batchsim_advance.launches == before
+    assert kb._batchsim_advance_thread.launches == thread_before
+
+
+@pytest.mark.cuda
+def test_kernel_frontier_wider_than_a_warp():
+    """34 groups of one network each: a frontier of 38 columns and 34
+    priority classes, more than a warp has threads, so a thread holds two
+    columns and the FIFO search takes two ballots."""
+    _card()
+    rng = random.Random(3)
+    nets = [tc.chain_graph(f"n{k}", [(rng.choice(["conv", "fc"]), rng.uniform(5e5, 4e6),
+                                      rng.uniform(200, 3000), rng.uniform(500, 6000))
+                                     for _ in range(2)]) for k in range(34)]
+    groups = [[k] for k in range(34)]
+    fac = tc.SolutionFactory(nets, num_processors=len(PROCS), rng=random.Random(9),
+                             cut_prob=0.3)
+    lanes = [tc.BatchLane(spec=tc.build_spec(tc.decode_solution(fac.random_solution(), nets),
+                                             PROCS, PROFILER, tc.PAPER_COMM_MODEL),
+                          periods=[0.002 * (1 + k % 3) for k in range(34)], num_requests=3,
+                          noise=tc.NoiseModel(seed=i), dispatch_overhead=150e-6)
+             for i in range(5)]
+    prep = bsc.prepare_batch(lanes, groups, PROCS)
+    assert prep.sizes["G"] + prep.sizes["P"] + 1 > 32 and prep.sizes["NP"] > 32
+    buf = prep.packed.to("cuda")
+    _assert_all_equal(kb.batchsim_advance(buf), _plain(buf), "wide")
+    _assert_batch_close(tc.BatchSimulator(lanes, groups, PROCS).run(),
+                        bsc.run_prepared(prep, torch.device("cuda")), "wide")
