@@ -68,6 +68,24 @@ Run from the root of a checkout. Phases, one JSON line each:
      then resumed from it: the resumed first loss equals the uninterrupted
      run's at step 40 bit for bit, and the loss falls; K2's forward and
      backward all on the ``simt`` route;
+   then the launch tools of ``repro_torch.launch`` (``steps_phase``,
+   ``dryrun_phase``, ``lanes_phase``):
+   - steps: ``make_train_step``, ``make_prefill_step`` and
+     ``make_decode_step`` on ``make_host_mesh()``, the card's 1×1 mesh:
+     phi4-mini-3.8b at full width and depth (train 4 x 1024, bf16, AdamW,
+     remat; prefill and 8 decode steps at batch 4 with 1024 prompt tokens)
+     and mamba2-1.3b's prefill, each held first to the direct path it
+     wraps (``train_step``'s losses, ``generate``'s logits and ids), then
+     timed with every kernel's count zeroed just before and read just after
+     (K2 forward and backward, K3, all ``sm90``), seconds, tokens/s and peak
+     memory beside the dry run's three roofline terms for the same shape on
+     the 1×1 mesh and the time's multiple of the largest;
+   - dryrun: ``run_one`` of every config at the 16×16 mesh and
+     ``prefill_32k`` on the meta device: ok or failed, the bottleneck and
+     the seconds;
+   - lanes: the per-card figures of ``gpu_lanes``: a bf16 cuBLAS product's
+     rate at 256³–8192³, a device copy's bandwidth, an empty launch's and a
+     CUDA graph replay's host time, beside the values in the code;
 5. runtime: Puzzle's ``PuzzleRuntime`` on the card, three zoo networks at
    the paper's input resolution (yolov8n int8 on the ``default`` engine,
    fast_scnn fp16 on ``xnnpack``, pose_det fp32 on ``nnapi``), each split in
@@ -288,8 +306,25 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
 # train_ckpt: the 100M demo (f32) of examples/train_100m_torch.py at its batch
 # and sequence, a checkpoint at CKPT_AT of CKPT_STEPS, then the resume
 CKPT_STEPS, CKPT_AT, CKPT_BATCH, CKPT_SEQ = 60, 40, 8, 128
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
-PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# steps: the mesh steps of repro_torch.launch.steps on the card's 1×1 mesh,
+# phi4-mini-3.8b at full width and depth (train 4 × 1024, then prefill and
+# decode at batch 4, 1024 prompt tokens) and mamba2-1.3b's prefill
+STEPS_TRAIN = 3            # make_train_step's steps (the first held to train_step)
+STEPS_HELD = 2             # steps held to train_step, loss for loss
+# after STEPS_HELD steps, the mesh step's parameters (embed, the first wq, the
+# last w_down) differ from train_step's by at most this share of the distance
+# train_step moved them from their initial values (norms): a skipped or
+# botched update differs by about the whole distance
+STEPS_PARAM_TOL = 0.1
+STEPS_DECODE = 8           # decode steps (held to generate's greedy ids)
+STEPS_REPS = 3             # timed prefills
+# lanes: bf16 cuBLAS products n×n×n, a device copy, empty launches
+LANE_GEMM_SIZES = (256, 512, 1024, 2048, 4096, 8192)
+LANE_COPY_BYTES = 1 << 30
+LANE_LAUNCHES = 2000
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
+# cores, HBM3; set in main from repro_torch.launch.roofline
+PEAK_BF16_FLOPS = PEAK_F32_FLOPS = PEAK_BYTES = None
 
 
 def emit(obj) -> None:
@@ -2096,6 +2131,310 @@ def ssd_inputs(dtype: str, shape, gen):
     return (x, dt, A, Bm, Cm), kw
 
 
+def dry_terms(arch: str, cfg, kind: str, batch: int, seq: int) -> dict:
+    """The dry run's roofline terms for one step at this shape on the 1×1
+    mesh (plain meta tensors, one device's whole step)."""
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.shapes import InputShape
+    rec = run_one(arch, InputShape(f"{kind}_{batch}x{seq}", seq, batch, kind), "host",
+                  save=False, verbose=False, cfg=cfg)
+    if not rec["ok"]:
+        raise AssertionError(f"dry run of {arch} {kind} {batch}x{seq}: {rec['error']}")
+    return {k: rec[k] for k in ("t_compute", "t_memory", "t_collective", "bottleneck",
+                                "per_device_flops", "per_device_bytes", "t_memory_fused")}
+
+
+def beside(seconds: float, terms: dict) -> dict:
+    """A measured time beside the dry run's terms: its multiple of the largest
+    (eager-op bounds: the memory term counts every unfused op's bytes), and
+    of the larger of the compute term and the fused memory bound (every
+    argument moved once)."""
+    t_max = max(terms["t_compute"], terms["t_memory"], terms["t_collective"])
+    t_fused = max(terms["t_compute"], terms["t_memory_fused"], terms["t_collective"])
+    return {"seconds": seconds, **terms, "multiple_of_largest_term": seconds / t_max,
+            "multiple_of_fused_bound": seconds / t_fused}
+
+
+def zero_counts(counters: dict) -> None:
+    from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES, ssd_scan
+    for c in counters.values():
+        c.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+    ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
+
+
+def read_counts(counters: dict) -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"launches": {k: c.launches for k, c in counters.items()},
+            "routes": {"flash_attention": dict(flash_attention.launches_by_route),
+                       "flash_attention_bwd": dict(flash_attention_bwd.launches_by_route),
+                       "ssd_scan": dict(ssd_scan.launches_by_route)}}
+
+
+def steps_phase(smi: str, counters: dict) -> dict:
+    """The reference's entry points on the card: ``make_train_step``,
+    ``make_prefill_step`` and ``make_decode_step`` on ``make_host_mesh()``.
+
+    phi4-mini-3.8b at full width and depth, bf16, random weights from seed
+    0: the train step (AdamW at its default rate, remat) on the same batches as
+    ``train_step`` from the same weights, its loss at each of the first
+    ``STEPS_HELD`` steps within ``TRAIN_LOSS_TOL`` of the direct path's (the
+    second loss reads the first update) and its parameters after them
+    within ``STEPS_PARAM_TOL`` of the update's size, then ``STEPS_TRAIN``
+    steps timed;
+    the prefill and ``STEPS_DECODE`` decode steps at batch 4 with 1024
+    prompt tokens against ``generate`` on the same weights and tokens
+    (logits within the bf16 tolerance, greedy ids equal); mamba2-1.3b's
+    prefill likewise, through K3. Every kernel's count is zeroed just
+    before each timed run and read just after: K2 forward and backward and
+    K3 launch, all ``sm90``. Beside each time, the dry run's three terms for
+    the same shape on the 1×1 mesh. Returns the launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.models import init_params, param_leaves
+    from repro_torch.train import (DataConfig, MarkovDataset, make_optimizer,
+                                   optimizer_for_config, train_step)
+    dev = torch.device("cuda")
+    mesh = make_host_mesh()
+    by_path = {"flash_attention": {}, "flash_attention_bwd": {}, "ssd_scan": {}}
+    tol = TOL["bfloat16"]
+
+    # train: the direct path's losses, then the mesh step's from the same start
+    cfg = get_config(TRAIN_ARCH)
+    opt_name = optimizer_for_config(cfg)
+    data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    batch_size=TRAIN_BATCH, seed=0))
+    it = data.batches()
+    batches = [tuple(torch.from_numpy(a).to(dev, torch.int64) for a in next(it))
+               for _ in range(STEPS_TRAIN + 1)]
+
+    def fresh():                         # the optimizer at its default rate, as the step's
+        model = init_params(cfg, seed=0, device=dev)
+        model.requires_grad_(True)
+        opt = make_optimizer(opt_name)
+        return model, opt, opt[0](param_leaves(model))
+    held = ("embed", "blocks.0.attn.wq", f"blocks.{cfg.num_layers - 1}.mlp.w_down")
+
+    def snapshot(model):                 # on the host, out of the measured peak
+        params = dict(model.named_parameters())
+        return {k: params[k].detach().to("cpu", copy=True) for k in held}
+    model, opt, state = fresh()
+    initial = snapshot(model)
+    direct = []
+    for tokens, labels in batches[:STEPS_HELD]:
+        state, loss = train_step(model, opt, state, tokens, labels, None, remat=True)
+        direct.append(float(loss))
+    direct_params = snapshot(model)
+    del model, opt, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shape = InputShape(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step, _ = make_train_step(cfg, mesh, shape, optimizer=opt_name)
+    model, opt, state = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i, (tokens, labels) in enumerate(batches[:STEPS_TRAIN]):
+        if i == 1:                       # the first step warms up; the rest are counted
+            zero_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, state, loss = step(model, state, tokens, labels)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == STEPS_HELD - 1:
+            step_params = snapshot(model)
+    counted = read_counts(counters)
+    param_rel = {k: float((step_params[k].float() - direct_params[k].float()).norm()
+                          / (direct_params[k].float() - initial[k].float()).norm())
+                 for k in held}
+    del initial, direct_params, step_params
+    peak = torch.cuda.max_memory_allocated()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, direct))
+    n = STEPS_TRAIN - 1
+    want = {k: 0 for k in counters}
+    want.update(flash_attention=2 * cfg.num_layers * n, flash_attention_bwd=cfg.num_layers * n)
+    mean_s = sum(step_s[1:]) / n
+    terms = dry_terms(TRAIN_ARCH, cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    ok = (loss_err <= TRAIN_LOSS_TOL and counted["launches"] == want
+          and max(param_rel.values()) <= STEPS_PARAM_TOL
+          and counted["routes"]["flash_attention"]["simt"] == 0
+          and counted["routes"]["flash_attention_bwd"]["simt"] == 0
+          and all(math.isfinite(x) for x in losses))
+    emit({"phase": "steps", "step": "make_train_step", "arch": cfg.name, "mesh": "1x1",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": opt_name, "remat": True,
+          "losses": losses, "direct_losses": direct, "max_rel_loss_err": loss_err,
+          "loss_tol": TRAIN_LOSS_TOL, "param_rel_err": param_rel,
+          "param_tol": STEPS_PARAM_TOL, "step_s": step_s,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_s, "peak_mem_gb": peak / 1e9,
+          "roofline": beside(mean_s, terms), **counted, "want_launches": want,
+          "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"steps: train step {losses} vs {direct}, {param_rel}, {counted}")
+    by_path["flash_attention"]["steps train"] = counted["launches"]["flash_attention"]
+    by_path["flash_attention_bwd"]["steps train"] = counted["launches"]["flash_attention_bwd"]
+    del model, opt, state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serve: prefill and decode steps against generate, phi4 then mamba2's prefill
+    for arch, with_decode in ((TRAIN_ARCH, True), ("mamba2-1.3b", False)):
+        cfg = get_config(arch)
+        model = init_params(cfg, seed=0, device=dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                               device=dev)
+        want = generate(model, tokens, STEPS_DECODE)
+        pshape = InputShape(f"prefill_{SERVE_BATCH}x{SERVE_PROMPT}", SERVE_PROMPT + STEPS_DECODE + 1,
+                            SERVE_BATCH, "prefill")
+        prefill, _ = make_prefill_step(cfg, mesh, pshape)
+        logits, caches, clen = prefill(model, tokens)
+        err = float((logits.float() - want.prefill_logits.float()).abs().max())
+        ok = bool(torch.allclose(logits.float(), want.prefill_logits.float(), **tol))
+        ids = [torch.argmax(logits[:, -1:], dim=-1)]
+        decode_s = None
+        if with_decode:
+            dshape = InputShape(f"decode_{SERVE_BATCH}x{SERVE_PROMPT}", SERVE_PROMPT,
+                                SERVE_BATCH, "decode")
+            decode, _ = make_decode_step(cfg, mesh, dshape)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STEPS_DECODE):
+                out, caches, clen = decode(model, ids[-1], caches, clen)
+                ids.append(torch.argmax(out, dim=-1))
+            torch.cuda.synchronize()
+            decode_s = (time.perf_counter() - t0) / STEPS_DECODE
+            ok = ok and torch.equal(torch.cat(ids, dim=1), want.ids)
+        del caches, logits
+        zero_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        prefill_s = []
+        for _ in range(STEPS_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches, clen = prefill(model, tokens)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+            del logits, caches
+        counted = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated()
+        want_launches = {k: v * STEPS_REPS for k, v in expected_launches(cfg).items()}
+        ssm = want_launches["ssd_scan"]
+        ok = (ok and counted["launches"] == want_launches
+              and counted["routes"]["flash_attention"]["simt"] == 0
+              and counted["routes"]["ssd_scan"]["simt"] == 0)
+        best = min(prefill_s)
+        record = {"phase": "steps", "step": "make_prefill_step" + (
+                      " + make_decode_step" if with_decode else ""),
+                  "arch": cfg.name, "mesh": "1x1", "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+                  "max_abs_err_vs_generate": err, "tol": tol,
+                  "prefill_equal_bits": err == 0.0, "prefill_s": prefill_s,
+                  "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / best,
+                  "prefill_roofline": beside(best, dry_terms(arch, cfg, "prefill", SERVE_BATCH,
+                                                             SERVE_PROMPT)),
+                  "peak_mem_gb": peak / 1e9, **counted, "want_launches": want_launches,
+                  "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok}
+        if with_decode:
+            record.update(decode_s_per_token=decode_s, decode_tokens_per_s=SERVE_BATCH / decode_s,
+                          decode_roofline=beside(decode_s, dry_terms(arch, cfg, "decode",
+                                                                     SERVE_BATCH, SERVE_PROMPT)))
+        emit(record)
+        if not ok:
+            raise AssertionError(f"steps: {arch} prefill/decode: err {err}, {counted}")
+        if want_launches["flash_attention"]:
+            by_path["flash_attention"][f"steps {arch} prefill"] = counted["launches"]["flash_attention"]
+        if ssm:
+            by_path["ssd_scan"][f"steps {arch} prefill"] = counted["launches"]["ssd_scan"]
+        del model, prefill, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {k: v for k, v in by_path.items() if v}
+
+
+def dryrun_phase(smi: str) -> None:
+    """``run_one`` for every config at the 16×16 mesh and ``prefill_32k``,
+    on the meta device over a fake process group: ok or failed (a failure is
+    a record, as the reference keeps it), the bottleneck and the seconds."""
+    from repro_torch.configs import ALIASES
+    from repro_torch.launch.dryrun import run_one
+    from repro_torch.launch.mesh import release
+    t0 = time.perf_counter()
+    recs = [run_one(arch, "prefill_32k", "single", save=False, verbose=False)
+            for arch in sorted(ALIASES)]
+    release()
+    emit({"phase": "dryrun", "mesh": "single", "shape": "prefill_32k",
+          "records": [{k: r.get(k) for k in ("arch", "ok", "bottleneck", "t_compute", "t_memory",
+                                             "t_collective", "seconds", "error")} for r in recs],
+          "ok_count": sum(r["ok"] for r in recs), "failed": sum(not r["ok"] for r in recs),
+          "seconds": time.perf_counter() - t0, "smi": smi})
+
+
+def lanes_phase(smi: str) -> dict:
+    """The per-card figures ``gpu_lanes`` and ``LaneRooflineBackend`` are fit
+    from: a bf16 cuBLAS product's rate at each of ``LANE_GEMM_SIZES`` (and
+    the backend's efficiency ramp fit to them over the datasheet peak), a
+    device-to-device copy's bandwidth (read + write), an empty kernel's
+    launch (``torch.cuda._sleep(0)``) back to back on the host clock, and
+    one CUDA graph of that kernel replayed likewise; each the best of 5."""
+    import torch
+    from repro_torch.core import processors
+    from repro_torch.core.profiler import fit_efficiency_ramp
+    dev = torch.device("cuda")
+    rates = []
+    for n in LANE_GEMM_SIZES:
+        a, b = (torch.randn((n, n), device=dev, dtype=torch.bfloat16) for _ in range(2))
+        iters = max(3, int(2e11 // (2 * n ** 3)))
+        ms = min(cuda_ms(lambda: a @ b, iters) for _ in range(5))
+        rates.append((2.0 * n ** 3, 2.0 * n ** 3 / (ms / 1e3)))
+        del a, b
+    src = torch.empty(LANE_COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = min(cuda_ms(lambda: dst.copy_(src), 20) for _ in range(5))
+    copy_bw = 2 * LANE_COPY_BYTES / (ms / 1e3)
+    del src, dst
+
+    def host_per_launch(fn):
+        best = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LANE_LAUNCHES):
+                fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) / LANE_LAUNCHES)
+        return best
+    launch = host_per_launch(lambda: torch.cuda._sleep(0))
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(0)
+        with torch.cuda.graph(graph, stream=stream):
+            torch.cuda._sleep(0)
+    graph_launch = host_per_launch(graph.replay)
+    ramp = fit_efficiency_ramp(rates, processors.H100_PEAK_FLOPS_BF16)
+    measured = {"gemm_rates": rates, "copy_bw": copy_bw, "launch_s": launch,
+                "graph_launch_s": graph_launch,
+                "ramp_min_work_scale_floor": ramp}
+    in_code = {"gemm_rates": list(processors.H100_GEMM_RATES), "copy_bw": processors.H100_COPY_BW,
+               "launch_s": processors.H100_LAUNCH_OVERHEAD,
+               "graph_launch_s": processors.H100_GRAPH_LAUNCH_OVERHEAD,
+               "ramp_min_work_scale_floor": (processors.H100_MIN_WORK_PER_CARD,
+                                             processors.H100_EFF_SCALE,
+                                             processors.H100_EFF_FLOOR)}
+    emit({"phase": "lanes", "measured": measured, "in_code": in_code,
+          "nvlink_bw_datasheet": processors.H100_NVLINK_BW,
+          "device": torch.cuda.get_device_name(0), "smi": smi})
+    return measured
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2105,6 +2444,11 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} holds no src/repro_torch", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES
+    from repro_torch.launch.roofline import (H100_HBM_BW, H100_PEAK_FLOPS_BF16,
+                                             H100_PEAK_FLOPS_F32)
+    PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = (H100_PEAK_FLOPS_BF16, H100_PEAK_FLOPS_F32,
+                                                   H100_HBM_BW)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2248,6 +2592,14 @@ def main() -> int:
     by_path["flash_attention"]["demo-100m train"] = ckpt["flash_attention"]
     by_path["flash_attention_bwd"] = {"phi4-mini-3.8b train": trained["flash_attention_bwd"],
                                       "demo-100m train": ckpt["flash_attention_bwd"]}
+
+    # 4c. the mesh steps on the card's 1×1 mesh, the dry run, the lane figures
+    t0 = time.perf_counter()
+    for kernel, paths in steps_phase(smi, counters).items():
+        by_path[kernel].update(paths)
+    dryrun_phase(smi)
+    lanes_phase(smi)
+    emit({"phase": "steps_dryrun_lanes_done", "seconds": time.perf_counter() - t0})
     launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     # 5. Puzzle's runtime -----------------------------------------------------
@@ -2302,7 +2654,8 @@ def main() -> int:
              "simt": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
          "replaces": "src/repro/models/attention.py:58",
          "launches": launches["flash_attention_bwd"],
-         "launches_by_route": {"sm90": by_path["flash_attention_bwd"]["phi4-mini-3.8b train"],
+         "launches_by_route": {"sm90": by_path["flash_attention_bwd"]["phi4-mini-3.8b train"]
+                               + by_path["flash_attention_bwd"]["steps train"],
                                "simt": by_path["flash_attention_bwd"]["demo-100m train"]},
          "launches_by_path": by_path["flash_attention_bwd"],
          **timings["flash_attention_bwd"]}]})

@@ -7,9 +7,9 @@ parity tests (``tests/test_torch_zoo.py``, ``test_torch_sim.py``,
 executing backend and the analyzer's device-in-the-loop rounds run on the
 card, and so does the compiled batch tier (``run_batch_compiled``, an
 event-loop kernel written for the H100, held to the numpy tier within
-``COMPILED_*``). Left out until slice 6d (ROADMAP): ``TPU_COMM_MODEL``,
-``tpu_lanes`` and ``LaneRooflineBackend``; the reference's
-``JaxExecBackend`` is :class:`TorchExecBackend` here.
+``COMPILED_*``). The reference's TPU lanes are lanes of H100s here
+(:func:`gpu_lanes`, :data:`LANE_COMM_MODEL`, :class:`LaneRooflineBackend`),
+and its ``JaxExecBackend`` is :class:`TorchExecBackend`.
 """
 from .analyzer import AnalyzerConfig, StaticAnalyzer
 from .arrivals import (
@@ -43,6 +43,7 @@ from .chromosome import (
     upmx,
 )
 from .comm import (
+    LANE_COMM_MODEL,
     PAPER_COMM_MODEL,
     PiecewiseLinearCommModel,
     microbenchmark_host,
@@ -55,9 +56,10 @@ from .ga import GAConfig, GAResult, GeneticScheduler
 from .graph import Edge, Layer, ModelGraph, Subgraph, branching_graph, chain_graph
 from .memlayout import CHUNK, rounded_chunk_bytes
 from .nsga import crowding_distance, das_dennis, dominates, fast_non_dominated_sort, nsga3_select
-from .processors import Processor, mobile_processors
+from .processors import Processor, gpu_lanes, mobile_processors
 from .profiler import (
     AnalyticMobileBackend,
+    LaneRooflineBackend,
     ProfileDB,
     Profiler,
     TableBackend,

@@ -9,8 +9,9 @@ regression; ``microbenchmark_host`` produces real (size, seconds) samples on
 this machine by timing serialize+copy round-trips, which is the
 device-in-the-loop way to calibrate the model where no Galaxy S23U exists.
 
-The reference's TPU lane-boundary model (``TPU_COMM_MODEL``) is left out;
-its H100 counterpart comes with slice 6d (ROADMAP).
+:data:`LANE_COMM_MODEL` is the counterpart of the reference's
+``TPU_COMM_MODEL``: the boundary between two lanes of H100s, a launch plus
+the transfer over NVLink.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from dataclasses import dataclass
 from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
+
+from .processors import H100_LAUNCH_OVERHEAD, H100_NVLINK_BW
 
 MIB = float(1 << 20)
 
@@ -94,6 +97,14 @@ PAPER_COMM_MODEL = PiecewiseLinearCommModel(
     a_lo=60e-6, b_lo=25e-12, a_hi=90e-6, b_hi=45e-12, knee=MIB, bandwidth=PAPER_MEMORY_BW
 )
 
+
+
+# H100 lane-boundary model: one launch (measured) and NVLink's bandwidth
+# (datasheet; one card cannot measure it). Used by the lane adaptation.
+LANE_COMM_MODEL = PiecewiseLinearCommModel(
+    a_lo=H100_LAUNCH_OVERHEAD, b_lo=0.0, a_hi=H100_LAUNCH_OVERHEAD, b_hi=0.0,
+    knee=MIB, bandwidth=H100_NVLINK_BW,
+)
 
 
 def quantization_cost(nbytes: float, bandwidth: float = PAPER_MEMORY_BW) -> float:

@@ -19,8 +19,9 @@ Backends:
   and times it with CUDA events: literal device-in-the-loop for the
   executable zoo models (the reference's ``JaxExecBackend``).
 
-The reference's ``LaneRooflineBackend`` waits for the H100 processor model
-(ROADMAP).
+* :class:`LaneRooflineBackend` — a lane of H100s (``gpu_lanes``): the
+  reference's TPU-lane roofline, its efficiency ramp fit to the bf16
+  product rates measured on the card.
 """
 from __future__ import annotations
 
@@ -30,11 +31,13 @@ import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Protocol, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .chromosome import PlacedSubgraph
 from .graph import Subgraph
-from .processors import Processor
+from .processors import (H100_EFF_FLOOR, H100_EFF_SCALE, H100_MIN_WORK_PER_CARD,
+                         Processor)
 
 
 class ProfileDB:
@@ -200,6 +203,62 @@ def _timed_run(fn, args) -> float:
     t0 = time.perf_counter()
     fn(*args)
     return time.perf_counter() - t0
+
+
+def fit_efficiency_ramp(rates: Sequence[Tuple[float, float]], peak: float
+                        ) -> Tuple[float, float, float]:
+    """(min_work_per_chip, eff_scale, eff_floor) of the lane backend's ramp
+    ``min(1, work/min_work)·scale + floor`` fit to measured (FLOPs of one
+    product, FLOP/s) points over ``peak``: least squares in the relative
+    error, the knee searched on a log grid across the points, the floor
+    kept at 0 or above."""
+    work = np.array([w for w, _ in rates], dtype=np.float64)
+    eff = np.array([r for _, r in rates], dtype=np.float64) / peak
+    best = None
+    for knee in np.geomspace(work[0], work[-1], 2000):
+        a = np.stack([np.minimum(1.0, work / knee), np.ones_like(work)], axis=1) / eff[:, None]
+        coef, *_ = np.linalg.lstsq(a, np.ones_like(work), rcond=None)
+        if coef[1] < 0:                  # no negative rate for tiny work: floor held at 0
+            coef = np.array([np.linalg.lstsq(a[:, :1], np.ones_like(work), rcond=None)[0][0], 0.0])
+        err = float(np.sum((a @ coef - 1.0) ** 2))
+        if best is None or err < best[0]:
+            best = (err, float(knee), float(coef[0]), float(coef[1]))
+    return best[1:]
+
+
+@dataclass
+class LaneRooflineBackend:
+    """H100-lane serving cost: max(compute, memory) roofline + overheads
+    (the reference's TPU-lane backend, its formula unchanged).
+
+    Efficiency falls with lane size for small subgraphs (the work per card
+    shrinks below the knee of the bf16 product's rate), which is why the
+    biggest lane is not the best for every model: the paper's Table 3
+    observation carried to lanes of cards. The ramp's constants are the
+    card's (:func:`fit_efficiency_ramp` on the rates ``chip_smoke.py``'s
+    ``lanes`` phase measured); the reference's are ``2e8``, ``0.55`` and
+    ``0.05``.
+    """
+
+    lanes: Sequence[Processor]
+    dtype_bytes: Tuple[Tuple[str, float], ...] = (("fp32", 4.0), ("fp16", 2.0), ("int8", 1.0))
+    min_work_per_chip: float = H100_MIN_WORK_PER_CARD  # FLOPs per card below which efficiency decays
+    eff_scale: float = H100_EFF_SCALE
+    eff_floor: float = H100_EFF_FLOOR
+
+    def measure(self, placed: PlacedSubgraph) -> float:
+        lane = self.lanes[placed.processor]
+        sg = placed.subgraph
+        flops = 2.0 * sg.macs
+        dbytes = dict(self.dtype_bytes)[placed.dtype]
+        weight_bytes = sg.param_bytes * (dbytes / 4.0)
+        # efficiency: perfect when each card has >= min_work, else linear decay
+        per_chip = flops / max(lane.chips, 1)
+        eff = min(1.0, per_chip / self.min_work_per_chip) * self.eff_scale + self.eff_floor
+        speed = {"fp16": 1.0, "fp32": 0.5, "int8": 2.0}[placed.dtype]
+        t_compute = flops / (lane.peak_flops * eff * speed)
+        t_memory = weight_bytes / lane.hbm_bw
+        return lane.invocation_overhead + max(t_compute, t_memory)
 
 
 class Profiler:

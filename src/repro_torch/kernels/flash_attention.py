@@ -52,8 +52,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .build import load_library
@@ -214,17 +215,47 @@ def flash_attention(
     return_lse: bool = False,
 ):
     """Fused attention over flattened (batch×heads) leading dims; with
-    ``return_lse``, (out, lse (BH, Sq) f32)."""
+    ``return_lse``, (out, lse (BH, Sq) f32).
+
+    A tensor on the CPU or the card goes to :func:`_direct`; a meta tensor
+    (the dry run, on each device's shards) to the custom op
+    ``repro_torch::flash_attention``, whose fake kernel gives the outputs'
+    shapes and whose FLOP formula the dry run counts."""
     g = q_heads_per_kv
     _check(q, k, v, g)
+    if q.device.type != "meta":
+        return _direct(q, k, v, g, causal, window, q_offset, return_lse)
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, g, causal, window, q_offset,
+                                                     return_lse)
+    return (out, lse) if return_lse else out
+
+
+def _direct(q, k, v, g, causal, window, q_offset, return_lse):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, q_heads_per_kv=g, causal=causal,
-                                     window=window, q_offset=q_offset,
-                                     return_lse=return_lse)
+        return flash_attention_plain(q, k, v, q_heads_per_kv=g, causal=causal, window=window,
+                                     q_offset=q_offset, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     return _launch(_route(q.dtype, q.shape[2]), q, k, v, g, causal, window, q_offset,
                    return_lse)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int,
+                        causal: bool, window: Optional[int], q_offset: int,
+                        return_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 as a custom op, for the meta device: :func:`_flash_attention_fake`
+    there; elsewhere :func:`_direct`, which :func:`flash_attention` calls
+    itself without the dispatcher. Without ``return_lse`` the second output
+    is empty."""
+    res = _direct(q, k, v, g, causal, window, q_offset, return_lse)
+    return res if return_lse else (res, q.new_empty((0,), dtype=torch.float32))
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, g, causal, window, q_offset, return_lse):
+    lse_shape = tuple(q.shape[:2]) if return_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
 
 
 def _flash_attention_simt(
@@ -345,6 +376,22 @@ def flash_attention_bwd(
     """
     g = q_heads_per_kv
     _check_bwd(q, k, v, o, lse, do, g)
+    if q.device.type != "meta":
+        return _direct_bwd(q, k, v, o, lse, do, g, causal, window, q_offset)
+    return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window,
+                                                     q_offset)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, g: int,
+                            causal: bool, window: Optional[int], q_offset: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's backward as a custom op, as :func:`_flash_attention_op`."""
+    return _direct_bwd(q, k, v, o, lse, do, g, causal, window, q_offset)
+
+
+def _direct_bwd(q, k, v, o, lse, do, g, causal, window, q_offset):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, q_heads_per_kv=g, causal=causal,
                                          window=window, q_offset=q_offset)
@@ -352,6 +399,11 @@ def flash_attention_bwd(
         raise ValueError(f"unsupported device {q.device}")
     return _launch_bwd(_route(q.dtype, q.shape[2]), q, k, v, o, lse, do, g, causal, window,
                        q_offset)
+
+
+@_flash_attention_bwd_op.register_fake
+def _flash_attention_bwd_fake(q, k, v, o, lse, do, g, causal, window, q_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _flash_attention_bwd_simt(
@@ -478,3 +530,37 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), **ctx.opts)
         return dq, dk, dv, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# what the dry run reads: the work of a call
+# ---------------------------------------------------------------------------
+
+def attended_pairs(sq: int, sk: int, causal: bool, window: Optional[int], q_offset: int) -> int:
+    """(query, key) pairs the mask keeps for one head: the work K2 needs."""
+    p = q_offset + np.arange(sq, dtype=np.int64)            # each query's position
+    hi = np.minimum(p, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(p - window + 1, 0) if window is not None else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _pairs_of(q_shape, k_shape, causal, window, q_offset) -> int:
+    bh, sq, hd = q_shape
+    return bh * attended_pairs(sq, k_shape[1], causal, window, q_offset)
+
+
+def register_flop_formulas() -> None:
+    """FLOP formulas of K2's two ops for ``torch.utils.flop_counter``: two
+    products of 2·hd FLOPs per attended pair forward, five backward (S, dP,
+    dV, dK, dQ, as FlashAttention-2 counts them)."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    if torch.ops.repro_torch.flash_attention in flop_registry:
+        return
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _fwd(q, k, v, g, causal, window, q_offset, return_lse, *args, **kwargs) -> int:
+        return 4 * q[2] * _pairs_of(q, k, causal, window, q_offset)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _bwd(q, k, v, o, lse, do, g, causal, window, q_offset, *args, **kwargs) -> int:
+        return 10 * q[2] * _pairs_of(q, k, causal, window, q_offset)

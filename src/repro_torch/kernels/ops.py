@@ -15,6 +15,13 @@ and the int8 quantizer have no backward kernel yet: a CUDA input that
 requires a gradient raises (their outputs would carry no ``grad_fn`` and
 the gradient would be lost). On the CPU their plain versions are ordinary
 differentiable PyTorch.
+
+On a mesh (``DTensor`` inputs: the dry run) each kernel runs on every
+device's shards (``local_map``). Batch and heads stay sharded as they come
+where the kernel's arithmetic allows it (k/v heads sharded like q's; SSM
+groups sharded like the heads, or a single group replicated); a mesh dim
+that shards anything else is gathered first. ``DTensor`` is never asked to
+flatten two sharded dims into the kernels' (batch·heads) layout.
 """
 from __future__ import annotations
 
@@ -39,6 +46,32 @@ def _no_cuda_grad(name: str, later: str, *tensors: Optional[torch.Tensor]) -> No
                 f"run it under torch.no_grad(), or on the CPU")
 
 
+def _is_dtensor(t: Optional[torch.Tensor]) -> bool:
+    return t is not None and type(t) is not torch.Tensor and hasattr(t, "device_mesh")
+
+
+def _on_shards(fn, args, placements, out_placements):
+    """``fn`` on the local shards of DTensor ``args`` (None passes through),
+    each first redistributed to its ``placements``."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a for a in args if a is not None).device_mesh
+    args = [None if a is None else a.redistribute(mesh, p) for a, p in zip(args, placements)]
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=[None if a is None else p for a, p in zip(args, placements)],
+                     device_mesh=mesh)(*args)
+
+
+def attention_on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` for (B, S, H, hd) DTensors on each device's shards:
+    per mesh dim, the batch (dim 0) or the heads (dim 2, k/v's kv heads
+    sharded alike) stay sharded; anything else, a sharded sequence
+    included, is gathered first."""
+    from torch.distributed.tensor import Replicate, Shard
+    kept = [p if p in (Shard(0), Shard(2)) and p == pk == pv else Replicate()
+            for p, pk, pv in zip(q.placements, k.placements, v.placements)]
+    return _on_shards(fn, [q, k, v], [kept] * 3, kept)
+
+
 def flash_attention_bshd(
     q: torch.Tensor,                     # (B, Sq, H, hd)
     k: torch.Tensor,                     # (B, Sk, Kv, hd)
@@ -48,6 +81,9 @@ def flash_attention_bshd(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """GQA flash attention on (B, S, H, hd); returns (B, Sq, H, hd)."""
+    if _is_dtensor(q):
+        return attention_on_shards(
+            lambda q, k, v: flash_attention_bshd(q, k, v, causal, window, q_offset), q, k, v)
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -76,6 +112,8 @@ def ssd_bshp(
     the kernel reads group row ``bh // (H // G)``."""
     _no_cuda_grad("ssd_bshp", "the K3 backward, a later slice after 5a, brings mamba2 and "
                   "jamba training", x, dt, A, Bm, Cm, initial_state)
+    if _is_dtensor(x):
+        return _ssd_on_shards(x, dt, A, Bm, Cm, chunk, initial_state)
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     xf = x.transpose(1, 2).reshape(b * h, s, p).contiguous()
@@ -91,6 +129,28 @@ def ssd_bshp(
     y = y.reshape(b, h, s, p).transpose(1, 2)
     state = state.reshape(b, h, n, p).transpose(2, 3)
     return y, state
+
+
+def _ssd_on_shards(x, dt, A, Bm, Cm, chunk, initial_state):
+    """:func:`ssd_bshp` on the shards: per mesh dim, the batch (x's dim 0)
+    or the heads (x's dim 2, with the groups sharded alike or a single
+    group replicated) stay sharded; anything else is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    r = Replicate()
+    per_dim = []                         # (x, dt, A, B, C, init, y, state) per mesh dim
+    for i, p in enumerate(x.placements):
+        n, g = x.device_mesh.size(i), Bm.shape[2]
+        if p == Shard(0):
+            per_dim.append((p, p, r, p, p, p, p, p))
+        elif p == Shard(2) and (g == 1 or g % n == 0):
+            bc = r if g == 1 else Shard(2)
+            per_dim.append((p, p, Shard(0), bc, bc, Shard(1), p, Shard(1)))
+        else:
+            per_dim.append((r,) * 8)
+    cols = [list(c) for c in zip(*per_dim)]
+    return _on_shards(
+        lambda x, dt, A, Bm, Cm, init: ssd_bshp(x, dt, A, Bm, Cm, chunk, init),
+        [x, dt, A, Bm, Cm, initial_state], cols[:6], (cols[6], cols[7]))
 
 
 def quantize_rows(x: torch.Tensor, out: Optional[torch.Tensor] = None

@@ -154,9 +154,30 @@ def ssd_scan(
     heads_per_group: int = 1,
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (BH, S, P), final_state (BH, N, P) f32)."""
+    """Returns (y (BH, S, P), final_state (BH, N, P) f32).
+
+    A tensor on the CPU or the card goes to :func:`_direct`; a meta tensor
+    (the dry run, on each device's shards) to the custom op
+    ``repro_torch::ssd_scan``, whose fake kernel gives the outputs' shapes
+    and whose FLOP formula the dry run counts."""
     g = heads_per_group
     _check(x, dt, A, Bm, Cm, chunk, g, initial_state)
+    if x.device.type != "meta":
+        return _direct(x, dt, A, Bm, Cm, chunk, g, initial_state)
+    return torch.ops.repro_torch.ssd_scan(x, dt, A, Bm, Cm, chunk, g, initial_state)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, chunk: int, g: int,
+                 initial_state: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 as a custom op, for the meta device: :func:`_ssd_scan_fake` there;
+    elsewhere :func:`_direct`, which :func:`ssd_scan` calls itself without
+    the dispatcher."""
+    return _direct(x, dt, A, Bm, Cm, chunk, g, initial_state)
+
+
+def _direct(x, dt, A, Bm, Cm, chunk, g, initial_state):
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, heads_per_group=g,
                               initial_state=initial_state)
@@ -164,6 +185,12 @@ def ssd_scan(
         raise ValueError(f"unsupported device {x.device}")
     route = _route(x.dtype, x.shape[2], Bm.shape[2], chunk)
     return _launch(route, x, dt, A, Bm, Cm, chunk, g, initial_state)
+
+
+@_ssd_scan_op.register_fake
+def _ssd_scan_fake(x, dt, A, Bm, Cm, chunk, g, initial_state):
+    bh, _, p = x.shape
+    return torch.empty_like(x), x.new_empty((bh, Bm.shape[2], p), dtype=torch.float32)
 
 
 def _ssd_scan_simt(
@@ -257,3 +284,22 @@ def _lib_sm90() -> ctypes.CDLL:
     lib.ssd_scan_sm90_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_sm90_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# ---------------------------------------------------------------------------
+# what the dry run reads: the work of a call
+# ---------------------------------------------------------------------------
+
+def register_flop_formulas() -> None:
+    """K3's FLOP formula for ``torch.utils.flop_counter``: per head and
+    chunk of L steps, C·Bᵀ (2·L²·N), its masked product with X (2·L²·P),
+    C·state and the state's update (2·L·N·P each)."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    if torch.ops.repro_torch.ssd_scan in flop_registry:
+        return
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan)
+    def _flops(x, dt, A, Bm, Cm, chunk, g, initial_state, *args, **kwargs) -> int:
+        bh, s, p = x
+        n = Bm[2]
+        return bh * (s // chunk) * (2 * chunk * chunk * (n + p) + 4 * chunk * n * p)

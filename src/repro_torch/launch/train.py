@@ -1,16 +1,15 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``.
 
 Port of ``repro.launch.train``. The reference trains the reduced smoke
-variant on a single device and the full configuration on a mesh; here the
-device decides: on the card (the default) the full configuration at full
-width and depth, on the CPU (``--device cpu``) the smoke variant. Data is
-the synthetic Markov stream, the optimizer the one
-:func:`~repro_torch.train.optimizer.optimizer_for_config` picks. Remat
-(recomputing each pattern repetition in the backward) is always on for the
-full configuration, which does not fit without it; ``--remat`` turns it on
-for the smoke one too. It takes the place of the reference's mesh step
-(``launch/steps.py``, ``remat=True``), whose shardings wait for the port's
-sharding slice.
+variant on a single device and the full configuration on a mesh through
+the train step of ``launch.steps``; here the device decides: on the card
+(the default) the full configuration at full width and depth, each step
+:func:`~repro_torch.launch.steps.make_train_step`'s on the card's 1×1 mesh
+(:func:`~repro_torch.launch.mesh.make_host_mesh`; remat on, which the full
+configuration needs to fit), given to ``train`` as its step; on the CPU
+(``--device cpu``) the smoke variant through ``train_step``, remat off
+unless ``--remat``. Data is the synthetic Markov stream, the optimizer the
+one :func:`~repro_torch.train.optimizer.optimizer_for_config` picks.
 """
 from __future__ import annotations
 
@@ -22,6 +21,9 @@ from ..configs import ALIASES, get_config, get_smoke_config
 from ..device import resolve_device
 from ..train import TrainConfig, train
 from ..train.optimizer import optimizer_for_config
+from .mesh import make_host_mesh, release
+from .shapes import InputShape
+from .steps import make_train_step
 
 
 def main() -> None:
@@ -53,11 +55,20 @@ def main() -> None:
         def cross_fn(b):
             return torch.ones((b, cfg.encoder_seq_len, cfg.d_model)) * 0.01
 
-    res = train(cfg, TrainConfig(
+    tcfg = TrainConfig(
         steps=args.steps, batch_size=args.batch, seq_len=args.seq,
         lr=args.lr, optimizer=opt, log_every=max(args.steps // 10, 1),
         checkpoint_path=args.checkpoint, remat=remat,
-    ), cross_src_fn=cross_fn, device=dev)
+    )
+    try:
+        step = None
+        if not smoke:
+            step, _ = make_train_step(cfg, make_host_mesh(dev),
+                                      InputShape("train", args.seq, args.batch, "train"),
+                                      optimizer=opt, lr=args.lr)
+        res = train(cfg, tcfg, cross_src_fn=cross_fn, device=dev, step_fn=step)
+    finally:
+        release()
     print(f"[train] loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f} "
           f"(floor {res.loss_floor:.3f}); {res.tokens_per_s:,.0f} tok/s")
 

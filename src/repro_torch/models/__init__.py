@@ -10,11 +10,12 @@ from .convert import (
     params_to_jax,
     zoo_weights_from_jax,
 )
-from .layers import apply_rope, gelu_mlp, rms_norm, swiglu
-from .moe import load_balance_loss, moe_ffn, moe_ffn_dense, router_topk
-from .ssm import causal_conv1d, mamba2_decode_step, mamba2_mixer, ssd_chunked
+from .layers import apply_rope, attention_spec, gelu_mlp, mlp_spec, rms_norm, swiglu
+from .moe import load_balance_loss, moe_ffn, moe_ffn_dense, moe_spec, router_topk
+from .ssm import causal_conv1d, mamba2_decode_step, mamba2_mixer, mamba2_spec, ssd_chunked
 from .transformer import (
     Transformer,
+    block_spec,
     check_supported,
     encode,
     forward_decode,
@@ -22,6 +23,7 @@ from .transformer import (
     forward_train,
     init_cache,
     init_params,
+    params_spec,
 )
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels import ops
+from ..sharding.context import matmul
 from .layers import apply_rope, rms_norm
 
 Params = Dict[str, torch.Tensor]
@@ -24,7 +25,7 @@ NEG_INF = -1e30
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one (D, H·hd) product."""
     d, h, hd = w.shape
-    return (x @ w.reshape(d, h * hd)).unflatten(-1, (h, hd))
+    return matmul(x, w.reshape(d, h * hd)).unflatten(-1, (h, hd))
 
 
 def project_qkv(
@@ -76,7 +77,7 @@ def blockwise_attention(
 def attention_output(params: Params, attn: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd") as one (H·hd, D) product."""
     h, hd, d = params["wo"].shape
-    return attn.flatten(-2) @ params["wo"].reshape(h * hd, d)
+    return matmul(attn.flatten(-2), params["wo"].reshape(h * hd, d))
 
 
 def decode_attention(
@@ -91,6 +92,9 @@ def decode_attention(
     With a window, only the last ``window`` slots ending at ``cache_len``
     are read (the caller keeps the cache as a ring buffer).
     """
+    if ops._is_dtensor(q):
+        return ops.attention_on_shards(
+            lambda q, k, v: decode_attention(q, k, v, cache_len, window), q, cache_k, cache_v)
     b, sq, h, hd = q.shape
     kv = cache_k.shape[2]
     g = h // kv

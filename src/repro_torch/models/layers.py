@@ -13,7 +13,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding.context import matmul
+
 Params = Dict[str, torch.Tensor]
+Spec = Dict[str, Tuple[Optional[str], ...]]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -25,16 +28,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = x @ w_gate
-    u = x @ w_up
-    return (F.silu(g) * u) @ w_down
+    g = matmul(x, w_gate)
+    u = matmul(x, w_up)
+    return matmul(F.silu(g) * u, w_down)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
              w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` defaults to the tanh approximation, so this uses it too."""
-    h = F.gelu(x @ w_up + b_up, approximate="tanh")
-    return h @ w_down + b_down
+    h = F.gelu(matmul(x, w_up) + b_up, approximate="tanh")
+    return matmul(h, w_down) + b_down
 
 
 # -- RoPE -----------------------------------------------------------------
@@ -89,6 +92,15 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
+def mlp_spec() -> Spec:
+    """Logical axes of :func:`init_mlp`'s tensors (``repro.sharding.rules``'s names)."""
+    return {
+        "w_gate": ("embed", "ffn"),
+        "w_up": ("embed", "ffn"),
+        "w_down": ("ffn", "embed"),
+    }
+
+
 def init_attention(gen: torch.Generator, d_model: int, num_heads: int, num_kv_heads: int,
                    head_dim: int, qkv_bias: bool = False, qk_norm: bool = False,
                    gated: bool = False, dtype: torch.dtype = torch.float32) -> Params:
@@ -108,4 +120,25 @@ def init_attention(gen: torch.Generator, d_model: int, num_heads: int, num_kv_he
         p["k_norm"] = torch.ones((head_dim,), dtype=dtype, device=dev)
     if gated:                            # llama-3.2-vision's cross-attention gate
         p["attn_gate"] = torch.zeros((1,), dtype=dtype, device=dev)
+    return p
+
+
+def attention_spec(qkv_bias: bool = False, qk_norm: bool = False,
+                   gated: bool = False) -> Spec:
+    """Logical axes of :func:`init_attention`'s tensors."""
+    p: Spec = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if qkv_bias:
+        p["bq"] = ("heads", "head_dim")
+        p["bk"] = ("kv_heads", "head_dim")
+        p["bv"] = ("kv_heads", "head_dim")
+    if qk_norm:
+        p["q_norm"] = ("head_dim",)
+        p["k_norm"] = ("head_dim",)
+    if gated:
+        p["attn_gate"] = (None,)
     return p

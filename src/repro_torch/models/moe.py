@@ -46,6 +46,16 @@ def init_moe(gen: torch.Generator, d_model: int, num_experts: int, moe_d_ff: int
     }
 
 
+def moe_spec() -> Dict[str, Tuple]:
+    """Logical axes of :func:`init_moe`'s tensors."""
+    return {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", "ffn"),
+        "w_up": ("experts", "embed", "ffn"),
+        "w_down": ("experts", "ffn", "embed"),
+    }
+
+
 def router_topk(x2d: torch.Tensor, router_w: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (gates (T, k) normalised, expert_idx (T, k), full probs (T, E))."""

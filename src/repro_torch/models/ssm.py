@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..sharding.context import matmul
 from .layers import dense_init, rms_norm
 
 Params = Dict[str, torch.Tensor]
@@ -47,6 +48,20 @@ def init_mamba2(
         "D": torch.ones((ssm_heads,), **f32),
         "norm": torch.ones((d_inner,), dtype=dtype, device=dev),
         "out_proj": dense_init(gen, (d_inner, d_model), dtype=dtype),
+    }
+
+
+def mamba2_spec() -> Dict[str, Tuple]:
+    """Logical axes of :func:`init_mamba2`'s tensors."""
+    return {
+        "in_proj": ("embed", "ssm_inner"),
+        "conv_w": (None, "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "D": ("ssm_heads",),
+        "norm": ("ssm_inner",),
+        "out_proj": ("ssm_inner", "embed"),
     }
 
 
@@ -145,7 +160,7 @@ def mamba2_mixer(
     d_inner = cfg.d_inner
     gn = cfg.ssm_groups * cfg.ssm_state
     heads = cfg.ssm_heads
-    proj = xin @ params["in_proj"]
+    proj = matmul(xin, params["in_proj"])
     z, x, bm, cm, dt = _split_proj(proj, d_inner, gn, heads)
     xbc = torch.cat([x, bm, cm], dim=-1)
     xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
@@ -163,7 +178,7 @@ def mamba2_mixer(
     y = y + xh * params["D"][None, None, :, None]       # skip connection, in f32
     y = y.reshape(b_, s_, d_inner).to(xin.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps).to(xin.dtype)
-    out = y @ params["out_proj"]
+    out = matmul(y, params["out_proj"])
     if return_state:
         return out, (new_conv_state, new_ssm_state)
     return out
@@ -180,7 +195,7 @@ def mamba2_decode_step(
     d_inner = cfg.d_inner
     gn = cfg.ssm_groups * cfg.ssm_state
     heads = cfg.ssm_heads
-    proj = xin @ params["in_proj"]
+    proj = matmul(xin, params["in_proj"])
     z, x, bm, cm, dt = _split_proj(proj, d_inner, gn, heads)
     xbc = torch.cat([x, bm, cm], dim=-1)
     xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
@@ -202,5 +217,5 @@ def mamba2_decode_step(
     y = y + xh * params["D"][None, :, None]
     y = y.reshape(b_, 1, d_inner).to(xin.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps).to(xin.dtype)
-    out = y @ params["out_proj"]
+    out = matmul(y, params["out_proj"])
     return out, (new_conv_state, new_state)

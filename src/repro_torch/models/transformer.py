@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..sharding.context import constrain_batch, matmul
 from .attention import (
     _proj,
     attention_output,
@@ -48,9 +49,17 @@ from .attention import (
     project_qkv,
 )
 from .config import ATTN, ATTN_MOE, CROSS, SSM_MLP, ModelConfig
-from .layers import dense_init, init_attention, init_mlp, rms_norm, swiglu
-from .moe import init_moe, moe_ffn
-from .ssm import init_mamba2, mamba2_decode_step, mamba2_mixer
+from .layers import (
+    attention_spec,
+    dense_init,
+    init_attention,
+    init_mlp,
+    mlp_spec,
+    rms_norm,
+    swiglu,
+)
+from .moe import init_moe, moe_ffn, moe_spec
+from .ssm import init_mamba2, mamba2_decode_step, mamba2_mixer, mamba2_spec
 
 Cache = Dict[str, torch.Tensor]
 
@@ -244,7 +253,7 @@ class Transformer(nn.Module):
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.T if self.head is None else self.head
-        return x @ head
+        return matmul(x, head)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +295,12 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[torch.device | str] = None) -> Transformer:
     """Random weights with the reference's distributions, drawn on ``device``
     from a ``torch.Generator`` seeded with ``seed``."""
+    return Transformer(cfg, init_tensors(cfg, seed, device))
+
+
+def init_tensors(cfg: ModelConfig, seed: int = 0,
+                 device: Optional[torch.device | str] = None) -> Dict:
+    """:func:`init_params`' tensors, in the tree :class:`Transformer` takes."""
     dev = resolve_device(device)
     check_supported(cfg)                 # before drawing any weights
     dt = _dtype(cfg)
@@ -304,7 +319,49 @@ def init_params(cfg: ModelConfig, seed: int = 0,
             "blocks": [_init_block(gen, ATTN, cfg) for _ in range(cfg.encoder_layers)],
             "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         }
-    return Transformer(cfg, tensors)
+    return tensors
+
+
+def block_spec(kind: str, cfg: ModelConfig, with_cross: bool = False) -> Dict:
+    """Logical axes of one block's tensors, by kind (``repro.sharding.rules``'s names)."""
+    p: Dict = {"ln1": ("embed",)}
+    if _kind_has_self_attn(kind):
+        p["attn"] = attention_spec(cfg.qkv_bias, cfg.qk_norm)
+    if kind == CROSS:
+        p["xattn"] = attention_spec(False, cfg.qk_norm, gated=True)
+    if _kind_has_ssm(kind):
+        p["ssm"] = mamba2_spec()
+    if with_cross and _kind_has_self_attn(kind):
+        p["ln_cross"] = ("embed",)
+        p["cross"] = attention_spec()
+    ffn = _kind_ffn(kind, cfg)
+    if ffn != "none":
+        p["ln2"] = ("embed",)
+    if ffn == "dense":
+        p["mlp"] = mlp_spec()
+    elif ffn == "moe":
+        p["moe"] = moe_spec()
+    return p
+
+
+def params_spec(cfg: ModelConfig) -> Dict:
+    """Logical axes of every parameter, in the reference's tree: ``blocks``
+    a tuple over pattern positions with a leading ``layers`` axis on every
+    leaf, the layout :func:`~repro_torch.models.convert.param_tree` gives the
+    port's tensors in."""
+    spec: Dict = {"embed": ("vocab", "embed"), "final_norm": ("embed",)}
+    if not cfg.tie_embeddings:
+        spec["head"] = ("embed", "vocab")
+
+    def stack(tree):
+        return {k: stack(v) if isinstance(v, dict) else ("layers",) + tuple(v)
+                for k, v in tree.items()}
+    spec["blocks"] = tuple(
+        stack(block_spec(kind, cfg, with_cross=cfg.is_encoder_decoder))
+        for kind in cfg.layout_pattern)
+    if cfg.is_encoder_decoder:
+        spec["encoder"] = {"blocks": stack(block_spec(ATTN, cfg)), "final_norm": ("embed",)}
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -312,14 +369,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 
 def _caches(cfg: ModelConfig, batch: int, slots: int, cross_len: int, dtype: torch.dtype,
-            device: torch.device) -> List[Cache]:
+            device: torch.device, like: Optional[torch.Tensor] = None) -> List[Cache]:
     """Zeroed caches, one dict per layer, by block kind: ``slots`` k/v
-    positions for self-attention, ``cross_len`` for cross-attention."""
+    positions for self-attention, ``cross_len`` for cross-attention. With
+    ``like`` they are its ``new_zeros`` (a ``DTensor``'s, on a mesh)."""
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     conv = (batch, cfg.ssm_conv_width - 1, cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
     state = (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
 
     def zeros(shape, dt=dtype):
+        if like is not None:
+            return like.new_zeros(shape, dtype=dt)
         return torch.zeros(shape, dtype=dt, device=device)
     caches = []
     for kind in layer_kinds(cfg):
@@ -377,8 +437,9 @@ def _modality(model: Transformer, x: torch.Tensor,
 
 def _repetition(blocks: List[Block], cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor,
                 cross_src: Optional[torch.Tensor]) -> torch.Tensor:
+    x = constrain_batch(x)
     for blk in blocks:
-        x = blk.prefill(x, pos, cross_src, cfg)
+        x = constrain_batch(blk.prefill(x, pos, cross_src, cfg))
     return x
 
 
@@ -393,7 +454,7 @@ def forward_train(model: Transformer, tokens: torch.Tensor,
     """
     cfg = model.cfg
     b, s = tokens.shape
-    x = model.embed[tokens]
+    x = constrain_batch(model.embed[tokens])
     pos = torch.arange(s, device=tokens.device).expand(b, s)
     cross_src = _modality(model, x, cross_src)
     period = len(cfg.layout_pattern)
@@ -423,13 +484,13 @@ def forward_prefill(model: Transformer, tokens: torch.Tensor, max_cache_len: int
     """
     cfg = model.cfg
     b, s = tokens.shape
-    x = model.embed[tokens]
+    x = constrain_batch(model.embed[tokens])
     pos = torch.arange(s, device=tokens.device).expand(b, s)
     cross_src = _modality(model, x, cross_src)
     cross_len = 0 if cross_src is None else cross_src.shape[1]
-    caches = _caches(cfg, b, max(max_cache_len, s), cross_len, x.dtype, x.device)
+    caches = _caches(cfg, b, max(max_cache_len, s), cross_len, x.dtype, x.device, like=x)
     for blk, cache in zip(model.blocks, caches):
-        x = blk.prefill(x, pos, cross_src, cfg, cache)
+        x = constrain_batch(blk.prefill(x, pos, cross_src, cfg, cache))
     return model.logits(x[:, -1:]), caches, s
 
 
@@ -441,8 +502,8 @@ def forward_decode(model: Transformer, token: torch.Tensor, caches: List[Cache],
     """
     cfg = model.cfg
     b = token.shape[0]
-    x = model.embed[token]
+    x = constrain_batch(model.embed[token])
     pos = torch.full((b, 1), cache_len, dtype=torch.long, device=token.device)
     for blk, cache in zip(model.blocks, caches):
-        x = blk.decode(x, pos, cache, cache_len, cfg)
+        x = constrain_batch(blk.decode(x, pos, cache, cache_len, cfg))
     return model.logits(x), caches, cache_len + 1

@@ -55,14 +55,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 
 def train_step(model: Transformer, opt: Tuple[Callable, Callable], opt_state: OptState,
                tokens: torch.Tensor, labels: torch.Tensor,
-               cross: Optional[torch.Tensor] = None, remat: bool = False
-               ) -> Tuple[OptState, torch.Tensor]:
-    """One step: loss and gradients through :func:`forward_train`, then the
-    optimizer's update (``opt`` is ``make_optimizer``'s (init, update)) in
-    place. Returns (the new state, the loss before the update, detached).
-    A parameter that gets no gradient takes zeros, as ``jax.grad`` gives it."""
+               cross: Optional[torch.Tensor] = None, remat: bool = False,
+               loss_fn: Callable = cross_entropy_loss) -> Tuple[OptState, torch.Tensor]:
+    """One step: loss (``loss_fn(logits, labels)``) and gradients through
+    :func:`forward_train`, then the optimizer's update (``opt`` is
+    ``make_optimizer``'s (init, update)) in place. Returns (the new state,
+    the loss before the update, detached). A parameter that gets no
+    gradient takes zeros, as ``jax.grad`` gives it."""
     model.zero_grad(set_to_none=True)
-    loss = cross_entropy_loss(forward_train(model, tokens, cross, remat=remat), labels)
+    loss = loss_fn(forward_train(model, tokens, cross, remat=remat), labels)
     loss.backward()
     params = param_leaves(model)
     grads = [[t.grad if t.grad is not None else torch.zeros_like(t) for t in leaf.tensors]
@@ -75,10 +76,14 @@ def train_step(model: Transformer, opt: Tuple[Callable, Callable], opt_state: Op
 
 def train(model_cfg: ModelConfig, cfg: TrainConfig,
           cross_src_fn: Optional[Callable[[int], object]] = None,
-          device: Optional[torch.device | str] = None) -> TrainResult:
+          device: Optional[torch.device | str] = None,
+          step_fn: Optional[Callable] = None) -> TrainResult:
     """The reference's ``train`` on ``device`` (the card unless the caller
     asks for the CPU); weights drawn from ``cfg.seed`` with the port's
-    generator."""
+    generator. Each step is :func:`train_step` unless the caller gives
+    ``step_fn(model, opt_state, tokens, labels, cross_src) -> (model,
+    opt_state, loss)`` over the state of ``make_optimizer(cfg.optimizer,
+    lr=cfg.lr)`` (the launcher's mesh step)."""
     dev = resolve_device(device)
     model = init_params(model_cfg, seed=cfg.seed, device=dev)
     model.requires_grad_(True)
@@ -97,15 +102,20 @@ def train(model_cfg: ModelConfig, cfg: TrainConfig,
     cross_src = None
     if cross_src_fn:
         cross_src = torch.as_tensor(cross_src_fn(cfg.batch_size), device=dev)
+    if step_fn is None:
+        def step_fn(model, opt_state, tokens, labels, cross):
+            opt_state, loss = train_step(model, opt, opt_state, tokens, labels, cross,
+                                         remat=cfg.remat)
+            return model, opt_state, loss
 
     losses: List[float] = []
     t0 = time.time()
     batches = data.batches(start_step)
     for step in range(start_step, cfg.steps):
         tokens, labels = next(batches)
-        opt_state, loss = train_step(
-            model, opt, opt_state, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(labels).to(dev, torch.int64), cross_src, remat=cfg.remat)
+        tokens = torch.from_numpy(tokens).to(dev)
+        labels = torch.from_numpy(labels).to(dev, torch.int64)
+        model, opt_state, loss = step_fn(model, opt_state, tokens, labels, cross_src)
         losses.append(float(loss))
         if cfg.log_every and (step + 1) % cfg.log_every == 0:
             print(f"step {step+1:5d}  loss {losses[-1]:.4f}")

@@ -67,6 +67,17 @@ def _step_tensor(params: List[Leaf]) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
 
+def _local(t: torch.Tensor, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A ``DTensor``'s local shard (placed as ``like`` first, when given),
+    any other tensor itself: AdamW's update is elementwise, so on a mesh
+    each device updates its shards."""
+    if type(t) is torch.Tensor or not hasattr(t, "to_local"):
+        return t
+    if like is not None and tuple(t.placements) != tuple(like.placements):
+        t = t.redistribute(like.device_mesh, like.placements)
+    return t.to_local()
+
+
 def _slices(n: int):
     for i in range(0, n, CHUNK):
         yield slice(i, min(i + CHUNK, n))
@@ -102,8 +113,10 @@ def adamw(cfg: AdamWConfig = AdamWConfig()):
         t = step.float()
         bc1 = 1.0 - cfg.b1 ** t
         bc2 = 1.0 - cfg.b2 ** t
+        bc1, bc2 = _local(bc1), _local(bc2)
         for leaf, gs, m_leaf, v_leaf in zip(params, grads, state.inner["m"], state.inner["v"]):
             for p, g, m, v in zip(leaf.tensors, gs, m_leaf.tensors, v_leaf.tensors):
+                p, g, m, v = _local(p), _local(g, like=p), _local(m), _local(v)
                 pf, gf, mf, vf = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
                 for sl in _slices(pf.numel()):
                     upd(pf[sl], gf[sl], mf[sl], vf[sl], bc1, bc2)
