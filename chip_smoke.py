@@ -142,11 +142,25 @@ Run from the root of a checkout. Phases, one JSON line each:
    and ptxas's registers and spills; then that batch tiled to 16, 64, 256
    and 1024 lanes: both kernels' device time in turns, the host
    preparation, the whole compiled call, the numpy tier and the scalar
-   ``FastSimulator`` loop, and the FIFO rings' bytes.
+   ``FastSimulator`` loop, and the FIFO rings' bytes;
+9. paper: the paper's evaluation harness (``repro_torch.experiments.paper``,
+   the port of ``benchmarks/run.py``), every one of its 15 sections in this
+   process at ``--smoke`` sizing on the card, one line each with its rows,
+   seconds and launches (every kernel's count zeroed just before a section
+   and read just after): ``simspeed``'s compiled legs launch B1 with no
+   fallback and hold the numpy tier's objectives; ``kernels``' K1, K2 and K3
+   rows equal their plain versions within ``TOL``/``SSD_TOL`` (K1 exactly),
+   every launch on the route ``_route`` gives its row; every other section
+   launches no K1, K2 or K3; the prescreen's false prunes are 0, the
+   conformance diff 0, the sweep deterministic and table5's makespans
+   finite. Then ``examples/serve_multimodel_torch.py`` and
+   ``examples/device_in_loop_torch.py`` run on the card as subprocesses and
+   must exit 0.
 
 Then the ``kernels`` line (K2's and K3's launches summed over the served
-models and the two training runs, ``launches_by_path`` one count per path;
-K2's backward with its launches in the two training runs, both sources and
+models, the two training runs, the mesh steps and ``paper``,
+``launches_by_path`` one count per path, K1's and B1's with a ``paper``
+entry too; K2's backward with its launches in the two training runs, both sources and
 its launches by route), the
 ``nvidia-smi`` line,
 and as the last line
@@ -162,6 +176,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -322,6 +337,10 @@ STEPS_REPS = 3             # timed prefills
 LANE_GEMM_SIZES = (256, 512, 1024, 2048, 4096, 8192)
 LANE_COPY_BYTES = 1 << 30
 LANE_LAUNCHES = 2000
+# paper: the examples run on the card after the harness's sections, each a
+# subprocess with this many seconds to finish
+PAPER_EXAMPLES = ("examples/serve_multimodel_torch.py", "examples/device_in_loop_torch.py")
+PAPER_EXAMPLE_TIMEOUT = 420
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
 # cores, HBM3; set in main from repro_torch.launch.roofline
 PEAK_BF16_FLOPS = PEAK_F32_FLOPS = PEAK_BYTES = None
@@ -1386,6 +1405,102 @@ def sweep_phase(smi: str, counters: dict, ptxas: dict) -> dict:
             "us_per_event_longest_lane": warp["us_per_event_longest_lane"],
             "thread_kernel_us_per_event_longest_lane": thread["us_per_event_longest_lane"],
             "library_ms": None}
+
+
+def paper_phase(smi: str, counters: dict) -> dict:
+    """9. the paper's evaluation harness on the card: every section of
+    ``repro_torch.experiments.paper`` in this process at ``--smoke`` sizing,
+    every kernel's launch count zeroed just before a section and read just
+    after, then the two card examples as subprocesses. Returns each
+    kernel's launches in the phase and K1's by route."""
+    import io
+
+    import torch
+
+    import repro_torch.core.batchsim_compiled as bsc
+    from repro_torch.experiments import paper
+    from repro_torch.kernels.int8_quant import ROUTES as K1_ROUTES
+    from repro_torch.kernels.int8_quant import quantize_int8
+
+    dev = torch.device("cuda")
+    args = paper.parse_args(["--smoke", "--json"])
+    total = dict.fromkeys(counters, 0)
+    k1_routes = dict.fromkeys(K1_ROUTES, 0)
+    tol = {"flash_attention": TOL, "ssd_scan": SSD_TOL}
+    for name, fn in paper.SECTIONS.items():
+        zero_counts(counters)
+        quantize_int8.launches_by_route = dict.fromkeys(K1_ROUTES, 0)
+        fallbacks0 = dict(bsc.fallbacks)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = fn(args, dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counted = read_counts(counters)
+        counts = counted["launches"]
+        fallbacks = {r: bsc.fallbacks[r] - fallbacks0[r] for r in bsc.fallbacks}
+        rows = [line.split(",", 2) for line in out.getvalue().splitlines()]
+        derived = {r[0]: r[2] for r in rows}
+        for k, n in counts.items():
+            total[k] += n
+        for r in K1_ROUTES:
+            k1_routes[r] += quantize_int8.launches_by_route[r]
+        gates = {}
+        if name == "simspeed":
+            gates["b1_launched"] = counts["batchsim_advance"] > 0
+            gates["no_fallback"] = not any(fallbacks.values())
+            gates["launched_by_compiled_legs"] = (result["compiled_launches"]
+                                                  == counts["batchsim_advance"])
+        elif name == "kernels":
+            # each row against its plain version (K1 exactly), and every
+            # launch of a kernel on the route ``_route`` gives its row
+            want_routes = {"flash_attention": {}, "ssd_scan": {}, "int8_quant": {}}
+            for row in result:
+                kernel = row["name"].split(".")[1]
+                if kernel == "quantize_int8":
+                    kernel = "int8_quant"
+                    ok = all(torch.equal(a, b) for a, b in row["outputs"])
+                else:
+                    ok = all(torch.allclose(a.float(), b.float(), **tol[kernel][row["dtype"]])
+                             for a, b in row["outputs"])
+                gates[row["name"]] = ok and row["launches"] > 0
+                routes = want_routes[kernel]
+                routes[row["route"]] = routes.get(row["route"], 0) + row["launches"]
+            took = {"int8_quant": dict(quantize_int8.launches_by_route), **counted["routes"]}
+            gates["routes"] = all({r: n for r, n in took[k].items() if n} == want
+                                  for k, want in want_routes.items())
+            gates["launches"] = all(counts[k] == sum(want_routes[k].values())
+                                    for k in want_routes)
+        else:
+            gates["no_k1_k2_k3"] = not any(
+                counts[k] for k in ("flash_attention", "ssd_scan", "int8_quant"))
+        if name == "prescreen":
+            gates["false_prunes_0"] = derived["prescreen.false_prunes"].startswith("0 ")
+        elif name == "conformance":
+            gates["zero_diff"] = "max_abs_diff=0.0;" in derived["conformance.zero_diff"]
+        elif name == "sweep":
+            gates["deterministic"] = derived["sweep.deterministic"] == "ok=True"
+        elif name == "table5":
+            gates["finite_makespans"] = all(math.isfinite(m) and m > 0 for m in result)
+        emit({"phase": "paper", "section": name, "seconds": seconds, "rows": rows,
+              "launches": counts, "routes": counted["routes"],
+              "k1_routes": dict(quantize_int8.launches_by_route), "fallbacks": fallbacks,
+              "gates": gates, "smi": smi})
+        if not all(gates.values()):
+            raise AssertionError(f"paper section {name}: gates {gates}, launches {counts}")
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for script in PAPER_EXAMPLES:
+        t0 = time.perf_counter()
+        done = subprocess.run([sys.executable, script], cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=PAPER_EXAMPLE_TIMEOUT)
+        emit({"phase": "paper_example", "script": script, "returncode": done.returncode,
+              "seconds": time.perf_counter() - t0, "stdout_tail": done.stdout[-3000:],
+              "stderr_tail": done.stderr[-3000:], "smi": smi})
+        if done.returncode != 0:
+            raise AssertionError(f"{script} exited {done.returncode}")
+    return {"launches": total, "k1_routes": k1_routes}
 
 
 def cut_config(cfg, cut):
@@ -2619,9 +2734,22 @@ def main() -> int:
     t0 = time.perf_counter()
     timings["batchsim_advance"] = sweep_phase(smi, counters, b1_ptxas)
     emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
-    launches["int8_quant"] = k1_runtime + k1_search + k1_conf
+
+    # 9. the paper's evaluation harness and the card examples -----------------
+    t0 = time.perf_counter()
+    paper = paper_phase(smi, counters)
+    emit({"phase": "paper_done", "seconds": time.perf_counter() - t0})
+    for kernel in ("flash_attention", "ssd_scan"):
+        by_path[kernel]["paper"] = paper["launches"][kernel]
+        launches[kernel] += paper["launches"][kernel]
+    k1_paper = paper["launches"]["int8_quant"]
+    b1_sweep = timings["batchsim_advance"]["launches"]
+    timings["batchsim_advance"]["launches"] = b1_sweep + paper["launches"]["batchsim_advance"]
+    timings["batchsim_advance"]["launches_by_path"] = {
+        "sweep": b1_sweep, "paper": paper["launches"]["batchsim_advance"]}
+    launches["int8_quant"] = k1_runtime + k1_search + k1_conf + k1_paper
     k1_routes = {r: k1_runtime_routes[r] + k1_search_routes[r] + k1_conf_routes[r]
-                 for r in k1_runtime_routes}
+                 + paper["k1_routes"][r] for r in k1_runtime_routes}
     timings["int8_quant"]["max_abs_err"] = max(timings["int8_quant"]["max_abs_err"],
                                                k1_staged_err)
 
@@ -2641,7 +2769,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/int8_quant.py:29",
          "launches": launches["int8_quant"], "launches_by_route": k1_routes,
          "launches_by_path": {"runtime": k1_runtime, "search": k1_search,
-                              "conformance": k1_conf},
+                              "conformance": k1_conf, "paper": k1_paper},
          **timings["int8_quant"]},
         {"name": "batchsim_advance", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/batchsim_advance.cu",

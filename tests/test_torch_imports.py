@@ -112,3 +112,42 @@ def test_training_imports_no_jax_reference_or_msgpack():
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
     assert {"repro_torch.train", "repro_torch.train.checkpoint", "repro_torch.train._msgpack",
             "repro_torch.train.loop", "repro_torch.launch.train"} <= names
+
+
+PROBE_PAPER = """
+import runpy, sys, tempfile, os
+import torch
+torch.set_num_threads(1)        # tiny CPU ops; the other test workers hold the cores
+from repro_torch.experiments import paper
+assert set(paper.SECTIONS) == {{"table2", "table3", "table4", "fig5", "fig12", "fig15", "table5",
+                               "simspeed", "prescreen", "conformance", "sweep", "arrivals",
+                               "faults", "roofline", "kernels"}}
+small = ["--device", "cpu", "--channels", "4", "--spatial", "8"]
+with tempfile.TemporaryDirectory() as d:
+    os.chdir(d)                 # device_in_loop writes results/ under the working directory
+    tempfile.tempdir = d        # sweep_small's run dir
+    for script, argv in (("quickstart_torch", ["--device", "cpu"]),
+                         ("serve_multimodel_torch", small),
+                         ("device_in_loop_torch", small),
+                         ("sweep_small_torch", ["--device", "cpu"])):
+        sys.argv = [script] + argv
+        runpy.run_path(os.path.join({root!r}, "examples", script + ".py"), run_name="__main__")
+    os.chdir({root!r})
+sys.argv = ["paper", "table3", "--device", "cpu"]
+runpy.run_module("repro_torch.experiments.paper", run_name="__main__")
+assert "jax" not in sys.modules, "jax imported"
+bad = [m for m in sys.modules if m == "repro" or m.startswith("repro.")]
+assert not bad, bad
+print("examples ran")
+"""
+
+
+def test_paper_harness_and_examples_import_no_jax_or_reference():
+    """``repro_torch.experiments.paper`` (its CLI run once) and the four new
+    examples, each run to its end on the CPU, import neither JAX nor
+    anything of the JAX package."""
+    out = subprocess.run([sys.executable, "-c", PROBE_PAPER.format(root=str(ROOT))],
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=240, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "examples ran" in out.stdout and "table3.fastsam_s.NPU" in out.stdout
