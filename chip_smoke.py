@@ -30,7 +30,13 @@ Run from the root of a checkout. Phases, one JSON line each:
    ``BWD_CHECKS``, every bf16 case on both routes (the ``simt`` kernel
    through ``_flash_attention_bwd_simt``), then timed at the first two in
    turns with the ``simt`` kernel at bf16, the autograd backward of SDPA and
-   the plain version);
+   the plain version); K3's backward (``ssd_scan_bwd``, one ``simt`` route:
+   CUDA cores, f32 sums) at mamba2-1.3b's training shape in bf16 and f32,
+   jamba-1.5-large's in bf16 and the edge cases of ``SSD_BWD_CHECKS`` in
+   both, the model's A with dt doubled (the masked half overflows), against
+   ``ssd_scan_bwd_plain`` (and at the two training shapes against autograd
+   through ``ssd_scan_plain``), then timed at those two shapes beside the
+   plain version;
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -54,7 +60,11 @@ Run from the root of a checkout. Phases, one JSON line each:
    - train_check: phi4-mini-3.8b at full width cut to one layer; the loss
      and every parameter's gradient through K2's forward and backward
      kernels against the plain forward differentiated by autograd, and the
-     same limits rejecting a backward whose dQ and dK are zeroed;
+     same limits rejecting a backward whose dQ and dK are zeroed; then
+     mamba2-1.3b cut to one layer and jamba-1.5-large cut to one
+     ``ssm_mlp`` layer (256 heads a group) likewise through K3's forward and
+     backward kernels (``SsdScanFn``), the limits rejecting a backward whose
+     dB and dC are zeroed;
    - train: phi4-mini-3.8b at full width and depth (32 layers, d 3072,
      vocab 200064), bf16, AdamW, remat on, batch 4 x 1024 tokens from
      ``MarkovDataset`` through ``repro_torch.train.train_step``: 2 warm-up
@@ -62,7 +72,10 @@ Run from the root of a checkout. Phases, one JSON line each:
      just after (K2's forward 2 x 32 a step, all ``sm90``; its backward
      32, all ``sm90``), the loss per step, step seconds, tokens/s, peak memory,
      and one more step under the profiler split into K2's forward and
-     backward, cuBLAS, the optimizer and the rest;
+     backward, K3's forward and backward, cuBLAS, the optimizer and the
+     rest; then mamba2-1.3b at full width and depth (48 ssm layers, d 2048,
+     vocab 50280) the same way with 6 counted steps (K3's forward 2 x 48 a
+     step on ``sm90``, its backward 48 on ``simt``, K2 none);
    - train_ckpt: the f32 100M demo of ``examples/train_100m_torch.py``
      through ``repro_torch.train.train``, 60 steps with a checkpoint at 40,
      then resumed from it: the resumed first loss equals the uninterrupted
@@ -74,11 +87,11 @@ Run from the root of a checkout. Phases, one JSON line each:
      ``make_decode_step`` on ``make_host_mesh()``, the card's 1×1 mesh:
      phi4-mini-3.8b at full width and depth (train 4 x 1024, bf16, AdamW,
      remat; prefill and 8 decode steps at batch 4 with 1024 prompt tokens)
-     and mamba2-1.3b's prefill, each held first to the direct path it
-     wraps (``train_step``'s losses, ``generate``'s logits and ids), then
-     timed with every kernel's count zeroed just before and read just after
-     (K2 forward and backward, K3, all ``sm90``), seconds, tokens/s and peak
-     memory beside the dry run's three roofline terms for the same shape on
+     and mamba2-1.3b's train step (4 x 1024) and prefill, each held first to
+     the direct path it wraps (``train_step``'s losses, ``generate``'s logits
+     and ids), then timed with every kernel's count zeroed just before and
+     read just after (K2 forward and backward and K3's forward on ``sm90``,
+     K3's backward on ``simt``), seconds, tokens/s and peak memory beside the dry run's three roofline terms for the same shape on
      the 1×1 mesh and the time's multiple of the largest;
    - dryrun: ``run_one`` of every config at the 16×16 mesh and
      ``prefill_32k`` on the meta device: ok or failed, the bottleneck and
@@ -161,7 +174,8 @@ Then the ``kernels`` line (K2's and K3's launches summed over the served
 models, the two training runs, the mesh steps and ``paper``,
 ``launches_by_path`` one count per path, K1's and B1's with a ``paper``
 entry too; K2's backward with its launches in the two training runs, both sources and
-its launches by route), the
+its launches by route; K3's backward with its launches in mamba2's training
+run and mesh step), the
 ``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -309,14 +323,36 @@ BWD_CHECKS = [BWD_PHI4, BWD_DEMO] + [(dt, *c) for dt in ("float32", "bfloat16") 
     ((2, 16, 40, 64, 1), True, None, -8),
     ((16, 256, 256, 112, 8), True, None, 0))]
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K3's backward, (dtype, (bh, s, p, n, chunk, heads_per_group, initial state
+# and final-state gradient)): mamba2-1.3b's training shape (batch 4 x 64 heads
+# of one group) in bf16 and f32, jamba-1.5-large's (256 heads a group) in
+# bf16, then chunk 1, chunk 100 with a state in and out (one head a group),
+# S == chunk, P 96 and P 100 with N 24 (two P-tiles, one ragged) and a state
+# in and out at 4 heads a group, each in f32 and bf16; the model's A and dt
+# doubled (ssd_bwd_inputs). Tolerance: BWD_TOL of the largest gradient, as K2's
+SSD_BWD_MAMBA2 = ("bfloat16", (256, 1024, 64, 128, 128, 64, False))
+SSD_BWD_JAMBA = ("bfloat16", (1024, 1024, 64, 128, 128, 256, False))
+SSD_BWD_CHECKS = [SSD_BWD_MAMBA2, ("float32", SSD_BWD_MAMBA2[1]), SSD_BWD_JAMBA] + [
+    (dt, s) for dt in ("float32", "bfloat16") for s in (
+        (8, 64, 64, 32, 1, 4, False), (4, 200, 64, 128, 100, 1, True),
+        (4, 128, 64, 128, 128, 1, False), (8, 256, 96, 24, 128, 4, True),
+        (8, 256, 100, 24, 128, 4, False), (8, 256, 64, 128, 128, 4, True))]
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 # train: phi4-mini-3.8b at full width and depth, bf16, AdamW, remat on; warm-up
 # steps, then the counted and timed steps
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = "phi4-mini-3.8b", 4, 1024, 2, 8
 TRAIN_LR = 1e-3            # the launcher's default (repro_torch.launch.train)
-# train_check: phi4-mini-3.8b at full width cut to one layer; the loss through
+# mamba2-1.3b at full width and depth (48 ssm layers), the same batch, after phi4
+SSM_TRAIN_ARCH, SSM_TRAIN_STEPS = "mamba2-1.3b", 6
+# train_check: (arch, its cut, the kernels swapped) at full width: phi4-mini
+# one layer through K2; mamba2 one layer and jamba one ssm_mlp layer (256
+# heads a group through the model; no optimizer) through K3. The loss through
 # the kernels within TRAIN_LOSS_TOL of the plain path's (relative), every
 # parameter's gradient within TRAIN_GRAD_TOL of the plain one's norm (bf16
 # rounding gives well under 1%; a lost dQ or dK gives 100% on wq or wk)
+TRAIN_CHECKS = (("phi4-mini-3.8b", {"num_layers": 1}, "attention"),
+                ("mamba2-1.3b", {"num_layers": 1}, "ssd"),
+                ("jamba-1.5-large-398b", {"layout_pattern": ("ssm_mlp",), "num_layers": 1}, "ssd"))
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
 # train_ckpt: the 100M demo (f32) of examples/train_100m_torch.py at its batch
 # and sequence, a checkpoint at CKPT_AT of CKPT_STEPS, then the resume
@@ -367,8 +403,11 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # K2's backward: the simt route's three kernels, then the sm90 route's
 BWD_KERNELS = ("dot_kernel", "dkdv_kernel", "dq_kernel", "bwd_prep_sm90_kernel",
                "dkdv_sm90_kernel", "dq_sm90_kernel")
-PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_sm90_kernel",
-                "ssd_scan_kernel", "quant_rows_sm90_kernel", "quant_rows_kernel") + BWD_KERNELS
+# K3's forward on either route, then its backward's two passes
+SSD_FWD_KERNELS = ("ssd_scan_sm90_kernel", "ssd_scan_kernel")
+SSD_BWD_KERNELS = ("ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel")
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", *SSD_FWD_KERNELS,
+                "quant_rows_sm90_kernel", "quant_rows_kernel") + BWD_KERNELS + SSD_BWD_KERNELS
 
 
 def device_profile(fn) -> dict:
@@ -1526,7 +1565,7 @@ def expected_launches(cfg) -> dict:
     if cfg.is_encoder_decoder:
         k2 += self_attn + cfg.encoder_layers         # cross-attention, then the encoder
     return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
-            "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0}
+            "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def random_cross_src(cfg, batch: int, gen):
@@ -1939,11 +1978,141 @@ def time_attention_bwd(case, inputs, batch: int, smi: str, path: str) -> dict:
                 library_ms=lib_ms)
 
 
+def ssd_bwd_inputs(dtype: str, shape, gen):
+    """K3's inputs, y's gradient and the final state's (or None) on the card:
+    the model's A (-1 … -16 over a group's heads, over the rows for one head
+    a group) and dt doubled, so that exp(cum_i - cum_j) overflows above the
+    diagonal in every chunk longer than a few steps."""
+    import torch
+    bh, s, p, n, chunk, g, with_state = shape
+    dev, tdt = torch.device("cuda"), getattr(torch, dtype)
+
+    def randn(*size):
+        return torch.randn(size, generator=gen, device=dev)
+    x, dy = randn(bh, s, p).to(tdt), randn(bh, s, p).to(tdt)
+    dt = torch.nn.functional.softplus(randn(bh, s)) * 2.0
+    heads = g if g > 1 else bh
+    A = -torch.linspace(1.0, 16.0, heads, device=dev).repeat(bh // heads)
+    Bm, Cm = (randn(bh // g, s, n) * 0.3).to(tdt), (randn(bh // g, s, n) * 0.3).to(tdt)
+    kw = dict(chunk=chunk, heads_per_group=g, initial_state=randn(bh, n, p) if with_state else None)
+    return (x, dt, A, Bm, Cm), dy, randn(bh, n, p) if with_state else None, kw
+
+
+def ssd_bwd_bound_ms(dtype: str, shape):
+    """Least time for K3's backward, from the least work it needs (not the
+    dry run's ``bwd_flops_per_chunk``, which counts every Q×Q product in
+    full and once per head): per row and chunk, dY·Xᵀ, Wᵀ·dY, dG·B and
+    dGᵀ·C over the Q(Q+1)/2 pairs j ≤ i that the mask keeps, and five Q·N·P
+    products (the recomputed state update, B·dS, X·dSᵀ, dY·s_inᵀ, Cᵀ·dY);
+    C·Bᵀ over the kept pairs once per group row, since a group's heads read
+    the same B and C. x, dy, dt, A, B and C (once per group), and a given
+    initial state and final-state gradient read once; dx, ddt, dA, dB, dC
+    (and the initial state's gradient) written once."""
+    bh, s, p, n, chunk, g, with_state = shape
+    kept = chunk * (chunk + 1) // 2
+    flops = float((s // chunk) * (bh * (2 * kept * (2 * n + 2 * p) + 10 * chunk * n * p)
+                                  + (bh // g) * 2 * kept * n))
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (size * (3 * bh * s * p + 4 * (bh // g) * s * n) + 4 * 2 * (bh * s + bh)
+              + 4 * bh * n * p * (3 if with_state else 0))
+    t_ops = flops / (PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def check_ssd_bwd(gen, smi: str) -> dict:
+    """K3's backward kernel (``ssd_scan_bwd``, one ``simt`` launch a call)
+    against ``ssd_scan_bwd_plain`` on the same inputs at ``SSD_BWD_CHECKS``:
+    every gradient finite, within ``BWD_TOL`` of the plain one's largest
+    entry, the same bits on a second call; at mamba2's and jamba's training
+    shapes also against autograd through ``ssd_scan_plain``. Then timed at
+    those two shapes."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain
+    timed, worst = {}, 0.0
+    for dtype, shape in SSD_BWD_CHECKS:
+        args, dy, dfinal, kw = ssd_bwd_inputs(dtype, shape, gen)
+        before = ssd_scan_bwd.launches_by_route["simt"]
+        got = ssd_scan_bwd(*args, dy, dfinal, **kw)
+        took = ssd_scan_bwd.launches_by_route["simt"] - before
+        again = ssd_scan_bwd(*args, dy, dfinal, **kw)
+        want = ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
+        torch.cuda.synchronize()
+        names = [nm for nm, t in zip(SSD_GRADS, want) if t is not None]
+        got, again, want = ([t for t in r if t is not None] for r in (got, again, want))
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+        scales = [float(b.float().abs().max()) for b in want]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        tol = BWD_TOL[dtype]
+        ok = (len(got) == len(want) and all(e <= tol * max(sc, 1e-6) for e, sc in zip(errs, scales))
+              and same and finite and took == 1
+              and [a.dtype for a in got] == [b.dtype for b in want])
+        record = {"phase": "kernel_check", "kernel": "ssd_scan_bwd", "route": "simt",
+                  "dtype": dtype, "shape": shape, "max_abs_err": dict(zip(names, errs)),
+                  "max_abs_grad": dict(zip(names, scales)), "tol_of_largest": tol,
+                  "same_bits_twice": same, "finite": finite, "launches": took}
+        serving = (dtype, shape) in (SSD_BWD_MAMBA2, SSD_BWD_JAMBA)
+        if serving:                      # autograd through the plain forward, y alone
+            leaves = [t.clone().requires_grad_() for t in args]
+            y, _ = ssd_scan_plain(*leaves, **kw)
+            grads = torch.autograd.grad(y, leaves, dy)
+            a_errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, grads)]
+            a_scales = [float(b.float().abs().max()) for b in grads]
+            record["autograd_max_abs_err"] = dict(zip(names, a_errs))
+            ok = ok and all(e <= tol * max(sc, 1e-6) for e, sc in zip(a_errs, a_scales))
+            del leaves, y, grads
+        record["ok"] = ok
+        emit(record)
+        if not ok:
+            raise AssertionError(f"ssd_scan_bwd differs from its plain version at {shape} "
+                                 f"{dtype}: {errs} (of {scales}), same bits {same}, finite "
+                                 f"{finite}, launches {took}")
+        worst = max(worst, max(e / max(sc, 1e-6) for e, sc in zip(errs, scales)))
+        if serving:
+            timed[shape] = (max(errs), (args, dy, dfinal, kw))
+        del args, dy, dfinal, kw, got, again, want
+    err, inputs = timed.pop(SSD_BWD_MAMBA2[1])
+    result = dict(max_abs_err=err, worst_err_over_largest_grad=worst,
+                  **time_ssd_bwd(SSD_BWD_MAMBA2, inputs, smi, "mamba2-1.3b train"))
+    err, inputs = timed.pop(SSD_BWD_JAMBA[1])
+    t = time_ssd_bwd(SSD_BWD_JAMBA, inputs, smi, "jamba-1.5-large-398b ssm layer")
+    result["jamba_shape"] = dict(shape=SSD_BWD_JAMBA[1], max_abs_err=err,
+                                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                      "forward_ms")})
+    return result
+
+
+def time_ssd_bwd(case, inputs, smi: str, path: str) -> dict:
+    """K3's backward at ``case``: the kernel and the plain version in turns
+    (a, b, b, a), each keeps its least; K3's forward on its route beside."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain
+    args, dy, dfinal, kw = inputs
+    contenders = {"kernel": (lambda: ssd_scan_bwd(*args, dy, dfinal, **kw), 10),
+                  "plain": (lambda: ssd_scan_bwd_plain(*args, dy, dfinal, **kw), 3)}
+    turns = {who: [] for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn, iters = contenders[who]
+        turns[who].append(cuda_ms(fn, iters=iters))
+    fwd_ms = cuda_ms(lambda: ssd_scan(*args, **kw), iters=20)
+    ms, plain_ms = min(turns["kernel"]), min(turns["plain"])
+    bound_ms, bound_by, flops, nbytes = ssd_bwd_bound_ms(*case)
+    emit({"phase": "kernel_time", "kernel": "ssd_scan_bwd", "route": "simt", "path": path,
+          "dtype": case[0], "shape": case[1], "ms": ms, "plain_ms": plain_ms,
+          "library_ms": None, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
+          "flops": flops, "bytes": nbytes,
+          "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
+          "share_of_bound": bound_ms / ms, "forward_ms": fwd_ms, "smi": smi})
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, forward_ms=fwd_ms)
+
+
 def train_profile(model, opt, state, tokens, labels) -> dict:
     """Device ms of one train step split by what runs: K2's forward, K2's
-    backward (its three kernels on either route, also apart), cuBLAS, the
-    optimizer's update (the kernels under its ``record_function`` range, for
-    this call only) and the rest (norms, RoPE, SwiGLU, the loss, the
+    backward (its three kernels on either route, also apart), K3's forward
+    and its backward (both passes, also apart), cuBLAS, the optimizer's
+    update (the kernels under its ``record_function`` range, for this call
+    only) and the rest (norms, RoPE, SwiGLU, the convolution, the loss, the
     embedding's gradient, copies)."""
     import torch
     from torch.autograd import DeviceType
@@ -1970,6 +2139,9 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     fwd = ms(lambda key: "flash_fwd" in key)
     bwd = ms(lambda key: any(n + "<" in key for n in BWD_KERNELS))
     bwd_by_kernel = {n: ms(lambda key, n=n: n + "<" in key) for n in BWD_KERNELS}
+    ssd_fwd = ms(lambda key: any(n + "<" in key for n in SSD_FWD_KERNELS))
+    ssd_bwd = ms(lambda key: any(n + "<" in key for n in SSD_BWD_KERNELS))
+    ssd_bwd_by_kernel = {n: ms(lambda key, n=n: n + "<" in key) for n in SSD_BWD_KERNELS}
     gemm = ms(lambda key: any(n in key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass")))
     def inside(e, name):
         p = e.cpu_parent
@@ -1981,39 +2153,80 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     # each kernel once: the self device time of every op under the range
     optimizer = sum(e.self_device_time_total for e in prof.events()
                     if e.device_type == DeviceType.CPU and inside(e, "optimizer")) / 1e3
-    split = {"attention_forward": fwd, "attention_backward": bwd, "cublas": gemm,
-             "optimizer": optimizer, "rest": busy - fwd - bwd - gemm - optimizer}
+    split = {"attention_forward": fwd, "attention_backward": bwd, "ssd_forward": ssd_fwd,
+             "ssd_backward": ssd_bwd, "cublas": gemm, "optimizer": optimizer,
+             "rest": busy - fwd - bwd - ssd_fwd - ssd_bwd - gemm - optimizer}
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "split_ms": split,
             "attention_backward_ms": {n: t for n, t in bwd_by_kernel.items() if t},
+            "ssd_backward_ms": {n: t for n, t in ssd_bwd_by_kernel.items() if t},
             "device_share": busy / wall_ms,
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]]}, state
 
 
-def train_check(counters: dict) -> None:
-    """phi4-mini-3.8b at full width cut to one layer, bf16, random weights
-    from seed 0, the first ``MarkovDataset`` batch of the train phase:
-    ``forward_train`` (remat on) and the loss's backward through K2's forward
-    and backward kernels (2 forward launches with remat, 1 backward, on the
-    ``sm90`` route), against
-    the same with ``ops.FlashAttentionFn`` swapped for the plain forward,
-    which autograd differentiates. The loss within ``TRAIN_LOSS_TOL`` and
-    every parameter's gradient within ``TRAIN_GRAD_TOL`` (relative L2).
-    Then the kernels again with the backward kernel's dQ and dK zeroed: the
-    same limits must reject that."""
+def train_swaps(kind: str):
+    """What ``train_check`` swaps into ``ops`` for ``kind`` (``attention``:
+    K2, ``ssd``: K3): the Function's name there, a stand-in running the
+    plain forward, which autograd differentiates, and the kernels' Function
+    with the backward's gradients of the two inputs the scores are formed
+    from zeroed (dQ and dK; dB and dC), with that fault's name."""
+    import torch
+    if kind == "attention":
+        fa = importlib.import_module("repro_torch.kernels.flash_attention")
+
+        class PlainAttention:
+            @staticmethod
+            def apply(q, k, v, g, causal, window, q_offset):
+                return fa.flash_attention_plain(q, k, v, q_heads_per_kv=g, causal=causal,
+                                                window=window, q_offset=q_offset)
+
+        class LostDqDk(fa.FlashAttentionFn):
+            @staticmethod
+            def backward(ctx, do):
+                dq, dk, *rest = fa.FlashAttentionFn.backward(ctx, do)
+                return (torch.zeros_like(dq), torch.zeros_like(dk), *rest)
+        return "FlashAttentionFn", PlainAttention, LostDqDk, "lost_dq_dk"
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+
+    class PlainSsd:
+        @staticmethod
+        def apply(x, dt, A, Bm, Cm, chunk, g, initial_state):
+            return ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, heads_per_group=g,
+                                      initial_state=initial_state)
+
+    class LostDbDc(ssd.SsdScanFn):
+        @staticmethod
+        def backward(ctx, dy, dstate):
+            dx, ddt, dA, dB, dC, *rest = ssd.SsdScanFn.backward(ctx, dy, dstate)
+            return (dx, ddt, dA, torch.zeros_like(dB), torch.zeros_like(dC), *rest)
+    return "SsdScanFn", PlainSsd, LostDbDc, "lost_db_dc"
+
+
+def train_check(counters: dict, arch: str, cut, kind: str) -> None:
+    """``arch`` at full width cut by ``cut`` (``TRAIN_CHECKS``), bf16, random
+    weights from seed 0, the first ``MarkovDataset`` batch of the train
+    phase: ``forward_train`` (remat on) and the loss's backward through the
+    kernels of ``kind`` (``train_swaps``), their launches as
+    ``train_launches`` gives for one step (each forward kernel twice a layer
+    with remat, each backward kernel once; K2 and K3's forward on ``sm90``,
+    K3's backward on ``simt``), against the same with the kernels' Function
+    swapped for the plain forward, which autograd differentiates. The loss
+    within ``TRAIN_LOSS_TOL`` and every parameter's gradient within
+    ``TRAIN_GRAD_TOL`` (relative L2). Then the kernels again with the
+    backward's faulty stand-in: the same limits must reject that."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import forward_train, init_params
     from repro_torch.train import DataConfig, MarkovDataset, cross_entropy_loss
     ops = importlib.import_module("repro_torch.kernels.ops")
-    fa = importlib.import_module("repro_torch.kernels.flash_attention")
     dev = torch.device("cuda")
-    cfg = cut_config(get_config(TRAIN_ARCH), {"num_layers": 1})
+    cfg = cut_config(get_config(arch), cut)
     model = init_params(cfg, seed=0, device=dev)
     model.requires_grad_(True)
     data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                     batch_size=TRAIN_BATCH, seed=0))
     tokens, labels = (torch.from_numpy(a).to(dev, torch.int64) for a in next(data.batches()))
+    fn_name, plain, faulty, fault = train_swaps(kind)
 
     def run():
         model.zero_grad(set_to_none=True)
@@ -2023,77 +2236,84 @@ def train_check(counters: dict) -> None:
         model.zero_grad(set_to_none=True)
         return float(loss.detach()), grads
 
-    class PlainAttention:      # in place of FlashAttentionFn: autograd through the plain forward
-        @staticmethod
-        def apply(q, k, v, g, causal, window, q_offset):
-            return fa.flash_attention_plain(q, k, v, q_heads_per_kv=g, causal=causal,
-                                            window=window, q_offset=q_offset)
-
-    class LostDqDk(fa.FlashAttentionFn):     # the kernels, with the backward's dQ and dK zeroed
-        @staticmethod
-        def backward(ctx, do):
-            dq, dk, *rest = fa.FlashAttentionFn.backward(ctx, do)
-            return (torch.zeros_like(dq), torch.zeros_like(dk), *rest)
-
     def rel(got, want):
         return {n: float((got[n].float() - w.float()).norm() / w.float().norm().clamp_min(1e-30))
                 for n, w in want.items()}
 
-    for c in counters.values():
-        c.launches = 0
-    fa.flash_attention_bwd.launches_by_route = dict.fromkeys(fa.ROUTES, 0)
+    zero_counts(counters)
     loss_k, grads_k = run()
-    counts = {k: c.launches for k, c in counters.items()}
-    bwd_routes = dict(fa.flash_attention_bwd.launches_by_route)
-    with mock.patch.object(ops, "FlashAttentionFn", PlainAttention):
+    counted = read_counts(counters)
+    with mock.patch.object(ops, fn_name, plain):
         loss_p, grads_p = run()
-    with mock.patch.object(ops, "FlashAttentionFn", LostDqDk):
+    with mock.patch.object(ops, fn_name, faulty):
         loss_z, grads_z = run()
     torch.cuda.synchronize()
     errs, errs_z = rel(grads_k, grads_p), rel(grads_z, grads_p)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    want = {k: 0 for k in counters}
-    want.update(flash_attention=2, flash_attention_bwd=1)
+    want = train_launches(cfg, 1)
     finite = math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k.values())
-    rejects_lost = max(errs_z.values()) > TRAIN_GRAD_TOL
+    rejects_fault = max(errs_z.values()) > TRAIN_GRAD_TOL
     ok = (finite and loss_err <= TRAIN_LOSS_TOL and max(errs.values()) <= TRAIN_GRAD_TOL
-          and counts == want and rejects_lost and bwd_routes == {"sm90": 1, "simt": 0}
-          and len(grads_p) == sum(1 for _ in model.parameters()))
+          and counted["launches"] == want and counted["routes"] == train_routes(want)
+          and rejects_fault and len(grads_p) == sum(1 for _ in model.parameters()))
     emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "batch": TRAIN_BATCH,
+          "pattern": cfg.layout_pattern, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "ssm_heads": cfg.ssm_heads, "ssm_groups": cfg.ssm_groups, "batch": TRAIN_BATCH,
           "seq": TRAIN_SEQ, "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_err,
           "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": errs, "grad_tol": TRAIN_GRAD_TOL,
-          "lost_dq_dk_grad_rel_err": errs_z, "lost_dq_dk_rejected": rejects_lost,
-          "launches": counts, "want_launches": want,
-          "routes": {"flash_attention_bwd": bwd_routes}, "ok": ok})
+          f"{fault}_grad_rel_err": errs_z, f"{fault}_rejected": rejects_fault,
+          **counted, "want_launches": want, "ok": ok})
     if not ok:
-        raise AssertionError(f"train_check: loss {loss_k} vs {loss_p}, gradients {errs}, "
-                             f"launches {counts} (want {want}), backward routes {bwd_routes}, "
-                             f"lost dQ/dK rejected {rejects_lost}")
+        raise AssertionError(f"train_check {arch}: loss {loss_k} vs {loss_p}, gradients {errs}, "
+                             f"{counted} (want {want}), {fault} rejected {rejects_fault}")
     del model, grads_k, grads_p, grads_z
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def train_phase(smi: str, counters: dict) -> dict:
-    """phi4-mini-3.8b at full width and depth (32 layers, d 3072, vocab
-    200064), bf16, random weights from seed 0, the optimizer
-    ``optimizer_for_config`` picks (AdamW) at ``TRAIN_LR``, remat on,
-    batches of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` from ``MarkovDataset``:
-    ``TRAIN_WARMUP`` steps, then ``TRAIN_STEPS`` through ``train_step`` with
-    every kernel's count zeroed just before and read just after (K2's forward
-    2 x 32 a step and its backward 32, all ``sm90``), each step on the host
-    clock; the loss finite and falling (the last three steps' mean below the
-    first three's); the peak memory; then one more step
-    under the profiler. Returns the counted launches."""
+def train_launches(cfg, steps: int) -> dict:
+    """Kernel launches of ``steps`` train steps with remat: each forward kernel
+    twice a layer and step (the forward, then its recomputation in the
+    backward), each backward kernel once."""
+    per = expected_launches(cfg)
+    want = dict.fromkeys(per, 0)
+    want.update(flash_attention=2 * per["flash_attention"] * steps,
+                flash_attention_bwd=per["flash_attention"] * steps,
+                ssd_scan=2 * per["ssd_scan"] * steps, ssd_scan_bwd=per["ssd_scan"] * steps)
+    return want
+
+
+def train_routes(want: dict) -> dict:
+    """Each kernel's launches in ``want`` by route: K2, its backward and K3's
+    forward all on ``sm90`` (bf16 at these shapes), K3's backward on
+    ``simt``, its one route."""
+    routes = {k: {"sm90": want[k], "simt": 0}
+              for k in ("flash_attention", "flash_attention_bwd", "ssd_scan")}
+    routes["ssd_scan_bwd"] = {"simt": want["ssd_scan_bwd"]}
+    return routes
+
+
+def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
+                steps: int = TRAIN_STEPS) -> dict:
+    """``arch`` at full width and depth (phi4-mini-3.8b: 32 layers, d 3072,
+    vocab 200064; mamba2-1.3b: 48 ssm layers, d 2048, vocab 50280), bf16,
+    random weights from seed 0, the optimizer ``optimizer_for_config`` picks
+    (AdamW) at ``TRAIN_LR``, remat on, batches of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` from ``MarkovDataset``: ``TRAIN_WARMUP`` steps, then
+    ``steps`` through ``train_step`` with every kernel's count zeroed just
+    before and read just after (``train_launches``: K2's forward 2 x 32 a
+    step and its backward 32, all ``sm90``, for phi4; K3's forward 2 x 48 on
+    ``sm90`` and its backward 48 on ``simt`` for mamba2), each step on the
+    host clock; the loss finite and falling (the last three steps' mean below
+    the first three's); the peak memory; then one more step under the
+    profiler. Returns the counted launches."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_bwd
     from repro_torch.models import init_params, param_leaves
     from repro_torch.train import (DataConfig, MarkovDataset, make_optimizer,
                                    optimizer_for_config, train_step)
     dev = torch.device("cuda")
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device=dev)
     model.requires_grad_(True)
@@ -2109,17 +2329,14 @@ def train_phase(smi: str, counters: dict) -> dict:
                                     batch_size=TRAIN_BATCH, seed=0))
     it = data.batches()
     batches = [tuple(torch.from_numpy(a).to(dev, torch.int64) for a in next(it))
-               for _ in range(TRAIN_WARMUP + TRAIN_STEPS + 1)]
+               for _ in range(TRAIN_WARMUP + steps + 1)]
     data_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     losses, step_s = [], []
     for tokens, labels in batches[:TRAIN_WARMUP]:
         state, loss = train_step(model, opt, state, tokens, labels, None, remat=True)
         losses.append(float(loss))
-    for c in counters.values():
-        c.launches = 0
-    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
-    flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+    zero_counts(counters)
     for tokens, labels in batches[TRAIN_WARMUP:-1]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2127,17 +2344,14 @@ def train_phase(smi: str, counters: dict) -> dict:
         losses.append(float(loss))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    counts = {k: c.launches for k, c in counters.items()}
-    routes = dict(flash_attention.launches_by_route)
-    bwd_routes = dict(flash_attention_bwd.launches_by_route)
+    counted = read_counts(counters)
+    counts, routes = counted["launches"], counted["routes"]
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.num_layers
-    want = {k: 0 for k in counters}
-    want.update(flash_attention=2 * layers * TRAIN_STEPS, flash_attention_bwd=layers * TRAIN_STEPS)
+    want = train_launches(cfg, steps)
     prof, state = train_profile(model, opt, state, *batches[-1])
     mean_s = sum(step_s) / len(step_s)
-    ok = (counts == want and routes == {"sm90": want["flash_attention"], "simt": 0}
-          and bwd_routes == {"sm90": want["flash_attention_bwd"], "simt": 0}
+    ok = (counts == want and routes == train_routes(want)
           and all(math.isfinite(x) for x in losses) and sum(losses[-3:]) < sum(losses[:3]))
     emit({"phase": "train", "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab_size, "params": n_params, "dtype": cfg.dtype,
@@ -2146,12 +2360,11 @@ def train_phase(smi: str, counters: dict) -> dict:
           "losses": losses, "ln_vocab": math.log(cfg.vocab_size), "loss_floor": data.entropy(),
           "step_s": step_s, "mean_step_s": mean_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_s,
           "peak_mem_gb": peak / 1e9, "launches": counts, "want_launches": want,
-          "routes": {"flash_attention": routes, "flash_attention_bwd": bwd_routes},
-          "profile": prof,
+          "routes": routes, "profile": prof,
           "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok})
     if not ok:
-        raise AssertionError(f"train: launches {counts} (want {want}), routes {routes}, "
-                             f"backward routes {bwd_routes}, losses {losses}")
+        raise AssertionError(f"train {arch}: launches {counts} (want {want}), routes {routes}, "
+                             f"losses {losses}")
     del model, state, opt, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -2272,57 +2485,45 @@ def beside(seconds: float, terms: dict) -> dict:
 
 def zero_counts(counters: dict) -> None:
     from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_bwd
-    from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES, ssd_scan
+    from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES, ssd_scan, ssd_scan_bwd
     for c in counters.values():
         c.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
     flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
+    ssd_scan_bwd.launches_by_route = {"simt": 0}
 
 
 def read_counts(counters: dict) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"launches": {k: c.launches for k, c in counters.items()},
             "routes": {"flash_attention": dict(flash_attention.launches_by_route),
                        "flash_attention_bwd": dict(flash_attention_bwd.launches_by_route),
-                       "ssd_scan": dict(ssd_scan.launches_by_route)}}
+                       "ssd_scan": dict(ssd_scan.launches_by_route),
+                       "ssd_scan_bwd": dict(ssd_scan_bwd.launches_by_route)}}
 
 
-def steps_phase(smi: str, counters: dict) -> dict:
-    """The reference's entry points on the card: ``make_train_step``,
-    ``make_prefill_step`` and ``make_decode_step`` on ``make_host_mesh()``.
-
-    phi4-mini-3.8b at full width and depth, bf16, random weights from seed
-    0: the train step (AdamW at its default rate, remat) on the same batches as
-    ``train_step`` from the same weights, its loss at each of the first
-    ``STEPS_HELD`` steps within ``TRAIN_LOSS_TOL`` of the direct path's (the
-    second loss reads the first update) and its parameters after them
-    within ``STEPS_PARAM_TOL`` of the update's size, then ``STEPS_TRAIN``
-    steps timed;
-    the prefill and ``STEPS_DECODE`` decode steps at batch 4 with 1024
-    prompt tokens against ``generate`` on the same weights and tokens
-    (logits within the bf16 tolerance, greedy ids equal); mamba2-1.3b's
-    prefill likewise, through K3. Every kernel's count is zeroed just
-    before each timed run and read just after: K2 forward and backward and
-    K3 launch, all ``sm90``. Beside each time, the dry run's three terms for
-    the same shape on the 1×1 mesh. Returns the launches by path."""
+def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
+    """``make_train_step`` for ``arch`` at full width and depth on ``mesh``
+    (bf16, AdamW at its default rate, remat, ``TRAIN_BATCH`` x ``TRAIN_SEQ``)
+    held to ``train_step`` from the same weights on the same batches: its
+    loss at each of the first ``STEPS_HELD`` steps within ``TRAIN_LOSS_TOL``
+    (the second loss reads the first update), the parameters ``held``
+    (``blocks.-1`` the last layer) within ``STEPS_PARAM_TOL`` of the
+    update's size, then ``STEPS_TRAIN`` steps timed beside the 1×1 dry run's
+    train terms, with ``train_launches`` (K2's and K3's routes as in
+    ``train_phase``). Returns the counted launches."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.serve import generate
     from repro_torch.launch.shapes import InputShape
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step, make_train_step
+    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_params, param_leaves
     from repro_torch.train import (DataConfig, MarkovDataset, make_optimizer,
                                    optimizer_for_config, train_step)
     dev = torch.device("cuda")
-    mesh = make_host_mesh()
-    by_path = {"flash_attention": {}, "flash_attention_bwd": {}, "ssd_scan": {}}
-    tol = TOL["bfloat16"]
-
-    # train: the direct path's losses, then the mesh step's from the same start
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    held = tuple(k.replace("blocks.-1.", f"blocks.{cfg.num_layers - 1}.") for k in held)
     opt_name = optimizer_for_config(cfg)
     data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                     batch_size=TRAIN_BATCH, seed=0))
@@ -2335,7 +2536,6 @@ def steps_phase(smi: str, counters: dict) -> dict:
         model.requires_grad_(True)
         opt = make_optimizer(opt_name)
         return model, opt, opt[0](param_leaves(model))
-    held = ("embed", "blocks.0.attn.wq", f"blocks.{cfg.num_layers - 1}.mlp.w_down")
 
     def snapshot(model):                 # on the host, out of the measured peak
         params = dict(model.named_parameters())
@@ -2374,14 +2574,14 @@ def steps_phase(smi: str, counters: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, direct))
     n = STEPS_TRAIN - 1
-    want = {k: 0 for k in counters}
-    want.update(flash_attention=2 * cfg.num_layers * n, flash_attention_bwd=cfg.num_layers * n)
+    want = train_launches(cfg, n)
     mean_s = sum(step_s[1:]) / n
-    terms = dry_terms(TRAIN_ARCH, cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    terms = dry_terms(arch, cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+    routes = counted["routes"]
     ok = (loss_err <= TRAIN_LOSS_TOL and counted["launches"] == want
           and max(param_rel.values()) <= STEPS_PARAM_TOL
-          and counted["routes"]["flash_attention"]["simt"] == 0
-          and counted["routes"]["flash_attention_bwd"]["simt"] == 0
+          and routes["flash_attention"]["simt"] == 0 and routes["flash_attention_bwd"]["simt"] == 0
+          and routes["ssd_scan"]["simt"] == 0 and routes["ssd_scan_bwd"]["simt"] == want["ssd_scan_bwd"]
           and all(math.isfinite(x) for x in losses))
     emit({"phase": "steps", "step": "make_train_step", "arch": cfg.name, "mesh": "1x1",
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": opt_name, "remat": True,
@@ -2392,12 +2592,47 @@ def steps_phase(smi: str, counters: dict) -> dict:
           "roofline": beside(mean_s, terms), **counted, "want_launches": want,
           "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok})
     if not ok:
-        raise AssertionError(f"steps: train step {losses} vs {direct}, {param_rel}, {counted}")
-    by_path["flash_attention"]["steps train"] = counted["launches"]["flash_attention"]
-    by_path["flash_attention_bwd"]["steps train"] = counted["launches"]["flash_attention_bwd"]
+        raise AssertionError(f"steps: {arch} train step {losses} vs {direct}, {param_rel}, "
+                             f"{counted}")
     del model, opt, state, step, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return counted["launches"]
+
+
+def steps_phase(smi: str, counters: dict) -> dict:
+    """The reference's entry points on the card: ``make_train_step``,
+    ``make_prefill_step`` and ``make_decode_step`` on ``make_host_mesh()``.
+
+    phi4-mini-3.8b, then mamba2-1.3b, at full width and depth, bf16, random
+    weights from seed 0: the train step held to ``train_step`` and timed
+    (``steps_train``); phi4's prefill and ``STEPS_DECODE`` decode steps at batch 4 with 1024
+    prompt tokens against ``generate`` on the same weights and tokens
+    (logits within the bf16 tolerance, greedy ids equal); mamba2-1.3b's
+    prefill likewise, through K3. Every kernel's count is zeroed just
+    before each timed run and read just after: K2 forward and backward and
+    K3's forward launch, all ``sm90``, K3's backward on ``simt``. Beside each time, the dry run's three terms for
+    the same shape on the 1×1 mesh. Returns the launches by path."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    mesh = make_host_mesh()
+    by_path = {"flash_attention": {}, "flash_attention_bwd": {}, "ssd_scan": {}, "ssd_scan_bwd": {}}
+    tol = TOL["bfloat16"]
+
+    # train: the direct path's losses, then the mesh step's from the same start
+    for arch, held in ((TRAIN_ARCH, ("embed", "blocks.0.attn.wq", "blocks.-1.mlp.w_down")),
+                       (SSM_TRAIN_ARCH, ("embed", "blocks.0.ssm.in_proj",
+                                         "blocks.-1.ssm.out_proj"))):
+        counted = steps_train(arch, held, mesh, smi, counters)
+        for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"):
+            if counted[kernel]:
+                by_path[kernel][f"steps {arch} train"] = counted[kernel]
 
     # serve: prefill and decode steps against generate, phi4 then mamba2's prefill
     for arch, with_decode in ((TRAIN_ARCH, True), ("mamba2-1.3b", False)):
@@ -2574,7 +2809,7 @@ def main() -> int:
     from repro_torch.kernels.int8_quant import quantize_int8
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
     from repro_torch.kernels.ssd_scan import _route as ssd_route
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_plain
 
     # 1. card -----------------------------------------------------------------
     dev = torch.device("cuda")
@@ -2586,10 +2821,10 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # 2. build ----------------------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = build.build(["flash_attention", "flash_attention_sm90", "flash_attention_bwd",
-                        "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "int8_quant", "int8_quant_sm90",
-                        "batchsim_advance"])
+                        "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "ssd_scan_bwd",
+                        "int8_quant", "int8_quant_sm90", "batchsim_advance"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -2609,9 +2844,10 @@ def main() -> int:
     timings = {}
     counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
                 "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance,
-                "flash_attention_bwd": flash_attention_bwd}
+                "flash_attention_bwd": flash_attention_bwd, "ssd_scan_bwd": ssd_scan_bwd}
 
     # 3. kernel against plain --------------------------------------------------
+    t0 = time.perf_counter()
     timed = {}
     for dtype, shape, causal, window, q_offset in CHECKS:
         bh, sq, sk, hd, g = shape
@@ -2689,24 +2925,36 @@ def main() -> int:
     timings["int8_quant"] = check_int8_quant(gen, smi)
     timings["flash_attention_bwd"] = check_attention_bwd(gen, smi)
     timings["flash_attention"]["train_shapes"] = timings["flash_attention_bwd"].pop("forward")
+    # its own generator: the phases after it draw the inputs they drew before it
+    gen_ssd_bwd = torch.Generator(device=dev)
+    gen_ssd_bwd.manual_seed(1)
+    timings["ssd_scan_bwd"] = check_ssd_bwd(gen_ssd_bwd, smi)
+    emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     # 4. each served model: kernel-vs-plain check, serve, profile --------------
+    t0 = time.perf_counter()
     by_path = {"flash_attention": {}, "ssd_scan": {}}
     for arch, check_cut, serve_cut in SERVED_MODELS:
         for kernel, n in serve_model(arch, check_cut, serve_cut, gen, smi, counters).items():
             if n:
                 by_path[kernel][arch] = n
+    emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
 
-    # 4b. training: phi4-mini-3.8b at full width, then the demo's checkpoint
+    # 4b. training: phi4-mini-3.8b and mamba2-1.3b at full width, then the
+    # demo's checkpoint
     t0 = time.perf_counter()
-    train_check(counters)
+    for arch, cut, kind in TRAIN_CHECKS:
+        train_check(counters, arch, cut, kind)
     trained = train_phase(smi, counters)
+    trained_ssm = train_phase(smi, counters, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS)
     ckpt = train_ckpt_phase(smi, counters)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
     by_path["flash_attention"]["phi4-mini-3.8b train"] = trained["flash_attention"]
     by_path["flash_attention"]["demo-100m train"] = ckpt["flash_attention"]
     by_path["flash_attention_bwd"] = {"phi4-mini-3.8b train": trained["flash_attention_bwd"],
                                       "demo-100m train": ckpt["flash_attention_bwd"]}
+    by_path["ssd_scan"][f"{SSM_TRAIN_ARCH} train"] = trained_ssm["ssd_scan"]
+    by_path["ssd_scan_bwd"] = {f"{SSM_TRAIN_ARCH} train": trained_ssm["ssd_scan_bwd"]}
 
     # 4c. the mesh steps on the card's 1×1 mesh, the dry run, the lane figures
     t0 = time.perf_counter()
@@ -2718,7 +2966,9 @@ def main() -> int:
     launches = {k: sum(v.values()) for k, v in by_path.items()}
 
     # 5. Puzzle's runtime -----------------------------------------------------
+    t0 = time.perf_counter()
     k1_runtime, k1_runtime_routes = runtime_phase(smi, counters)
+    emit({"phase": "runtime_done", "seconds": time.perf_counter() - t0})
 
     # 6. Puzzle's scheduler: search with the card in the loop, then serve ------
     t0 = time.perf_counter()
@@ -2753,6 +3003,7 @@ def main() -> int:
     timings["int8_quant"]["max_abs_err"] = max(timings["int8_quant"]["max_abs_err"],
                                                k1_staged_err)
 
+    emit({"phase": "done", "seconds_since_build": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -2783,10 +3034,15 @@ def main() -> int:
          "replaces": "src/repro/models/attention.py:58",
          "launches": launches["flash_attention_bwd"],
          "launches_by_route": {"sm90": by_path["flash_attention_bwd"]["phi4-mini-3.8b train"]
-                               + by_path["flash_attention_bwd"]["steps train"],
+                               + by_path["flash_attention_bwd"][f"steps {TRAIN_ARCH} train"],
                                "simt": by_path["flash_attention_bwd"]["demo-100m train"]},
          "launches_by_path": by_path["flash_attention_bwd"],
-         **timings["flash_attention_bwd"]}]})
+         **timings["flash_attention_bwd"]},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "replaces": "src/repro/models/ssm.py:106",
+         "launches": launches["ssd_scan_bwd"], "launches_by_route": {"simt": launches["ssd_scan_bwd"]},
+         "launches_by_path": by_path["ssd_scan_bwd"], **timings["ssd_scan_bwd"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

@@ -9,12 +9,14 @@ module (the runtime's Worker calls :func:`quantize_rows`).
 
 Gradients: attention is differentiable through
 :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn` (K2's
-forward and its backward kernel), taken when grad mode is on and an input
-requires a gradient; serving stays on the plain forward call. The SSD scan
-and the int8 quantizer have no backward kernel yet: a CUDA input that
-requires a gradient raises (their outputs would carry no ``grad_fn`` and
-the gradient would be lost). On the CPU their plain versions are ordinary
-differentiable PyTorch.
+forward and its backward kernel), the SSD scan through
+:class:`~repro_torch.kernels.ssd_scan.SsdScanFn` (K3's forward and its
+backward kernel), each taken when grad mode is on and an input requires a
+gradient; serving stays on the plain forward call. The int8 quantizer is on
+no training path and has no backward: a CUDA input that requires a
+gradient raises (its output would carry no ``grad_fn`` and the gradient
+would be lost). On the CPU its plain version is ordinary differentiable
+PyTorch.
 
 On a mesh (``DTensor`` inputs: the dry run) each kernel runs on every
 device's shards (``local_map``). Batch and heads stay sharded as they come
@@ -31,7 +33,7 @@ import torch
 
 from .flash_attention import FlashAttentionFn, flash_attention
 from .int8_quant import quantize_int8
-from .ssd_scan import ssd_scan
+from .ssd_scan import SsdScanFn, ssd_scan
 
 
 def _no_cuda_grad(name: str, later: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -110,8 +112,6 @@ def ssd_bshp(
     """Mamba2 SSD on (B, S, H, P) + groups; returns (y (B, S, H, P),
     final state (B, H, P, N) f32). The groups are not broadcast to heads:
     the kernel reads group row ``bh // (H // G)``."""
-    _no_cuda_grad("ssd_bshp", "the K3 backward, a later slice after 5a, brings mamba2 and "
-                  "jamba training", x, dt, A, Bm, Cm, initial_state)
     if _is_dtensor(x):
         return _ssd_on_shards(x, dt, A, Bm, Cm, chunk, initial_state)
     b, s, h, p = x.shape
@@ -124,8 +124,12 @@ def ssd_bshp(
     init = None
     if initial_state is not None:
         init = initial_state.transpose(2, 3).reshape(b * h, n, p).contiguous()
-    y, state = ssd_scan(xf, dtf, Af, Bf, Cf, chunk=chunk, heads_per_group=h // g,
-                        initial_state=init)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, A, Bm, Cm, initial_state)):
+        y, state = SsdScanFn.apply(xf, dtf, Af, Bf, Cf, chunk, h // g, init)
+    else:
+        y, state = ssd_scan(xf, dtf, Af, Bf, Cf, chunk=chunk, heads_per_group=h // g,
+                            initial_state=init)
     y = y.reshape(b, h, s, p).transpose(1, 2)
     state = state.reshape(b, h, n, p).transpose(2, 3)
     return y, state

@@ -30,13 +30,20 @@ bf16 before their products; the plain version keeps them in f32.
 A CPU tensor goes to :func:`ssd_scan_plain`; a CUDA tensor goes to a kernel
 or raises. ``ssd_scan.launches`` counts kernel launches and
 ``ssd_scan.launches_by_route`` splits them by route, under a lock.
+
+The gradient: :func:`ssd_scan_bwd` launches ``csrc/ssd_scan_bwd.cu`` (one
+route, ``simt``: CUDA cores, f32 sums, for f32 and bf16), the hand-written
+gradient of the scan that replaces XLA's autodiff of the reference's
+``ssd_chunked``; :func:`ssd_scan_bwd_plain` is its arithmetic in PyTorch.
+:class:`SsdScanFn` puts the forward and the backward together for
+autograd.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -90,6 +97,113 @@ def ssd_scan_plain(
         state = torch.bmm(bq.transpose(1, 2), xw) + torch.exp(total)[:, :, None] * state
         ys.append(y.to(x.dtype))
     return torch.cat(ys, dim=1), state
+
+
+def ssd_scan_bwd_plain(
+    x: torch.Tensor,                     # (BH, S, P)
+    dt: torch.Tensor,                    # (BH, S)
+    A: torch.Tensor,                     # (BH,)
+    Bm: torch.Tensor,                    # (BH / heads_per_group, S, N)
+    Cm: torch.Tensor,
+    dy: torch.Tensor,                    # (BH, S, P), y's gradient
+    dfinal: Optional[torch.Tensor] = None,   # (BH, N, P) f32, the final state's
+    *,
+    chunk: int = 128,
+    heads_per_group: int = 1,
+    initial_state: Optional[torch.Tensor] = None,
+):
+    """(dx, ddt, dA, dB, dC, d initial_state) of :func:`ssd_scan_plain`,
+    written out by hand (no autograd): f32 throughout, every row at once.
+
+    A forward pass recomputes the state entering each chunk; the reverse pass
+    carries dS (N, P) from the last chunk to the first. Per chunk, with
+    ``cum`` the within-chunk cumulative sum of dt·A (:func:`_cum`), ``T`` its last entry,
+    ``L[i, j] = exp(cum_i - cum_j)`` for j ≤ i (selected to 0 above the
+    diagonal, where it overflows), ``G = C Bᵀ``, ``W = G ∘ L ∘ dt_j`` and
+    ``u = exp(T - cum) ∘ dt``::
+
+        dX     = Wᵀ dY + diag(u) B dS_out
+        dG     = (dY Xᵀ) ∘ L ∘ dt_j                 → dC += dG B, dB += dGᵀ C
+        dC    += diag(exp(cum)) dY s_inᵀ
+        dB    += diag(u) X dS_outᵀ
+        dS_in  = exp(T) dS_out + Cᵀ diag(exp(cum)) dY
+
+    and the gradient of ``cum`` (from L, exp(cum), u and exp(T)) folds back
+    into ddt and dA through the within-chunk reverse cumulative sum. dx is in
+    x's dtype, dB and dC in B's (summed over the ``heads_per_group`` rows
+    that read each group row), ddt, dA and the initial state's gradient f32;
+    the last is None when ``initial_state`` is."""
+    bh, s, p = x.shape
+    n = Bm.shape[-1]
+    g = heads_per_group
+    bm = torch.repeat_interleave(Bm, g, dim=0).float()
+    cm = torch.repeat_interleave(Cm, g, dim=0).float()
+    a = A.float()[:, None]
+    dev = x.device
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    state = (torch.zeros((bh, n, p), dtype=torch.float32, device=dev)
+             if initial_state is None else initial_state.float())
+    states = []                          # the state entering each chunk
+    for t0 in range(0, s, chunk):
+        states.append(state)
+        dtq = dt[:, t0:t0 + chunk].float()
+        cum = _cum(dtq * a)
+        u = torch.exp(cum[:, -1:] - cum) * dtq
+        xw = x[:, t0:t0 + chunk].float() * u[:, :, None]
+        state = (torch.bmm(bm[:, t0:t0 + chunk].transpose(1, 2), xw)
+                 + torch.exp(cum[:, -1:])[:, :, None] * state)
+    ds = (torch.zeros((bh, n, p), dtype=torch.float32, device=dev)
+          if dfinal is None else dfinal.float())
+    dx = torch.empty((bh, s, p), dtype=torch.float32, device=dev)
+    ddt = torch.empty((bh, s), dtype=torch.float32, device=dev)
+    db = torch.empty((bh, s, n), dtype=torch.float32, device=dev)
+    dc = torch.empty((bh, s, n), dtype=torch.float32, device=dev)
+    da = torch.zeros((bh,), dtype=torch.float64, device=dev)
+    for ci in reversed(range(s // chunk)):
+        t0 = ci * chunk
+        sl = slice(t0, t0 + chunk)
+        xq, dyq, dtq = x[:, sl].float(), dy[:, sl].float(), dt[:, sl].float()
+        bq, cq, s_in = bm[:, sl], cm[:, sl], states[ci]
+        cum = _cum(dtq * a)                                    # (BH, Q)
+        total = cum[:, -1:]
+        ecum = torch.exp(cum)
+        decay = torch.exp(total - cum)
+        u = decay * dtq
+        # select, never multiply: exp overflows to inf where j > i
+        diff = torch.where(tri, cum[:, :, None] - cum[:, None, :], 0.0)
+        L = torch.where(tri, torch.exp(diff), 0.0)
+        GL = torch.bmm(cq, bq.transpose(1, 2)) * L             # (BH, Q, Q)
+        W = GL * dtq[:, None, :]
+        dW = torch.bmm(dyq, xq.transpose(1, 2))
+        dG = dW * L * dtq[:, None, :]
+        R = dW * W                                             # dL ∘ L
+        M = torch.bmm(xq, ds.transpose(1, 2))                  # (BH, Q, N) = X dSᵀ
+        dc_inter = ecum[:, :, None] * torch.bmm(dyq, s_in.transpose(1, 2))
+        dx[:, sl] = torch.bmm(W.transpose(1, 2), dyq) + u[:, :, None] * torch.bmm(bq, ds)
+        dc[:, sl] = torch.bmm(dG, bq) + dc_inter
+        db[:, sl] = torch.bmm(dG.transpose(1, 2), cq) + u[:, :, None] * M
+        v = (bq * M).sum(-1)                                   # u's gradient
+        dcum = R.sum(2) - R.sum(1) + (cq * dc_inter).sum(-1) - u * v
+        dcum[:, -1] += (u * v).sum(-1) + torch.exp(total[:, 0]) * (ds * s_in).sum((1, 2))
+        # the reverse cumulative sum and dA in f64, as the kernel: the terms cancel
+        rc = torch.flip(torch.cumsum(torch.flip(dcum.double(), (1,)), dim=1), (1,))
+        ddt[:, sl] = (dW * GL).sum(1) + decay * v + a * rc.float()
+        da += (dtq.double() * rc).sum(-1)
+        ds = (torch.exp(total)[:, :, None] * ds
+              + torch.bmm(cq.transpose(1, 2), ecum[:, :, None] * dyq))
+    bg = bh // g
+    return (dx.to(x.dtype), ddt, da.float(), db.view(bg, g, s, n).sum(1).to(Bm.dtype),
+            dc.view(bg, g, s, n).sum(1).to(Cm.dtype),
+            None if initial_state is None else ds)
+
+
+def _cum(v: torch.Tensor) -> torch.Tensor:
+    """The within-chunk cumulative sum of dt·A as the backward kernel forms
+    it: summed in f64 and rounded once to f32, so that the order of the sum
+    (sequential in the kernel, a parallel scan on the card here) does not
+    show at f32. At |cum| of a few thousand (A to -16 over 128 steps) an f32
+    sum's order alone moves ddt by ~1e-4 of its largest entry."""
+    return torch.cumsum(v.double(), dim=-1).float()
 
 
 def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -287,13 +401,173 @@ def _lib_sm90() -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def ssd_scan_bwd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    dy: torch.Tensor,
+    dfinal: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    heads_per_group: int = 1,
+    initial_state: Optional[torch.Tensor] = None,
+):
+    """(dx, ddt, dA, dB, dC, d initial_state) of :func:`ssd_scan` from its
+    inputs, y's gradient ``dy`` and the final state's ``dfinal`` (None: zero).
+
+    A CPU tensor goes to :func:`ssd_scan_bwd_plain`; a CUDA tensor launches
+    ``csrc/ssd_scan_bwd.cu`` (one route, ``simt``: CUDA cores, f32
+    accumulation, for f32 and bf16) or raises; a meta tensor goes to the
+    custom op ``repro_torch::ssd_scan_bwd``. ``ssd_scan_bwd.launches`` and
+    ``.launches_by_route`` count calls that launched (the kernel and the
+    pass that sums its partials count as one), under the forward's lock."""
+    g = heads_per_group
+    _check_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
+    if x.device.type != "meta":
+        return _direct_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
+    grads = torch.ops.repro_torch.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g,
+                                               initial_state)
+    return (*grads[:5], grads[5] if len(grads) == 6 else None)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _ssd_scan_bwd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                     Cm: torch.Tensor, dy: torch.Tensor, dfinal: Optional[torch.Tensor],
+                     chunk: int, g: int, initial_state: Optional[torch.Tensor]
+                     ) -> List[torch.Tensor]:
+    """K3's backward as a custom op, for the meta device, as :func:`_ssd_scan_op`:
+    the gradients as a list, the initial state's last where there is one."""
+    return [t for t in _direct_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
+            if t is not None]
+
+
+def _direct_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state):
+    if x.device.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dfinal, chunk=chunk, heads_per_group=g,
+                                  initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
+
+
+@_ssd_scan_bwd_op.register_fake
+def _ssd_scan_bwd_fake(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state):
+    return [torch.empty_like(t) for t in (x, dt, A, Bm, Cm, initial_state) if t is not None]
+
+
+def _check_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state) -> None:
+    _check(x, dt, A, Bm, Cm, chunk, g, initial_state)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy must match x {tuple(x.shape)} {x.dtype}; got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    want = (x.shape[0], Bm.shape[2], x.shape[2])
+    if dfinal is not None and (tuple(dfinal.shape) != want or dfinal.dtype != torch.float32
+                               or dfinal.device != x.device):
+        raise ValueError(f"dfinal must be float32 {want} on {x.device}; got {dfinal.dtype} "
+                         f"{tuple(dfinal.shape)} on {dfinal.device}")
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state):
+    """Checks what the backward kernel takes, then launches it and the pass
+    that sums its partials on x's stream."""
+    bh, s, p = x.shape
+    n = Bm.shape[-1]
+    _route(x.dtype, p, n, chunk)         # chunk and N in range, the dtype known
+    named = [("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm), ("dy", dy),
+             ("dfinal", dfinal), ("initial_state", initial_state)]
+    for name, t in named:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    lib = _lib_bwd()
+    p_tile = lib.ssd_scan_bwd_p_tile()
+    tiles = -(-p // p_tile)
+    dev = x.device
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB = torch.empty_like(Bm)
+    dC = torch.empty_like(Cm)
+    dinit = None if initial_state is None else torch.empty_like(initial_state)
+    # f32 scratch: the state entering each chunk, then per (row, P-tile)
+    # partials of dB, dC, ddt and dA that the second pass sums in a fixed order
+    states = torch.empty((bh, tiles, s // chunk, n, p_tile),
+                         dtype=torch.float32, device=dev)
+    part_bc = torch.empty((2, bh, tiles, s, n), dtype=torch.float32, device=dev)
+    part_dt = torch.empty((bh, tiles, s + 1), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    err = lib.ssd_scan_bwd(
+        ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(initial_state), ptr(dy), ptr(dfinal),
+        ptr(dx), ptr(ddt), ptr(dA), ptr(dB), ptr(dC), ptr(dinit), ptr(states), ptr(part_bc),
+        ptr(part_dt), _DTYPE_CODE[x.dtype], bh, s, p, n, chunk, g,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd simt kernel launch failed: "
+                           f"{lib.ssd_scan_bwd_error_string(err).decode()} ({err})")
+    with _LAUNCH_LOCK:
+        ssd_scan_bwd.launches += 1
+        ssd_scan_bwd.launches_by_route["simt"] += 1
+    return dx, ddt, dA, dB, dC, dinit
+
+
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_by_route = {"simt": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd() -> ctypes.CDLL:
+    lib = load_library("ssd_scan_bwd")
+    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_scan_bwd.restype = ctypes.c_int
+    lib.ssd_scan_bwd_p_tile.argtypes = []
+    lib.ssd_scan_bwd_p_tile.restype = ctypes.c_int
+    lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+class SsdScanFn(torch.autograd.Function):
+    """:func:`ssd_scan` for autograd: the forward is K3 on its route, the
+    backward :func:`ssd_scan_bwd`, which saves nothing but the inputs and
+    recomputes the states. Gradients are not materialised, so an unused
+    final state costs nothing. On the CPU both directions take their plain
+    versions inside this same Function."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int, heads_per_group: int,
+                initial_state: Optional[torch.Tensor]):
+        y, state = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, heads_per_group=heads_per_group,
+                            initial_state=initial_state)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.opts = dict(chunk=chunk, heads_per_group=heads_per_group)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(
+            x, dt, A, Bm, Cm, dy, None if dstate is None else dstate.contiguous(),
+            initial_state=initial_state, **ctx.opts)
+        return dx, ddt, dA, dB, dC, None, None, dinit
+
+
+# ---------------------------------------------------------------------------
 # what the dry run reads: the work of a call
 # ---------------------------------------------------------------------------
 
 def register_flop_formulas() -> None:
-    """K3's FLOP formula for ``torch.utils.flop_counter``: per head and
-    chunk of L steps, C·Bᵀ (2·L²·N), its masked product with X (2·L²·P),
-    C·state and the state's update (2·L·N·P each)."""
+    """K3's FLOP formulas for ``torch.utils.flop_counter``. Forward, per
+    head and chunk of L steps: C·Bᵀ (2·L²·N), its masked product with X
+    (2·L²·P), C·state and the state's update (2·L·N·P each); backward:
+    :func:`bwd_flops_per_chunk`."""
     from torch.utils.flop_counter import flop_registry, register_flop_formula
     if torch.ops.repro_torch.ssd_scan in flop_registry:
         return
@@ -303,3 +577,17 @@ def register_flop_formulas() -> None:
         bh, s, p = x
         n = Bm[2]
         return bh * (s // chunk) * (2 * chunk * chunk * (n + p) + 4 * chunk * n * p)
+
+    @register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+    def _bwd_flops(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state, *args,
+                   **kwargs) -> int:
+        bh, s, p = x
+        n = Bm[2]
+        return bh * (s // chunk) * bwd_flops_per_chunk(chunk, n, p)
+
+
+def bwd_flops_per_chunk(q: int, n: int, p: int) -> int:
+    """The backward's products per row and chunk of q steps: C·Bᵀ again,
+    dY·Xᵀ, Wᵀ·dY, dG·B and dGᵀ·C (2·q²·(3N + 2P)); the recomputed state
+    update, B·dS, X·dSᵀ, dY·s_inᵀ and the carried Cᵀ·dY (2·q·N·P each)."""
+    return 2 * q * q * (3 * n + 2 * p) + 10 * q * n * p

@@ -6,11 +6,15 @@ train-step case, in f32).
 
 The weights are ``tests/_families.py``'s: gates at 2.0 and QKV biases drawn,
 so that every parameter gets a gradient. On the CPU the attention backward
-is K2's plain backward inside ``FlashAttentionFn``; the SSD scan is its
-plain version, differentiated by autograd. Tolerance: the loss to 1e-5
-relative, each gradient leaf to 1e-4 of its largest entry (the two
+is K2's plain backward inside ``FlashAttentionFn``; the SSD scan's is K3's
+plain backward (``ssd_scan_bwd_plain``) inside ``SsdScanFn``. The SSM
+configs also run at 64 tokens, four of their 16-step chunks, so that the
+backward's reverse state pass is held at model level. Tolerance: the loss
+to 1e-5 relative, each gradient leaf to 1e-4 of its largest entry (the two
 frameworks sum in other orders through two layers).
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,4 +69,28 @@ def test_forward_train_loss_and_gradients_match_reference(arch):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert np.all(np.isfinite(g))
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * max(float(np.abs(w).max()), 1e-8))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_ssm_gradients_over_four_chunks_match_reference(arch, monkeypatch):
+    """64 tokens, four chunks of the smoke configs' 16: the loss and every
+    gradient through ``SsdScanFn`` (counted) against ``jax.grad``."""
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+    cfg, jcfg, jparams, _, _, cross = make_pair(arch)
+    assert cfg.ssm_chunk == 16
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 64), dtype=np.int32)
+    calls = []
+    backward = ssd.SsdScanFn.backward
+    monkeypatch.setattr(ssd.SsdScanFn, "backward",
+                        staticmethod(lambda ctx, *g: calls.append(1) or backward(ctx, *g)))
+    want_loss, want = _jax_loss_and_grads(jcfg, jparams, jnp.asarray(tokens), None)
+    got_loss, got = port_loss_and_grads(cfg, jax.tree.map(np.asarray, jparams), tokens, cross)
+    n_ssm = sum(cfg.layout_pattern[i % len(cfg.layout_pattern)].startswith("ssm")
+                for i in range(cfg.num_layers))
+    assert len(calls) == n_ssm > 0
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.all(np.isfinite(g))
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * max(float(np.abs(w).max()), 1e-8))

@@ -319,19 +319,43 @@ def test_dry_run_on_a_2x2_mesh_counts_a_quarter_of_the_step(fake_group):
 
 def test_run_one_records_a_failure_with_its_error(fake_group, tmp_path, monkeypatch):
     """A combination that fails is a record with ``ok: false`` and its error
-    (mamba2's train step: K3 has no backward), never dropped; a host-mesh
-    run is a record with the three terms."""
+    (an MoE train step on the 16×16 mesh: the dispatch's ``searchsorted`` has
+    no ``DTensor`` rule), never dropped; a host-mesh run is a record with the
+    three terms."""
     import repro_torch.launch.dryrun as dryrun
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
+    rec = run_one("olmoe-1b-7b", InputShape("t", 128, 2, "train"), "single",
+                  cfg=get_smoke_config("olmoe-1b-7b"), verbose=False)
+    assert rec["ok"] is False and "searchsorted" in rec["error"]
+    assert (tmp_path / "olmoe-1b-7b__t__single.json").exists()
     cfg = get_smoke_config("mamba2-1.3b")
-    rec = run_one("mamba2-1.3b", InputShape("t", 128, 2, "train"), "host", cfg=cfg,
-                  verbose=False)
-    assert rec["ok"] is False and "ssd_scan" in rec["error"]
-    assert (tmp_path / "mamba2-1.3b__t__host.json").exists()
     rec = run_one("mamba2-1.3b", InputShape("p", 128, 2, "prefill"), "host", cfg=cfg,
                   verbose=False)
     assert rec["ok"] and rec["per_device_flops"] > 0 and rec["memory_note"]
     assert rec["bottleneck"] in ("compute", "memory", "collective")
+
+
+@pytest.mark.parametrize("mesh_name", ["host", "single"])
+def test_mamba2_train_step_runs_with_the_ssd_backward_counted(fake_group, mesh_name,
+                                                              monkeypatch):
+    """mamba2's train step is ``ok`` on the 1×1 and the 16×16 mesh, K3's
+    backward counted by its FLOP formula: the record with the formula less
+    the one without it is one backward a layer, hand counted (chunk 16,
+    B·H rows of S/16 chunks, on one device's shard of the batch)."""
+    import importlib
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+    cfg = get_smoke_config("mamba2-1.3b")
+    shape = InputShape("t", 128, 32, "train")
+    rec = run_one("mamba2-1.3b", shape, mesh_name, cfg=cfg, save=False, verbose=False)
+    assert rec["ok"], rec.get("error")
+    monkeypatch.setattr(ssd, "bwd_flops_per_chunk", lambda q, n, p: 0)
+    without = run_one("mamba2-1.3b", shape, mesh_name, cfg=cfg, save=False, verbose=False)
+    # 16×16: the batch over "data"; the heads reach the scan replicated over "model"
+    rows = shape.global_batch * cfg.ssm_heads // (1 if mesh_name == "host" else 16)
+    per_chunk = (2 * 16 * 16 * (3 * cfg.ssm_state + 2 * cfg.ssm_head_dim)
+                 + 10 * 16 * cfg.ssm_state * cfg.ssm_head_dim)
+    assert rec["per_device_flops"] - without["per_device_flops"] == (
+        cfg.num_layers * rows * (128 // 16) * per_chunk)
 
 
 def test_a_real_step_on_a_fake_mesh_raises(fake_group):

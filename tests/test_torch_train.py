@@ -10,7 +10,8 @@ bit differently); the Markov data bit for bit; ``params_to_jax`` inverting
 codec byte for byte; checkpoints in both directions bit for bit; five train
 steps of phi4's smoke config on converted weights (losses to 1e-5 relative:
 the gradients agree to ~1e-6, which Adam's normalisation carries into the
-weights); remat on and off giving the same bits.
+weights), and of mamba2's over four SSD chunks through ``SsdScanFn``; remat
+on and off giving the same bits.
 """
 import dataclasses
 import os
@@ -166,14 +167,14 @@ def test_training_checkpoint_resume(tmp_path):
 
 # -- parity with the reference ------------------------------------------------
 
-def _reference_tree(dtype):
-    """phi4's smoke weights (two layers stacked) as a numpy tree of ``dtype``."""
-    cfg = dataclasses.replace(jax_smoke_config("phi4-mini-3.8b"), dtype=dtype)
+def _reference_tree(dtype, arch="phi4-mini-3.8b"):
+    """A smoke config's weights (two layers stacked) as a numpy tree of ``dtype``."""
+    cfg = dataclasses.replace(jax_smoke_config(arch), dtype=dtype)
     return cfg, jax.tree.map(np.asarray, jax_init_params(cfg, jax.random.PRNGKey(0)))
 
 
-def _port_model(np_params, dtype):
-    cfg = dataclasses.replace(get_smoke_config("phi4-mini-3.8b"), dtype=dtype)
+def _port_model(np_params, dtype, arch="phi4-mini-3.8b"):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
     return params_from_jax(np_params, cfg, device="cpu")
 
 
@@ -353,10 +354,11 @@ def test_port_checkpoint_restores_in_reference_bit_for_bit(tmp_path, opt_name, d
         np.testing.assert_array_equal(g, w)
 
 
-def test_train_steps_match_reference_jitted_step():
-    """Five AdamW steps of phi4's smoke config on converted weights and the
-    reference's Markov batches: the loss of every step to 1e-5 relative."""
-    jcfg, np_params = _reference_tree("float32")
+def _steps_beside_jitted_reference(arch, seq_len, batch_size):
+    """Five AdamW steps of ``arch``'s smoke config (f32) on converted weights
+    and the reference's Markov batches, through ``train_step`` and the
+    reference's jitted step: (the port's losses, the reference's)."""
+    jcfg, np_params = _reference_tree("float32", arch)
     init, update = jax_optimizer.make_optimizer("adamw", lr=3e-3)
 
     @jax.jit
@@ -370,11 +372,12 @@ def test_train_steps_match_reference_jitted_step():
 
     j_params = jax.tree.map(jnp.asarray, np_params)
     j_state = init(j_params)
-    model = _port_model(np_params, "float32")
+    model = _port_model(np_params, "float32", arch)
     model.requires_grad_(True)
     opt = make_optimizer("adamw", lr=3e-3)
     state = opt[0](param_leaves(model))
-    data = MarkovDataset(DataConfig(vocab_size=jcfg.vocab_size, seq_len=32, batch_size=4))
+    data = MarkovDataset(DataConfig(vocab_size=jcfg.vocab_size, seq_len=seq_len,
+                                    batch_size=batch_size))
     want, got = [], []
     for _, (tokens, labels) in zip(range(5), data.batches()):
         j_params, j_state, loss = step_fn(j_params, j_state, jnp.asarray(tokens),
@@ -383,6 +386,29 @@ def test_train_steps_match_reference_jitted_step():
         state, loss = train_step(model, opt, state, torch.from_numpy(tokens).long(),
                                  torch.from_numpy(labels).long(), None)
         got.append(float(loss))
+    return got, want
+
+
+def test_train_steps_match_reference_jitted_step():
+    """Five AdamW steps of phi4's smoke config on converted weights and the
+    reference's Markov batches: the loss of every step to 1e-5 relative."""
+    got, want = _steps_beside_jitted_reference("phi4-mini-3.8b", 32, 4)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert got[-1] < got[0]
+
+
+def test_mamba2_train_steps_match_reference_jitted_step(monkeypatch):
+    """The same for mamba2's smoke config (two ``ssm`` layers) at 64 tokens,
+    four chunks of 16: the SSD scan's gradient goes through ``SsdScanFn``
+    (its plain backward on the CPU), once per layer and step."""
+    import importlib
+    ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
+    calls = []
+    backward = ssd.SsdScanFn.backward
+    monkeypatch.setattr(ssd.SsdScanFn, "backward",
+                        staticmethod(lambda ctx, *g: calls.append(1) or backward(ctx, *g)))
+    got, want = _steps_beside_jitted_reference("mamba2-1.3b", 64, 2)
+    assert len(calls) == 5 * get_smoke_config("mamba2-1.3b").num_layers
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert got[-1] < got[0]
 

@@ -1,5 +1,5 @@
-"""Training on the card: K2's backward kernel against its plain version, the
-autograd wiring, the guards on the kernels without a backward, a train step,
+"""Training on the card: K2's and K3's backward kernels against their plain
+versions, the autograd wiring, the guard on K1 (no backward), train steps,
 and a closed runtime's CUDA graphs.
 
 Imports no JAX, so it runs where only PyTorch is installed:
@@ -13,10 +13,14 @@ in bf16 each gradient is rounded once to bf16 (2^-8 relative), and the
 them: 1e-2 of the largest. bf16 takes the ``sm90`` backward (wgmma + TMA),
 f32 the ``simt`` one (CUDA cores); ``_flash_attention_bwd_simt`` holds the
 ``simt`` kernel at bf16 too. Through the forward kernels (``FlashAttentionFn``) the bf16 route
-also rounds P to bf16 before P·V: 3e-2.
+also rounds P to bf16 before P·V: 3e-2. K3's backward (``ssd_scan_bwd``,
+one ``simt`` route: CUDA cores, f32 sums, for both dtypes) against
+``ssd_scan_bwd_plain`` on the same inputs: 1e-4 of the largest gradient in
+f32 (other orders of the sums), 1e-2 in bf16 (dx, dB and dC rounded once).
 """
 import gc
 import weakref
+from unittest import mock
 
 import pytest
 import torch
@@ -33,6 +37,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
+from repro_torch.kernels.ssd_scan import (SsdScanFn, ssd_scan_bwd, ssd_scan_bwd_plain,
+                                          ssd_scan_plain)
 from repro_torch.models import init_params, param_leaves
 from repro_torch.train import DataConfig, MarkovDataset, make_optimizer, train_step
 
@@ -192,18 +198,140 @@ def test_autograd_function_matches_autograd_through_plain(case, dtype):
 
 
 def test_kernels_without_a_backward_raise_under_grad():
-    x = torch.randn(1, 128, 2, 8, device="cuda", requires_grad=True)
-    dt = torch.rand(1, 128, 2, device="cuda")
-    A = -torch.rand(2, device="cuda")
-    Bm = torch.randn(1, 128, 1, 16, device="cuda")
-    with pytest.raises(NotImplementedError, match="K3 backward"):
-        ops.ssd_bshp(x, dt, A, Bm, Bm)
-    with torch.no_grad():
-        y, _ = ops.ssd_bshp(x, dt, A, Bm, Bm)
-    assert y.shape == x.shape
+    """K1 has no backward (no training path quantizes): under grad it raises."""
     rows = torch.randn(4, 64, device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="quantize_rows"):
         ops.quantize_rows(rows)
+    with torch.no_grad():
+        q, scale = ops.quantize_rows(rows)
+    assert q.shape == rows.shape and scale.shape == (4,)
+
+
+# K3's backward: (bh, s, p, n, chunk, heads_per_group, initial state and d final)
+SSD_BWD_CASES = [
+    (256, 1024, 64, 128, 128, 64, False),        # mamba2-1.3b at batch 4
+    (1024, 1024, 64, 128, 128, 256, False),      # jamba-1.5-large at batch 4
+    (8, 64, 64, 32, 1, 4, False),                # chunk 1
+    (4, 200, 64, 128, 100, 2, True),             # chunk 100, a state in and out
+    (4, 128, 64, 128, 128, 1, False),            # S == chunk, one head a group
+    (8, 256, 96, 24, 128, 4, True),              # two P-tiles, N 24
+    (8, 256, 100, 24, 128, 4, False),            # a ragged P-tile
+    (8, 256, 64, 128, 128, 4, True),
+]
+
+
+def _ssd_inputs(case, dtype, seed=0):
+    """The model's A (-1 … -16 over a group's heads) and dt doubled, so that
+    exp(cum_i - cum_j) overflows above the diagonal."""
+    bh, s, p, n, chunk, g, with_state = case
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x, dy = rnd(bh, s, p).to(dtype), rnd(bh, s, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(bh, s)) * 2.0
+    A = -torch.linspace(1.0, 16.0, g, device="cuda").repeat(bh // g)
+    Bm, Cm = ((rnd(bh // g, s, n) * 0.3).to(dtype) for _ in range(2))
+    init = rnd(bh, n, p) if with_state else None
+    dfinal = rnd(bh, n, p) if with_state else None
+    return (x, dt, A, Bm, Cm), dy, dfinal, dict(chunk=chunk, heads_per_group=g,
+                                                initial_state=init)
+
+
+@pytest.mark.parametrize("case,dtype", [(c, d) for c in SSD_BWD_CASES for d in sorted(DTYPES)
+                                        if c[0] < 1024 or d == "bfloat16"], ids=str)
+def test_ssd_backward_kernel_matches_plain(case, dtype):
+    """One launch a call, on ``simt``; every gradient finite, within the
+    tolerance of the plain backward's largest entry, and the same bits on a
+    second call (jamba's shape in bf16 only, its dtype on the card)."""
+    args, dy, dfinal, kw = _ssd_inputs(case, DTYPES[dtype])
+    before = dict(ssd_scan_bwd.launches_by_route)
+    got = ssd_scan_bwd(*args, dy, dfinal, **kw)
+    assert ssd_scan_bwd.launches_by_route["simt"] == before["simt"] + 1
+    again = ssd_scan_bwd(*args, dy, dfinal, **kw)
+    want = ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
+    assert (got[5] is None) == (kw["initial_state"] is None)
+    got, again, want = ([t for t in r if t is not None] for r in (got, again, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert [(t.dtype, t.shape) for t in got] == [(t.dtype, t.shape) for t in want]
+    _close(got, want, 1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+class _PlainSsd:
+    """In place of ``SsdScanFn``: autograd through the plain forward."""
+
+    @staticmethod
+    def apply(x, dt, A, Bm, Cm, chunk, g, initial_state):
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, heads_per_group=g,
+                              initial_state=initial_state)
+
+
+def test_ssd_bshp_under_grad_takes_the_backward_kernel():
+    """``ops.ssd_bshp`` under grad goes through ``SsdScanFn``: K3's forward
+    and its backward kernel once each, gradients (x, dt, A, B, C, the initial
+    state) equal to autograd's through the plain forward within 1e-4 of the
+    largest in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s, h, g, p, n = 2, 256, 8, 2, 64, 32
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x = rnd(b, s, h, p)
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    Bm, Cm = rnd(b, s, g, n) * 0.3, rnd(b, s, g, n) * 0.3
+    init, dy = rnd(b, h, p, n), rnd(b, s, h, p)
+    inputs = (x, dt, A, Bm, Cm, init)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    launches = (ssd_scan_bwd.launches, ops.ssd_scan.launches)
+    y, state = ops.ssd_bshp(*leaves[:5], chunk=64, initial_state=leaves[5])
+    ((y * dy).sum() + state.square().sum()).backward()
+    assert (ssd_scan_bwd.launches - launches[0], ops.ssd_scan.launches - launches[1]) == (1, 1)
+    ref = [t.clone().requires_grad_() for t in inputs]
+    with mock.patch.object(ops, "SsdScanFn", _PlainSsd):
+        y, state = ops.ssd_bshp(*ref[:5], chunk=64, initial_state=ref[5])
+    ((y * dy).sum() + state.square().sum()).backward()
+    _close([t.grad for t in leaves], [t.grad for t in ref], 1e-4)
+
+
+def test_ssd_autograd_function_matches_autograd_through_plain():
+    args, dy, dfinal, kw = _ssd_inputs((8, 256, 64, 128, 128, 4, True), torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (*args, kw["initial_state"])]
+    y, state = SsdScanFn.apply(*leaves[:5], kw["chunk"], kw["heads_per_group"], leaves[5])
+    ((y.float() * dy.float()).sum() + (state * dfinal).sum()).backward()
+    ref = [t.clone().requires_grad_() for t in (*args, kw["initial_state"])]
+    y, state = ssd_scan_plain(*ref[:5], chunk=kw["chunk"], heads_per_group=kw["heads_per_group"],
+                              initial_state=ref[5])
+    ((y.float() * dy.float()).sum() + (state * dfinal).sum()).backward()
+    # the sm90 forward rounds W, C·state's state and the decayed X to bf16
+    _close([t.grad for t in leaves], [t.grad for t in ref], 3e-2)
+
+
+def _losses_on_cpu_and_card(arch, seq_len, counter):
+    """Two AdamW steps of ``arch``'s smoke config from the same weights and
+    batches on the CPU and on the card: the losses and ``counter``'s launches
+    on each."""
+    cfg = get_smoke_config(arch)
+    data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, batch_size=4))
+    batches = [next(b) for b in [data.batches()] for _ in range(2)]
+    losses, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = init_params(cfg, seed=0, device="cpu").to(dev)
+        model.requires_grad_(True)
+        opt = make_optimizer("adamw", lr=3e-3)
+        state = opt[0](param_leaves(model))
+        before = counter.launches
+        losses[dev] = []
+        for tokens, labels in batches:
+            state, loss = train_step(model, opt, state, torch.from_numpy(tokens).to(dev),
+                                     torch.from_numpy(labels).long().to(dev), None)
+            losses[dev].append(float(loss))
+        launches[dev] = counter.launches - before
+    assert all(torch.isfinite(torch.tensor(losses["cuda"])))
+    torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+                               rtol=1e-4, atol=0)
+    return launches
 
 
 def test_train_steps_on_the_card_match_the_cpu():
@@ -211,27 +339,16 @@ def test_train_steps_on_the_card_match_the_cpu():
     batches: on the card the attention backward is the kernel, once per
     layer and step, and the losses agree with the CPU's (plain versions) to
     1e-4 relative."""
-    cfg = get_smoke_config("phi4-mini-3.8b")
-    data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=4))
-    batches = [next(b) for b in [data.batches()] for _ in range(2)]
-    losses = {}
-    launches = {}
-    for dev in ("cpu", "cuda"):
-        model = init_params(cfg, seed=0, device="cpu").to(dev)
-        model.requires_grad_(True)
-        opt = make_optimizer("adamw", lr=3e-3)
-        state = opt[0](param_leaves(model))
-        before = flash_attention_bwd.launches
-        losses[dev] = []
-        for tokens, labels in batches:
-            state, loss = train_step(model, opt, state, torch.from_numpy(tokens).to(dev),
-                                     torch.from_numpy(labels).long().to(dev), None)
-            losses[dev].append(float(loss))
-        launches[dev] = flash_attention_bwd.launches - before
-    assert launches == {"cpu": 0, "cuda": 2 * cfg.num_layers}
-    assert all(torch.isfinite(torch.tensor(losses["cuda"])))
-    torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
-                               rtol=1e-4, atol=0)
+    launches = _losses_on_cpu_and_card("phi4-mini-3.8b", 64, flash_attention_bwd)
+    assert launches == {"cpu": 0, "cuda": 2 * get_smoke_config("phi4-mini-3.8b").num_layers}
+
+
+def test_mamba2_train_steps_on_the_card_match_the_cpu():
+    """The same for mamba2's smoke config (f32, 64 tokens: four chunks of
+    16): on the card the SSD scan's backward is the kernel, once per layer
+    and step."""
+    launches = _losses_on_cpu_and_card("mamba2-1.3b", 64, ssd_scan_bwd)
+    assert launches == {"cpu": 0, "cuda": 2 * get_smoke_config("mamba2-1.3b").num_layers}
 
 
 def test_closed_runtime_frees_its_graphs_and_a_capture_holds_with_the_collector_on():
