@@ -30,13 +30,15 @@ Run from the root of a checkout. Phases, one JSON line each:
    ``BWD_CHECKS``, every bf16 case on both routes (the ``simt`` kernel
    through ``_flash_attention_bwd_simt``), then timed at the first two in
    turns with the ``simt`` kernel at bf16, the autograd backward of SDPA and
-   the plain version); K3's backward (``ssd_scan_bwd``, one ``simt`` route:
-   CUDA cores, f32 sums) at mamba2-1.3b's training shape in bf16 and f32,
-   jamba-1.5-large's in bf16 and the edge cases of ``SSD_BWD_CHECKS`` in
-   both, the model's A with dt doubled (the masked half overflows), against
-   ``ssd_scan_bwd_plain`` (and at the two training shapes against autograd
-   through ``ssd_scan_plain``), then timed at those two shapes beside the
-   plain version;
+   the plain version); K3's backward (``ssd_scan_bwd``: bf16 of a shape the
+   ``sm90`` forward takes on the ``sm90`` route, wgmma + TMA, the chunks in
+   parallel; f32 and the other bf16 shapes on ``simt``, CUDA cores) at
+   mamba2-1.3b's training shape in bf16 and f32, jamba-1.5-large's in bf16
+   and the edge cases of ``SSD_BWD_CHECKS`` in both, the model's A with dt
+   doubled (the masked half overflows), against ``ssd_scan_bwd_plain`` (and
+   at the two training shapes against autograd through ``ssd_scan_plain``),
+   then timed at those two shapes in turns with the ``simt`` kernel at bf16
+   (``_ssd_scan_bwd_simt``) and the plain version;
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -44,7 +46,8 @@ Run from the root of a checkout. Phases, one JSON line each:
    - depth_check: the model at full width cut to one layer of each block
      kind, every ``attn_gate`` at 2.0, a random modality input; prefill
      logits through the kernels against the same model with the kernels'
-     plain versions, and the launches the config gives;
+     plain versions (olmoe-1b-7b: against an f32 witness of the same
+     weights, ``witness_verdict``), and the launches the config gives;
    - serve: the served model serves 4 requests of 1024 prompt tokens + 32
      greedy tokens through ``repro_torch.launch.serve.generate``, with the
      reference's stub modality input; every kernel's launch count is
@@ -75,7 +78,7 @@ Run from the root of a checkout. Phases, one JSON line each:
      backward, K3's forward and backward, cuBLAS, the optimizer and the
      rest; then mamba2-1.3b at full width and depth (48 ssm layers, d 2048,
      vocab 50280) the same way with 6 counted steps (K3's forward 2 x 48 a
-     step on ``sm90``, its backward 48 on ``simt``, K2 none);
+     step and its backward 48, all ``sm90``, K2 none);
    - train_ckpt: the f32 100M demo of ``examples/train_100m_torch.py``
      through ``repro_torch.train.train``, 60 steps with a checkpoint at 40,
      then resumed from it: the resumed first loss equals the uninterrupted
@@ -90,8 +93,7 @@ Run from the root of a checkout. Phases, one JSON line each:
      and mamba2-1.3b's train step (4 x 1024) and prefill, each held first to
      the direct path it wraps (``train_step``'s losses, ``generate``'s logits
      and ids), then timed with every kernel's count zeroed just before and
-     read just after (K2 forward and backward and K3's forward on ``sm90``,
-     K3's backward on ``simt``), seconds, tokens/s and peak memory beside the dry run's three roofline terms for the same shape on
+     read just after (K2 and K3 forward and backward, all on ``sm90``), seconds, tokens/s and peak memory beside the dry run's three roofline terms for the same shape on
      the 1×1 mesh and the time's multiple of the largest;
    - dryrun: ``run_one`` of every config at the 16×16 mesh and
      ``prefill_32k`` on the meta device: ok or failed, the bottleneck and
@@ -185,6 +187,7 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import gc
 import importlib
@@ -309,6 +312,23 @@ SERVED_MODELS = (
     ("llama-3.2-vision-11b", "period", {}),
 )
 PROFILED = ("qwen3-14b", "mamba2-1.3b", "olmoe-1b-7b")
+# depth_check's f32 witness (``witness_verdict``). Over 8 token draws
+# (examples/depth_margin_torch.py on the H100) olmoe's bf16 kernels lay
+# 1.27-1.70% of the largest logit from the bf16 plain prefill, each bf16
+# path 1.50-2.46% from the f32 prefill of the same weights, the f32 kernels
+# within 3.8e-6 of f32 plain: the 2% limit of kernels against plain sits
+# inside bf16's own spread. So the MoE model whose check cut fits on the card
+# in bf16 and in f32 beside each other is held to the f32 witness instead:
+# its f32 kernels (K2 on ``simt``) to the f32 plain prefill within
+# WITNESS_F32_TOL of the largest logit (26x the measured 3.8e-6), and its
+# bf16 kernels no further from the witness than the bf16 plain prefill lies,
+# plus WITNESS_MARGIN (the kernels' excess over plain ran -3.9e-3 .. +2.8e-3
+# over the 8 draws). The bf16 kernels-against-plain distance is reported
+# beside the 2% limit. kimi-k2 and jamba hold no f32 copy beside the bf16
+# one and keep the 2% check.
+WITNESSED = ("olmoe-1b-7b",)
+WITNESS_F32_TOL = 1e-4
+WITNESS_MARGIN = 5e-3
 # K2's backward, (dtype, (bh, sq, sk, hd, g), causal, window, q_offset):
 # phi4-mini-3.8b's training shape (batch 4 x 24 heads, GQA 3, hd 128), the
 # f32 100M demo's (batch 8 x 8 heads, GQA 4, hd 64, seq 128), then a sliding
@@ -327,8 +347,9 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # and final-state gradient)): mamba2-1.3b's training shape (batch 4 x 64 heads
 # of one group) in bf16 and f32, jamba-1.5-large's (256 heads a group) in
 # bf16, then chunk 1, chunk 100 with a state in and out (one head a group),
-# S == chunk, P 96 and P 100 with N 24 (two P-tiles, one ragged) and a state
-# in and out at 4 heads a group, each in f32 and bf16; the model's A and dt
+# S == chunk, P 96 and P 100 with N 24 (two P-tiles, one ragged), a state
+# in and out at 4 heads a group, and 16 chunks of 64 with a state, each in
+# f32 and bf16; the model's A and dt
 # doubled (ssd_bwd_inputs). Tolerance: BWD_TOL of the largest gradient, as K2's
 SSD_BWD_MAMBA2 = ("bfloat16", (256, 1024, 64, 128, 128, 64, False))
 SSD_BWD_JAMBA = ("bfloat16", (1024, 1024, 64, 128, 128, 256, False))
@@ -336,7 +357,8 @@ SSD_BWD_CHECKS = [SSD_BWD_MAMBA2, ("float32", SSD_BWD_MAMBA2[1]), SSD_BWD_JAMBA]
     (dt, s) for dt in ("float32", "bfloat16") for s in (
         (8, 64, 64, 32, 1, 4, False), (4, 200, 64, 128, 100, 1, True),
         (4, 128, 64, 128, 128, 1, False), (8, 256, 96, 24, 128, 4, True),
-        (8, 256, 100, 24, 128, 4, False), (8, 256, 64, 128, 128, 4, True))]
+        (8, 256, 100, 24, 128, 4, False), (8, 256, 64, 128, 128, 4, True),
+        (4, 1024, 64, 128, 64, 2, True))]
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 # train: phi4-mini-3.8b at full width and depth, bf16, AdamW, remat on; warm-up
 # steps, then the counted and timed steps
@@ -403,11 +425,19 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 # K2's backward: the simt route's three kernels, then the sm90 route's
 BWD_KERNELS = ("dot_kernel", "dkdv_kernel", "dq_kernel", "bwd_prep_sm90_kernel",
                "dkdv_sm90_kernel", "dq_sm90_kernel")
-# K3's forward on either route, then its backward's two passes
+# K3's forward on either route, then its backward's: the simt route's two
+# passes, the sm90 route's five
 SSD_FWD_KERNELS = ("ssd_scan_sm90_kernel", "ssd_scan_kernel")
-SSD_BWD_KERNELS = ("ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel")
+SSD_BWD_KERNELS = ("ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel", "ssd_bwd_terms_sm90_kernel",
+                   "ssd_bwd_states_sm90_kernel", "ssd_bwd_dx_sm90_kernel",
+                   "ssd_bwd_dbc_sm90_kernel", "ssd_bwd_sum_sm90_kernel")
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", *SSD_FWD_KERNELS,
                 "quant_rows_sm90_kernel", "quant_rows_kernel") + BWD_KERNELS + SSD_BWD_KERNELS
+
+
+def named(name: str, key: str) -> bool:
+    """Whether a profiler key is the kernel ``name`` (a template or not)."""
+    return name + "<" in key or name + "(" in key
 
 
 def device_profile(fn) -> dict:
@@ -429,7 +459,7 @@ def device_profile(fn) -> dict:
     port = {}
     for e in kernels:
         for k in PORT_KERNELS:
-            if k + "<" in e.key:
+            if named(k, e.key):
                 ms, n = port.get(k, (0.0, 0))
                 port[k] = (ms + e.self_device_time_total / 1e3, n + e.count)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "kernel_launches":
@@ -1671,6 +1701,20 @@ def routing(mode: str, chosen: list):
     return mock.patch.object(moe, "router_topk", record if mode == "record" else replay)
 
 
+def witness_verdict(kernel_vs_f32: float, plain_vs_f32: float,
+                    f32_kernel_vs_plain: float) -> bool:
+    """depth_check's decision for a model in ``WITNESSED``, from three
+    distances, each the largest absolute logit difference over the largest
+    logit of the bf16 plain prefill: the bf16 kernels and the bf16 plain
+    path against the f32 witness (the same weights in f32, the plain
+    attention and scan, the same expert choices), and the f32 kernels
+    against the witness. The f32 check is the tight one; the bf16 kernels
+    may lie no further from the witness than the bf16 plain path does, plus
+    ``WITNESS_MARGIN``."""
+    return (f32_kernel_vs_plain <= WITNESS_F32_TOL
+            and kernel_vs_f32 <= plain_vs_f32 + WITNESS_MARGIN)
+
+
 def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) -> dict:
     """One served model on the card; returns each kernel's launches in its
     serve run.
@@ -1681,7 +1725,9 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
       against the same prefill with ``ops.flash_attention`` and
       ``ops.ssd_scan`` swapped for their plain versions, with the same
       expert choices (``routing``), within 2e-2 of the largest logit;
-      launches as the config gives;
+      for a model in ``WITNESSED`` that distance is reported and the check
+      is ``witness_verdict`` against the same weights' f32 prefill, plain and
+      through the kernels; launches as the config gives;
     - serve: the model cut to ``serve_cut``, random weights from seed 0,
       the reference's stub modality input; ``generate`` of 4 requests of
       1024 prompt tokens + 32 greedy tokens, every kernel's count zeroed
@@ -1720,27 +1766,53 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     open_gates(model)
     cross = random_cross_src(cfg, SERVE_BATCH, gen)
     chosen = []
+
+    def prefill(m, x, kernels: bool):
+        with contextlib.ExitStack() as stack:
+            if not kernels:
+                stack.enter_context(mock.patch.object(ops, "flash_attention",
+                                                      flash_attention_plain))
+                stack.enter_context(mock.patch.object(ops, "ssd_scan", ssd_scan_plain))
+            stack.enter_context(routing("replay", list(chosen)))
+            return forward_prefill(m, tokens, SERVE_PROMPT + 1, x)[0].float()
+
     with torch.inference_mode():
         zero()
         with routing("record", chosen):
             lk = forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)[0].float()
         counts = {k: c.launches for k, c in counters.items()}
-        with mock.patch.object(ops, "flash_attention", flash_attention_plain), \
-                mock.patch.object(ops, "ssd_scan", ssd_scan_plain), routing("replay", chosen):
-            lp = forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)[0].float()
+        lp = prefill(model, cross, kernels=False)
     err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
     want = expected_launches(cfg)
-    ok = bool(torch.isfinite(lk).all()) and err <= 2e-2 * scale and counts == want
+    witness = None
+    if arch in WITNESSED:
+        model32 = copy.deepcopy(model).float()
+        cross32 = None if cross is None else cross.float()
+        with torch.inference_mode():
+            lw = prefill(model32, cross32, kernels=False)
+            lwk = prefill(model32, cross32, kernels=True)
+        witness = {"kernel_vs_f32": float((lk - lw).abs().max()) / scale,
+                   "plain_vs_f32": float((lp - lw).abs().max()) / scale,
+                   "f32_kernel_vs_plain": float((lwk - lw).abs().max()) / scale,
+                   "f32_tol": WITNESS_F32_TOL, "margin": WITNESS_MARGIN,
+                   "f32_finite": bool(torch.isfinite(lwk).all())}
+        witness["ok"] = witness["f32_finite"] and witness_verdict(
+            witness["kernel_vs_f32"], witness["plain_vs_f32"], witness["f32_kernel_vs_plain"])
+        del model32, cross32, lw, lwk
+    close = witness["ok"] if witness is not None else err <= 2e-2 * scale
+    ok = bool(torch.isfinite(lk).all()) and close and counts == want
     emit({"phase": "depth_check", "arch": cfg.name, "layers": cfg.num_layers,
           "encoder_layers": cfg.encoder_layers,
           "pattern": cfg.layout_pattern, "gates": 2.0 if cfg.arch_type == "vlm" else None,
           "routing_pinned": cfg.uses_moe,
           "cross_len": None if cross is None else cross.shape[1],
           "max_abs_err": err, "max_abs_logit": scale, "tol": 2e-2 * scale,
+          "within_tol": err <= 2e-2 * scale, "witness": witness,
           "launches": counts, "want_launches": want, "ok": ok})
     if not ok:
         raise AssertionError(f"{arch}: the prefill through the kernels differs from the plain "
-                             f"one ({err} > {2e-2 * scale}) or launches {counts} != {want}")
+                             f"one ({err} against {2e-2 * scale}; witness {witness}) or "
+                             f"launches {counts} != {want}")
     del model, lk, lp, cross
     free()
 
@@ -1999,42 +2071,37 @@ def ssd_bwd_inputs(dtype: str, shape, gen):
 
 
 def ssd_bwd_bound_ms(dtype: str, shape):
-    """Least time for K3's backward, from the least work it needs (not the
-    dry run's ``bwd_flops_per_chunk``, which counts every Q×Q product in
-    full and once per head): per row and chunk, dY·Xᵀ, Wᵀ·dY, dG·B and
-    dGᵀ·C over the Q(Q+1)/2 pairs j ≤ i that the mask keeps, and five Q·N·P
-    products (the recomputed state update, B·dS, X·dSᵀ, dY·s_inᵀ, Cᵀ·dY);
-    C·Bᵀ over the kept pairs once per group row, since a group's heads read
-    the same B and C. x, dy, dt, A, B and C (once per group), and a given
-    initial state and final-state gradient read once; dx, ddt, dA, dB, dC
-    (and the initial state's gradient) written once."""
-    bh, s, p, n, chunk, g, with_state = shape
-    kept = chunk * (chunk + 1) // 2
-    flops = float((s // chunk) * (bh * (2 * kept * (2 * n + 2 * p) + 10 * chunk * n * p)
-                                  + (bh // g) * 2 * kept * n))
-    size = 2 if dtype == "bfloat16" else 4
-    nbytes = (size * (3 * bh * s * p + 4 * (bh // g) * s * n) + 4 * 2 * (bh * s + bh)
-              + 4 * bh * n * p * (3 if with_state else 0))
+    """Least time for K3's backward from ``ssd_scan.bwd_least_work``: the
+    Q×Q products over the kept pairs j ≤ i, C·Bᵀ and dG's two products once
+    per group row (dG summed over a group's heads first), five Q·N·P
+    products per row and chunk; each input read once, each gradient written
+    once."""
+    from repro_torch.kernels.ssd_scan import bwd_least_work
+    flops, nbytes = bwd_least_work(*shape, 2 if dtype == "bfloat16" else 4)
     t_ops = flops / (PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_F32_FLOPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
 
 def check_ssd_bwd(gen, smi: str) -> dict:
-    """K3's backward kernel (``ssd_scan_bwd``, one ``simt`` launch a call)
-    against ``ssd_scan_bwd_plain`` on the same inputs at ``SSD_BWD_CHECKS``:
-    every gradient finite, within ``BWD_TOL`` of the plain one's largest
-    entry, the same bits on a second call; at mamba2's and jamba's training
-    shapes also against autograd through ``ssd_scan_plain``. Then timed at
-    those two shapes."""
+    """K3's backward kernel (``ssd_scan_bwd``, one launch a call on the route
+    ``_route`` gives: ``sm90`` for every bf16 shape it takes, ``simt`` for
+    f32 and the others) against ``ssd_scan_bwd_plain`` on the same inputs at
+    ``SSD_BWD_CHECKS``: every gradient finite, within ``BWD_TOL`` of the
+    plain one's largest entry, the same bits on a second call; at mamba2's
+    and jamba's training shapes also against autograd through
+    ``ssd_scan_plain``. Then timed at those two shapes."""
     import torch
+    from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
+    from repro_torch.kernels.ssd_scan import _route as ssd_route
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain
     timed, worst = {}, 0.0
     for dtype, shape in SSD_BWD_CHECKS:
         args, dy, dfinal, kw = ssd_bwd_inputs(dtype, shape, gen)
-        before = ssd_scan_bwd.launches_by_route["simt"]
+        route = ssd_route(getattr(torch, dtype), shape[2], shape[3], shape[4])
+        before = dict(ssd_scan_bwd.launches_by_route)
         got = ssd_scan_bwd(*args, dy, dfinal, **kw)
-        took = ssd_scan_bwd.launches_by_route["simt"] - before
+        took = {r: ssd_scan_bwd.launches_by_route[r] - before[r] for r in SSD_ROUTES}
         again = ssd_scan_bwd(*args, dy, dfinal, **kw)
         want = ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
         torch.cuda.synchronize()
@@ -2046,9 +2113,9 @@ def check_ssd_bwd(gen, smi: str) -> dict:
         finite = all(bool(torch.isfinite(a).all()) for a in got)
         tol = BWD_TOL[dtype]
         ok = (len(got) == len(want) and all(e <= tol * max(sc, 1e-6) for e, sc in zip(errs, scales))
-              and same and finite and took == 1
+              and same and finite and took == {r: int(r == route) for r in SSD_ROUTES}
               and [a.dtype for a in got] == [b.dtype for b in want])
-        record = {"phase": "kernel_check", "kernel": "ssd_scan_bwd", "route": "simt",
+        record = {"phase": "kernel_check", "kernel": "ssd_scan_bwd", "route": route,
                   "dtype": dtype, "shape": shape, "max_abs_err": dict(zip(names, errs)),
                   "max_abs_grad": dict(zip(names, scales)), "tol_of_largest": tol,
                   "same_bits_twice": same, "finite": finite, "launches": took}
@@ -2078,33 +2145,58 @@ def check_ssd_bwd(gen, smi: str) -> dict:
     err, inputs = timed.pop(SSD_BWD_JAMBA[1])
     t = time_ssd_bwd(SSD_BWD_JAMBA, inputs, smi, "jamba-1.5-large-398b ssm layer")
     result["jamba_shape"] = dict(shape=SSD_BWD_JAMBA[1], max_abs_err=err,
-                                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                                      "forward_ms")})
+                                 **{k: t[k] for k in ("ms", "simt_ms", "plain_ms", "bound_ms",
+                                                      "library_ms", "forward_ms")})
     return result
 
 
 def time_ssd_bwd(case, inputs, smi: str, path: str) -> dict:
-    """K3's backward at ``case``: the kernel and the plain version in turns
-    (a, b, b, a), each keeps its least; K3's forward on its route beside."""
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain
+    """K3's backward at ``case`` (bf16): the kernel on its route (``sm90``),
+    the ``simt`` kernel at bf16 (``_ssd_scan_bwd_simt``) and the plain
+    version in turns (a, b, c, c, b, a), each keeps its least; K3's forward
+    on its route beside."""
+    from repro_torch.kernels.ssd_scan import (_route, _ssd_scan_bwd_simt, ssd_scan,
+                                              ssd_scan_bwd, ssd_scan_bwd_plain)
     args, dy, dfinal, kw = inputs
-    contenders = {"kernel": (lambda: ssd_scan_bwd(*args, dy, dfinal, **kw), 10),
+    route = _route(args[0].dtype, case[1][2], case[1][3], case[1][4])
+    contenders = {"kernel": (lambda: ssd_scan_bwd(*args, dy, dfinal, **kw), 20),
+                  "simt": (lambda: _ssd_scan_bwd_simt(*args, dy, dfinal, **kw), 5),
                   "plain": (lambda: ssd_scan_bwd_plain(*args, dy, dfinal, **kw), 3)}
     turns = {who: [] for who in contenders}
     for who in list(contenders) + list(reversed(contenders)):
         fn, iters = contenders[who]
         turns[who].append(cuda_ms(fn, iters=iters))
     fwd_ms = cuda_ms(lambda: ssd_scan(*args, **kw), iters=20)
-    ms, plain_ms = min(turns["kernel"]), min(turns["plain"])
+    ms, simt_ms, plain_ms = min(turns["kernel"]), min(turns["simt"]), min(turns["plain"])
     bound_ms, bound_by, flops, nbytes = ssd_bwd_bound_ms(*case)
-    emit({"phase": "kernel_time", "kernel": "ssd_scan_bwd", "route": "simt", "path": path,
-          "dtype": case[0], "shape": case[1], "ms": ms, "plain_ms": plain_ms,
-          "library_ms": None, "turns_ms": turns, "bound_ms": bound_ms, "bound_by": bound_by,
-          "flops": flops, "bytes": nbytes,
+    passes = kernel_split(lambda: ssd_scan_bwd(*args, dy, dfinal, **kw), SSD_BWD_KERNELS)
+    emit({"phase": "kernel_time", "kernel": "ssd_scan_bwd", "route": route, "path": path,
+          "dtype": case[0], "shape": case[1], "ms": ms, "simt_ms": simt_ms,
+          "plain_ms": plain_ms, "library_ms": None, "turns_ms": turns, "bound_ms": bound_ms,
+          "bound_by": bound_by, "flops": flops, "bytes": nbytes,
           "tflops": {n: flops / min(t) / 1e9 for n, t in turns.items()},
-          "share_of_bound": bound_ms / ms, "forward_ms": fwd_ms, "smi": smi})
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, forward_ms=fwd_ms)
+          "share_of_bound": bound_ms / ms, "simt_over_kernel": simt_ms / ms,
+          "passes_ms": passes, "forward_ms": fwd_ms, "smi": smi})
+    return dict(ms=ms, simt_ms=simt_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, forward_ms=fwd_ms)
+
+
+def kernel_split(fn, names, calls: int = 3) -> dict:
+    """Device ms per call of ``fn`` by kernel (``torch.profiler``), for the
+    kernels in ``names`` that ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    split = {n: sum(e.self_device_time_total for e in events if named(n, e.key)) / calls / 1e3
+             for n in names}
+    return {n: t for n, t in split.items() if t}
 
 
 def train_profile(model, opt, state, tokens, labels) -> dict:
@@ -2137,11 +2229,11 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     def ms(pred):
         return sum(e.self_device_time_total for e in kernels if pred(e.key)) / 1e3
     fwd = ms(lambda key: "flash_fwd" in key)
-    bwd = ms(lambda key: any(n + "<" in key for n in BWD_KERNELS))
-    bwd_by_kernel = {n: ms(lambda key, n=n: n + "<" in key) for n in BWD_KERNELS}
-    ssd_fwd = ms(lambda key: any(n + "<" in key for n in SSD_FWD_KERNELS))
-    ssd_bwd = ms(lambda key: any(n + "<" in key for n in SSD_BWD_KERNELS))
-    ssd_bwd_by_kernel = {n: ms(lambda key, n=n: n + "<" in key) for n in SSD_BWD_KERNELS}
+    bwd = ms(lambda key: any(named(n, key) for n in BWD_KERNELS))
+    bwd_by_kernel = {n: ms(lambda key, n=n: named(n, key)) for n in BWD_KERNELS}
+    ssd_fwd = ms(lambda key: any(named(n, key) for n in SSD_FWD_KERNELS))
+    ssd_bwd = ms(lambda key: any(named(n, key) for n in SSD_BWD_KERNELS))
+    ssd_bwd_by_kernel = {n: ms(lambda key, n=n: named(n, key)) for n in SSD_BWD_KERNELS}
     gemm = ms(lambda key: any(n in key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass")))
     def inside(e, name):
         p = e.cpu_parent
@@ -2208,8 +2300,7 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     phase: ``forward_train`` (remat on) and the loss's backward through the
     kernels of ``kind`` (``train_swaps``), their launches as
     ``train_launches`` gives for one step (each forward kernel twice a layer
-    with remat, each backward kernel once; K2 and K3's forward on ``sm90``,
-    K3's backward on ``simt``), against the same with the kernels' Function
+    with remat, each backward kernel once; all on ``sm90``), against the same with the kernels' Function
     swapped for the plain forward, which autograd differentiates. The loss
     within ``TRAIN_LOSS_TOL`` and every parameter's gradient within
     ``TRAIN_GRAD_TOL`` (relative L2). Then the kernels again with the
@@ -2284,13 +2375,10 @@ def train_launches(cfg, steps: int) -> dict:
 
 
 def train_routes(want: dict) -> dict:
-    """Each kernel's launches in ``want`` by route: K2, its backward and K3's
-    forward all on ``sm90`` (bf16 at these shapes), K3's backward on
-    ``simt``, its one route."""
-    routes = {k: {"sm90": want[k], "simt": 0}
-              for k in ("flash_attention", "flash_attention_bwd", "ssd_scan")}
-    routes["ssd_scan_bwd"] = {"simt": want["ssd_scan_bwd"]}
-    return routes
+    """Each kernel's launches in ``want`` by route: K2, its backward, K3's
+    forward and its backward all on ``sm90`` (bf16 at these shapes)."""
+    return {k: {"sm90": want[k], "simt": 0}
+            for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
 
 
 def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
@@ -2302,8 +2390,8 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
     ``TRAIN_SEQ`` from ``MarkovDataset``: ``TRAIN_WARMUP`` steps, then
     ``steps`` through ``train_step`` with every kernel's count zeroed just
     before and read just after (``train_launches``: K2's forward 2 x 32 a
-    step and its backward 32, all ``sm90``, for phi4; K3's forward 2 x 48 on
-    ``sm90`` and its backward 48 on ``simt`` for mamba2), each step on the
+    step and its backward 32, all ``sm90``, for phi4; K3's forward 2 x 48 and
+    its backward 48, all ``sm90``, for mamba2), each step on the
     host clock; the loss finite and falling (the last three steps' mean below
     the first three's); the peak memory; then one more step under the
     profiler. Returns the counted launches."""
@@ -2491,7 +2579,7 @@ def zero_counts(counters: dict) -> None:
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
     flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
-    ssd_scan_bwd.launches_by_route = {"simt": 0}
+    ssd_scan_bwd.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
 
 
 def read_counts(counters: dict) -> dict:
@@ -2581,7 +2669,8 @@ def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
     ok = (loss_err <= TRAIN_LOSS_TOL and counted["launches"] == want
           and max(param_rel.values()) <= STEPS_PARAM_TOL
           and routes["flash_attention"]["simt"] == 0 and routes["flash_attention_bwd"]["simt"] == 0
-          and routes["ssd_scan"]["simt"] == 0 and routes["ssd_scan_bwd"]["simt"] == want["ssd_scan_bwd"]
+          and routes["ssd_scan"]["simt"] == 0 and routes["ssd_scan_bwd"]["simt"] == 0
+          and routes["ssd_scan_bwd"]["sm90"] == want["ssd_scan_bwd"]
           and all(math.isfinite(x) for x in losses))
     emit({"phase": "steps", "step": "make_train_step", "arch": cfg.name, "mesh": "1x1",
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": opt_name, "remat": True,
@@ -2611,7 +2700,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
     (logits within the bf16 tolerance, greedy ids equal); mamba2-1.3b's
     prefill likewise, through K3. Every kernel's count is zeroed just
     before each timed run and read just after: K2 forward and backward and
-    K3's forward launch, all ``sm90``, K3's backward on ``simt``. Beside each time, the dry run's three terms for
+    K3's forward and backward launch, all ``sm90``. Beside each time, the dry run's three terms for
     the same shape on the 1×1 mesh. Returns the launches by path."""
     import torch
     from repro_torch.configs import get_config
@@ -2824,6 +2913,7 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     logs = build.build(["flash_attention", "flash_attention_sm90", "flash_attention_bwd",
                         "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "ssd_scan_bwd",
+                        "ssd_scan_bwd_sm90",
                         "int8_quant", "int8_quant_sm90", "batchsim_advance"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
@@ -3039,9 +3129,14 @@ def main() -> int:
          "launches_by_path": by_path["flash_attention_bwd"],
          **timings["flash_attention_bwd"]},
         {"name": "ssd_scan_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd_sm90.cu",
+         "sources_by_route": {
+             "sm90": "src/repro_torch/kernels/csrc/ssd_scan_bwd_sm90.cu",
+             "simt": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"},
          "replaces": "src/repro/models/ssm.py:106",
-         "launches": launches["ssd_scan_bwd"], "launches_by_route": {"simt": launches["ssd_scan_bwd"]},
+         "launches": launches["ssd_scan_bwd"],
+         # every path's routes were held to all-sm90 (train_routes, steps_train)
+         "launches_by_route": {"sm90": launches["ssd_scan_bwd"], "simt": 0},
          "launches_by_path": by_path["ssd_scan_bwd"], **timings["ssd_scan_bwd"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})

@@ -18,9 +18,14 @@ draw it prints, each over the largest logit of the plain bf16 prefill:
   plain path, the same routing: a fault of the MoE path or of the kernels
   shows here above f32 rounding (~1e-5).
 
+``--no-witness`` leaves the f32 model out (a model whose cut does not fit
+on the card twice, kimi-k2 and jamba): only ``kernel_vs_plain`` is printed.
+The model is cut as ``depth_check`` cuts it (``SERVED_MODELS``) unless
+``--layers`` says otherwise.
+
 Usage, on a machine with the card and ``nvcc``:
     PYTHONPATH=src python examples/depth_margin_torch.py \\
-        [--arch olmoe-1b-7b] [--layers 2] [--draws 8] [--out FILE]
+        [--arch olmoe-1b-7b] [--layers N] [--draws 8] [--no-witness] [--out FILE]
 ``--device cpu --smoke`` runs the model's smoke config on the CPU, where
 every kernel takes its plain version (the kernel columns are then 0).
 """
@@ -58,11 +63,14 @@ def prefill(model, tokens, cross, kernels: bool, mode: str, chosen: list) -> tor
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="olmoe-1b-7b")
-    ap.add_argument("--layers", type=int, default=2, help="depth_check's cut")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers to keep (default: depth_check's cut of the model)")
     ap.add_argument("--draws", type=int, default=8)
     ap.add_argument("--out", type=Path, default=None, help="also write the rows here")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true", help="the arch's smoke config")
+    ap.add_argument("--no-witness", dest="witness", action="store_false",
+                    help="no f32 copy of the model: kernels against plain in bf16 only")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -72,10 +80,14 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip() if dev.type == "cuda" else "cpu")
     full = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    cfg = smoke.cut_config(full, {"num_layers": args.layers})
+    cut = ({"num_layers": args.layers} if args.layers is not None else
+           next(c for arch, c, _ in smoke.SERVED_MODELS if arch == args.arch))
+    cfg = smoke.cut_config(full, cut)
     model = init_params(cfg, seed=0, device=dev)
     smoke.open_gates(model)
-    model32 = copy.deepcopy(model).float()
+    model32 = copy.deepcopy(model).float() if args.witness else None
+    columns = (("kernel_vs_plain", "kernel_vs_f32", "plain_vs_f32", "f32_kernel_vs_plain")
+               if args.witness else ("kernel_vs_plain",))
     rows = []
     for draw in range(args.draws):
         gen = torch.Generator(device=dev)
@@ -91,26 +103,25 @@ def main(argv=None) -> int:
         for name, m, x, kernels in (("plain", model, cross, False),
                                     ("f32", model32, cross32, False),
                                     ("f32_kernel", model32, cross32, True)):
-            runs[name] = prefill(m, tokens, x, kernels, "replay", list(chosen))
+            if m is not None:
+                runs[name] = prefill(m, tokens, x, kernels, "replay", list(chosen))
         scale = float(runs["plain"].abs().max())
 
         def rel(a, b):
             return float((a - b).abs().max()) / scale
         row = {"arch": cfg.name, "layers": cfg.num_layers, "draw": draw,
-               "max_abs_logit": scale,
-               "kernel_vs_plain": rel(lk, runs["plain"]),
-               "kernel_vs_f32": rel(lk, runs["f32"]),
-               "plain_vs_f32": rel(runs["plain"], runs["f32"]),
-               "f32_kernel_vs_plain": rel(runs["f32_kernel"], runs["f32"]),
-               "limit": 2e-2, "smi": smi}
+               "max_abs_logit": scale, "kernel_vs_plain": rel(lk, runs["plain"])}
+        if args.witness:
+            row.update(kernel_vs_f32=rel(lk, runs["f32"]),
+                       plain_vs_f32=rel(runs["plain"], runs["f32"]),
+                       f32_kernel_vs_plain=rel(runs["f32_kernel"], runs["f32"]))
+        row.update(limit=2e-2, smi=smi)
         print(json.dumps(row), flush=True)
         rows.append(row)
     worst = max(rows, key=lambda r: r["kernel_vs_plain"])
     summary = {"arch": cfg.name, "draws": len(rows),
                "over_limit": sum(r["kernel_vs_plain"] > r["limit"] for r in rows),
-               **{k: [min(r[k] for r in rows), max(r[k] for r in rows)]
-                  for k in ("kernel_vs_plain", "kernel_vs_f32", "plain_vs_f32",
-                            "f32_kernel_vs_plain")},
+               **{k: [min(r[k] for r in rows), max(r[k] for r in rows)] for k in columns},
                "worst_draw": worst["draw"], "smi": smi}
     print(json.dumps(summary), flush=True)
     if args.out is not None:

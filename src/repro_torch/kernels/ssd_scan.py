@@ -31,10 +31,15 @@ A CPU tensor goes to :func:`ssd_scan_plain`; a CUDA tensor goes to a kernel
 or raises. ``ssd_scan.launches`` counts kernel launches and
 ``ssd_scan.launches_by_route`` splits them by route, under a lock.
 
-The gradient: :func:`ssd_scan_bwd` launches ``csrc/ssd_scan_bwd.cu`` (one
-route, ``simt``: CUDA cores, f32 sums, for f32 and bf16), the hand-written
-gradient of the scan that replaces XLA's autodiff of the reference's
-``ssd_chunked``; :func:`ssd_scan_bwd_plain` is its arithmetic in PyTorch.
+The gradient: :func:`ssd_scan_bwd`, the hand-written gradient of the scan
+that replaces XLA's autodiff of the reference's ``ssd_chunked``, takes the
+forward's routes (:func:`_route`): bf16 of a shape the ``sm90`` forward
+takes → ``csrc/ssd_scan_bwd_sm90.cu`` (every product on ``wgmma``, tiles by
+TMA, the chunks in parallel with the states carried by a separate pass, a
+group's dG summed before its products); f32 and every other bf16 shape →
+``csrc/ssd_scan_bwd.cu`` (``simt``: CUDA cores, f32 sums).
+:func:`_ssd_scan_bwd_simt` reaches the ``simt`` backward at bf16, for timing
+only. :func:`ssd_scan_bwd_plain` is the arithmetic in PyTorch.
 :class:`SsdScanFn` puts the forward and the backward together for
 autograd.
 """
@@ -421,11 +426,12 @@ def ssd_scan_bwd(
     inputs, y's gradient ``dy`` and the final state's ``dfinal`` (None: zero).
 
     A CPU tensor goes to :func:`ssd_scan_bwd_plain`; a CUDA tensor launches
-    ``csrc/ssd_scan_bwd.cu`` (one route, ``simt``: CUDA cores, f32
-    accumulation, for f32 and bf16) or raises; a meta tensor goes to the
-    custom op ``repro_torch::ssd_scan_bwd``. ``ssd_scan_bwd.launches`` and
-    ``.launches_by_route`` count calls that launched (the kernel and the
-    pass that sums its partials count as one), under the forward's lock."""
+    the backward of :func:`_route`'s route (``sm90``:
+    ``csrc/ssd_scan_bwd_sm90.cu``; ``simt``: ``csrc/ssd_scan_bwd.cu``) or
+    raises; a meta tensor goes to the custom op ``repro_torch::ssd_scan_bwd``.
+    ``ssd_scan_bwd.launches`` and ``.launches_by_route`` count calls that
+    launched (each route's kernels of one call count as one launch), under
+    the forward's lock."""
     g = heads_per_group
     _check_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
     if x.device.type != "meta":
@@ -452,12 +458,34 @@ def _direct_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state):
                                   initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    return _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
+    route = _route(x.dtype, x.shape[2], Bm.shape[2], chunk)
+    return _launch_bwd(route, x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
 
 
 @_ssd_scan_bwd_op.register_fake
 def _ssd_scan_bwd_fake(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state):
     return [torch.empty_like(t) for t in (x, dt, A, Bm, Cm, initial_state) if t is not None]
+
+
+def _ssd_scan_bwd_simt(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    dy: torch.Tensor,
+    dfinal: Optional[torch.Tensor] = None,
+    *,
+    chunk: int = 128,
+    heads_per_group: int = 1,
+    initial_state: Optional[torch.Tensor] = None,
+):
+    """The CUDA-core backward at either dtype, bf16 included; for timing only."""
+    _check_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, heads_per_group, initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"the simt kernel needs a CUDA tensor, got {x.device}")
+    return _launch_bwd("simt", x, dt, A, Bm, Cm, dy, dfinal, chunk, heads_per_group,
+                       initial_state)
 
 
 def _check_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state) -> None:
@@ -472,52 +500,112 @@ def _check_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state) 
                          f"{tuple(dfinal.shape)} on {dfinal.device}")
 
 
-def _launch_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state):
-    """Checks what the backward kernel takes, then launches it and the pass
-    that sums its partials on x's stream."""
+def bwd_heads_per_block(g: int) -> int:
+    """Heads of one group that a block of the ``sm90`` backward takes: the
+    largest of 8, 4, 2, 1 that divides the group. C·Bᵀ is formed once for
+    them and their dG summed before its two products; dB and dC leave one
+    f32 partial per such block."""
+    return next(hb for hb in (8, 4, 2, 1) if g % hb == 0)
+
+
+def _launch_bwd(route: str, x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state):
+    """Checks what the backward kernel of ``route`` takes, then launches its
+    kernels on x's stream."""
     bh, s, p = x.shape
     n = Bm.shape[-1]
-    _route(x.dtype, p, n, chunk)         # chunk and N in range, the dtype known
+    if route == "sm90":
+        if x.dtype != torch.bfloat16 or _route(x.dtype, p, n, chunk) != "sm90":
+            raise ValueError(f"the sm90 kernel takes bf16 with N and P multiples of 8 and "
+                             f"P up to {SM90_MAX_WIDTH}; got {x.dtype}, N {n}, P {p}")
+    else:
+        _route(x.dtype, p, n, chunk)     # chunk and N in range, the dtype known
     named = [("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm), ("dy", dy),
              ("dfinal", dfinal), ("initial_state", initial_state)]
     for name, t in named:
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    lib = _lib_bwd()
-    p_tile = lib.ssd_scan_bwd_p_tile()
-    tiles = -(-p // p_tile)
-    dev = x.device
+    if route == "sm90":                  # TMA reads x, dy, B and C
+        for name, t in (("x", x), ("dy", dy), ("B", Bm), ("C", Cm)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     dA = torch.empty_like(A)
     dB = torch.empty_like(Bm)
     dC = torch.empty_like(Cm)
     dinit = None if initial_state is None else torch.empty_like(initial_state)
+    if route == "sm90":
+        _launch_bwd_sm90(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
+                         dx, ddt, dA, dB, dC, dinit)
+    else:
+        _launch_bwd_simt(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
+                         dx, ddt, dA, dB, dC, dinit)
+    with _LAUNCH_LOCK:
+        ssd_scan_bwd.launches += 1
+        ssd_scan_bwd.launches_by_route[route] += 1
+    return dx, ddt, dA, dB, dC, dinit
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_bwd_simt(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
+                     dx, ddt, dA, dB, dC, dinit) -> None:
+    bh, s, p = x.shape
+    n = Bm.shape[-1]
+    dev = x.device
+    lib = _lib_bwd()
+    p_tile = lib.ssd_scan_bwd_p_tile()
+    tiles = -(-p // p_tile)
     # f32 scratch: the state entering each chunk, then per (row, P-tile)
     # partials of dB, dC, ddt and dA that the second pass sums in a fixed order
-    states = torch.empty((bh, tiles, s // chunk, n, p_tile),
-                         dtype=torch.float32, device=dev)
+    states = torch.empty((bh, tiles, s // chunk, n, p_tile), dtype=torch.float32, device=dev)
     part_bc = torch.empty((2, bh, tiles, s, n), dtype=torch.float32, device=dev)
     part_dt = torch.empty((bh, tiles, s + 1), dtype=torch.float32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
     err = lib.ssd_scan_bwd(
-        ptr(x), ptr(dt), ptr(A), ptr(Bm), ptr(Cm), ptr(initial_state), ptr(dy), ptr(dfinal),
-        ptr(dx), ptr(ddt), ptr(dA), ptr(dB), ptr(dC), ptr(dinit), ptr(states), ptr(part_bc),
-        ptr(part_dt), _DTYPE_CODE[x.dtype], bh, s, p, n, chunk, g,
+        _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(initial_state), _ptr(dy),
+        _ptr(dfinal), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dB), _ptr(dC), _ptr(dinit),
+        _ptr(states), _ptr(part_bc), _ptr(part_dt), _DTYPE_CODE[x.dtype], bh, s, p, n, chunk, g,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd simt kernel launch failed: "
                            f"{lib.ssd_scan_bwd_error_string(err).decode()} ({err})")
-    with _LAUNCH_LOCK:
-        ssd_scan_bwd.launches += 1
-        ssd_scan_bwd.launches_by_route["simt"] += 1
-    return dx, ddt, dA, dB, dC, dinit
+
+
+def _launch_bwd_sm90(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
+                     dx, ddt, dA, dB, dC, dinit) -> None:
+    bh, s, p = x.shape
+    n = Bm.shape[-1]
+    nc = s // chunk
+    hb = bwd_heads_per_block(g)
+    dev = x.device
+    lib = _lib_bwd_sm90()
+    # scratch: each chunk's B^T diag(u) X, which the state pass turns into the
+    # state entering the chunk in place, and C^T diag(exp(cum)) dY (f32); the
+    # entering state and dS leaving each chunk in bf16 for the products;
+    # exp(total) per (row, chunk); the partial sums of dS ∘ state per state
+    # block; dB and dC per block of hb heads; dA per (row, chunk) in f64
+    f32 = torch.float32
+    states = torch.empty((2, bh, nc, n, p), dtype=f32, device=dev)
+    states16 = torch.empty((2, bh, nc, n, p), dtype=torch.bfloat16, device=dev)
+    decay = torch.empty((bh, nc), dtype=f32, device=dev)
+    ts_part = torch.empty((bh, lib.ssd_scan_bwd_sm90_state_blocks(n, p), nc), dtype=f32,
+                          device=dev)
+    part_bc = torch.empty((2, bh // hb, s, n), dtype=f32, device=dev)
+    part_da = torch.empty((bh, nc), dtype=torch.float64, device=dev)
+    err = lib.ssd_scan_bwd_sm90(
+        _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(initial_state), _ptr(dy),
+        _ptr(dfinal), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dB), _ptr(dC), _ptr(dinit),
+        _ptr(states), _ptr(states16), _ptr(decay), _ptr(ts_part), _ptr(part_bc),
+        _ptr(part_da), bh, s, p, n, chunk, g, hb, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd sm90 kernel launch failed: "
+                           f"{lib.ssd_scan_bwd_sm90_error_string(err).decode()} ({err})")
 
 
 ssd_scan_bwd.launches = 0
-ssd_scan_bwd.launches_by_route = {"simt": 0}
+ssd_scan_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -529,6 +617,19 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.ssd_scan_bwd_p_tile.restype = ctypes.c_int
     lib.ssd_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bwd_sm90() -> ctypes.CDLL:
+    lib = load_library("ssd_scan_bwd_sm90")
+    lib.ssd_scan_bwd_sm90.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
+                                      + [ctypes.c_void_p])
+    lib.ssd_scan_bwd_sm90.restype = ctypes.c_int
+    lib.ssd_scan_bwd_sm90_state_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ssd_scan_bwd_sm90_state_blocks.restype = ctypes.c_int
+    lib.ssd_scan_bwd_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_scan_bwd_sm90_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -591,3 +692,24 @@ def bwd_flops_per_chunk(q: int, n: int, p: int) -> int:
     dY·Xᵀ, Wᵀ·dY, dG·B and dGᵀ·C (2·q²·(3N + 2P)); the recomputed state
     update, B·dS, X·dSᵀ, dY·s_inᵀ and the carried Cᵀ·dY (2·q·N·P each)."""
     return 2 * q * q * (3 * n + 2 * p) + 10 * q * n * p
+
+
+def bwd_least_work(bh: int, s: int, p: int, n: int, chunk: int, g: int, with_state: bool,
+                   itemsize: int) -> Tuple[int, int]:
+    """(operations, bytes) that K3's backward needs at least: what its bound
+    on the card is computed from (not :func:`bwd_flops_per_chunk`, the dry
+    run's count, which takes every Q×Q product in full and once per head).
+
+    Per row and chunk: dY·Xᵀ and Wᵀ·dY over the Q(Q+1)/2 pairs j ≤ i that the
+    mask keeps, and five Q·N·P products (the chunk's state term Bᵀ·diag(u)·X,
+    B·dS, X·dSᵀ, dY·s_inᵀ, Cᵀ·dY). Per group row and chunk, over the kept
+    pairs: C·Bᵀ, and dG·B and dGᵀ·C on the dG summed over the group's heads,
+    since those heads read the same B and C. Bytes: x, dy, dx and B, C, dB,
+    dC (once per group) in ``itemsize``; dt, ddt, A and dA in f32; a given
+    initial state, final-state gradient and initial-state gradient in f32."""
+    kept = chunk * (chunk + 1) // 2
+    flops = (s // chunk) * (bh * (2 * kept * 2 * p + 10 * chunk * n * p)
+                            + (bh // g) * 3 * 2 * kept * n)
+    nbytes = (itemsize * (3 * bh * s * p + 4 * (bh // g) * s * n) + 4 * 2 * (bh * s + bh)
+              + 4 * bh * n * p * (3 if with_state else 0))
+    return flops, nbytes

@@ -26,8 +26,9 @@ import torch
 from repro.kernels.ref import ssd_ref
 from repro.models.ssm import ssd_chunked
 from repro_torch.kernels import ops
-from repro_torch.kernels.ssd_scan import (SsdScanFn, bwd_flops_per_chunk, ssd_scan_bwd,
-                                          ssd_scan_bwd_plain, ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (SsdScanFn, bwd_flops_per_chunk, bwd_heads_per_block,
+                                          bwd_least_work, ssd_scan_bwd, ssd_scan_bwd_plain,
+                                          ssd_scan_plain)
 
 NAMES = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 # (batch, seq, heads, groups, P, N, chunk, initial state and d final, large A·dt)
@@ -93,10 +94,82 @@ def _reaches(node, name) -> bool:
     return False
 
 
+def _decomposed_bwd(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk, heads_per_group,
+                    initial_state=None, heads_per_block):
+    """``csrc/ssd_scan_bwd_sm90.cu``'s decomposition of the backward, in f32
+    PyTorch, the same inputs and outputs as ``ssd_scan_bwd_plain``: the
+    per-chunk state terms of every (row, chunk) at once; the two states
+    carried over the chunks by an elementwise pass; dX and ddt per (row,
+    chunk) with exp(cum)'s and u's gradients from C·s_in and B·dS_out; dB
+    and dC per block of ``heads_per_block`` heads of one group, dG summed over
+    the block's heads before its two products, then the blocks of a group
+    summed."""
+    bh, s, p = x.shape
+    n = Bm.shape[-1]
+    g, hb, q = heads_per_group, heads_per_block, chunk
+    nc = s // q
+    xq = x.float().view(bh, nc, q, p)
+    dyq = dy.float().view(bh, nc, q, p)
+    dtq = dt.float().view(bh, nc, q)
+    bq = Bm.float().view(bh // g, nc, q, n).repeat_interleave(g, 0)
+    cq = Cm.float().view(bh // g, nc, q, n).repeat_interleave(g, 0)
+    a = A.float()[:, None, None]
+    cum = torch.cumsum((dtq * a).double(), dim=-1).float()          # (BH, NC, Q)
+    total = cum[..., -1:]
+    decay = torch.exp(total - cum)
+    u, ecum, et = decay * dtq, torch.exp(cum), torch.exp(total[..., 0])
+    # 1. the chunks' state terms, B^T diag(u) X and C^T diag(exp(cum)) dY
+    sx = bq.transpose(-1, -2) @ (u[..., None] * xq)                # (BH, NC, N, P)
+    sy = cq.transpose(-1, -2) @ (ecum[..., None] * dyq)
+    # 2. the states pass: s_in forward, dS_out back, sum(dS_out o s_in)
+    st = (torch.zeros(bh, n, p) if initial_state is None else initial_state.float())
+    s_in = torch.empty_like(sx)
+    for c in range(nc):
+        s_in[:, c] = st
+        st = et[:, c, None, None] * st + sx[:, c]
+    d = torch.zeros(bh, n, p) if dfinal is None else dfinal.float()
+    ds_out = torch.empty_like(sy)
+    for c in reversed(range(nc)):
+        ds_out[:, c] = d
+        d = et[:, c, None, None] * d + sy[:, c]
+    ts = (ds_out * s_in).sum((-1, -2))                             # (BH, NC)
+    # 3. dX, ddt and dA per (row, chunk)
+    tri = torch.ones(q, q, dtype=torch.bool).tril()
+    L = torch.where(tri, torch.exp(torch.where(tri, cum[..., :, None] - cum[..., None, :], 0.0)),
+                    0.0)
+    G = cq @ bq.transpose(-1, -2)
+    W = G * L * dtq[..., None, :]
+    dW = dyq @ xq.transpose(-1, -2)
+    R = dW * W
+    bds = bq @ ds_out                                               # (BH, NC, Q, P)
+    v = (xq * bds).sum(-1)
+    dx = W.transpose(-1, -2) @ dyq + u[..., None] * bds
+    inter = ecum * (dyq * (cq @ s_in)).sum(-1)
+    dcum = R.sum(-1) - R.sum(-2) + inter - u * v
+    dcum[..., -1] += (u * v).sum(-1) + et * ts
+    rc = torch.flip(torch.cumsum(torch.flip(dcum.double(), (-1,)), dim=-1), (-1,))
+    ddt = (dW * G * L).sum(-2) + decay * v + a * rc.float()
+    dA = (dtq.double() * rc).sum((1, 2)).float()
+    # 4. dB and dC per block of hb heads: dG summed over the block first
+    blocks = bh // hb
+    sdg = (dW * L * dtq[..., None, :]).view(blocks, hb, nc, q, q).sum(1)
+    b_blk, c_blk = bq.view(blocks, hb, nc, q, n)[:, 0], cq.view(blocks, hb, nc, q, n)[:, 0]
+    dc_part = sdg @ b_blk + ((ecum[..., None] * dyq) @ s_in.transpose(-1, -2)).view(
+        blocks, hb, nc, q, n).sum(1)
+    db_part = sdg.transpose(-1, -2) @ c_blk + ((u[..., None] * xq) @ ds_out.transpose(
+        -1, -2)).view(blocks, hb, nc, q, n).sum(1)
+    # 5. a group's blocks summed
+    dB = db_part.view(bh // g, g // hb, s, n).sum(1)
+    dC = dc_part.view(bh // g, g // hb, s, n).sum(1)
+    return (dx.reshape(bh, s, p).to(x.dtype), ddt.reshape(bh, s), dA, dB.to(Bm.dtype),
+            dC.to(Cm.dtype), None if initial_state is None else d)
+
+
 def _port_grads(case, arrays, dtype=torch.float32, through="fn"):
     """The port's gradients in the reference's layout: ``fn`` takes autograd
     through ``ops.ssd_bshp`` (``SsdScanFn`` on the CPU), ``plain`` calls
-    ``ssd_scan_bwd_plain`` on the kernels' layout."""
+    ``ssd_scan_bwd_plain`` on the kernels' layout, ``decomposed``
+    :func:`_decomposed_bwd` with the ``sm90`` kernel's heads per block."""
     x, dt, A, Bm, Cm, dy, init, dfinal = arrays
     b, s, h, g, p, n, chunk = case[:7]
     t = {k: torch.from_numpy(v) for k, v in zip(("x", "dt", "A", "B", "C", "dy"),
@@ -124,9 +197,14 @@ def _port_grads(case, arrays, dtype=torch.float32, through="fn"):
     initf = None if t0 is None else t0.transpose(2, 3).reshape(b * h, n, p).contiguous()
     dff = None if dfinal is None else torch.from_numpy(dfinal).transpose(2, 3).reshape(
         b * h, n, p).contiguous()
-    dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd_plain(xf, dtf, Af, Bf, Cf, dyf, dff, chunk=chunk,
-                                                    heads_per_group=h // g,
-                                                    initial_state=initf)
+    if through == "decomposed":
+        dx, ddt, dA, dB, dC, dinit = _decomposed_bwd(
+            xf, dtf, Af, Bf, Cf, dyf, dff, chunk=chunk, heads_per_group=h // g,
+            initial_state=initf, heads_per_block=bwd_heads_per_block(h // g))
+    else:
+        dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd_plain(xf, dtf, Af, Bf, Cf, dyf, dff,
+                                                        chunk=chunk, heads_per_group=h // g,
+                                                        initial_state=initf)
     assert dx.dtype == dtype and dB.dtype == dtype and dC.dtype == dtype
     assert ddt.dtype == dA.dtype == torch.float32 and (dinit is None) == (init is None)
     grads = [dx.reshape(b, h, s, p).transpose(1, 2), ddt.reshape(b, h, s).transpose(1, 2),
@@ -152,6 +230,25 @@ def test_backward_matches_jax_grad_of_ssd_chunked(case, through):
     arrays = _arrays(case)
     _assert_close(_port_grads(case, arrays, through=through), _jax_chunked_grads(case, arrays),
                   1e-4)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_sm90_decomposition_matches_the_plain_backward_and_jax_grad(case):
+    """The ``sm90`` backward's algebra, before any card: the chunk states and
+    dS by a separate pass, exp(cum)'s and u's gradients from C·s_in and
+    B·dS_out, dG summed over a block of a group's heads before its products,
+    in f32 within 1e-4 of the largest entry of ``ssd_scan_bwd_plain``'s and of
+    ``jax.grad`` of the reference's ``ssd_chunked``."""
+    arrays = _arrays(case)
+    got = _port_grads(case, arrays, through="decomposed")
+    _assert_close(got, _port_grads(case, arrays, through="plain"), 1e-4)
+    _assert_close(got, _jax_chunked_grads(case, arrays), 1e-4)
+
+
+@pytest.mark.parametrize("g,hb", [(1, 1), (2, 2), (3, 1), (4, 4), (6, 2), (12, 4), (64, 8),
+                                  (256, 8), (24, 8)])
+def test_sm90_heads_per_block_divides_the_group(g, hb):
+    assert bwd_heads_per_block(g) == hb and g % hb == 0
 
 
 @pytest.mark.parametrize("through", ["plain", "fn"])
@@ -297,12 +394,14 @@ def test_meta_backward_gives_shapes_and_counts_its_flops():
 
 
 def test_chip_smoke_bound_counts_the_least_work(monkeypatch):
-    """``chip_smoke.py``'s bound for K3's backward counts the least work:
-    the Q×Q products over the pairs j ≤ i the mask keeps, C·Bᵀ once per
-    group row (a group's heads read the same B and C), five Q·N·P products
-    per row and chunk; at mamba2's training shape 34.5 GFLOP, against the
-    dry run's 55.8 of ``bwd_flops_per_chunk``, which counts every product in
-    full and once per head."""
+    """``chip_smoke.py``'s bound for K3's backward comes from
+    ``bwd_least_work``: the Q×Q products over the pairs j ≤ i the mask keeps,
+    C·Bᵀ and dG's two products once per group row (a group's heads read the
+    same B and C, so their dG is summed before the products), five Q·N·P
+    products per row and chunk; at mamba2's training shape 26.0 GFLOP
+    against 107.0 MB, so the bytes bound it, against the dry run's 55.8
+    GFLOP of ``bwd_flops_per_chunk``, which counts every product in full and
+    once per head."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -312,14 +411,30 @@ def test_chip_smoke_bound_counts_the_least_work(monkeypatch):
     monkeypatch.setattr(chip_smoke, "PEAK_BF16_FLOPS", H100_PEAK_FLOPS_BF16)
     monkeypatch.setattr(chip_smoke, "PEAK_F32_FLOPS", H100_PEAK_FLOPS_F32)
     monkeypatch.setattr(chip_smoke, "PEAK_BYTES", H100_HBM_BW)
-    for (bh, s, p, n, q, g), want in (((256, 1024, 64, 128, 128, 64), 34_528_034_816),
-                                      ((1024, 1024, 64, 128, 128, 256), 137_909_239_808),
+    for (bh, s, p, n, q, g), want in (((256, 1024, 64, 128, 128, 64), 26_006_257_664),
+                                      ((1024, 1024, 64, 128, 128, 256), 103_416_332_288),
                                       ((8, 96, 20, 12, 32, 4), None)):
         ms, by, flops, nbytes = chip_smoke.ssd_bwd_bound_ms("bfloat16", (bh, s, p, n, q, g, False))
         kept = int(torch.tril(torch.ones(q, q)).sum())
-        per_row = 2 * kept * (p + p + n + n) + 10 * q * n * p      # dW, dX, dC, dB; state terms
-        assert flops == (s // q) * (bh * per_row + (bh // g) * 2 * kept * n)
+        per_row = 2 * kept * (p + p) + 10 * q * n * p              # dW, dX; the state terms
+        per_group_row = 2 * kept * (n + n + n)                      # C·Bᵀ, ΣdG·B, ΣdGᵀ·C
+        assert flops == (s // q) * (bh * per_row + (bh // g) * per_group_row)
         assert want is None or flops == want
         assert flops < bh * (s // q) * bwd_flops_per_chunk(q, n, p)
         assert ms == max(flops / H100_PEAK_FLOPS_BF16, nbytes / H100_HBM_BW) * 1e3
-    assert by == "bytes"                 # the small case moves more than it computes
+        assert by == "bytes"
+
+
+@pytest.mark.parametrize("shape,flops,nbytes,ms", [
+    ((256, 1024, 64, 128, 128, 64, False), 26_006_257_664, 106_956_800, 0.0319),
+    ((1024, 1024, 64, 128, 128, 256, False), 103_416_332_288, 415_244_288, 0.124)])
+def test_least_work_of_the_backward_matches_the_hand_counts(shape, flops, nbytes, ms):
+    """``bwd_least_work`` at mamba2-1.3b's and jamba-1.5-large's training
+    shapes in bf16: 26.0 GFLOP against 107.0 MB (0.0263 ms at 989 TFLOP/s,
+    0.0319 ms at 3.35 TB/s: bound by bytes), 103.4 GFLOP against 415.2 MB
+    (0.124 ms by bytes)."""
+    from repro_torch.launch.roofline import H100_HBM_BW, H100_PEAK_FLOPS_BF16
+    got_flops, got_bytes = bwd_least_work(*shape, 2)
+    assert (got_flops, got_bytes) == (flops, nbytes)
+    assert round(got_bytes / H100_HBM_BW * 1e3, 4 if ms < 0.1 else 3) == ms
+    assert got_flops / H100_PEAK_FLOPS_BF16 < got_bytes / H100_HBM_BW

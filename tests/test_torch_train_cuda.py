@@ -13,10 +13,14 @@ in bf16 each gradient is rounded once to bf16 (2^-8 relative), and the
 them: 1e-2 of the largest. bf16 takes the ``sm90`` backward (wgmma + TMA),
 f32 the ``simt`` one (CUDA cores); ``_flash_attention_bwd_simt`` holds the
 ``simt`` kernel at bf16 too. Through the forward kernels (``FlashAttentionFn``) the bf16 route
-also rounds P to bf16 before P·V: 3e-2. K3's backward (``ssd_scan_bwd``,
-one ``simt`` route: CUDA cores, f32 sums, for both dtypes) against
-``ssd_scan_bwd_plain`` on the same inputs: 1e-4 of the largest gradient in
-f32 (other orders of the sums), 1e-2 in bf16 (dx, dB and dC rounded once).
+also rounds P to bf16 before P·V: 3e-2. K3's backward (``ssd_scan_bwd``)
+takes the forward's routes: bf16 of N and P multiples of 8 with P ≤ 128 the
+``sm90`` backward (wgmma + TMA; it also rounds X·u, dY·exp(cum), the states,
+W and the summed dG to bf16 before their products), f32 and the other bf16
+shapes the ``simt`` one (CUDA cores, f32 sums); ``_ssd_scan_bwd_simt`` holds
+the ``simt`` kernel at bf16 too. Against ``ssd_scan_bwd_plain`` on the same
+inputs: 1e-4 of the largest gradient in f32 (other orders of the sums), 1e-2
+in bf16 (dx, dB and dC rounded once).
 """
 import gc
 import weakref
@@ -37,8 +41,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_plain,
     flash_attention_plain,
 )
-from repro_torch.kernels.ssd_scan import (SsdScanFn, ssd_scan_bwd, ssd_scan_bwd_plain,
-                                          ssd_scan_plain)
+from repro_torch.kernels.ssd_scan import (SsdScanFn, _route as ssd_route, _ssd_scan_bwd_simt,
+                                          ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain)
 from repro_torch.models import init_params, param_leaves
 from repro_torch.train import DataConfig, MarkovDataset, make_optimizer, train_step
 
@@ -217,6 +221,7 @@ SSD_BWD_CASES = [
     (8, 256, 96, 24, 128, 4, True),              # two P-tiles, N 24
     (8, 256, 100, 24, 128, 4, False),            # a ragged P-tile
     (8, 256, 64, 128, 128, 4, True),
+    (4, 1024, 64, 128, 64, 2, True),             # 16 chunks (sm90: s_in kept in registers)
 ]
 
 
@@ -241,13 +246,17 @@ def _ssd_inputs(case, dtype, seed=0):
 @pytest.mark.parametrize("case,dtype", [(c, d) for c in SSD_BWD_CASES for d in sorted(DTYPES)
                                         if c[0] < 1024 or d == "bfloat16"], ids=str)
 def test_ssd_backward_kernel_matches_plain(case, dtype):
-    """One launch a call, on ``simt``; every gradient finite, within the
-    tolerance of the plain backward's largest entry, and the same bits on a
-    second call (jamba's shape in bf16 only, its dtype on the card)."""
+    """One launch a call, on the route ``_route`` gives the dtype and shape
+    (bf16 of a shape the sm90 kernel takes: ``sm90``; f32 and P 100:
+    ``simt``); every gradient finite, within the tolerance of the plain
+    backward's largest entry, and the same bits on a second call (jamba's
+    shape in bf16 only, its dtype on the card)."""
     args, dy, dfinal, kw = _ssd_inputs(case, DTYPES[dtype])
+    route = ssd_route(DTYPES[dtype], case[2], case[3], case[4])
     before = dict(ssd_scan_bwd.launches_by_route)
     got = ssd_scan_bwd(*args, dy, dfinal, **kw)
-    assert ssd_scan_bwd.launches_by_route["simt"] == before["simt"] + 1
+    assert {r: n - before[r] for r, n in ssd_scan_bwd.launches_by_route.items()} == {
+        r: int(r == route) for r in before}
     again = ssd_scan_bwd(*args, dy, dfinal, **kw)
     want = ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
     assert (got[5] is None) == (kw["initial_state"] is None)
@@ -256,6 +265,38 @@ def test_ssd_backward_kernel_matches_plain(case, dtype):
     assert all(bool(torch.isfinite(t).all()) for t in got)
     assert [(t.dtype, t.shape) for t in got] == [(t.dtype, t.shape) for t in want]
     _close(got, want, 1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+@pytest.mark.parametrize("case", [SSD_BWD_CASES[0], SSD_BWD_CASES[7]], ids=str)
+def test_ssd_backward_sm90_at_training_shapes(case):
+    """The ``sm90`` backward at mamba2-1.3b's training shape and at one with a
+    state in and out and 4 heads a group: one ``sm90`` launch a call and none
+    on ``simt``, within 1e-2 of the largest gradient of the plain backward,
+    the same bits twice."""
+    args, dy, dfinal, kw = _ssd_inputs(case, torch.bfloat16, seed=3)
+    before = dict(ssd_scan_bwd.launches_by_route)
+    got = ssd_scan_bwd(*args, dy, dfinal, **kw)
+    again = ssd_scan_bwd(*args, dy, dfinal, **kw)
+    assert ssd_scan_bwd.launches_by_route == {"sm90": before["sm90"] + 2, "simt": before["simt"]}
+    want = ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
+    got, again, want = ([t for t in r if t is not None] for r in (got, again, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close(got, want, 1e-2)
+
+
+@pytest.mark.parametrize("case", [c for c in SSD_BWD_CASES if c[0] < 1024], ids=str)
+def test_ssd_backward_simt_kernel_at_bf16_matches_plain(case):
+    """``_ssd_scan_bwd_simt``, the CUDA-core backward that the sm90 kernel is
+    timed against, at bf16: one ``simt`` launch, within 1e-2 of the largest
+    gradient of the plain backward."""
+    args, dy, dfinal, kw = _ssd_inputs(case, torch.bfloat16)
+    before = dict(ssd_scan_bwd.launches_by_route)
+    got = _ssd_scan_bwd_simt(*args, dy, dfinal, **kw)
+    assert ssd_scan_bwd.launches_by_route == {"sm90": before["sm90"], "simt": before["simt"] + 1}
+    want = ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
+    got, want = ([t for t in r if t is not None] for r in (got, want))
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    _close(got, want, 1e-2)
 
 
 class _PlainSsd:
