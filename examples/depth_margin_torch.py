@@ -5,8 +5,10 @@ the kernels to the same prefill with the kernels' plain versions, within 2%
 of the largest logit, on one draw of tokens. This script repeats that check
 for one model over several token draws and adds an f32 witness: the same
 weights cast to f32 (exact for bf16 values), its prefill with the plain
-attention and scan, the expert choices pinned as in ``depth_check``. Per
-draw it prints, each over the largest logit of the plain bf16 prefill:
+attention and scan, the expert choices pinned as in ``depth_check``
+(``chip_smoke.witness_model``: the experts stay the model's own tensors,
+each cast to f32 only while its products run). Per draw it prints, each
+over the largest logit of the plain bf16 prefill:
 
 - ``kernel_vs_plain``: the check's own quantity (bf16 kernels against the
   bf16 plain path; ``depth_check``'s limit is 0.02);
@@ -18,8 +20,8 @@ draw it prints, each over the largest logit of the plain bf16 prefill:
   plain path, the same routing: a fault of the MoE path or of the kernels
   shows here above f32 rounding (~1e-5).
 
-``--no-witness`` leaves the f32 model out (a model whose cut does not fit
-on the card twice, kimi-k2 and jamba): only ``kernel_vs_plain`` is printed.
+``--no-witness`` leaves the f32 witness out (kimi-k2's ``depth_check``
+keeps the 2% check): only ``kernel_vs_plain`` is printed.
 The model is cut as ``depth_check`` cuts it (``SERVED_MODELS``) unless
 ``--layers`` says otherwise.
 
@@ -30,7 +32,7 @@ Usage, on a machine with the card and ``nvcc``:
 every kernel takes its plain version (the kernel columns are then 0).
 """
 import argparse
-import copy
+import contextlib
 import json
 import subprocess
 import sys
@@ -51,13 +53,13 @@ from repro_torch.models import forward_prefill, init_params  # noqa: E402
 
 
 def prefill(model, tokens, cross, kernels: bool, mode: str, chosen: list) -> torch.Tensor:
-    plain = (mock.patch.object(ops, "flash_attention", flash_attention_plain),
-             mock.patch.object(ops, "ssd_scan", ssd_scan_plain))
-    with torch.inference_mode(), smoke.routing(mode, chosen):
-        if kernels:
-            return forward_prefill(model, tokens, smoke.SERVE_PROMPT + 1, cross)[0].float()
-        with plain[0], plain[1]:
-            return forward_prefill(model, tokens, smoke.SERVE_PROMPT + 1, cross)[0].float()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.inference_mode())
+        stack.enter_context(smoke.routing(mode, chosen))
+        if not kernels:
+            stack.enter_context(mock.patch.object(ops, "flash_attention", flash_attention_plain))
+            stack.enter_context(mock.patch.object(ops, "ssd_scan", ssd_scan_plain))
+        return forward_prefill(model, tokens, smoke.SERVE_PROMPT + 1, cross)[0].float()
 
 
 def main(argv=None) -> int:
@@ -85,7 +87,7 @@ def main(argv=None) -> int:
     cfg = smoke.cut_config(full, cut)
     model = init_params(cfg, seed=0, device=dev)
     smoke.open_gates(model)
-    model32 = copy.deepcopy(model).float() if args.witness else None
+    model32 = smoke.witness_model(model) if args.witness else None
     columns = (("kernel_vs_plain", "kernel_vs_f32", "plain_vs_f32", "f32_kernel_vs_plain")
                if args.witness else ("kernel_vs_plain",))
     rows = []

@@ -22,8 +22,10 @@ On a mesh (``DTensor`` inputs: the dry run) each kernel runs on every
 device's shards (``local_map``). Batch and heads stay sharded as they come
 where the kernel's arithmetic allows it (k/v heads sharded like q's; SSM
 groups sharded like the heads, or a single group replicated); a mesh dim
-that shards anything else is gathered first. ``DTensor`` is never asked to
-flatten two sharded dims into the kernels' (batch·heads) layout.
+that shards anything else is gathered first (decode over a cache whose
+sequence is sharded does not come here: ``models.attention`` reduces its
+softmax across the pieces). ``DTensor`` is never asked to flatten two
+sharded dims into the kernels' (batch·heads) layout.
 """
 from __future__ import annotations
 
@@ -66,11 +68,33 @@ def _on_shards(fn, args, placements, out_placements):
 def attention_on_shards(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``fn(q, k, v)`` for (B, S, H, hd) DTensors on each device's shards:
     per mesh dim, the batch (dim 0) or the heads (dim 2, k/v's kv heads
-    sharded alike) stay sharded; anything else, a sharded sequence
-    included, is gathered first."""
+    sharded alike) stay sharded. Where only one mesh dim shards q's heads
+    and k/v are replicated over it, q's heads stay sharded too when each
+    device's block of q heads lies in one kv head's group (the block divides
+    the group, as GSPMD splits H = Kv·g): the device takes that kv head of
+    k and v, and their gradients are summed over the dim. Anything else, a
+    sharded sequence included, is gathered first."""
     from torch.distributed.tensor import Replicate, Shard
-    kept = [p if p in (Shard(0), Shard(2)) and p == pk == pv else Replicate()
+
+    from ..sharding.collectives import summing_grads
+    mesh = q.device_mesh
+    h, g = q.shape[2], q.shape[2] // k.shape[2]
+    r = Replicate()
+    kept = [p if p in (Shard(0), Shard(2)) and p == pk == pv else r
             for p, pk, pv in zip(q.placements, k.placements, v.placements)]
+    heads = [i for i, p in enumerate(q.placements) if p == Shard(2)]
+    if (len(heads) == 1 and kept[heads[0]] == r and k.placements[heads[0]] == r
+            and v.placements[heads[0]] == r and h % mesh.size(heads[0]) == 0
+            and g % (h // mesh.size(heads[0])) == 0):
+        dim = heads[0]
+        kv_kept = list(kept)
+        kept[dim] = Shard(2)
+
+        def sliced(q, k, v):
+            kv = mesh.get_local_rank(dim) * q.shape[2] // g
+            k, v = (summing_grads(t, mesh, [dim]) for t in (k, v))
+            return fn(q, k[:, :, kv:kv + 1], v[:, :, kv:kv + 1])
+        return _on_shards(sliced, [q, k, v], [kept, kv_kept, kv_kept], kept)
     return _on_shards(fn, [q, k, v], [kept] * 3, kept)
 
 
@@ -138,23 +162,39 @@ def ssd_bshp(
 def _ssd_on_shards(x, dt, A, Bm, Cm, chunk, initial_state):
     """:func:`ssd_bshp` on the shards: per mesh dim, the batch (x's dim 0)
     or the heads (x's dim 2, with the groups sharded alike or a single
-    group replicated) stay sharded; anything else is gathered."""
+    group replicated) stay sharded; heads that arrive replicated are split
+    over one mesh dim that they divide (a local slice: the scan is not
+    repeated on its ranks); anything else is gathered."""
     from torch.distributed.tensor import Replicate, Shard
+    from ..sharding.collectives import summing_grads
     r = Replicate()
+    mesh = x.device_mesh
     per_dim = []                         # (x, dt, A, B, C, init, y, state) per mesh dim
+    a_sum, bc_sum = [], []               # dims over which A's, or B's and C's, gradient is a part
+    h, g = x.shape[2], Bm.shape[2]
+    split = Shard(2) in x.placements     # the heads split over a mesh dim already
     for i, p in enumerate(x.placements):
-        n, g = x.device_mesh.size(i), Bm.shape[2]
+        n = mesh.size(i)
+        heads = p == Shard(2) or (p == r and not split and h % n == 0)
         if p == Shard(0):
             per_dim.append((p, p, r, p, p, p, p, p))
-        elif p == Shard(2) and (g == 1 or g % n == 0):
+            a_sum.append(i)
+        elif heads and (g == 1 or g % n == 0):
+            split = True
             bc = r if g == 1 else Shard(2)
-            per_dim.append((p, p, Shard(0), bc, bc, Shard(1), p, Shard(1)))
+            hp = Shard(2)
+            per_dim.append((hp, hp, Shard(0), bc, bc, Shard(1), hp, Shard(1)))
+            if g == 1:
+                bc_sum.append(i)
         else:
             per_dim.append((r,) * 8)
     cols = [list(c) for c in zip(*per_dim)]
-    return _on_shards(
-        lambda x, dt, A, Bm, Cm, init: ssd_bshp(x, dt, A, Bm, Cm, chunk, init),
-        [x, dt, A, Bm, Cm, initial_state], cols[:6], (cols[6], cols[7]))
+
+    def local(x, dt, A, Bm, Cm, init):
+        A = summing_grads(A, mesh, a_sum)
+        Bm, Cm = (summing_grads(t, mesh, bc_sum) for t in (Bm, Cm))
+        return ssd_bshp(x, dt, A, Bm, Cm, chunk, init)
+    return _on_shards(local, [x, dt, A, Bm, Cm, initial_state], cols[:6], (cols[6], cols[7]))
 
 
 def quantize_rows(x: torch.Tensor, out: Optional[torch.Tensor] = None

@@ -37,6 +37,7 @@ from ..models.transformer import (
     forward_decode,
     forward_prefill,
     init_tensors,
+    model_tensors,
     params_spec,
 )
 from ..sharding.context import activation_sharding, constrain_axes
@@ -144,6 +145,32 @@ def _placed_model(cfg: ModelConfig, mesh: Any) -> Transformer:
     def place(t, axes):
         return meta_dtensor(t, mesh, spec_for_shape(tuple(axes), t.shape, mesh))
     return Transformer(cfg, map_tree(place, tensors, _per_layer_specs(cfg)))
+
+
+def shard_tensor(t: torch.Tensor, mesh: Any, spec) -> torch.Tensor:
+    """``t``, which every rank of ``mesh`` holds whole, as a ``DTensor``
+    placed by ``spec``: each rank keeps its shard (no collective)."""
+    from torch.distributed.tensor import DTensor
+    pl = placements(mesh, spec)
+    local = t.detach()
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            local = local.chunk(mesh.size(i), dim=p.dim)[mesh.get_local_rank(i)]
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def distribute_model(model: Transformer, mesh: Any) -> Transformer:
+    """``model`` on a mesh of ranks that are present (every rank holding
+    the same weights): every tensor a ``DTensor`` placed by the sharding
+    rules (:func:`shard_tensor`). On a 1×1 mesh the model itself."""
+    if _mesh_size(mesh) == 1:
+        return model
+
+    def place(t, axes):
+        return shard_tensor(t, mesh, spec_for_shape(tuple(axes), t.shape, mesh))
+    return Transformer(model.cfg, map_tree(place, model_tensors(model),
+                                           _per_layer_specs(model.cfg)))
 
 
 def _place_state(state: OptState, model: Transformer, mesh: Any) -> OptState:

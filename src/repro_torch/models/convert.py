@@ -104,6 +104,13 @@ class Leaf:
             raise ValueError(f"shape {tuple(value.shape)} for a leaf of {self.shape}")
         with torch.no_grad():
             if self.stacked:
+                if hasattr(value, "device_mesh"):
+                    # rows placed as the tensors are (a DTensor cannot
+                    # unbind a dim that it shards)
+                    from torch.distributed.tensor import Shard
+                    value = value.redistribute(value.device_mesh, [
+                        Shard(p.dim + 1) if p.is_shard() else p
+                        for p in self.tensors[0].placements])
                 for t, row in zip(self.tensors, value):
                     t.copy_(row)
             else:

@@ -11,24 +11,72 @@ What the port keeps of the reference's behaviour, on purpose:
 * the capacity is ``int(max(1, round(t·k/E·cf)))`` with Python's
   ``round``; at decode with few tokens it is 1, so decode drops tokens;
 * which assignments overflow follows the *stable* argsort by expert id and
-  each expert's first position in the sorted order;
-* the dispatch buffer is (E, C+1, D) in the *weight* dtype and every
-  overflowing assignment writes the waste slot C, which is sliced away
-  (with duplicate indices the writes to C are unordered on CUDA);
+  each expert's first position in the sorted order (:func:`dispatch_plan`);
+* the dispatch buffer is (E, C+1, D) in the *weight* dtype (in the wider
+  of it and x's, which differ only in ``chip_smoke.py``'s f32 witness of
+  bf16 experts) and every overflowing assignment writes the waste slot C,
+  which is sliced away (with duplicate indices the writes to C are
+  unordered on CUDA);
 * the router runs in f32 on x cast to f32.
 
 The combine is deterministic: each token's k contributions are gathered
 through the inverse permutation and added in the order the reference's
 scatter-add applies them (by expert id), in the activation dtype, with no
 atomics, so two runs on the card give the same bits.
+
+**On a mesh** (x a ``DTensor``) the layer keeps the reference's global
+semantics, which GSPMD keeps for its ``moe_ffn``: one capacity for the
+tokens of the whole global batch, the global stable order by expert id,
+the same assignments kept and dropped, the same slots. A capacity per
+device would drop other tokens. The reference's docstring says the
+dispatch "lowers to an all-to-all"; what GSPMD emitted for it on a 2×2
+mesh was all-gathers of the router weights, the gates and the
+assignments, and slabs of the activations with ``embed`` sharded
+(a collective-permute and an all-reduce of (T·k, D/2)). The port's
+:func:`moe_device_body` runs on every device, inside ``local_map``, over
+three groups of mesh dims: *batch* (the dims x's batch is sharded over),
+*experts* (the dims the expert tensors' E is sharded over: "model") and
+*slots* (the rest). Per device, with T tokens in all, T_b of them its
+own, n_b and n_e the groups' sizes, E_l = E / n_e, C_p the capacity
+padded to a multiple of n_b·n_s, D_c = D / n_b:
+
+1. the router on its own tokens (the router weights gathered: D·E f32);
+   the assignments and gates all-gathered over *batch* (T_b·k of each),
+   then every device sorts them as :func:`moe_ffn` does
+   (:func:`dispatch_plan`);
+2. x to ``embed``-sharded rows by an all-to-all over *batch* (T_b, D) →
+   (T, D_c), the dispatch slab of its experts' slots, (E_l, C_p, D_c),
+   gathered from those rows, and a second all-to-all over *batch* to
+   (E_l, C_p/n_b, D): its share of the slots, whole rows. Moved: T_b·D +
+   E_l·C_p·D/n_b elements, against E_l·C_p·D for slabs of zeros summed
+   over *batch* (GSPMD's form: ~6× more at olmoe's prefill_32k on 16×16);
+3. the expert products for its E_l experts and its C_p/(n_b·n_s) slots
+   only (*slots* splits them further, no all-to-all needed: the rows are
+   the same there), the expert weights gathered over *batch* as the dense
+   layers gather theirs (FSDP): no product is repeated across a mesh dim.
+   The padding adds (C_p − C)/C of the expert FLOPs;
+4. back: an all-gather over *slots*, the inverse all-to-all, each
+   device's gated contributions of its experts summed per token on its D_c
+   columns, an all-reduce of (T, D_c) over *experts*, and the inverse of
+   step 2's first all-to-all to (T_b, D).
+
+Per device and layer that is T_b·k ids and gates, 3·T_b·D + 2·E_l·C_p·D/n_b
+elements of activations, plus the expert weights' FSDP gather; on one card
+(n = 1 everywhere) every collective is of one rank. The sum over experts
+on other devices is a sum of partial sums, so on a mesh the output agrees
+with :func:`moe_ffn` to f32 rounding, not bit for bit. Plain tensors take
+:func:`moe_ffn`'s own path.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from dataclasses import dataclass
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..sharding import collectives as coll
 from .layers import dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -81,56 +129,241 @@ def capacity(tokens: int, k: int, num_experts: int, capacity_factor: float) -> i
 
 def expert_swiglu(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                   w_down: torch.Tensor) -> torch.Tensor:
-    """The experts as batched products: (E, C, D) → (E, C, D)."""
-    h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
-    return torch.bmm(h, w_down)
+    """The experts as batched products: (E, C, D) → (E, C, D). Expert
+    tensors of another dtype than ``buf`` are cast to it one expert at a
+    time, each only while that expert's products run (a wide buffer over
+    narrow weights holds one expert's cast copy at a time)."""
+    if w_gate.dtype == buf.dtype:
+        h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+        return torch.bmm(h, w_down)
+    return torch.cat([expert_swiglu(buf[e:e + 1], w_gate[e:e + 1].to(buf.dtype),
+                                    w_up[e:e + 1].to(buf.dtype), w_down[e:e + 1].to(buf.dtype))
+                      for e in range(buf.shape[0])])
+
+
+class Plan(NamedTuple):
+    """The sort dispatch of (T, k) assignments, in sorted order."""
+
+    order: torch.Tensor                  # (T·k,) the stable argsort by expert id
+    expert: torch.Tensor                 # (T·k,) expert of each sorted assignment
+    token: torch.Tensor                  # (T·k,) its token
+    keep: torch.Tensor                   # (T·k,) within its expert's capacity
+    slot: torch.Tensor                   # (T·k,) its slot; the capacity where dropped
+
+
+def dispatch_plan(idx: torch.Tensor, num_experts: int, cap: int) -> Plan:
+    """The reference's dispatch of expert ids ``idx`` (T, k): assignments
+    grouped by expert, stable within an expert; the rank within the
+    expert's group is the position less the group's first position."""
+    t, k = idx.shape
+    flat_expert = idx.reshape(-1)                                   # (t·k,)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    positions = torch.arange(t * k, device=idx.device)
+    experts = torch.arange(num_experts, device=idx.device, dtype=sorted_expert.dtype)
+    seg_start = torch.searchsorted(sorted_expert, experts)
+    rank = positions - seg_start[sorted_expert]
+    keep = rank < cap
+    slot = torch.where(keep, rank, torch.full_like(rank, cap))      # overflow → slot C
+    return Plan(order, sorted_expert, order // k, keep, slot)
+
+
+def _combine(ypad: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
+             gate: torch.Tensor, keep: torch.Tensor, order: torch.Tensor, k: int
+             ) -> torch.Tensor:
+    """Each token's gated contributions ``ypad[expert, slot] · gate`` of the
+    sorted assignments (zero where not ``keep``), added per token in
+    ascending sorted position, i.e. by expert id: the order in which the
+    reference's scatter-add applies them. Returns (T, D)."""
+    contrib = ypad[expert, slot] * gate[:, None].to(ypad.dtype)
+    contrib = torch.where(keep[:, None], contrib, torch.zeros((), dtype=ypad.dtype,
+                                                              device=ypad.device))
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(order.shape[0], device=order.device)
+    per_token = contrib[inverse.view(-1, k).sort(dim=1).values]     # (t, k, D)
+    out2d = per_token[:, 0]
+    for j in range(1, k):
+        out2d = out2d + per_token[:, j]
+    return out2d
 
 
 def moe_ffn(params: Params, x: torch.Tensor, num_experts: int, k: int,
             capacity_factor: float = 1.25, return_aux: bool = False):
-    """Sort-based capacity-limited top-k MoE on x (B, S, D)."""
+    """Sort-based capacity-limited top-k MoE on x (B, S, D). On a ``DTensor``
+    x, the mesh path (module docstring), which returns no auxiliary loss."""
+    if type(x) is not torch.Tensor and hasattr(x, "device_mesh"):
+        if return_aux:
+            raise NotImplementedError("moe_ffn on a mesh returns no auxiliary loss")
+        return _moe_on_mesh(params, x, num_experts, k, capacity_factor)
     b, s, d = x.shape
     t = b * s
     x2d = x.reshape(t, d)
     gates, idx, probs = router_topk(x2d, params["router"], k)
     cap = capacity(t, k, num_experts, capacity_factor)
+    plan = dispatch_plan(idx, num_experts, cap)
 
-    # (token, slot) assignments grouped by expert, stable within an expert
-    flat_expert = idx.reshape(-1)                                   # (t·k,)
-    order = torch.argsort(flat_expert, stable=True)
-    sorted_expert = flat_expert[order]
-    sorted_token = order // k
-    sorted_gate = gates.reshape(-1)[order]
-    # rank within the expert's group: position less the group's first position
-    positions = torch.arange(t * k, device=x.device)
-    experts = torch.arange(num_experts, device=x.device, dtype=sorted_expert.dtype)
-    seg_start = torch.searchsorted(sorted_expert, experts)
-    rank = positions - seg_start[sorted_expert]
-    keep = rank < cap
-    slot = torch.where(keep, rank, torch.full_like(rank, cap))      # overflow → slot C
-
-    wdt = params["w_gate"].dtype
+    wdt = torch.promote_types(x.dtype, params["w_gate"].dtype)
     buf = torch.zeros((num_experts, cap + 1, d), dtype=wdt, device=x.device)
-    buf[sorted_expert, slot] = x2d.to(wdt)[sorted_token]
+    buf[plan.expert, plan.slot] = x2d.to(wdt)[plan.token]
     y = expert_swiglu(buf[:, :cap], params["w_gate"], params["w_up"], params["w_down"])
 
     ypad = torch.cat([y, torch.zeros((num_experts, 1, d), dtype=y.dtype, device=y.device)],
                      dim=1)
-    contrib = ypad[sorted_expert, slot] * sorted_gate[:, None].to(y.dtype)
-    contrib = torch.where(keep[:, None], contrib, torch.zeros((), dtype=y.dtype,
-                                                              device=y.device))
-    # each token's k sorted positions, ascending = by expert id: the order in
-    # which the reference's scatter-add applies them
-    inverse = torch.empty_like(order)
-    inverse[order] = positions
-    per_token = contrib[inverse.view(t, k).sort(dim=1).values]     # (t, k, D)
-    out2d = per_token[:, 0]
-    for j in range(1, k):
-        out2d = out2d + per_token[:, j]
+    out2d = _combine(ypad, plan.expert, plan.slot, gates.reshape(-1)[plan.order], plan.keep,
+                     plan.order, k)
     out = out2d.reshape(b, s, d).to(x.dtype)
     if return_aux:
         return out, load_balance_loss(probs, idx, num_experts)
     return out
+
+
+# ---------------------------------------------------------------------------
+# on a mesh
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MoELayout:
+    """One device's place in the mesh path's three groups: each group's
+    size and the device's rank in it (major first)."""
+
+    n_batch: int = 1
+    n_experts: int = 1
+    n_slots: int = 1
+    batch: int = 0
+    experts: int = 0
+    slots: int = 0
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return {"batch": self.n_batch, "experts": self.n_experts, "slots": self.n_slots}
+
+    def at(self, coords: Dict[str, int]) -> "MoELayout":
+        return MoELayout(self.n_batch, self.n_experts, self.n_slots, coords["batch"],
+                         coords["experts"], coords["slots"])
+
+
+def padded_capacity(cap: int, lay: MoELayout) -> int:
+    """The capacity rounded up to a multiple of the devices the slots are
+    split over (*batch* × *slots*)."""
+    n = lay.n_batch * lay.n_slots
+    return -(-cap // n) * n
+
+
+def _to_pieces(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """``t`` split into n pieces along ``dim``, the pieces along a new dim 0,
+    flattened into dim 0 (the all-to-all's layout)."""
+    if dim == 0:
+        return t
+    return t.unflatten(dim, (n, t.shape[dim] // n)).movedim(dim, 0).flatten(0, 1)
+
+
+def _from_pieces(t: torch.Tensor, n: int, dim: int) -> torch.Tensor:
+    """The inverse layout: dim 0's n pieces laid side by side along ``dim``
+    (of a piece)."""
+    if dim == 0:
+        return t
+    return t.unflatten(0, (n, t.shape[0] // n)).movedim(0, dim).flatten(dim, dim + 1)
+
+
+def moe_device_body(x2d: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor, k: int, capacity_factor: float,
+                    tokens: int, lay: MoELayout) -> coll.Body:
+    """One device's part of the mesh path (module docstring), a generator
+    of its collectives (:mod:`repro_torch.sharding.collectives`). Takes this
+    device's tokens x2d (T_b, D), the router (D, E) whole, its experts'
+    tensors (E_l, ·, ·) whole; ``tokens`` is T. Returns (its tokens'
+    output (T_b, D) in x's dtype, the global :class:`Plan`, the padded
+    capacity)."""
+    d = x2d.shape[1]
+    num_experts = router_w.shape[1]
+    e_local = w_gate.shape[0]
+    nb = lay.n_batch
+    router_w = yield coll.sum_grads(router_w, "batch")
+    gates, idx, _ = router_topk(x2d, router_w, k)
+    idx_all = yield coll.gather(idx, "batch")
+    gates_all = yield coll.gather(gates, "batch", grad="sum", grad_sum="experts")
+    cap = capacity(tokens, k, num_experts, capacity_factor)
+    plan = dispatch_plan(idx_all, num_experts, cap)
+    capp = padded_capacity(cap, lay)
+
+    # the token of each of its experts' slots, T (a zero row) where empty
+    e0 = lay.experts * e_local
+    src = torch.full((num_experts, capp + 1), tokens, dtype=plan.token.dtype,
+                     device=x2d.device)
+    src[plan.expert, torch.where(plan.keep, plan.slot, capp)] = plan.token
+    src = src[e0:e0 + e_local, :capp]
+
+    wdt = torch.promote_types(x2d.dtype, w_gate.dtype)
+    dp = -(-d // nb) * nb                # D padded to a multiple of the batch group
+    xe = yield coll.sum_grads(x2d.to(wdt), ("experts", "slots"))
+    xe = F.pad(xe, (0, dp - d))
+    cols = yield coll.all_to_all(_to_pieces(xe, nb, 1), "batch")    # (T, D_c)
+    cols = torch.cat([cols, cols.new_zeros((1, cols.shape[1]))])
+    slab = cols[src]                                                # (E_l, C_p, D_c)
+    rows = yield coll.all_to_all(_to_pieces(slab, nb, 1), "batch")
+    rows = _from_pieces(rows, nb, 2)[..., :d]                       # (E_l, C_p/n_b, D)
+    cs = rows.shape[1] // lay.n_slots
+    rows = rows[:, lay.slots * cs:(lay.slots + 1) * cs]
+
+    weights = []
+    for w in (w_gate, w_up, w_down):
+        w = yield coll.sum_grads(w, ("batch", "slots"))
+        weights.append(w)
+    y = expert_swiglu(rows, *weights)                               # (E_l, C_s, D)
+
+    y = yield coll.gather(y.transpose(0, 1), "slots")
+    y = F.pad(y.transpose(0, 1), (0, dp - d))                       # (E_l, C_p/n_b, D_p)
+    y = yield coll.all_to_all(_to_pieces(y, nb, 2), "batch")
+    y = _from_pieces(y, nb, 1)                                      # (E_l, C_p, D_c)
+    ypad = torch.cat([y, y.new_zeros((e_local, 1, y.shape[2]))], dim=1)
+
+    local = plan.expert - e0
+    mine = plan.keep & (local >= 0) & (local < e_local)
+    part = _combine(ypad, torch.where(mine, local, torch.zeros_like(local)),
+                    torch.where(mine, plan.slot, torch.full_like(plan.slot, capp)),
+                    gates_all.reshape(-1)[plan.order], mine, plan.order, k)   # (T, D_c)
+    part = yield coll.reduce(part, "experts")
+    out = yield coll.all_to_all(_to_pieces(part, nb, 0), "batch")
+    out = _from_pieces(out, nb, 1)[:, :d]                           # (T_b, D)
+    return out.to(x2d.dtype), plan, capp
+
+
+def _moe_on_mesh(params: Params, x, num_experts: int, k: int, capacity_factor: float):
+    """:func:`moe_device_body` on every device of x's mesh, inside
+    ``local_map``. x keeps its batch sharding where the batch divides (the
+    *batch* group) and is replicated elsewhere; the expert tensors keep E
+    sharded where E divides (*experts*) and are gathered elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    ndim = mesh.ndim
+    router, w_gate, w_up, w_down = (params[n] for n in ("router", "w_gate", "w_up", "w_down"))
+    groups = {"batch": [], "experts": [], "slots": []}
+    for i in range(ndim):
+        n = mesh.size(i)
+        if w_gate.placements[i] == Shard(0) and num_experts % n == 0:
+            groups["experts"].append(i)
+        elif x.placements[i] == Shard(0) and b % n == 0:
+            groups["batch"].append(i)
+        else:
+            groups["slots"].append(i)
+    sizes = {g: math.prod(mesh.size(i) for i in dims) for g, dims in groups.items()}
+    r = Replicate()
+    x_pl = [Shard(0) if i in groups["batch"] else r for i in range(ndim)]
+    w_pl = [Shard(0) if i in groups["experts"] else r for i in range(ndim)]
+
+    def local(x, router, w_gate, w_up, w_down):
+        lay = MoELayout(sizes["batch"], sizes["experts"], sizes["slots"]).at(
+            {g: coll.flat_rank(mesh, dims) for g, dims in groups.items()})
+        body = moe_device_body(x.reshape(-1, d), router, w_gate, w_up, w_down, k,
+                               capacity_factor, b * s, lay)
+        return coll.on_mesh(body, mesh, groups)[0].reshape(x.shape)
+
+    return local_map(local, out_placements=x_pl,
+                     in_placements=(x_pl, [r] * ndim, w_pl, w_pl, w_pl), device_mesh=mesh)(
+        x.redistribute(mesh, x_pl), router.redistribute(mesh, [r] * ndim),
+        *(w.redistribute(mesh, w_pl) for w in (w_gate, w_up, w_down)))
 
 
 def moe_ffn_dense(params: Params, x: torch.Tensor, num_experts: int, k: int) -> torch.Tensor:

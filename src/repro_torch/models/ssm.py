@@ -210,10 +210,12 @@ def mamba2_decode_step(
     dt1 = F.softplus(dt.float() + params["dt_bias"])[:, 0]        # (B, H)
     A = -torch.exp(params["A_log"])
     decay = torch.exp(dt1 * A[None, :])                            # (B, H)
-    # h' = decay * h + dt * B ⊗ x
-    outer = torch.einsum("bh,bhn,bhp->bhpn", dt1, bmh.float(), xh)
+    # h' = decay * h + dt * B ⊗ x; y = C · h', as broadcast products: an
+    # einsum here flattens (B, H) into one dim, which DTensor refuses where
+    # both are sharded (torch 2.11)
+    outer = (dt1[:, :, None] * xh)[..., None] * bmh.float()[:, :, None, :]
     new_state = decay[:, :, None, None] * ssm_state + outer
-    y = torch.einsum("bhn,bhpn->bhp", cmh.float(), new_state)
+    y = (cmh.float()[:, :, None, :] * new_state).sum(dim=-1)
     y = y + xh * params["D"][None, :, None]
     y = y.reshape(b_, 1, d_inner).to(xin.dtype)
     y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps).to(xin.dtype)

@@ -47,6 +47,7 @@ from .attention import (
     cross_attention,
     decode_attention,
     project_qkv,
+    write_slot,
 )
 from .config import ATTN, ATTN_MOE, CROSS, SSM_MLP, ModelConfig
 from .layers import (
@@ -182,8 +183,8 @@ class Block(nn.Module):
                 raise ValueError(f"cache full: {slots} slots, writing position {write_pos}")
             q, k, v = project_qkv(self.attn, h, pos, cfg.rope_theta, cfg.qk_norm,
                                   use_rope=True, norm_eps=eps)
-            cache["k"][:, write_pos] = k[:, 0]
-            cache["v"][:, write_pos] = v[:, 0]
+            write_slot(cache["k"], write_pos, k[:, 0])
+            write_slot(cache["v"], write_pos, v[:, 0])
             attn = decode_attention(q, cache["k"], cache["v"], write_pos + 1,
                                     window=cfg.sliding_window)
             x = x + attention_output(self.attn, attn)
@@ -319,6 +320,30 @@ def init_tensors(cfg: ModelConfig, seed: int = 0,
             "blocks": [_init_block(gen, ATTN, cfg) for _ in range(cfg.encoder_layers)],
             "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         }
+    return tensors
+
+
+_BLOCK_PARTS = ("ln1", "attn", "xattn", "ssm", "ln_cross", "cross", "ln2", "mlp", "moe")
+
+
+def model_tensors(model: Transformer) -> Dict:
+    """The model's own tensors (not copies) in the tree :func:`init_tensors`
+    gives and :class:`Transformer` takes."""
+    def block(blk: Block) -> Dict:
+        out: Dict = {}
+        for name in _BLOCK_PARTS:
+            part = getattr(blk, name)
+            if part is not None:
+                out[name] = (dict(part.items()) if isinstance(part, nn.ParameterDict)
+                             else part)
+        return out
+    tensors: Dict = {"embed": model.embed, "final_norm": model.final_norm,
+                     "blocks": [block(b) for b in model.blocks]}
+    if model.head is not None:
+        tensors["head"] = model.head
+    if model.encoder is not None:
+        tensors["encoder"] = {"blocks": [block(b) for b in model.encoder.blocks],
+                              "final_norm": model.encoder.final_norm}
     return tensors
 
 

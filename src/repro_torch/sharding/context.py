@@ -82,25 +82,39 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     K sharded like w's K gives a partial sum (row-parallel); w's N sharded
     gathers x and shards the output's N (column-parallel); anything else is
     gathered. ``DTensor``'s own choice would recompute the product on every
-    rank of a mesh dim that it leaves replicated."""
+    rank of a mesh dim that it leaves replicated. A row-parallel output is
+    all-reduced at once. In the backward, the
+    gradient of a gathered operand is summed over the mesh dims whose ranks
+    each used it for a part of the product (FSDP's reduction)."""
     if type(x) is torch.Tensor:
         return x @ w
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
+
+    from .collectives import summing_grads
     last = x.ndim - 1
     r = Replicate()
     cols = []                            # (x, w, out) per mesh dim
-    for px, pw in zip(x.placements, w.placements):
+    x_sum, w_sum = [], []                # dims over which a gradient is a part
+    for i, (px, pw) in enumerate(zip(x.placements, w.placements)):
         if px == Shard(0) and last > 0:
             cols.append((px, r, px))
+            w_sum.append(i)
         elif px == Shard(last) and pw == Shard(0):
             cols.append((px, pw, Partial()))
         elif pw == Shard(1):
             cols.append((r, pw, Shard(last)))
+            x_sum.append(i)
         else:
             cols.append((r, r, r))
     px, pw, po = (list(c) for c in zip(*cols))
     mesh = x.device_mesh
     x, w = x.redistribute(mesh, px), w.redistribute(mesh, pw)
-    return local_map(torch.matmul, out_placements=po, in_placements=(px, pw),
-                     device_mesh=mesh)(x, w)
+
+    def local(x, w):
+        # a gathered w meets this rank's rows only, a gathered x its columns
+        return torch.matmul(summing_grads(x, mesh, x_sum), summing_grads(w, mesh, w_sum))
+    out = local_map(local, out_placements=po, in_placements=(px, pw), device_mesh=mesh)(x, w)
+    if Partial() in po:                  # summed once here: DTensor would sum a partial
+        return out.redistribute(mesh, [r if p == Partial() else p for p in po])   # at each use
+    return out

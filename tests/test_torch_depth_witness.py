@@ -41,8 +41,49 @@ def test_the_decision_at_its_limits(kernel, plain, f32, ok):
 
 
 def test_only_the_moe_model_that_fits_twice_has_a_witness():
-    """kimi-k2 and jamba hold no f32 copy beside the bf16 one: they keep the
-    2% check of kernels against plain."""
+    """olmoe and jamba are held to the f32 witness; kimi-k2 keeps the 2%
+    check of kernels against plain (its 8 draws stayed under it). jamba's
+    cut fits twice only because its witness shares the bf16 experts
+    (``witness_model``)."""
     served = [arch for arch, _, _ in chip_smoke.SERVED_MODELS]
-    assert chip_smoke.WITNESSED == ("olmoe-1b-7b",)
+    assert chip_smoke.WITNESSED == ("olmoe-1b-7b", "jamba-1.5-large-398b")
     assert set(chip_smoke.WITNESSED) <= set(served)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-1.5-large-398b"])
+def test_the_witness_is_the_same_weights_in_f32(arch):
+    """``witness_model`` of a bf16 smoke model keeps the expert tensors
+    themselves (no copy) and every other tensor as an f32 copy; its prefill, with the expert choices pinned, equals the
+    prefill of a whole f32 copy of the model within f32 rounding (bf16 to
+    f32 is exact, and each expert is cast only while its products run)."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import forward_prefill, init_params
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    model = init_params(cfg, seed=0, device="cpu")
+    witness = chip_smoke.witness_model(model)
+    moe = [(b.moe, w.moe) for b, w in zip(model.blocks, witness.blocks) if b.moe is not None]
+    assert moe
+    for ours, theirs in moe:
+        for name in ("w_gate", "w_up", "w_down"):
+            assert theirs[name].dtype == torch.bfloat16
+            assert theirs[name].data_ptr() == ours[name].data_ptr()
+        assert theirs["router"].dtype == torch.float32
+    others = [p for n, p in witness.named_parameters()
+              if ".moe." not in n or n.endswith("router")]
+    assert others and all(p.dtype == torch.float32 for p in others)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(0))
+    chosen = []
+    with torch.inference_mode():
+        with chip_smoke.routing("record", chosen):
+            forward_prefill(model, tokens, 17)
+        with chip_smoke.routing("replay", list(chosen)):
+            got = forward_prefill(witness, tokens, 17)[0]
+        with chip_smoke.routing("replay", list(chosen)):
+            want = forward_prefill(copy.deepcopy(model).float(), tokens, 17)[0]
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))

@@ -319,16 +319,21 @@ def test_dry_run_on_a_2x2_mesh_counts_a_quarter_of_the_step(fake_group):
 
 def test_run_one_records_a_failure_with_its_error(fake_group, tmp_path, monkeypatch):
     """A combination that fails is a record with ``ok: false`` and its error
-    (an MoE train step on the 16×16 mesh: the dispatch's ``searchsorted`` has
-    no ``DTensor`` rule), never dropped; a host-mesh run is a record with the
-    three terms."""
+    (a Mamba2 prefill on the 16×16 mesh whose prompt, over one chunk, is no
+    multiple of it: the reference raises there too), never dropped; an MoE
+    train step on the 16×16 mesh is ``ok`` (the MoE layer's mesh path); a
+    host-mesh run is a record with the three terms."""
     import repro_torch.launch.dryrun as dryrun
     monkeypatch.setattr(dryrun, "RESULTS_DIR", str(tmp_path))
-    rec = run_one("olmoe-1b-7b", InputShape("t", 128, 2, "train"), "single",
-                  cfg=get_smoke_config("olmoe-1b-7b"), verbose=False)
-    assert rec["ok"] is False and "searchsorted" in rec["error"]
-    assert (tmp_path / "olmoe-1b-7b__t__single.json").exists()
     cfg = get_smoke_config("mamba2-1.3b")
+    rec = run_one("mamba2-1.3b", InputShape("p", 200, 16, "prefill"), "single", cfg=cfg,
+                  verbose=False)
+    assert rec["ok"] is False and "multiple of chunk 16" in rec["error"]
+    assert (tmp_path / "mamba2-1.3b__p__single.json").exists()
+    rec = run_one("olmoe-1b-7b", InputShape("t", 128, 16, "train"), "single",
+                  cfg=get_smoke_config("olmoe-1b-7b"), verbose=False)
+    assert rec["ok"], rec.get("error")
+    assert rec["collective_by_op"]["all-to-all"] > 0
     rec = run_one("mamba2-1.3b", InputShape("p", 128, 2, "prefill"), "host", cfg=cfg,
                   verbose=False)
     assert rec["ok"] and rec["per_device_flops"] > 0 and rec["memory_note"]
@@ -341,7 +346,8 @@ def test_mamba2_train_step_runs_with_the_ssd_backward_counted(fake_group, mesh_n
     """mamba2's train step is ``ok`` on the 1×1 and the 16×16 mesh, K3's
     backward counted by its FLOP formula: the record with the formula less
     the one without it is one backward a layer, hand counted (chunk 16,
-    B·H rows of S/16 chunks, on one device's shard of the batch)."""
+    B·H rows of S/16 chunks, on one device's shard of the batch and the
+    heads)."""
     import importlib
     ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
     cfg = get_smoke_config("mamba2-1.3b")
@@ -350,8 +356,9 @@ def test_mamba2_train_step_runs_with_the_ssd_backward_counted(fake_group, mesh_n
     assert rec["ok"], rec.get("error")
     monkeypatch.setattr(ssd, "bwd_flops_per_chunk", lambda q, n, p: 0)
     without = run_one("mamba2-1.3b", shape, mesh_name, cfg=cfg, save=False, verbose=False)
-    # 16×16: the batch over "data"; the heads reach the scan replicated over "model"
-    rows = shape.global_batch * cfg.ssm_heads // (1 if mesh_name == "host" else 16)
+    # 16×16: the batch over "data"; the heads, which reach the scan replicated
+    # over "model", split over it (16 heads)
+    rows = shape.global_batch * cfg.ssm_heads // (1 if mesh_name == "host" else 16 * 16)
     per_chunk = (2 * 16 * 16 * (3 * cfg.ssm_state + 2 * cfg.ssm_head_dim)
                  + 10 * 16 * cfg.ssm_state * cfg.ssm_head_dim)
     assert rec["per_device_flops"] - without["per_device_flops"] == (
