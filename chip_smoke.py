@@ -38,7 +38,14 @@ Run from the root of a checkout. Phases, one JSON line each:
    doubled (the masked half overflows), against ``ssd_scan_bwd_plain`` (and
    at the two training shapes against autograd through ``ssd_scan_plain``),
    then timed at those two shapes in turns with the ``simt`` kernel at bf16
-   (``_ssd_scan_bwd_simt``) and the plain version;
+   (``_ssd_scan_bwd_simt``) and the plain version; AdamW's update (B3,
+   ``adamw_update``) against ``adamw_update_plain`` bit for bit for p, m and
+   v at steps 1-3: bf16 and f32 parameters at sizes that are not whole
+   vectors, an empty tensor, more tensors than one launch takes, tensors
+   off 16-byte alignment, g from 1e-30 to 1e4 with zeros; then timed on
+   phi4-mini-3.8b's parameter list in turns with the plain update and
+   ``torch._fused_adamw_`` (m and v in bf16: a yardstick, never on the
+   path), beside the bound by bytes and the TB/s reached;
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -60,7 +67,8 @@ Run from the root of a checkout. Phases, one JSON line each:
      share; olmoe's device time split into K2, the expert and router
      products, the MoE dispatch, the other products and the rest
      (``moe_profile``);
-   then training (``train_check``, ``train_phase``, ``train_ckpt_phase``):
+   then training (``train_check``, ``adamw_route_check``, ``train_phase``,
+   ``train_ckpt_phase``):
    - train_check: phi4-mini-3.8b at full width cut to one layer; the loss
      and every parameter's gradient through K2's forward and backward
      kernels against the plain forward differentiated by autograd, and the
@@ -69,14 +77,18 @@ Run from the root of a checkout. Phases, one JSON line each:
      ``ssm_mlp`` layer (256 heads a group) likewise through K3's forward and
      backward kernels (``SsdScanFn``), the limits rejecting a backward whose
      dB and dC are zeroed;
+   - adamw_routes: phi4-mini-3.8b at full width cut to two layers, three
+     steps from the same weights with B3, with ``adamw_update_plain`` in its
+     place and with B3 again: every parameter and loss equal bit for bit;
    - train: phi4-mini-3.8b at full width and depth (32 layers, d 3072,
      vocab 200064), bf16, AdamW, remat on, batch 4 x 1024 tokens from
      ``MarkovDataset`` through ``repro_torch.train.train_step``: 2 warm-up
      steps, then 8 with every kernel's count zeroed just before and read
      just after (K2's forward 2 x 32 a step, all ``sm90``; its backward
-     32, all ``sm90``), the loss per step, step seconds, tokens/s, peak memory,
-     and one more step under the profiler split into K2's forward and
-     backward, K3's forward and backward, cuBLAS, the optimizer and the
+     32, all ``sm90``; B3 once a step), the loss per step, step seconds,
+     tokens/s, peak memory, and one more step under the profiler split into
+     K2's forward and backward, K3's forward and backward, cuBLAS, the
+     optimizer (B3's kernel by name and the ops under its range) and the
      rest; then mamba2-1.3b at full width and depth (48 ssm layers, d 2048,
      vocab 50280) the same way with 6 counted steps (K3's forward 2 x 48 a
      step and its backward 48, all ``sm90``, K2 none);
@@ -189,7 +201,8 @@ models, the two training runs, the mesh steps and ``paper``,
 ``launches_by_path`` one count per path, K1's and B1's with a ``paper``
 entry too; K2's backward with its launches in the two training runs, both sources and
 its launches by route; K3's backward with its launches in mamba2's training
-run and mesh step), the
+run and mesh step; B3's with its launches in the three training runs and
+the two mesh train steps), the
 ``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -445,7 +458,8 @@ SSD_BWD_KERNELS = ("ssd_scan_bwd_kernel", "ssd_scan_bwd_sum_kernel", "ssd_bwd_te
                    "ssd_bwd_states_sm90_kernel", "ssd_bwd_dx_sm90_kernel",
                    "ssd_bwd_dbc_sm90_kernel", "ssd_bwd_sum_sm90_kernel")
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", *SSD_FWD_KERNELS,
-                "quant_rows_sm90_kernel", "quant_rows_kernel") + BWD_KERNELS + SSD_BWD_KERNELS
+                "quant_rows_sm90_kernel", "quant_rows_kernel", "adamw_kernel") + BWD_KERNELS \
+    + SSD_BWD_KERNELS
 
 
 def named(name: str, key: str) -> bool:
@@ -1608,7 +1622,8 @@ def expected_launches(cfg) -> dict:
     if cfg.is_encoder_decoder:
         k2 += self_attn + cfg.encoder_layers         # cross-attention, then the encoder
     return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
-            "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0}
+            "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
+            "adamw": 0}
 
 
 def random_cross_src(cfg, batch: int, gen):
@@ -2214,6 +2229,234 @@ def time_ssd_bwd(case, inputs, smi: str, path: str) -> dict:
                 bound_by=bound_by, library_ms=None, forward_ms=fwd_ms)
 
 
+# adamw: the kernel against adamw_update_plain, bit for bit, over sizes
+# around the vector widths (4 f32, 8 bf16) and a work unit, an empty tensor
+# and two large ones, steps 1-3; then more tensors than one launch takes, in
+# both dtypes, and tensors one element off 16-byte alignment
+ADAMW_SIZES = (0, 1, 3, 7, 8, 9, 31, 1000, 8191, 8193, 1 << 20, (1 << 22) + 5)
+ADAMW_STEPS = (1, 2, 3)
+ADAMW_ROUTE_LAYERS, ADAMW_ROUTE_STEPS = 2, 3     # phi4 cut to 2 layers, 3 steps each route
+
+
+def adamw_inputs(sizes, dtype, gen, offset: int = 0):
+    """p, g, m, v on the card for tensors of ``sizes``: p ~ N(0, 1), g from
+    1e-30 to 1e4 in magnitude with a tenth zeros, m and v as after a few
+    steps; ``offset`` elements into a buffer (1: not 16-byte aligned)."""
+    import torch
+    dev = torch.device("cuda")
+    out = [[], [], [], []]
+    for n in sizes:
+        sign = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+        g = sign * 10.0 ** (torch.rand(n, generator=gen, device=dev) * 34 - 30)
+        g[torch.rand(n, generator=gen, device=dev) < 0.1] = 0.0
+        vals = (torch.randn(n, generator=gen, device=dev).to(dtype), g.to(dtype),
+                torch.randn(n, generator=gen, device=dev) * 1e-2,
+                torch.rand(n, generator=gen, device=dev) * 1e-4)
+        for lst, t in zip(out, vals):
+            lst.append(t.new_empty(n + offset)[offset:].copy_(t) if offset else t)
+    return out
+
+
+def adamw_bias(step: int, cfg):
+    """The optimizer's bias corrections at ``step``, 0-dim f32 on the card."""
+    import torch
+    t = torch.tensor(step, dtype=torch.int32, device="cuda").float()
+    return 1.0 - cfg.b1 ** t, 1.0 - cfg.b2 ** t
+
+
+def adamw_bytes(tensors) -> int:
+    """Bytes one update must move: p and g read in their dtype, m and v
+    read in f32, p, m and v written (22 B an element for bf16, 28 for f32)."""
+    return sum(t.numel() * (3 * t.element_size() + 16) for t in tensors)
+
+
+def adamw_per_step(cfg) -> int:
+    """The kernel's launches in one update of ``cfg``'s parameters."""
+    from repro_torch.kernels.adamw import plan_launches
+    from repro_torch.launch.steps import param_shapes
+    from repro_torch.models import param_leaves
+    return len(plan_launches([(t.numel(), t.dtype) for leaf in param_leaves(param_shapes(cfg))
+                              for t in leaf.tensors]))
+
+
+def check_adamw(gen, smi: str) -> dict:
+    """B3 against ``adamw_update_plain`` on the same tensors, p, m and v
+    equal bit for bit after every one of ``ADAMW_STEPS``: bf16 and f32
+    parameters at ``ADAMW_SIZES``, more tensors than one launch takes in
+    both dtypes at once, and tensors one element off alignment; each call's
+    launches as ``plan_launches`` gives. Then phi4-mini-3.8b's parameter
+    list (bf16 p and g, f32 m and v) timed in turns with the plain update
+    and with ``torch._fused_adamw_`` (a yardstick only: it keeps m and v in
+    the parameters' dtype, bf16 here, and places eps and the decay
+    otherwise), beside the bound by bytes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import (MAX_TENSORS, adamw_update, adamw_update_plain,
+                                           plan_launches)
+    from repro_torch.launch.steps import param_shapes
+    from repro_torch.models import param_leaves
+    from repro_torch.train import AdamWConfig
+    cfg = AdamWConfig(lr=TRAIN_LR)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def many():                       # two bf16 launches and an f32 one, empty tensors among them
+        a = adamw_inputs([(i * 37) % 300 for i in range(MAX_TENSORS + 37)], bf16, gen)
+        return [x + y for x, y in zip(a, adamw_inputs((5, 4096, 0, 77), f32, gen))]
+    cases = {("ragged", "float32", 0): lambda: adamw_inputs(ADAMW_SIZES, f32, gen),
+             ("ragged", "bfloat16", 0): lambda: adamw_inputs(ADAMW_SIZES, bf16, gen),
+             ("many", "bfloat16+float32", 0): many,
+             ("unaligned", "float32", 1): lambda: adamw_inputs((1025, 70001), f32, gen, 1),
+             ("unaligned", "bfloat16", 1): lambda: adamw_inputs((1025, 70001), bf16, gen, 1)}
+    worst = 0.0
+    for (name, dtype, offset), make in cases.items():
+        lists = make()
+        plain = [[t.clone() for t in ts] for ts in lists]
+        want_launches = len(plan_launches([(p.numel(), p.dtype) for p in lists[0]]))
+        steps = []
+        for step in ADAMW_STEPS:
+            bc1, bc2 = adamw_bias(step, cfg)
+            before = adamw_update.launches
+            adamw_update(*lists, bc1, bc2, cfg)
+            took = adamw_update.launches - before
+            adamw_update_plain(*plain, bc1, bc2, cfg)
+            torch.cuda.synchronize()
+            equal = {k: all(torch.equal(x, y) for x, y in zip(lists[i], plain[i]))
+                     for i, k in enumerate("pgmv") if k != "g"}
+            err = max(float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+                      for i in (0, 2, 3) for x, y in zip(lists[i], plain[i]))
+            steps.append({"step": step, "equal": equal, "max_abs_err": err, "launches": took})
+            worst = max(worst, err)
+        ok = all(all(r["equal"].values()) and r["launches"] == want_launches for r in steps)
+        emit({"phase": "kernel_check", "kernel": "adamw", "case": name, "dtype": dtype,
+              "tensors": len(lists[0]), "elements": sum(p.numel() for p in lists[0]),
+              "offset": offset, "steps": steps, "want_launches": want_launches, "ok": ok})
+        if not ok:
+            raise AssertionError(f"adamw differs from its plain version ({name}, {dtype}): {steps}")
+        del lists, plain
+
+    # phi4-mini-3.8b's parameter list at full size
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = [t for leaf in param_leaves(param_shapes(get_config(TRAIN_ARCH))) for t in leaf.tensors]
+    dev = torch.device("cuda")
+    ps, gs, ms, vs = [], [], [], []
+    for t in shapes:
+        ps.append((torch.randn(t.shape, generator=gen, device=dev) * 0.02).to(t.dtype))
+        gs.append((torch.randn(t.shape, generator=gen, device=dev) * 1e-3).to(t.dtype))
+        ms.append(torch.randn(t.shape, generator=gen, device=dev) * 1e-4)
+        vs.append(torch.rand(t.shape, generator=gen, device=dev) * 1e-7)
+    m16, v16 = [m.to(torch.bfloat16) for m in ms], [v.to(torch.bfloat16) for v in vs]
+    steps16 = [torch.full((), 3.0, device=dev) for _ in ps]
+    bc1, bc2 = adamw_bias(3, cfg)
+    n_params = sum(p.numel() for p in ps)
+    contenders = {
+        "kernel": (lambda: adamw_update(ps, gs, ms, vs, bc1, bc2, cfg), 5),
+        "plain": (lambda: adamw_update_plain(ps, gs, ms, vs, bc1, bc2, cfg), 2),
+        "library": (lambda: torch._fused_adamw_(
+            ps, gs, m16, v16, [], steps16, lr=cfg.lr, beta1=cfg.b1, beta2=cfg.b2,
+            weight_decay=cfg.weight_decay, eps=cfg.eps, amsgrad=False, maximize=False), 5)}
+    turns = {who: [] for who in contenders}
+    for who in list(contenders) + list(reversed(contenders)):
+        fn, iters = contenders[who]
+        turns[who].append(cuda_ms(fn, iters=iters, warmup=1))
+    before = adamw_update.launches
+    adamw_update(ps, gs, ms, vs, bc1, bc2, cfg)
+    launches_per_call = adamw_update.launches - before
+    passes = kernel_split(lambda: adamw_update(ps, gs, ms, vs, bc1, bc2, cfg), ("adamw_kernel",))
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = adamw_bytes(ps)
+    lib_bytes = sum(p.numel() * 7 * p.element_size() for p in ps)    # p, g, m, v read; p, m, v written
+    ms_k, ms_p, ms_l = min(turns["kernel"]), min(turns["plain"]), min(turns["library"])
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    # ~15 f32 operations an element (two divisions, a square root) on the CUDA cores
+    flops = 15 * n_params
+    bound_by = "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_F32_FLOPS else "operations"
+    emit({"phase": "kernel_time", "kernel": "adamw", "path": f"{TRAIN_ARCH} parameters",
+          "tensors": len(ps), "params": n_params, "launches_per_call": launches_per_call,
+          "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l, "turns_ms": turns,
+          "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+          "tb_per_s": nbytes / ms_k / 1e9, "share_of_bound": bound_ms / ms_k,
+          "plain_over_kernel": ms_p / ms_k, "library_bytes": lib_bytes,
+          "library_tb_per_s": lib_bytes / ms_l / 1e9, "library_layout": "m, v bf16",
+          "kernel_device_ms": passes, "peak_mem_gb": peak / 1e9, "smi": smi})
+    del ps, gs, ms, vs, m16, v16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=ms_l, library_layout="torch._fused_adamw_, m and v bf16",
+                tb_per_s=nbytes / ms_k / 1e9, launches_per_call=launches_per_call)
+
+
+def adamw_route_check(smi: str, counters: dict) -> None:
+    """phi4-mini-3.8b at full width cut to ``ADAMW_ROUTE_LAYERS`` layers, bf16,
+    random weights from seed 0, ``ADAMW_ROUTE_STEPS`` steps of
+    ``train_step`` (AdamW at ``TRAIN_LR``, remat) on the train phase's
+    batches: with the kernel, with ``adamw_update_plain`` in its place, and
+    with the kernel again. Every parameter after the last step must be equal
+    bit for bit under the two routes (and the kernel's two runs), the losses
+    too; the kernel runs launch it ``adamw_per_step`` times a step, the plain
+    run never."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import adamw_update_plain
+    from repro_torch.models import init_params, param_leaves
+    from repro_torch.train import DataConfig, MarkovDataset, make_optimizer, train_step
+    optimizer = importlib.import_module("repro_torch.train.optimizer")
+    dev = torch.device("cuda")
+    cfg = cut_config(get_config(TRAIN_ARCH), {"num_layers": ADAMW_ROUTE_LAYERS})
+    data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    batch_size=TRAIN_BATCH, seed=0))
+    it = data.batches()
+    batches = [tuple(torch.from_numpy(a).to(dev, torch.int64) for a in next(it))
+               for _ in range(ADAMW_ROUTE_STEPS)]
+    per_step = adamw_per_step(cfg)
+
+    def run(plain: bool):
+        model = init_params(cfg, seed=0, device=dev)
+        model.requires_grad_(True)
+        opt = make_optimizer("adamw", lr=TRAIN_LR)
+        state = opt[0](param_leaves(model))
+        losses = []
+        zero_counts(counters)
+        swap = (mock.patch.object(optimizer, "adamw_update", adamw_update_plain) if plain
+                else contextlib.nullcontext())
+        with swap:
+            for tokens, labels in batches:
+                state, loss = train_step(model, opt, state, tokens, labels, None, remat=True)
+                losses.append(float(loss))
+        torch.cuda.synchronize()
+        counted = read_counts(counters)["launches"]
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        return params, losses, counted
+
+    t0 = time.perf_counter()
+    kernel, kernel_losses, kernel_counts = run(False)
+    plain, plain_losses, plain_counts = run(True)
+    differ = [n for n in kernel if not torch.equal(kernel[n], plain[n])]
+    del plain
+    again, again_losses, _ = run(False)
+    differ_twice = [n for n in kernel if not torch.equal(kernel[n], again[n])]
+    want = train_launches(cfg, ADAMW_ROUTE_STEPS, per_step)
+    ok = (not differ and not differ_twice and kernel_losses == plain_losses == again_losses
+          and kernel_counts == want and plain_counts == {**want, "adamw": 0}
+          and all(math.isfinite(x) for x in kernel_losses))
+    emit({"phase": "adamw_routes", "arch": cfg.name, "layers": cfg.num_layers,
+          "steps": ADAMW_ROUTE_STEPS, "params": sum(p.numel() for p in kernel.values()),
+          "tensors": len(kernel), "losses": kernel_losses, "plain_losses": plain_losses,
+          "params_equal": not differ, "differ": differ[:8],
+          "kernel_twice_equal": not differ_twice, "launches": kernel_counts,
+          "plain_launches": plain_counts, "want_launches": want,
+          "seconds": time.perf_counter() - t0, "smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"adamw routes: {len(differ)} parameters differ ({differ[:4]}), "
+                             f"kernel twice differs in {differ_twice[:4]}, losses "
+                             f"{kernel_losses} / {plain_losses} / {again_losses}, launches "
+                             f"{kernel_counts} / {plain_counts} (want {want})")
+    del kernel, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def kernel_split(fn, names, calls: int = 3) -> dict:
     """Device ms per call of ``fn`` by kernel (``torch.profiler``), for the
     kernels in ``names`` that ran."""
@@ -2236,9 +2479,11 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     """Device ms of one train step split by what runs: K2's forward, K2's
     backward (its three kernels on either route, also apart), K3's forward
     and its backward (both passes, also apart), cuBLAS, the optimizer's
-    update (the kernels under its ``record_function`` range, for this call
-    only) and the rest (norms, RoPE, SwiGLU, the convolution, the loss, the
-    embedding's gradient, copies)."""
+    update (B3's kernel by its name, launched through ``ctypes`` with no
+    PyTorch op around it, and the ops under the optimizer's
+    ``record_function`` range: the bias corrections) and the rest (norms,
+    RoPE, SwiGLU, the convolution, the loss, the embedding's gradient,
+    copies). The split sums to the busy time, the rest at least 0."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -2275,13 +2520,20 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
                 return True
             p = p.cpu_parent
         return False
-    # each kernel once: the self device time of every op under the range
-    optimizer = sum(e.self_device_time_total for e in prof.events()
-                    if e.device_type == DeviceType.CPU and inside(e, "optimizer")) / 1e3
+    # each kernel once: the self device time of every op under the range,
+    # and the kernel, which no op under the range holds
+    optimizer_ops = sum(e.self_device_time_total for e in prof.events()
+                        if e.device_type == DeviceType.CPU and inside(e, "optimizer")) / 1e3
+    adamw = ms(lambda key: named("adamw_kernel", key))
+    optimizer = optimizer_ops + adamw
     split = {"attention_forward": fwd, "attention_backward": bwd, "ssd_forward": ssd_fwd,
              "ssd_backward": ssd_bwd, "cublas": gemm, "optimizer": optimizer,
              "rest": busy - fwd - bwd - ssd_fwd - ssd_bwd - gemm - optimizer}
+    if split["rest"] < -1e-3 * busy:
+        raise AssertionError(f"train profile counts some kernel twice: {split}, busy {busy}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "split_ms": split,
+            "optimizer_ms": {"adamw_kernel": adamw, "ops_in_range": optimizer_ops},
+            "split_sum_ms": sum(split.values()),
             "attention_backward_ms": {n: t for n, t in bwd_by_kernel.items() if t},
             "ssd_backward_ms": {n: t for n, t in ssd_bwd_by_kernel.items() if t},
             "device_share": busy / wall_ms,
@@ -2395,15 +2647,17 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     torch.cuda.empty_cache()
 
 
-def train_launches(cfg, steps: int) -> dict:
+def train_launches(cfg, steps: int, adamw_per_step: int = 0) -> dict:
     """Kernel launches of ``steps`` train steps with remat: each forward kernel
     twice a layer and step (the forward, then its recomputation in the
-    backward), each backward kernel once."""
+    backward), each backward kernel once, and AdamW's ``adamw_per_step``
+    times a step (0 where no optimizer runs)."""
     per = expected_launches(cfg)
     want = dict.fromkeys(per, 0)
     want.update(flash_attention=2 * per["flash_attention"] * steps,
                 flash_attention_bwd=per["flash_attention"] * steps,
-                ssd_scan=2 * per["ssd_scan"] * steps, ssd_scan_bwd=per["ssd_scan"] * steps)
+                ssd_scan=2 * per["ssd_scan"] * steps, ssd_scan_bwd=per["ssd_scan"] * steps,
+                adamw=adamw_per_step * steps)
     return want
 
 
@@ -2424,7 +2678,8 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
     ``steps`` through ``train_step`` with every kernel's count zeroed just
     before and read just after (``train_launches``: K2's forward 2 x 32 a
     step and its backward 32, all ``sm90``, for phi4; K3's forward 2 x 48 and
-    its backward 48, all ``sm90``, for mamba2), each step on the
+    its backward 48, all ``sm90``, for mamba2; B3 ``adamw_per_step`` times
+    a step), each step on the
     host clock; the loss finite and falling (the last three steps' mean below
     the first three's); the peak memory; then one more step under the
     profiler. Returns the counted launches."""
@@ -2469,7 +2724,7 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
     counts, routes = counted["launches"], counted["routes"]
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.num_layers
-    want = train_launches(cfg, steps)
+    want = train_launches(cfg, steps, adamw_per_step(cfg))
     prof, state = train_profile(model, opt, state, *batches[-1])
     mean_s = sum(step_s) / len(step_s)
     ok = (counts == want and routes == train_routes(want)
@@ -2499,8 +2754,9 @@ def train_ckpt_phase(smi: str, counters: dict) -> dict:
     resumed run's first loss must equal the uninterrupted run's at that
     step, bit for bit, and the loss must fall. Every kernel's count is zeroed
     before the two runs and read after: K2's forward and its backward once
-    per layer and step, both on the ``simt`` route (f32). Returns the
-    counted launches."""
+    per layer and step, both on the ``simt`` route (f32), and B3
+    ``adamw_per_step`` times a step (f32 parameters). Returns the counted
+    launches."""
     import importlib.util
 
     import torch
@@ -2532,7 +2788,8 @@ def train_ckpt_phase(smi: str, counters: dict) -> dict:
     path.unlink()
     steps = CKPT_STEPS + CKPT_STEPS - CKPT_AT
     want = {k: 0 for k in counters}
-    want.update(flash_attention=cfg.num_layers * steps, flash_attention_bwd=cfg.num_layers * steps)
+    want.update(flash_attention=cfg.num_layers * steps, flash_attention_bwd=cfg.num_layers * steps,
+                adamw=adamw_per_step(cfg) * steps)
     tail = whole.losses[CKPT_AT:]
     exact = resumed.losses[0] == whole.losses[CKPT_AT]
     falling = sum(whole.losses[-5:]) < sum(whole.losses[:5])
@@ -2695,7 +2952,7 @@ def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, direct))
     n = STEPS_TRAIN - 1
-    want = train_launches(cfg, n)
+    want = train_launches(cfg, n, adamw_per_step(cfg))
     mean_s = sum(step_s[1:]) / n
     terms = dry_terms(arch, cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
     routes = counted["routes"]
@@ -2744,7 +3001,8 @@ def steps_phase(smi: str, counters: dict) -> dict:
     from repro_torch.models import init_params
     dev = torch.device("cuda")
     mesh = make_host_mesh()
-    by_path = {"flash_attention": {}, "flash_attention_bwd": {}, "ssd_scan": {}, "ssd_scan_bwd": {}}
+    by_path = {"flash_attention": {}, "flash_attention_bwd": {}, "ssd_scan": {}, "ssd_scan_bwd": {},
+               "adamw": {}}
     tol = TOL["bfloat16"]
 
     # train: the direct path's losses, then the mesh step's from the same start
@@ -2752,7 +3010,8 @@ def steps_phase(smi: str, counters: dict) -> dict:
                        (SSM_TRAIN_ARCH, ("embed", "blocks.0.ssm.in_proj",
                                          "blocks.-1.ssm.out_proj"))):
         counted = steps_train(arch, held, mesh, smi, counters)
-        for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd"):
+        for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+                       "adamw"):
             if counted[kernel]:
                 by_path[kernel][f"steps {arch} train"] = counted[kernel]
 
@@ -3080,6 +3339,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.adamw import adamw_update
     from repro_torch.kernels.flash_attention import (ROUTES, _route, flash_attention,
                                                      flash_attention_bwd, flash_attention_plain)
     from repro_torch.kernels.batchsim_advance import batchsim_advance
@@ -3102,7 +3362,7 @@ def main() -> int:
     logs = build.build(["flash_attention", "flash_attention_sm90", "flash_attention_bwd",
                         "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "ssd_scan_bwd",
                         "ssd_scan_bwd_sm90",
-                        "int8_quant", "int8_quant_sm90", "batchsim_advance"])
+                        "int8_quant", "int8_quant_sm90", "batchsim_advance", "adamw"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -3115,14 +3375,16 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "built": sorted(logs),
           "registers": regs, "spill_bytes_per_kernel": spills,
           "ptxas_warnings": {name: w for name, w in warnings.items() if w},
-          "batchsim_advance_ptxas": b1_ptxas})
+          "batchsim_advance_ptxas": b1_ptxas,
+          "adamw_ptxas": ptxas_by_function(logs.get("adamw", ""))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     timings = {}
     counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
                 "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance,
-                "flash_attention_bwd": flash_attention_bwd, "ssd_scan_bwd": ssd_scan_bwd}
+                "flash_attention_bwd": flash_attention_bwd, "ssd_scan_bwd": ssd_scan_bwd,
+                "adamw": adamw_update}
 
     # 3. kernel against plain --------------------------------------------------
     t0 = time.perf_counter()
@@ -3207,6 +3469,9 @@ def main() -> int:
     gen_ssd_bwd = torch.Generator(device=dev)
     gen_ssd_bwd.manual_seed(1)
     timings["ssd_scan_bwd"] = check_ssd_bwd(gen_ssd_bwd, smi)
+    gen_adamw = torch.Generator(device=dev)
+    gen_adamw.manual_seed(2)
+    timings["adamw"] = check_adamw(gen_adamw, smi)
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     # 4. each served model: kernel-vs-plain check, serve, profile --------------
@@ -3223,6 +3488,7 @@ def main() -> int:
     t0 = time.perf_counter()
     for arch, cut, kind in TRAIN_CHECKS:
         train_check(counters, arch, cut, kind)
+    adamw_route_check(smi, counters)
     trained = train_phase(smi, counters)
     trained_ssm = train_phase(smi, counters, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS)
     ckpt = train_ckpt_phase(smi, counters)
@@ -3233,6 +3499,9 @@ def main() -> int:
                                       "demo-100m train": ckpt["flash_attention_bwd"]}
     by_path["ssd_scan"][f"{SSM_TRAIN_ARCH} train"] = trained_ssm["ssd_scan"]
     by_path["ssd_scan_bwd"] = {f"{SSM_TRAIN_ARCH} train": trained_ssm["ssd_scan_bwd"]}
+    by_path["adamw"] = {f"{TRAIN_ARCH} train": trained["adamw"],
+                        f"{SSM_TRAIN_ARCH} train": trained_ssm["adamw"],
+                        "demo-100m train": ckpt["adamw"]}
 
     # 4c. the mesh steps on the card's 1×1 mesh, the dry run, the lane figures
     t0 = time.perf_counter()
@@ -3326,7 +3595,10 @@ def main() -> int:
          "launches": launches["ssd_scan_bwd"],
          # every path's routes were held to all-sm90 (train_routes, steps_train)
          "launches_by_route": {"sm90": launches["ssd_scan_bwd"], "simt": 0},
-         "launches_by_path": by_path["ssd_scan_bwd"], **timings["ssd_scan_bwd"]}]})
+         "launches_by_path": by_path["ssd_scan_bwd"], **timings["ssd_scan_bwd"]},
+        {"name": "adamw", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+         "replaces": "src/repro/train/optimizer.py:72", "launches": launches["adamw"],
+         "launches_by_path": by_path["adamw"], **timings["adamw"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

@@ -3,10 +3,13 @@
 Every Pallas TPU kernel of the JAX package has its counterpart here: the
 flash-attention kernel (``repro.kernels.flash_attention``), the Mamba2 SSD
 chunk scan (``repro.kernels.ssd_scan``) and the int8 row quantizer
-(``repro.kernels.int8_quant``). One more stands for the JAX package's
-XLA-compiled scheduler loop: :mod:`.batchsim_advance`, the compiled batch
-tier's event loop (``repro.core.batchsim_compiled``).
+(``repro.kernels.int8_quant``). Two more stand for code the JAX package
+leaves to XLA: :mod:`.batchsim_advance`, the compiled batch tier's event
+loop (``repro.core.batchsim_compiled``), and :mod:`.adamw`, AdamW's update
+fused into one pass as XLA fuses it in the reference's jitted train step
+(``repro.train.optimizer``).
 """
+from .adamw import adamw_update, adamw_update_plain
 from .flash_attention import flash_attention, flash_attention_plain
 from .int8_quant import quantize_int8, quantize_int8_plain
 from .ops import dequantize_rows, flash_attention_bshd, quantize_rows, ssd_bshp

@@ -16,9 +16,12 @@ corrects otherwise.
 
 Unlike the reference's pure functions, ``update`` writes the new values
 into the parameters and the state in place (under ``torch.no_grad()``) and
-returns them, so a step holds no second copy of either; AdamW works through
-a large tensor in slices of ``CHUNK`` elements, which bounds its f32
-temporaries and changes no value (the update is elementwise). The state
+returns them, so a step holds no second copy of either. AdamW's update is
+:func:`~repro_torch.kernels.adamw.adamw_update`: on the card one
+hand-written kernel (``kernels/csrc/adamw.cu``) over all the tensors, a few
+launches a step, as XLA fuses the reference's ``upd`` under ``jax.jit``;
+on the CPU its plain version, which works through a large tensor in slices.
+Both give the same bits. The state
 lives on the parameters' device, in the reference's leaf order:
 ``OptState(step, inner)`` flattens as ``step``, then ``inner``'s sorted
 keys, as the reference's does.
@@ -30,12 +33,10 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..kernels.adamw import adamw_update
 from ..models.convert import Leaf
 
 Grads = Sequence[Sequence[torch.Tensor]]
-
-#: elements per slice of AdamW's update: 64 Mi f32 temporaries are 256 MiB
-CHUNK = 1 << 26
 
 
 @dataclass(frozen=True)
@@ -78,11 +79,6 @@ def _local(t: torch.Tensor, like: Optional[torch.Tensor] = None) -> torch.Tensor
     return t.to_local()
 
 
-def _slices(n: int):
-    for i in range(0, n, CHUNK):
-        yield slice(i, min(i + CHUNK, n))
-
-
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -94,18 +90,6 @@ def adamw(cfg: AdamWConfig = AdamWConfig()):
                          leaf.stacked) for leaf in params]
         return OptState(step=_step_tensor(params), inner={"m": zeros(), "v": zeros()})
 
-    def upd(p, g, m, v, bc1, bc2):
-        """One slice of a tensor, in place: the reference's ``upd``."""
-        g32 = g.float()
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
-        del g32
-        mh = m / bc1
-        den = (v / bc2).sqrt_().add_(cfg.eps)
-        delta = mh.div_(den).add_(cfg.weight_decay * p.float())
-        del den
-        p.copy_(p.float() - cfg.lr * delta)
-
     @torch.no_grad()
     def update(grads: Grads, state: OptState, params: List[Leaf]
                ) -> Tuple[List[Leaf], OptState]:
@@ -113,13 +97,15 @@ def adamw(cfg: AdamWConfig = AdamWConfig()):
         t = step.float()
         bc1 = 1.0 - cfg.b1 ** t
         bc2 = 1.0 - cfg.b2 ** t
-        bc1, bc2 = _local(bc1), _local(bc2)
-        for leaf, gs, m_leaf, v_leaf in zip(params, grads, state.inner["m"], state.inner["v"]):
-            for p, g, m, v in zip(leaf.tensors, gs, m_leaf.tensors, v_leaf.tensors):
-                p, g, m, v = _local(p), _local(g, like=p), _local(m), _local(v)
-                pf, gf, mf, vf = p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)
-                for sl in _slices(pf.numel()):
-                    upd(pf[sl], gf[sl], mf[sl], vf[sl], bc1, bc2)
+        ps, gs, ms, vs = [], [], [], []
+        for leaf, g_leaf, m_leaf, v_leaf in zip(params, grads, state.inner["m"],
+                                                state.inner["v"]):
+            for p, g, m, v in zip(leaf.tensors, g_leaf, m_leaf.tensors, v_leaf.tensors):
+                ps.append(_local(p))
+                gs.append(_local(g, like=p))
+                ms.append(_local(m))
+                vs.append(_local(v))
+        adamw_update(ps, gs, ms, vs, _local(bc1), _local(bc2), cfg)
         return params, OptState(step=step, inner=state.inner)
 
     return init, update
