@@ -45,7 +45,18 @@ Run from the root of a checkout. Phases, one JSON line each:
    off 16-byte alignment, g from 1e-30 to 1e4 with zeros; then timed on
    phi4-mini-3.8b's parameter list in turns with the plain update and
    ``torch._fused_adamw_`` (m and v in bf16: a yardstick, never on the
-   path), beside the bound by bytes and the TB/s reached;
+   path), beside the bound by bytes and the TB/s reached; the MoE layer's
+   dispatch and combine (B2, ``moe_fill`` and ``moe_combine``) against
+   ``moe_fill_plain`` and ``moe_combine_plain``, bits equal, one launch
+   each on the route the width gives (``B2_CASES``: the prefill shapes of
+   olmoe-1b-7b, kimi-k2 and jamba-1.5-large at 4 x 1024 tokens, olmoe's
+   decode at 4 tokens and capacity 1, f32 rows over the f32 witness's
+   buffer, capacity factor 0.5, an expert without tokens, and a width of
+   2050 on the ``scalar`` route), the fill also against
+   ``torch.index_select`` over the rows with a zero row appended; the
+   first four timed in turns with the plain versions and
+   ``index_select`` (the combine has no library call), beside the bound
+   by bytes, with each kernel's own device time;
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -60,13 +71,22 @@ Run from the root of a checkout. Phases, one JSON line each:
      greedy tokens through ``repro_torch.launch.serve.generate``, with the
      reference's stub modality input; every kernel's launch count is
      zeroed just before and read just after: K2 and K3 launch as the config
-     gives (``expected_launches``), all on the ``sm90`` route; an MoE
-     model's prefill, run twice more, equals the served one bit for bit;
+     gives (``expected_launches``), all on the ``sm90`` route, and B2's
+     fill and combine once each in every MoE layer of the prefill and of
+     every decode step, all on the ``vector`` route; an MoE model's
+     prefill, run twice more and once with B2's plain versions, equals the
+     served one bit for bit;
    - profile (qwen3-14b, mamba2-1.3b, olmoe-1b-7b): a ``torch.profiler``
      pass over one prefill and 8 decode steps gives the device's busy
      share; olmoe's device time split into K2, the expert and router
-     products, the MoE dispatch, the other products and the rest
-     (``moe_profile``);
+     products, the MoE dispatch, the other products and the rest, the
+     dispatch further into the router's softmax and top-k, the plan, B2's
+     fill and combine kernels and the ops around them, and SiLU·up
+     (``moe_profile``), its prefill in turns with B2's plain versions;
+   - moe_routes: olmoe-1b-7b at full width cut to two layers, 4 x 1024
+     prompt tokens and 8 greedy tokens with B2's kernels, with their plain
+     versions in their place and with the kernels again: logits and ids
+     equal bit for bit;
    then training (``train_check``, ``adamw_route_check``, ``train_phase``,
    ``train_ckpt_phase``):
    - train_check: phi4-mini-3.8b at full width cut to one layer; the loss
@@ -118,10 +138,11 @@ Run from the root of a checkout. Phases, one JSON line each:
      ``moe_device_body`` for each rank of a 2x2 layout in turn, the
      collectives' results formed in the process, against ``moe_ffn`` on the
      whole batch (the kept assignments and slots equal, the output within
-     the bf16 ``TOL`` of the largest); then the context-parallel decode
+     the bf16 ``TOL`` of the largest), B2's fill and combine once each in
+     every rank's body and in ``moe_ffn``; then the context-parallel decode
      softmax (``decode_device_body``) at phi4-mini-3.8b's decode, batch 4,
      a 1024-slot cache in 16 pieces, against ``decode_attention`` on the
-     whole cache in bf16 and f32; no kernel launches;
+     whole cache in bf16 and f32; no other kernel launches;
    - lanes: the per-card figures of ``gpu_lanes``: a bf16 cuBLAS product's
      rate at 256³–8192³, a device copy's bandwidth, an empty launch's and a
      CUDA graph replay's host time, beside the values in the code;
@@ -202,7 +223,8 @@ models, the two training runs, the mesh steps and ``paper``,
 entry too; K2's backward with its launches in the two training runs, both sources and
 its launches by route; K3's backward with its launches in mamba2's training
 run and mesh step; B3's with its launches in the three training runs and
-the two mesh train steps), the
+the two mesh train steps; B2's fill and combine with their launches in
+the MoE serve runs and the ``moe_mesh`` phase), the
 ``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -1610,20 +1632,23 @@ def cut_config(cfg, cut):
     return dataclasses.replace(cfg, **cut)
 
 
-def expected_launches(cfg) -> dict:
-    """Kernel launches of one prefill, from the config: K2 once in every
-    self-attention, cross-attention and encoder layer, K3 once in every
-    Mamba2 layer; decode launches neither."""
-    from repro_torch.models.config import ATTN, ATTN_MOE, CROSS
+def expected_launches(cfg, decode_steps: int = 0) -> dict:
+    """Kernel launches of one prefill and ``decode_steps`` decode steps, from
+    the config: K2 once in every self-attention, cross-attention and
+    encoder layer, K3 once in every Mamba2 layer, both in the prefill only;
+    B2's fill and combine once each in every MoE layer (``attn_moe``,
+    ``ssm_moe``) of the prefill and of every decode step."""
+    from repro_torch.models.config import ATTN, ATTN_MOE, CROSS, SSM_MOE
     from repro_torch.models.transformer import layer_kinds
     kinds = layer_kinds(cfg)
     self_attn = sum(k in (ATTN, ATTN_MOE) for k in kinds)
     k2 = self_attn + sum(k == CROSS for k in kinds)
     if cfg.is_encoder_decoder:
         k2 += self_attn + cfg.encoder_layers         # cross-attention, then the encoder
+    b2 = sum(k in (ATTN_MOE, SSM_MOE) for k in kinds) * (1 + decode_steps)
     return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
             "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
-            "adamw": 0}
+            "adamw": 0, "moe_fill": b2, "moe_combine": b2}
 
 
 def random_cross_src(cfg, batch: int, gen):
@@ -1647,21 +1672,54 @@ def open_gates(model) -> None:
 
 
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
-MOE_RANGES = ("moe_ffn", "moe_experts")
+MOE_RANGES = ("moe_ffn", "moe_experts", "moe_router", "moe_plan", "moe_fill", "moe_combine")
+B2 = ("moe_fill", "moe_combine")
+B2_KERNELS = {"moe_fill": ("moe_fill_kernel",), "moe_combine": ("moe_combine_kernel",)}
 
 
-def moe_profile(fn) -> dict:
+@contextlib.contextmanager
+def b2_plain():
+    """B2's plain versions in place of its kernels (``ops.moe_fill``,
+    ``ops.moe_combine``, which the MoE layer's entry points call)."""
+    from repro_torch.kernels.moe_dispatch import moe_combine_plain, moe_fill_plain
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    with mock.patch.object(ops, "moe_fill", moe_fill_plain), \
+            mock.patch.object(ops, "moe_combine", moe_combine_plain):
+        yield
+
+
+def moe_profile(fn, tries: int = 3) -> dict:
     """Device ms of one call of ``fn`` split by what runs: K2, the expert
     products (the GEMMs under ``expert_swiglu``), the router product (the
-    other GEMM under ``moe_ffn``), the dispatch (the rest of ``moe_ffn``:
-    top-k, sort, gathers, scatter, SiLU·up, the combine), the other GEMMs
-    (projections, LM head) and the rest (norms, RoPE, decode attention,
-    residuals, copies). ``moe_ffn`` and ``expert_swiglu`` run inside
-    ``record_function`` ranges for this call only."""
+    other GEMM under ``moe_ffn``), the dispatch (the rest of the MoE layer),
+    the other GEMMs (projections, LM head) and the rest (norms, RoPE,
+    decode attention, residuals, copies). The dispatch is split further
+    (``dispatch_split_ms``): the router's softmax and top-k
+    (``router_topk`` less its product), the plan (``dispatch_plan`` and
+    ``slot_sources``), B2's fill kernel and the ops around it, B2's combine
+    kernel and the ops around it (the plan's inverse permutation; with the
+    plain versions swapped in, those ops are the whole plain fill and
+    combine), SiLU·up (the rest of
+    ``expert_swiglu``) and what is left. Each step runs inside a
+    ``record_function`` range for this call only; an op's device time is
+    the kernels it launched itself (``self_device_time_total`` of the aten
+    ops in the range), and B2's kernels, which no op launches, are counted
+    by name. The profiler can drop a launch's record: a profile counts only
+    where it recorded every B2 launch its wrappers' counters made during the
+    call, one of each kernel an MoE layer on the kernels and none on the
+    plain versions; after ``tries`` incomplete profiles it raises. A port
+    from before B2 (``examples/moe_profile_turns_torch.py``) has no B2
+    wrappers and no ``slot_sources``: its fill runs under ``rest``, its
+    ``_combine`` under ``combine_ops``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     moe = importlib.import_module("repro_torch.models.moe")
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    try:
+        b2_wrappers = importlib.import_module("repro_torch.kernels.moe_dispatch")
+    except ModuleNotFoundError:                   # a port from before B2
+        b2_wrappers = None
     transformer = importlib.import_module("repro_torch.models.transformer")
 
     def ranged(name, f):
@@ -1669,19 +1727,44 @@ def moe_profile(fn) -> dict:
             with record_function(name):
                 return f(*args, **kw)
         return call
-    torch.cuda.synchronize()
-    with mock.patch.object(transformer, "moe_ffn", ranged("moe_ffn", moe.moe_ffn)), \
-            mock.patch.object(moe, "expert_swiglu", ranged("moe_experts", moe.expert_swiglu)), \
-            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    patches = [(module, attr, name) for module, attr, name in (
+        (transformer, "moe_ffn", "moe_ffn"), (moe, "expert_swiglu", "moe_experts"),
+        (moe, "router_topk", "moe_router"), (moe, "dispatch_plan", "moe_plan"),
+        (moe, "slot_sources", "moe_plan"), (ops, "fill_expert_slots", "moe_fill"),
+        (ops, "combine_expert_rows", "moe_combine"), (moe, "_combine", "moe_combine"))
+        if hasattr(module, attr)]
+    on_kernels = b2_wrappers is not None and ops.moe_fill is b2_wrappers.moe_fill
+    for _ in range(tries):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key not in MOE_RANGES]
+        launched = {op: getattr(b2_wrappers, op).launches if b2_wrappers else 0 for op in B2}
+        with contextlib.ExitStack() as stack:
+            for module, attr, name in patches:
+                stack.enter_context(mock.patch.object(module, attr,
+                                                      ranged(name, getattr(module, attr))))
+            prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
+                                                           ProfilerActivity.CUDA]))
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        launched = {op: (getattr(b2_wrappers, op).launches if b2_wrappers else 0) - n
+                    for op, n in launched.items()}
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key not in MOE_RANGES]
+        recorded = {op: sum(e.count for e in kernels if any(named(n, e.key) for n in names))
+                    for op, names in B2_KERNELS.items()}
+        events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        calls = sum(e.name == "moe_ffn" for e in events)
+        if recorded == launched == dict.fromkeys(B2, calls if on_kernels else 0):
+            break
+    else:
+        raise AssertionError(f"moe_profile: the profiler recorded {recorded} of B2's "
+                             f"{launched} launches in {calls} MoE layers, {tries} times")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     k2 = sum(e.self_device_time_total for e in kernels if "flash_fwd" in e.key) / 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    b2 = {op: sum(e.self_device_time_total for e in kernels
+                  if any(named(n, e.key) for n in names)) / 1e3
+          for op, names in B2_KERNELS.items()}
 
     def inside(e, name):
         p = e.cpu_parent
@@ -1690,17 +1773,29 @@ def moe_profile(fn) -> dict:
                 return True
             p = p.cpu_parent
         return False
+
+    def ops_ms(name):
+        return sum(e.self_device_time_total for e in events
+                   if e.name.startswith("aten::") and inside(e, name)) / 1e3
     gemms = [e for e in events if e.name in GEMM_OPS]
     experts = sum(e.device_time_total for e in gemms if inside(e, "moe_experts")) / 1e3
     router = sum(e.device_time_total for e in gemms
                  if inside(e, "moe_ffn") and not inside(e, "moe_experts")) / 1e3
     other_gemm = sum(e.device_time_total for e in gemms if not inside(e, "moe_ffn")) / 1e3
-    moe_ms = sum(e.device_time_total for e in events if e.name == "moe_ffn") / 1e3
+    moe_ms = ops_ms("moe_ffn") + sum(b2.values())
+    dispatch = moe_ms - experts - router
+    parts = {"router_softmax_topk": ops_ms("moe_router") - router, "plan": ops_ms("moe_plan"),
+             "fill_kernel": b2["moe_fill"], "fill_ops": ops_ms("moe_fill"),
+             "combine_kernel": b2["moe_combine"], "combine_ops": ops_ms("moe_combine"),
+             "silu_up": ops_ms("moe_experts") - experts}
+    parts["rest"] = dispatch - sum(parts.values())
     split = {"flash_attention": k2, "expert_products": experts, "router_product": router,
-             "dispatch": moe_ms - experts - router, "other_gemm": other_gemm,
+             "dispatch": dispatch, "other_gemm": other_gemm,
              "elementwise_and_other": busy - k2 - moe_ms - other_gemm}
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "moe_ffn_ms": moe_ms,
-            "moe_calls": sum(e.name == "moe_ffn" for e in events), "split_ms": split,
+            "moe_calls": calls, "b2_launches": launched,
+            "split_ms": split,
+            "dispatch_split_ms": parts,
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]]}
 
@@ -1767,26 +1862,30 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     - check: the model cut to ``check_cut`` (full width), every
       ``attn_gate`` at 2.0 (zero at init, which would hide the cross
       path), a random modality input; a prefill through the kernels
-      against the same prefill with ``ops.flash_attention`` and
-      ``ops.ssd_scan`` swapped for their plain versions, with the same
-      expert choices (``routing``), within 2e-2 of the largest logit;
-      for a model in ``WITNESSED`` that distance is reported and the check
-      is ``witness_verdict`` against the same weights' f32 prefill, plain and
-      through the kernels; launches as the config gives;
+      against the same prefill with ``ops.flash_attention``,
+      ``ops.ssd_scan`` and B2 (``b2_plain``) swapped for their plain
+      versions, with the same expert choices (``routing``), within 2e-2 of
+      the largest logit; for a model in ``WITNESSED`` that distance is
+      reported and the check is ``witness_verdict`` against the same
+      weights' f32 prefill, plain and through the kernels; launches as the
+      config gives;
     - serve: the model cut to ``serve_cut``, random weights from seed 0,
       the reference's stub modality input; ``generate`` of 4 requests of
       1024 prompt tokens + 32 greedy tokens, every kernel's count zeroed
       just before and read just after: K2's and K3's launches as the
-      config gives, all on the ``sm90`` route; then an MoE model's
-      prefill twice more, bit for bit equal to the served one;
+      config gives, all on the ``sm90`` route, B2's once a MoE layer in the
+      prefill and in each decode step, all on the ``vector`` route; then an
+      MoE model's prefill twice more, and once with B2's plain versions,
+      each bit for bit equal to the served one;
     - profile (``PROFILED`` only): device time of one prefill and of 8
-      decode steps, split by kernel for an MoE model (``moe_profile``).
+      decode steps, split by kernel for an MoE model (``moe_profile``),
+      whose prefill is profiled in turns with B2's plain versions in
+      place of its kernels (kernels, plain, plain, kernels).
     """
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_plain
-    from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
     from repro_torch.launch.serve import generate, stub_cross_src
     from repro_torch.models import forward_decode, forward_prefill, init_params
     ops = importlib.import_module("repro_torch.kernels.ops")
@@ -1794,10 +1893,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     full = get_config(arch)
 
     def zero():
-        for c in counters.values():
-            c.launches = 0
-        flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
-        ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
+        zero_counts(counters)
 
     def free():
         gc.collect()
@@ -1818,6 +1914,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
                 stack.enter_context(mock.patch.object(ops, "flash_attention",
                                                       flash_attention_plain))
                 stack.enter_context(mock.patch.object(ops, "ssd_scan", ssd_scan_plain))
+                stack.enter_context(b2_plain())
             stack.enter_context(routing("replay", list(chosen)))
             return forward_prefill(m, tokens, SERVE_PROMPT + 1, x)[0].float()
 
@@ -1878,21 +1975,27 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     torch.cuda.reset_peak_memory_stats()
     zero()
     res = generate(model, tokens, SERVE_NEW, cross)
-    counts = {k: c.launches for k, c in counters.items()}
-    routes = {"flash_attention": dict(flash_attention.launches_by_route),
-              "ssd_scan": dict(ssd_scan.launches_by_route)}
+    counted = read_counts(counters)
+    counts = counted["launches"]
+    routes = {k: counted["routes"][k] for k in ("flash_attention", "ssd_scan") + B2}
     peak = torch.cuda.max_memory_allocated()
-    want = expected_launches(cfg)
-    want_routes = {k: {"sm90": want[k], "simt": 0} for k in routes}
-    same_bits = None
+    want = expected_launches(cfg, SERVE_NEW)
+    want_routes = {k: {"sm90": want[k], "simt": 0} for k in ("flash_attention", "ssd_scan")}
+    want_routes.update({k: {"vector": want[k], "scalar": 0} for k in B2})
+    same_bits = b2_plain_bits = None
     if cfg.uses_moe:               # the MoE combine is deterministic: equal bits
         with torch.inference_mode():
             again = [forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)[0]
                      for _ in range(2)]
+            with b2_plain():
+                plain_b2 = forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)[0]
         same_bits = all(torch.equal(res.prefill_logits.view(torch.int16), a.view(torch.int16))
                         for a in again)
-        del again
+        b2_plain_bits = torch.equal(res.prefill_logits.view(torch.int16),
+                                    plain_b2.view(torch.int16))
+        del again, plain_b2
     ok = (counts == want and routes == want_routes and same_bits in (None, True)
+          and b2_plain_bits in (None, True)
           and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
           and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
           and bool(torch.isfinite(res.prefill_logits).all())
@@ -1906,12 +2009,13 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
           "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
           "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
           "peak_mem_gb": peak / 1e9, "launches": counts, "routes": routes,
-          "prefills_bit_equal": same_bits,
+          "prefills_bit_equal": same_bits, "prefill_b2_plain_bit_equal": b2_plain_bits,
           "sample_ids": res.ids[0, :8].tolist(), "device": torch.cuda.get_device_name(0),
           "smi": smi, "ok": ok})
     if not ok:
         raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}; "
-                             f"routes {routes}, want {want_routes}; equal bits {same_bits}")
+                             f"routes {routes}, want {want_routes}; equal bits {same_bits}, "
+                             f"under B2's plain versions {b2_plain_bits}")
 
     if arch in PROFILED:
         # where the time goes: device kernel time per phase, and the prefill
@@ -1927,6 +2031,15 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
             _, caches, clen = forward_prefill(model, tokens, SERVE_PROMPT + 9, cross)
             prof = moe_profile if cfg.uses_moe else device_profile
             prefill_prof = prof(lambda: forward_prefill(model, tokens, SERVE_PROMPT + 1, cross))
+            b2_turns = None
+            if cfg.uses_moe:
+                # the dispatch split with B2's kernels and with their plain
+                # versions in their place, in turns (kernels, plain, plain, kernels)
+                b2_turns = {"kernels": [prefill_prof], "plain": []}
+                for who in ("plain", "plain", "kernels"):
+                    with b2_plain() if who == "plain" else contextlib.nullcontext():
+                        b2_turns[who].append(prof(
+                            lambda: forward_prefill(model, tokens, SERVE_PROMPT + 1, cross)))
 
             def decode_steps():
                 c, n = caches, clen
@@ -1935,6 +2048,10 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
             decode_prof = prof(decode_steps)
         emit({"phase": "profile", "arch": cfg.name, "prefill": prefill_prof,
               "decode_8_steps": decode_prof,
+              "prefill_b2_turns": None if b2_turns is None else {
+                  who: [{"device_busy_ms": p["device_busy_ms"], "split_ms": p["split_ms"],
+                         "dispatch_split_ms": p["dispatch_split_ms"]} for p in ps]
+                  for who, ps in b2_turns.items()},
               "unprofiled_prefill_ms": res.prefill_s * 1e3,
               "prefill_s_again": prefill_s,
               "unprofiled_decode_step_ms": res.decode_s / SERVE_NEW * 1e3,
@@ -1945,7 +2062,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
         del caches
     del model, res, cross
     free()
-    return {k: counts[k] for k in ("flash_attention", "ssd_scan")}
+    return {k: counts[k] for k in ("flash_attention", "ssd_scan") + B2}
 
 
 def attention_bwd_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
@@ -2217,7 +2334,8 @@ def time_ssd_bwd(case, inputs, smi: str, path: str) -> dict:
     fwd_ms = cuda_ms(lambda: ssd_scan(*args, **kw), iters=20)
     ms, simt_ms, plain_ms = min(turns["kernel"]), min(turns["simt"]), min(turns["plain"])
     bound_ms, bound_by, flops, nbytes = ssd_bwd_bound_ms(*case)
-    passes = kernel_split(lambda: ssd_scan_bwd(*args, dy, dfinal, **kw), SSD_BWD_KERNELS)
+    passes = kernel_split(lambda: ssd_scan_bwd(*args, dy, dfinal, **kw),
+                          {n: 1 for n in SSD_BWD_KERNELS if ("sm90" in n) == (route == "sm90")})
     emit({"phase": "kernel_time", "kernel": "ssd_scan_bwd", "route": route, "path": path,
           "dtype": case[0], "shape": case[1], "ms": ms, "simt_ms": simt_ms,
           "plain_ms": plain_ms, "library_ms": None, "turns_ms": turns, "bound_ms": bound_ms,
@@ -2362,7 +2480,8 @@ def check_adamw(gen, smi: str) -> dict:
     before = adamw_update.launches
     adamw_update(ps, gs, ms, vs, bc1, bc2, cfg)
     launches_per_call = adamw_update.launches - before
-    passes = kernel_split(lambda: adamw_update(ps, gs, ms, vs, bc1, bc2, cfg), ("adamw_kernel",))
+    passes = kernel_split(lambda: adamw_update(ps, gs, ms, vs, bc1, bc2, cfg),
+                          {"adamw_kernel": launches_per_call})
     peak = torch.cuda.max_memory_allocated()
     nbytes = adamw_bytes(ps)
     lib_bytes = sum(p.numel() * 7 * p.element_size() for p in ps)    # p, g, m, v read; p, m, v written
@@ -2457,22 +2576,314 @@ def adamw_route_check(smi: str, counters: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def kernel_split(fn, names, calls: int = 3) -> dict:
-    """Device ms per call of ``fn`` by kernel (``torch.profiler``), for the
-    kernels in ``names`` that ran."""
+# B2, the MoE layer's dispatch and combine: the fill and the combine against
+# their plain versions, bit for bit, at the prefill shapes of the three MoE
+# families (4 x 1024 tokens), olmoe's decode (4 tokens, capacity 1), the f32
+# witness's buffer, heavy drops, an expert without tokens and a width that
+# is no whole number of 16-byte vectors; the first four timed. Each case:
+# (label, arch or (k, experts, d), tokens, capacity factor (None: the
+# config's), dtype, expert 0 left without tokens, timed)
+B2_CASES = (
+    ("olmoe-1b-7b prefill", "olmoe-1b-7b", SERVE_BATCH * SERVE_PROMPT, None, "bfloat16", False,
+     True),
+    ("kimi-k2-1t-a32b prefill", "kimi-k2-1t-a32b", SERVE_BATCH * SERVE_PROMPT, None, "bfloat16",
+     False, True),
+    ("jamba-1.5-large-398b prefill", "jamba-1.5-large-398b", SERVE_BATCH * SERVE_PROMPT, None,
+     "bfloat16", False, True),
+    ("olmoe-1b-7b decode", "olmoe-1b-7b", SERVE_BATCH, None, "bfloat16", False, True),
+    ("olmoe-1b-7b prefill, f32 witness", "olmoe-1b-7b", SERVE_BATCH * SERVE_PROMPT, None,
+     "float32", False, False),
+    ("olmoe-1b-7b prefill, capacity factor 0.5", "olmoe-1b-7b", SERVE_BATCH * SERVE_PROMPT, 0.5,
+     "bfloat16", False, False),
+    ("olmoe-1b-7b prefill, expert 0 without tokens", "olmoe-1b-7b", SERVE_BATCH * SERVE_PROMPT,
+     None, "bfloat16", True, False),
+    ("d 2050 (scalar route)", (8, 64, 2050), 1024, 1.25, "bfloat16", False, False),
+)
+B2_ROUTE_LAYERS, B2_ROUTE_DECODE = 2, 8        # moe_routes: olmoe cut to 2 layers, 8 decode steps
+B2_PLAN_BYTES = 8 + 8 + 8 + 4 + 1              # an assignment: inverse, expert, slot, gate, keep
+
+
+def b2_inputs(case, gen):
+    """A case's plan and inputs on the card: random router scores, top-k,
+    gates normalised as ``router_topk`` does; rows (T, D) and the experts'
+    output y (E, C, D) ~ N(0, 1) in the case's dtype."""
+    import torch
+    from repro_torch.configs import get_config
+    moe = importlib.import_module("repro_torch.models.moe")
+    label, arch, t, cf, dtype, empty, _ = case
+    if isinstance(arch, str):
+        cfg = get_config(arch)
+        k, e, d = cfg.experts_per_token, cfg.num_experts, cfg.d_model
+        cf = cfg.capacity_factor if cf is None else cf
+    else:
+        k, e, d = arch
+    dev = torch.device("cuda")
+    scores = torch.rand((t, e), generator=gen, device=dev)
+    if empty:
+        scores[:, 0] = -1.0
+    gates, idx = torch.topk(scores, k, dim=-1)
+    gates = gates / gates.sum(dim=-1, keepdim=True)
+    cap = moe.capacity(t, k, e, cf)
+    plan = moe.dispatch_plan(idx, e, cap)
+    tdt = getattr(torch, dtype)
+    rows = torch.randn((t, d), generator=gen, device=dev).to(tdt)
+    y = torch.randn((e, cap, d), generator=gen, device=dev).to(tdt)
+    return dict(t=t, k=k, e=e, d=d, cap=cap, plan=plan, gate=gates.reshape(-1)[plan.order],
+                src=moe.slot_sources(plan, e, cap, t), rows=rows, y=y)
+
+
+def b2_bounds(inp) -> dict:
+    """Least time for each function's work on these inputs, by bytes (their
+    operations, a multiply and an add an element, are ~1e-3 of it): the
+    fill writes the buffer and reads each referenced row and the slot
+    table once; the combine reads each kept assignment's row of y, the
+    plan's sorted entries, and writes the output."""
+    import torch
+    src, rows, y = inp["src"], inp["rows"], inp["y"]
+    elt, d = rows.element_size(), inp["d"]
+    used = int(torch.unique(src[src != inp["t"]]).numel())
+    fill_bytes = src.numel() * (d * elt + 4) + used * d * elt
+    kept = int(inp["plan"].keep.sum())
+    n = inp["plan"].order.numel()
+    comb_bytes = kept * d * y.element_size() + n * B2_PLAN_BYTES + inp["t"] * d * y.element_size()
+    comb_flops = 2 * n * d
+    peak = PEAK_F32_FLOPS
+    out = {}
+    for name, nbytes, flops in (("fill", fill_bytes, 0), ("combine", comb_bytes, comb_flops)):
+        by_bytes, by_ops = nbytes / PEAK_BYTES, flops / peak
+        out[name] = dict(bytes=nbytes, bound_ms=max(by_bytes, by_ops) * 1e3,
+                         bound_by="bytes" if by_bytes >= by_ops else "operations")
+    out["rows_read"], out["kept"], out["dropped"] = used, kept, n - kept
+    return out
+
+
+def check_moe_dispatch(gen, smi: str) -> dict:
+    """B2's fill and combine against ``moe_fill_plain`` and
+    ``moe_combine_plain`` on the same inputs, bits equal, one launch each on
+    the route ``_route`` gives, at ``B2_CASES``; the fill also against
+    ``torch.index_select`` over the rows with a zero row appended, and the
+    combine within ``TOL`` of ``F.embedding_bag`` (sum, the gates as
+    per-sample weights, a dropped assignment at the padding index of a zero
+    row appended to y): the library calls that compute them, the second
+    adding in its own order, their tables built outside the timed call.
+    Then the timed cases in turns (kernel, plain, library, library, plain,
+    kernel; CUDA events), each beside its bound, with the kernel's own
+    device time (``kernel_split``). Returns the kernels line's entries,
+    olmoe's prefill shape first."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_dispatch import (ROUTES as B2_ROUTES, moe_combine,
+                                                  moe_combine_plain, moe_fill, moe_fill_plain)
+
+    def bits(a):
+        return a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32)
+
+    def route_of(d, a):
+        return "vector" if d * a.element_size() % 16 == 0 else "scalar"
+
+    out = {"moe_fill": {}, "moe_combine": {}}
+    worst = {"moe_fill": 0.0, "moe_combine": 0.0}
+    for case in B2_CASES:
+        label, timed = case[0], case[6]
+        inp = b2_inputs(case, gen)
+        t, k, d, plan = inp["t"], inp["k"], inp["d"], inp["plan"]
+        rows, src, y, gate = inp["rows"], inp["src"], inp["y"], inp["gate"]
+        padded = torch.cat([rows, rows.new_zeros((1, d))])
+        flat_src = src.reshape(-1)
+        e, cap = inp["e"], inp["cap"]
+        ypad = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
+        bag = torch.empty(t * k, dtype=torch.long, device=y.device)
+        bag[plan.order] = torch.where(plan.keep, plan.expert * cap + plan.slot, e * cap)
+        bag_gate = torch.empty(t * k, dtype=y.dtype, device=y.device)
+        bag_gate[plan.order] = gate.to(y.dtype)
+        bag, bag_gate = bag.view(t, k), bag_gate.view(t, k)
+
+        def fill_k():
+            return moe_fill(rows, src, t)
+
+        def fill_p():
+            return moe_fill_plain(rows, src, t)
+
+        def fill_l():
+            return torch.index_select(padded, 0, flat_src)
+
+        def comb_k():
+            return moe_combine(y, plan.expert, plan.slot, gate, plan.keep, plan.order, k)
+
+        def comb_p():
+            return moe_combine_plain(y, plan.expert, plan.slot, gate, plan.keep, plan.order, k)
+
+        def comb_l():
+            return F.embedding_bag(bag, ypad, mode="sum", per_sample_weights=bag_gate,
+                                   padding_idx=e * cap)
+
+        record = {"phase": "kernel_check", "kernel": "moe_dispatch", "case": label,
+                  "dtype": str(rows.dtype).split(".")[1], "tokens": t, "k": k,
+                  "experts": inp["e"], "d": d, "capacity": inp["cap"],
+                  "kept": int(plan.keep.sum()), "dropped": int((~plan.keep).sum()),
+                  "empty_experts": int((src == t).all(dim=1).sum())}
+        ok = True
+        for name, fk, fp, fn in (("moe_fill", fill_k, fill_p, moe_fill),
+                                 ("moe_combine", comb_k, comb_p, moe_combine)):
+            before = (fn.launches, dict(fn.launches_by_route))
+            got = fk()
+            took = {r: fn.launches_by_route[r] - before[1][r] for r in B2_ROUTES}
+            want = fp()
+            torch.cuda.synchronize()
+            equal = got.shape == want.shape and bool(torch.equal(bits(got), bits(want)))
+            err = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+            worst[name] = max(worst[name], err)
+            want_took = {r: int(r == route_of(d, rows)) for r in B2_ROUTES}
+            record[name] = {"bits_equal": equal, "max_abs_err": err, "launches": took,
+                            "want_launches": want_took}
+            ok = ok and equal and took == want_took and fn.launches - before[0] == 1
+            del got, want
+        lib_equal = bool(torch.equal(bits(fill_l()).view(bits(fill_p()).shape), bits(fill_p())))
+        record["moe_fill"]["library_bits_equal"] = lib_equal
+        lib_c, want_c = comb_l().float(), comb_p().float()
+        lib_close = bool(torch.allclose(lib_c, want_c, **TOL[record["dtype"]]))
+        record["moe_combine"]["library_max_abs_err"] = (
+            float((lib_c - want_c).abs().max()) if want_c.numel() else 0.0)
+        record["moe_combine"]["library_close"] = lib_close
+        del lib_c, want_c
+        record["ok"] = ok and lib_equal and lib_close
+        emit(record)
+        if not record["ok"]:
+            raise AssertionError(f"moe_dispatch differs from its plain version ({label}): "
+                                 f"{record}")
+        if timed:
+            prefill = t > SERVE_BATCH
+            iters = {"kernel": 20 if prefill else 200, "plain": 5 if prefill else 100,
+                     "library": 20 if prefill else 200}
+            bounds = b2_bounds(inp)
+            row = {"phase": "kernel_time", "kernel": "moe_dispatch", "path": label,
+                   "dtype": record["dtype"], "tokens": t, "k": k, "experts": inp["e"], "d": d,
+                   "capacity": inp["cap"], "rows_read": bounds["rows_read"],
+                   "kept": bounds["kept"], "dropped": bounds["dropped"], "smi": smi}
+            for name, contenders, kernel_names in (
+                    ("moe_fill", {"kernel": fill_k, "plain": fill_p, "library": fill_l},
+                     B2_KERNELS["moe_fill"]),
+                    ("moe_combine", {"kernel": comb_k, "plain": comb_p, "library": comb_l},
+                     B2_KERNELS["moe_combine"])):
+                turns = {who: [] for who in contenders}
+                for who in list(contenders) + list(reversed(contenders)):
+                    turns[who].append(cuda_ms(contenders[who], iters=iters[who], warmup=2))
+                b = bounds["fill" if name == "moe_fill" else "combine"]
+                ms = min(turns["kernel"])
+                kernel_ms = sum(kernel_split(contenders["kernel"],
+                                             {n: 1 for n in kernel_names}, calls=5).values())
+                entry = dict(ms=ms, plain_ms=min(turns["plain"]), library_ms=min(turns["library"]),
+                             bound_ms=b["bound_ms"], bound_by=b["bound_by"], bytes=b["bytes"],
+                             kernel_device_ms=kernel_ms, turns_ms=turns,
+                             tb_per_s=b["bytes"] / ms / 1e9,
+                             share_of_bound=b["bound_ms"] / ms,
+                             kernel_share_of_bound=b["bound_ms"] / kernel_ms)
+                row[name] = entry
+                out[name][label] = {k_: entry[k_] for k_ in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+                    "share_of_bound")}
+            row["library"] = {"moe_fill": "torch.index_select over the rows with a zero row",
+                              "moe_combine": "F.embedding_bag, sum, the gates as per-sample "
+                                             "weights, y with a zero row at the padding index"}
+            emit(row)
+        del inp, rows, src, y, padded, ypad, bag, bag_gate
+        gc.collect()
+        torch.cuda.empty_cache()
+    result = {}
+    for name in ("moe_fill", "moe_combine"):
+        first = out[name].pop(B2_CASES[0][0])
+        result[name] = dict(max_abs_err=worst[name], **first, path=B2_CASES[0][0],
+                            served_shapes=out[name],
+                            library_layout=("torch.index_select, a zero row appended"
+                                            if name == "moe_fill" else
+                                            "F.embedding_bag (sum, per-sample gates, a zero row "
+                                            "at the padding index); adds in its own order"))
+    return result
+
+
+def moe_route_check(smi: str, counters: dict) -> None:
+    """olmoe-1b-7b at full width cut to ``B2_ROUTE_LAYERS`` layers, bf16,
+    random weights from seed 0: ``generate`` of 4 requests of 1024 prompt
+    tokens and ``B2_ROUTE_DECODE`` greedy tokens with B2's kernels, with
+    their plain versions in their place (``ops.moe_fill``,
+    ``ops.moe_combine``), and with the kernels again. Prefill and last
+    logits and every id must be equal bit for bit under both routes (and
+    the kernels' two runs); the kernel runs launch each kernel once a
+    layer per forward, all on the ``vector`` route, the plain run never."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params
+    dev = torch.device("cuda")
+    cfg = cut_config(get_config(MOE_MESH_ARCH), {"num_layers": B2_ROUTE_LAYERS})
+    model = init_params(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=g,
+                           device=dev)
+
+    def run(plain: bool):
+        zero_counts(counters)
+        with b2_plain() if plain else contextlib.nullcontext():
+            res = generate(model, tokens, B2_ROUTE_DECODE)
+        torch.cuda.synchronize()
+        counted = read_counts(counters)
+        return res, counted
+
+    def same(a, b):
+        return (torch.equal(a.prefill_logits.view(torch.int16), b.prefill_logits.view(torch.int16))
+                and torch.equal(a.last_logits.view(torch.int16), b.last_logits.view(torch.int16))
+                and torch.equal(a.ids, b.ids))
+    t0 = time.perf_counter()
+    kernel, kernel_counts = run(False)
+    plain, plain_counts = run(True)
+    again, _ = run(False)
+    want = expected_launches(cfg, B2_ROUTE_DECODE)
+    want_routes = {k: {"vector": want[k], "scalar": 0} for k in B2}
+    ok = (same(kernel, plain) and same(kernel, again)
+          and kernel_counts["launches"] == want
+          and {k: kernel_counts["routes"][k] for k in want_routes} == want_routes
+          and plain_counts["launches"] == {**want, "moe_fill": 0, "moe_combine": 0}
+          and bool(torch.isfinite(kernel.prefill_logits).all()))
+    emit({"phase": "moe_routes", "arch": cfg.name, "layers": cfg.num_layers,
+          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "decode_steps": B2_ROUTE_DECODE,
+          "logits_and_ids_equal": same(kernel, plain), "kernel_twice_equal": same(kernel, again),
+          "launches": kernel_counts["launches"], "routes": {
+              k: kernel_counts["routes"][k] for k in want_routes},
+          "plain_launches": plain_counts["launches"], "want_launches": want,
+          "sample_ids": kernel.ids[0, :8].tolist(), "seconds": time.perf_counter() - t0,
+          "smi": smi, "ok": ok})
+    if not ok:
+        raise AssertionError(f"moe routes: kernels and plain differ or launches "
+                             f"{kernel_counts} / {plain_counts} (want {want})")
+    del model, kernel, plain, again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernel_split(fn, want: dict, calls: int = 3, tries: int = 3) -> dict:
+    """Device ms per call of ``fn`` by kernel (``torch.profiler``) for the
+    kernels in ``want``, each launched ``want[name]`` times a call. The
+    profiler can drop a launch's record, which would read as no time: a
+    profile counts only where it recorded every launch (``calls`` ×
+    ``want[name]`` of each); after ``tries`` incomplete profiles it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    split = {n: sum(e.self_device_time_total for e in events if named(n, e.key)) / calls / 1e3
-             for n in names}
-    return {n: t for n, t in split.items() if t}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        seen = {n: sum(e.count for e in events if named(n, e.key)) for n in want}
+        if all(seen[n] == calls * want[n] for n in want):
+            return {n: sum(e.self_device_time_total for e in events if named(n, e.key))
+                    / calls / 1e3 for n in want}
+    raise AssertionError(f"kernel_split: the profiler recorded {seen} launches in {calls} calls "
+                         f"of {want} a call, {tries} times")
 
 
 def train_profile(model, opt, state, tokens, labels) -> dict:
@@ -2663,9 +3074,12 @@ def train_launches(cfg, steps: int, adamw_per_step: int = 0) -> dict:
 
 def train_routes(want: dict) -> dict:
     """Each kernel's launches in ``want`` by route: K2, its backward, K3's
-    forward and its backward all on ``sm90`` (bf16 at these shapes)."""
-    return {k: {"sm90": want[k], "simt": 0}
-            for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
+    forward and its backward all on ``sm90`` (bf16 at these shapes), B2's
+    on ``vector``."""
+    routes = {k: {"sm90": want[k], "simt": 0}
+              for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
+    routes.update({k: {"vector": want[k], "scalar": 0} for k in B2})
+    return routes
 
 
 def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
@@ -2863,6 +3277,7 @@ def beside(seconds: float, terms: dict) -> dict:
 
 def zero_counts(counters: dict) -> None:
     from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_bwd
+    from repro_torch.kernels.moe_dispatch import ROUTES as B2_ROUTES, moe_combine, moe_fill
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES, ssd_scan, ssd_scan_bwd
     for c in counters.values():
         c.launches = 0
@@ -2870,16 +3285,21 @@ def zero_counts(counters: dict) -> None:
     flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
     ssd_scan_bwd.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
+    moe_fill.launches_by_route = dict.fromkeys(B2_ROUTES, 0)
+    moe_combine.launches_by_route = dict.fromkeys(B2_ROUTES, 0)
 
 
 def read_counts(counters: dict) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_fill
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"launches": {k: c.launches for k, c in counters.items()},
             "routes": {"flash_attention": dict(flash_attention.launches_by_route),
                        "flash_attention_bwd": dict(flash_attention_bwd.launches_by_route),
                        "ssd_scan": dict(ssd_scan.launches_by_route),
-                       "ssd_scan_bwd": dict(ssd_scan_bwd.launches_by_route)}}
+                       "ssd_scan_bwd": dict(ssd_scan_bwd.launches_by_route),
+                       "moe_fill": dict(moe_fill.launches_by_route),
+                       "moe_combine": dict(moe_combine.launches_by_route)}}
 
 
 def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
@@ -3230,8 +3650,10 @@ def moe_mesh_phase(smi: str, counters: dict) -> None:
     """The mesh paths' per-device bodies on the card (``moe_mesh_check`` at
     ``MOE_MESH_ARCH``'s full width in bf16, ``decode_cp_check`` at
     ``CP_ARCH``'s decode in bf16 and f32), every kernel's count zeroed just
-    before and read just after: they launch none (the expert products are
-    cuBLAS's, decode attention plain)."""
+    before and read just after: B2's fill and combine once each in every
+    rank's body and in the whole layer's ``moe_ffn``, all on the ``vector``
+    route, and no other kernel (the expert products are cuBLAS's, decode
+    attention plain). Returns B2's launches."""
     import torch
     from repro_torch.configs import get_config
     cfg = get_config(MOE_MESH_ARCH)
@@ -3251,16 +3673,21 @@ def moe_mesh_phase(smi: str, counters: dict) -> None:
               and moe_rec["max_abs_err"] <= tol["bfloat16"] * moe_rec["max_abs_out"])
     cp_ok = all(c["max_abs_err"] <= tol[dt] * c["max_abs_out"] for dt, cs in cp.items()
                 for c in cs)
-    launched = sum(counts["launches"].values())
+    b2 = moe_rec["ranks"] + 1
+    want = {k: b2 if k in B2 else 0 for k in counts["launches"]}
+    launched_ok = (counts["launches"] == want
+                   and all(counts["routes"][k] == {"vector": b2, "scalar": 0} for k in B2))
     emit({"phase": "moe_mesh", "arch": cfg.name, "tokens": MOE_MESH_TOKENS,
           "experts": cfg.num_experts, "top_k": cfg.experts_per_token, "d_model": cfg.d_model,
           "layout": MOE_MESH_LAYOUT, "moe": moe_rec, "moe_tol": tol["bfloat16"], "moe_s": moe_s,
           "decode_cp": {"arch": pc.name, "batch": CP_BATCH, "slots": CP_SLOTS,
                         "pieces": CP_PIECES, "cases": cp, "tol": tol},
-          "launches": counts["launches"], "seconds": time.perf_counter() - t0, "smi": smi,
-          "ok": moe_ok and cp_ok and launched == 0})
-    if not (moe_ok and cp_ok and launched == 0):
+          "launches": counts["launches"], "b2_routes": {k: counts["routes"][k] for k in B2},
+          "want_launches": want, "seconds": time.perf_counter() - t0, "smi": smi,
+          "ok": moe_ok and cp_ok and launched_ok})
+    if not (moe_ok and cp_ok and launched_ok):
         raise AssertionError(f"moe_mesh: MoE {moe_rec}, decode {cp}, launches {counts}")
+    return {k: counts["launches"][k] for k in B2}
 
 
 def lanes_phase(smi: str) -> dict:
@@ -3344,6 +3771,7 @@ def main() -> int:
                                                      flash_attention_bwd, flash_attention_plain)
     from repro_torch.kernels.batchsim_advance import batchsim_advance
     from repro_torch.kernels.int8_quant import quantize_int8
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_fill
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
     from repro_torch.kernels.ssd_scan import _route as ssd_route
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_plain
@@ -3362,7 +3790,8 @@ def main() -> int:
     logs = build.build(["flash_attention", "flash_attention_sm90", "flash_attention_bwd",
                         "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "ssd_scan_bwd",
                         "ssd_scan_bwd_sm90",
-                        "int8_quant", "int8_quant_sm90", "batchsim_advance", "adamw"])
+                        "int8_quant", "int8_quant_sm90", "batchsim_advance", "adamw",
+                        "moe_dispatch"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -3376,7 +3805,8 @@ def main() -> int:
           "registers": regs, "spill_bytes_per_kernel": spills,
           "ptxas_warnings": {name: w for name, w in warnings.items() if w},
           "batchsim_advance_ptxas": b1_ptxas,
-          "adamw_ptxas": ptxas_by_function(logs.get("adamw", ""))})
+          "adamw_ptxas": ptxas_by_function(logs.get("adamw", "")),
+          "moe_dispatch_ptxas": ptxas_by_function(logs.get("moe_dispatch", ""))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3384,7 +3814,7 @@ def main() -> int:
     counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
                 "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance,
                 "flash_attention_bwd": flash_attention_bwd, "ssd_scan_bwd": ssd_scan_bwd,
-                "adamw": adamw_update}
+                "adamw": adamw_update, "moe_fill": moe_fill, "moe_combine": moe_combine}
 
     # 3. kernel against plain --------------------------------------------------
     t0 = time.perf_counter()
@@ -3472,15 +3902,19 @@ def main() -> int:
     gen_adamw = torch.Generator(device=dev)
     gen_adamw.manual_seed(2)
     timings["adamw"] = check_adamw(gen_adamw, smi)
+    gen_b2 = torch.Generator(device=dev)
+    gen_b2.manual_seed(3)
+    timings.update(check_moe_dispatch(gen_b2, smi))
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     # 4. each served model: kernel-vs-plain check, serve, profile --------------
     t0 = time.perf_counter()
-    by_path = {"flash_attention": {}, "ssd_scan": {}}
+    by_path = {"flash_attention": {}, "ssd_scan": {}, "moe_fill": {}, "moe_combine": {}}
     for arch, check_cut, serve_cut in SERVED_MODELS:
         for kernel, n in serve_model(arch, check_cut, serve_cut, gen, smi, counters).items():
             if n:
                 by_path[kernel][arch] = n
+    moe_route_check(smi, counters)
     emit({"phase": "serve_done", "seconds": time.perf_counter() - t0})
 
     # 4b. training: phi4-mini-3.8b and mamba2-1.3b at full width, then the
@@ -3508,7 +3942,8 @@ def main() -> int:
     for kernel, paths in steps_phase(smi, counters).items():
         by_path[kernel].update(paths)
     dryrun_phase(smi)
-    moe_mesh_phase(smi, counters)
+    for kernel, n in moe_mesh_phase(smi, counters).items():
+        by_path[kernel]["moe_mesh"] = n
     lanes_phase(smi)
     emit({"phase": "steps_dryrun_lanes_done", "seconds": time.perf_counter() - t0})
     launches = {k: sum(v.values()) for k, v in by_path.items()}
@@ -3598,7 +4033,15 @@ def main() -> int:
          "launches_by_path": by_path["ssd_scan_bwd"], **timings["ssd_scan_bwd"]},
         {"name": "adamw", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
          "replaces": "src/repro/train/optimizer.py:72", "launches": launches["adamw"],
-         "launches_by_path": by_path["adamw"], **timings["adamw"]}]})
+         "launches_by_path": by_path["adamw"], **timings["adamw"]},
+        {"name": "moe_fill", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+         "replaces": "src/repro/models/moe.py:108", "launches": launches["moe_fill"],
+         "launches_by_path": by_path["moe_fill"], **timings["moe_fill"]},
+        {"name": "moe_combine", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+         "replaces": "src/repro/models/moe.py:121", "launches": launches["moe_combine"],
+         "launches_by_path": by_path["moe_combine"], **timings["moe_combine"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

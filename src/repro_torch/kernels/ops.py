@@ -16,7 +16,10 @@ gradient; serving stays on the plain forward call. The int8 quantizer is on
 no training path and has no backward: a CUDA input that requires a
 gradient raises (its output would carry no ``grad_fn`` and the gradient
 would be lost). On the CPU its plain version is ordinary differentiable
-PyTorch.
+PyTorch. The MoE layer's dispatch and combine (B2, :func:`fill_expert_slots`
+and :func:`combine_expert_rows`) are likewise on no training path on the
+card yet: they refuse a CUDA input that requires a gradient, and train on
+the CPU through their plain versions.
 
 On a mesh (``DTensor`` inputs: the dry run) each kernel runs on every
 device's shards (``local_map``). Batch and heads stay sharded as they come
@@ -35,6 +38,7 @@ import torch
 
 from .flash_attention import FlashAttentionFn, flash_attention
 from .int8_quant import quantize_int8
+from .moe_dispatch import moe_combine, moe_fill
 from .ssd_scan import SsdScanFn, ssd_scan
 
 
@@ -211,3 +215,21 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``q * scale[:, None]`` in f32, rounded once into ``out``'s dtype when given."""
     return torch.mul(q, scale[:, None], out=out)
+
+
+def fill_expert_slots(rows: torch.Tensor, src: torch.Tensor, fill: int) -> torch.Tensor:
+    """The MoE layer's (E, C, D) expert buffer: slot (e, c) holds
+    ``rows[src[e, c]]`` of ``rows`` (N, D), zeros where ``src[e, c]`` is the
+    sentinel ``fill`` (= N)."""
+    _no_cuda_grad("fill_expert_slots", "no MoE configuration trains on the card yet", rows)
+    return moe_fill(rows, src, fill)
+
+
+def combine_expert_rows(y: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
+                        gate: torch.Tensor, keep: torch.Tensor, order: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """The MoE layer's output (T, D): each token's gated rows of the experts'
+    output y (E, C, D), by the plan's sorted entries, added by expert id."""
+    _no_cuda_grad("combine_expert_rows", "no MoE configuration trains on the card yet", y,
+                  gate)
+    return moe_combine(y, expert, slot, gate, keep, order, k)

@@ -6,23 +6,37 @@ tokens into an (E, C, D) buffer, run the experts as batched SwiGLU
 products (:func:`expert_swiglu`, ``torch.bmm``; the reference leaves them
 to XLA too), then combine. :func:`moe_ffn_dense` is the small-scale oracle.
 
+Which kernel computes which step (on the card; CPU and meta tensors take
+each kernel's plain version):
+
+* the router (:func:`router_topk`: f32 product, softmax, top-k) and the
+  plan (:func:`dispatch_plan`: stable argsort, ``searchsorted`` ranks;
+  :func:`slot_sources`: the token of each expert slot) are torch ops on
+  T·k entries;
+* the buffer, every slot's row of x or zeros, is one launch of B2's fill
+  kernel (``ops.fill_expert_slots`` → ``kernels/csrc/moe_dispatch.cu``);
+* the experts are cuBLAS's batched products with SiLU·up between them;
+* the combine is one launch of B2's combine kernel
+  (``ops.combine_expert_rows``), which reads the plan's sorted entries as
+  they are and the argsort's inverse permutation, which torch ops build.
+
 What the port keeps of the reference's behaviour, on purpose:
 
 * the capacity is ``int(max(1, round(t·k/E·cf)))`` with Python's
   ``round``; at decode with few tokens it is 1, so decode drops tokens;
 * which assignments overflow follows the *stable* argsort by expert id and
   each expert's first position in the sorted order (:func:`dispatch_plan`);
-* the dispatch buffer is (E, C+1, D) in the *weight* dtype (in the wider
+* the dispatch buffer is (E, C, D) in the *weight* dtype (in the wider
   of it and x's, which differ only in ``chip_smoke.py``'s f32 witness of
-  bf16 experts) and every overflowing assignment writes the waste slot C,
-  which is sliced away (with duplicate indices the writes to C are
-  unordered on CUDA);
+  bf16 experts), equal to the reference's (E, C+1, D) buffer without its
+  waste slot C, which every overflowing assignment writes and which is
+  sliced away: here an overflowing assignment has no slot at all;
 * the router runs in f32 on x cast to f32.
 
-The combine is deterministic: each token's k contributions are gathered
-through the inverse permutation and added in the order the reference's
-scatter-add applies them (by expert id), in the activation dtype, with no
-atomics, so two runs on the card give the same bits.
+The combine is deterministic: each token's k contributions are added in
+the order the reference's scatter-add applies them (by expert id), in the
+activation dtype, with no atomics, so two runs on the card give the same
+bits, and the kernel gives the plain version's.
 
 **On a mesh** (x a ``DTensor``) the layer keeps the reference's global
 semantics, which GSPMD keeps for its ``moe_ffn``: one capacity for the
@@ -76,6 +90,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from ..sharding import collectives as coll
 from .layers import dense_init
 
@@ -168,23 +183,13 @@ def dispatch_plan(idx: torch.Tensor, num_experts: int, cap: int) -> Plan:
     return Plan(order, sorted_expert, order // k, keep, slot)
 
 
-def _combine(ypad: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
-             gate: torch.Tensor, keep: torch.Tensor, order: torch.Tensor, k: int
-             ) -> torch.Tensor:
-    """Each token's gated contributions ``ypad[expert, slot] · gate`` of the
-    sorted assignments (zero where not ``keep``), added per token in
-    ascending sorted position, i.e. by expert id: the order in which the
-    reference's scatter-add applies them. Returns (T, D)."""
-    contrib = ypad[expert, slot] * gate[:, None].to(ypad.dtype)
-    contrib = torch.where(keep[:, None], contrib, torch.zeros((), dtype=ypad.dtype,
-                                                              device=ypad.device))
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(order.shape[0], device=order.device)
-    per_token = contrib[inverse.view(-1, k).sort(dim=1).values]     # (t, k, D)
-    out2d = per_token[:, 0]
-    for j in range(1, k):
-        out2d = out2d + per_token[:, j]
-    return out2d
+def slot_sources(plan: Plan, num_experts: int, cap: int, fill: int) -> torch.Tensor:
+    """(E, cap) int32, contiguous: the token of each expert slot, ``fill``
+    where the slot is empty. Overflowing assignments write a waste column
+    that is cut away."""
+    src = torch.full((num_experts, cap + 1), fill, dtype=torch.int32, device=plan.token.device)
+    src[plan.expert, torch.where(plan.keep, plan.slot, cap)] = plan.token.to(torch.int32)
+    return src[:, :cap].contiguous()
 
 
 def moe_ffn(params: Params, x: torch.Tensor, num_experts: int, k: int,
@@ -203,14 +208,11 @@ def moe_ffn(params: Params, x: torch.Tensor, num_experts: int, k: int,
     plan = dispatch_plan(idx, num_experts, cap)
 
     wdt = torch.promote_types(x.dtype, params["w_gate"].dtype)
-    buf = torch.zeros((num_experts, cap + 1, d), dtype=wdt, device=x.device)
-    buf[plan.expert, plan.slot] = x2d.to(wdt)[plan.token]
-    y = expert_swiglu(buf[:, :cap], params["w_gate"], params["w_up"], params["w_down"])
-
-    ypad = torch.cat([y, torch.zeros((num_experts, 1, d), dtype=y.dtype, device=y.device)],
-                     dim=1)
-    out2d = _combine(ypad, plan.expert, plan.slot, gates.reshape(-1)[plan.order], plan.keep,
-                     plan.order, k)
+    src = slot_sources(plan, num_experts, cap, t)
+    buf = ops.fill_expert_slots(x2d.to(wdt).contiguous(), src, t)           # (E, C, D)
+    y = expert_swiglu(buf, params["w_gate"], params["w_up"], params["w_down"])
+    out2d = ops.combine_expert_rows(y.contiguous(), plan.expert, plan.slot,
+                                    gates.reshape(-1)[plan.order], plan.keep, plan.order, k)
     out = out2d.reshape(b, s, d).to(x.dtype)
     if return_aux:
         return out, load_balance_loss(probs, idx, num_experts)
@@ -288,18 +290,14 @@ def moe_device_body(x2d: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Ten
 
     # the token of each of its experts' slots, T (a zero row) where empty
     e0 = lay.experts * e_local
-    src = torch.full((num_experts, capp + 1), tokens, dtype=plan.token.dtype,
-                     device=x2d.device)
-    src[plan.expert, torch.where(plan.keep, plan.slot, capp)] = plan.token
-    src = src[e0:e0 + e_local, :capp]
+    src = slot_sources(plan, num_experts, capp, tokens)[e0:e0 + e_local]
 
     wdt = torch.promote_types(x2d.dtype, w_gate.dtype)
     dp = -(-d // nb) * nb                # D padded to a multiple of the batch group
     xe = yield coll.sum_grads(x2d.to(wdt), ("experts", "slots"))
     xe = F.pad(xe, (0, dp - d))
     cols = yield coll.all_to_all(_to_pieces(xe, nb, 1), "batch")    # (T, D_c)
-    cols = torch.cat([cols, cols.new_zeros((1, cols.shape[1]))])
-    slab = cols[src]                                                # (E_l, C_p, D_c)
+    slab = ops.fill_expert_slots(cols.contiguous(), src, tokens)    # (E_l, C_p, D_c)
     rows = yield coll.all_to_all(_to_pieces(slab, nb, 1), "batch")
     rows = _from_pieces(rows, nb, 2)[..., :d]                       # (E_l, C_p/n_b, D)
     cs = rows.shape[1] // lay.n_slots
@@ -315,13 +313,13 @@ def moe_device_body(x2d: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Ten
     y = F.pad(y.transpose(0, 1), (0, dp - d))                       # (E_l, C_p/n_b, D_p)
     y = yield coll.all_to_all(_to_pieces(y, nb, 2), "batch")
     y = _from_pieces(y, nb, 1)                                      # (E_l, C_p, D_c)
-    ypad = torch.cat([y, y.new_zeros((e_local, 1, y.shape[2]))], dim=1)
 
     local = plan.expert - e0
     mine = plan.keep & (local >= 0) & (local < e_local)
-    part = _combine(ypad, torch.where(mine, local, torch.zeros_like(local)),
-                    torch.where(mine, plan.slot, torch.full_like(plan.slot, capp)),
-                    gates_all.reshape(-1)[plan.order], mine, plan.order, k)   # (T, D_c)
+    part = ops.combine_expert_rows(
+        y.contiguous(), torch.where(mine, local, torch.zeros_like(local)),
+        torch.where(mine, plan.slot, torch.full_like(plan.slot, capp)),
+        gates_all.reshape(-1)[plan.order], mine, plan.order, k)     # (T, D_c)
     part = yield coll.reduce(part, "experts")
     out = yield coll.all_to_all(_to_pieces(part, nb, 0), "batch")
     out = _from_pieces(out, nb, 1)[:, :d]                           # (T_b, D)
