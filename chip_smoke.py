@@ -46,17 +46,18 @@ Run from the root of a checkout. Phases, one JSON line each:
    phi4-mini-3.8b's parameter list in turns with the plain update and
    ``torch._fused_adamw_`` (m and v in bf16: a yardstick, never on the
    path), beside the bound by bytes and the TB/s reached; the MoE layer's
-   dispatch and combine (B2, ``moe_fill`` and ``moe_combine``) against
-   ``moe_fill_plain`` and ``moe_combine_plain``, bits equal, one launch
-   each on the route the width gives (``B2_CASES``: the prefill shapes of
-   olmoe-1b-7b, kimi-k2 and jamba-1.5-large at 4 x 1024 tokens, olmoe's
-   decode at 4 tokens and capacity 1, f32 rows over the f32 witness's
-   buffer, capacity factor 0.5, an expert without tokens, and a width of
-   2050 on the ``scalar`` route), the fill also against
-   ``torch.index_select`` over the rows with a zero row appended; the
-   first four timed in turns with the plain versions and
-   ``index_select`` (the combine has no library call), beside the bound
-   by bytes, with each kernel's own device time;
+   dispatch and combine (B2, ``moe_fill`` and ``moe_combine``, over one
+   route table) against ``moe_fill_plain`` and ``moe_combine_plain``, bits
+   equal, one launch each on the route the width gives (``B2_CASES``:
+   the prefill shapes of olmoe-1b-7b,
+   kimi-k2 and jamba-1.5-large at 4 x 1024 tokens, olmoe's decode at 4
+   tokens and capacity 1, f32 rows over the f32 witness's buffer,
+   capacity factor 0.5, an expert without tokens, and a width of 2050 on
+   the ``scalar`` route), the fill also against ``torch.index_select``
+   over the rows with a zero row appended and the combine against
+   ``F.embedding_bag``, both built from the same table; the first four
+   timed in turns with the plain versions and the library calls, beside the bound by bytes, with each kernel's own
+   device time and each call's host µs;
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -1695,12 +1696,13 @@ def moe_profile(fn, tries: int = 3) -> dict:
     the other GEMMs (projections, LM head) and the rest (norms, RoPE,
     decode attention, residuals, copies). The dispatch is split further
     (``dispatch_split_ms``): the router's softmax and top-k
-    (``router_topk`` less its product), the plan (``dispatch_plan`` and
-    ``slot_sources``), B2's fill kernel and the ops around it, B2's combine
-    kernel and the ops around it (the plan's inverse permutation; with the
-    plain versions swapped in, those ops are the whole plain fill and
-    combine), SiLU·up (the rest of
-    ``expert_swiglu``) and what is left. Each step runs inside a
+    (``router_topk`` less its product), the plan and its route table
+    (``dispatch_plan`` and ``route_table``; ``slot_sources`` in a checkout
+    from before the table), B2's fill kernel and the ops around it, B2's
+    combine kernel and the ops around it (with the plain versions swapped
+    in, those ops are the whole plain fill and combine; in a checkout from
+    before the table, the combine's ops are the argsort's inverse), SiLU·up
+    (the rest of ``expert_swiglu``) and what is left. Each step runs inside a
     ``record_function`` range for this call only; an op's device time is
     the kernels it launched itself (``self_device_time_total`` of the aten
     ops in the range), and B2's kernels, which no op launches, are counted
@@ -1730,7 +1732,8 @@ def moe_profile(fn, tries: int = 3) -> dict:
     patches = [(module, attr, name) for module, attr, name in (
         (transformer, "moe_ffn", "moe_ffn"), (moe, "expert_swiglu", "moe_experts"),
         (moe, "router_topk", "moe_router"), (moe, "dispatch_plan", "moe_plan"),
-        (moe, "slot_sources", "moe_plan"), (ops, "fill_expert_slots", "moe_fill"),
+        (moe, "route_table", "moe_plan"), (moe, "slot_sources", "moe_plan"),
+        (ops, "fill_expert_slots", "moe_fill"),
         (ops, "combine_expert_rows", "moe_combine"), (moe, "_combine", "moe_combine"))
         if hasattr(module, attr)]
     on_kernels = b2_wrappers is not None and ops.moe_fill is b2_wrappers.moe_fill
@@ -2600,13 +2603,15 @@ B2_CASES = (
     ("d 2050 (scalar route)", (8, 64, 2050), 1024, 1.25, "bfloat16", False, False),
 )
 B2_ROUTE_LAYERS, B2_ROUTE_DECODE = 2, 8        # moe_routes: olmoe cut to 2 layers, 8 decode steps
-B2_PLAN_BYTES = 8 + 8 + 8 + 4 + 1              # an assignment: inverse, expert, slot, gate, keep
+# bytes of the route table a kernel reads: the combine a route's dest (int32)
+# and gate (f32), the fill a route's dest and an expert's kept count (int32)
+B2_COMBINE_ROUTE_BYTES, B2_FILL_ROUTE_BYTES, B2_KEPT_BYTES = 4 + 4, 4, 4
 
 
 def b2_inputs(case, gen):
-    """A case's plan and inputs on the card: random router scores, top-k,
-    gates normalised as ``router_topk`` does; rows (T, D) and the experts'
-    output y (E, C, D) ~ N(0, 1) in the case's dtype."""
+    """A case's plan, route table and inputs on the card: random router
+    scores, top-k, gates normalised as ``router_topk`` does; rows (T, D)
+    and the experts' output y (E, C, D) ~ N(0, 1) in the case's dtype."""
     import torch
     from repro_torch.configs import get_config
     moe = importlib.import_module("repro_torch.models.moe")
@@ -2628,24 +2633,27 @@ def b2_inputs(case, gen):
     tdt = getattr(torch, dtype)
     rows = torch.randn((t, d), generator=gen, device=dev).to(tdt)
     y = torch.randn((e, cap, d), generator=gen, device=dev).to(tdt)
-    return dict(t=t, k=k, e=e, d=d, cap=cap, plan=plan, gate=gates.reshape(-1)[plan.order],
-                src=moe.slot_sources(plan, e, cap, t), rows=rows, y=y)
+    return dict(t=t, k=k, e=e, d=d, cap=cap, plan=plan, routes=moe.route_table(plan, gates, cap),
+                rows=rows, y=y)
 
 
 def b2_bounds(inp) -> dict:
     """Least time for each function's work on these inputs, by bytes (their
     operations, a multiply and an add an element, are ~1e-3 of it): the
-    fill writes the buffer and reads each referenced row and the slot
-    table once; the combine reads each kept assignment's row of y, the
-    plan's sorted entries, and writes the output."""
+    fill writes the buffer, reads the row of each token with a kept
+    assignment once and the table's dest and kept counts; the combine
+    reads each kept assignment's row of y and each route's dest and gate,
+    and writes the output."""
     import torch
-    src, rows, y = inp["src"], inp["rows"], inp["y"]
-    elt, d = rows.element_size(), inp["d"]
-    used = int(torch.unique(src[src != inp["t"]]).numel())
-    fill_bytes = src.numel() * (d * elt + 4) + used * d * elt
-    kept = int(inp["plan"].keep.sum())
-    n = inp["plan"].order.numel()
-    comb_bytes = kept * d * y.element_size() + n * B2_PLAN_BYTES + inp["t"] * d * y.element_size()
+    routes, rows, y = inp["routes"], inp["rows"], inp["y"]
+    elt, d, n = rows.element_size(), inp["d"], routes.dest.numel()
+    kept_routes = routes.dest >= 0
+    used = int(kept_routes.any(dim=1).sum())
+    fill_bytes = (inp["e"] * inp["cap"] * d * elt + used * d * elt + n * B2_FILL_ROUTE_BYTES
+                  + inp["e"] * B2_KEPT_BYTES)
+    kept = int(kept_routes.sum())
+    comb_bytes = (kept * d * y.element_size() + n * B2_COMBINE_ROUTE_BYTES
+                  + inp["t"] * d * y.element_size())
     comb_flops = 2 * n * d
     peak = PEAK_F32_FLOPS
     out = {}
@@ -2659,17 +2667,19 @@ def b2_bounds(inp) -> dict:
 
 def check_moe_dispatch(gen, smi: str) -> dict:
     """B2's fill and combine against ``moe_fill_plain`` and
-    ``moe_combine_plain`` on the same inputs, bits equal, one launch each on
-    the route ``_route`` gives, at ``B2_CASES``; the fill also against
-    ``torch.index_select`` over the rows with a zero row appended, and the
-    combine within ``TOL`` of ``F.embedding_bag`` (sum, the gates as
-    per-sample weights, a dropped assignment at the padding index of a zero
-    row appended to y): the library calls that compute them, the second
-    adding in its own order, their tables built outside the timed call.
-    Then the timed cases in turns (kernel, plain, library, library, plain,
-    kernel; CUDA events), each beside its bound, with the kernel's own
-    device time (``kernel_split``). Returns the kernels line's entries,
-    olmoe's prefill shape first."""
+    ``moe_combine_plain`` on the same route table, bits equal, one launch
+    each on the route the width gives, at ``B2_CASES``; the fill also against
+    ``torch.index_select`` over the rows with a zero row appended (each
+    slot's token, a scatter of the table), and the combine within ``TOL``
+    of ``F.embedding_bag`` (sum, the gates as per-sample weights, a dropped
+    route at the padding index of a zero row appended to y): the library
+    calls that compute them, built from the table the kernels read, the
+    second adding in its own order, their tables built outside the timed
+    call. Then the timed cases in turns (kernel, plain, library, then back;
+    CUDA events), each beside its bound, with the kernels' own device time
+    (``kernel_split``) and each call's host µs (``host_ms_per_call``, the
+    least of two turns: the launch enqueued, nothing synchronised). Returns
+    the kernels line's entries, olmoe's prefill shape first."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.moe_dispatch import (ROUTES as B2_ROUTES, moe_combine,
@@ -2686,32 +2696,31 @@ def check_moe_dispatch(gen, smi: str) -> dict:
     for case in B2_CASES:
         label, timed = case[0], case[6]
         inp = b2_inputs(case, gen)
-        t, k, d, plan = inp["t"], inp["k"], inp["d"], inp["plan"]
-        rows, src, y, gate = inp["rows"], inp["src"], inp["y"], inp["gate"]
+        t, k, d, e, cap = inp["t"], inp["k"], inp["d"], inp["e"], inp["cap"]
+        routes, rows, y = inp["routes"], inp["rows"], inp["y"]
+        dest, kept, gate = routes.dest, routes.kept, routes.gate
         padded = torch.cat([rows, rows.new_zeros((1, d))])
-        flat_src = src.reshape(-1)
-        e, cap = inp["e"], inp["cap"]
+        live = dest >= 0
+        src = torch.full((e * cap,), t, dtype=torch.long, device=y.device)
+        src[dest[live].long()] = torch.arange(t, device=y.device)[:, None].expand(t, k)[live]
         ypad = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
-        bag = torch.empty(t * k, dtype=torch.long, device=y.device)
-        bag[plan.order] = torch.where(plan.keep, plan.expert * cap + plan.slot, e * cap)
-        bag_gate = torch.empty(t * k, dtype=y.dtype, device=y.device)
-        bag_gate[plan.order] = gate.to(y.dtype)
-        bag, bag_gate = bag.view(t, k), bag_gate.view(t, k)
+        bag = torch.where(live, dest, e * cap).long()
+        bag_gate = gate.to(y.dtype)
 
         def fill_k():
-            return moe_fill(rows, src, t)
+            return moe_fill(rows, dest, kept, cap)
 
         def fill_p():
-            return moe_fill_plain(rows, src, t)
+            return moe_fill_plain(rows, dest, kept, cap)
 
         def fill_l():
-            return torch.index_select(padded, 0, flat_src)
+            return torch.index_select(padded, 0, src)
 
         def comb_k():
-            return moe_combine(y, plan.expert, plan.slot, gate, plan.keep, plan.order, k)
+            return moe_combine(y, dest, gate)
 
         def comb_p():
-            return moe_combine_plain(y, plan.expert, plan.slot, gate, plan.keep, plan.order, k)
+            return moe_combine_plain(y, dest, gate)
 
         def comb_l():
             return F.embedding_bag(bag, ypad, mode="sum", per_sample_weights=bag_gate,
@@ -2719,9 +2728,10 @@ def check_moe_dispatch(gen, smi: str) -> dict:
 
         record = {"phase": "kernel_check", "kernel": "moe_dispatch", "case": label,
                   "dtype": str(rows.dtype).split(".")[1], "tokens": t, "k": k,
-                  "experts": inp["e"], "d": d, "capacity": inp["cap"],
-                  "kept": int(plan.keep.sum()), "dropped": int((~plan.keep).sum()),
-                  "empty_experts": int((src == t).all(dim=1).sum())}
+                  "experts": e, "d": d, "capacity": cap,
+                  "kept": int(live.sum()), "dropped": int((~live).sum()),
+                  "empty_experts": int((kept == 0).sum()),
+                  "tokens_all_dropped": int((~live).all(dim=1).sum())}
         ok = True
         for name, fk, fp, fn in (("moe_fill", fill_k, fill_p, moe_fill),
                                  ("moe_combine", comb_k, comb_p, moe_combine)):
@@ -2755,38 +2765,43 @@ def check_moe_dispatch(gen, smi: str) -> dict:
             prefill = t > SERVE_BATCH
             iters = {"kernel": 20 if prefill else 200, "plain": 5 if prefill else 100,
                      "library": 20 if prefill else 200}
+            host_calls = 20 if prefill else 200
             bounds = b2_bounds(inp)
             row = {"phase": "kernel_time", "kernel": "moe_dispatch", "path": label,
-                   "dtype": record["dtype"], "tokens": t, "k": k, "experts": inp["e"], "d": d,
-                   "capacity": inp["cap"], "rows_read": bounds["rows_read"],
+                   "dtype": record["dtype"], "tokens": t, "k": k, "experts": e, "d": d,
+                   "capacity": cap, "rows_read": bounds["rows_read"],
                    "kept": bounds["kept"], "dropped": bounds["dropped"], "smi": smi}
-            for name, contenders, kernel_names in (
-                    ("moe_fill", {"kernel": fill_k, "plain": fill_p, "library": fill_l},
-                     B2_KERNELS["moe_fill"]),
-                    ("moe_combine", {"kernel": comb_k, "plain": comb_p, "library": comb_l},
-                     B2_KERNELS["moe_combine"])):
+            for name, contenders in (
+                    ("moe_fill", {"kernel": fill_k, "plain": fill_p, "library": fill_l}),
+                    ("moe_combine", {"kernel": comb_k, "plain": comb_p, "library": comb_l})):
                 turns = {who: [] for who in contenders}
                 for who in list(contenders) + list(reversed(contenders)):
                     turns[who].append(cuda_ms(contenders[who], iters=iters[who], warmup=2))
+                host = {who: [] for who in contenders}
+                for who in list(contenders) + list(reversed(contenders)):
+                    host[who].append(host_ms_per_call(contenders[who], calls=host_calls) * 1e3)
+                    torch.cuda.synchronize()
+                host_us = {who: min(v) for who, v in host.items()}
                 b = bounds["fill" if name == "moe_fill" else "combine"]
+                kernel_name = B2_KERNELS[name][0]
+                kernel_ms = kernel_split(fill_k if name == "moe_fill" else comb_k,
+                                         {kernel_name: 1}, calls=5)[kernel_name]
                 ms = min(turns["kernel"])
-                kernel_ms = sum(kernel_split(contenders["kernel"],
-                                             {n: 1 for n in kernel_names}, calls=5).values())
                 entry = dict(ms=ms, plain_ms=min(turns["plain"]), library_ms=min(turns["library"]),
                              bound_ms=b["bound_ms"], bound_by=b["bound_by"], bytes=b["bytes"],
-                             kernel_device_ms=kernel_ms, turns_ms=turns,
-                             tb_per_s=b["bytes"] / ms / 1e9,
+                             kernel_device_ms=kernel_ms, host_us=host_us,
+                             turns_ms=turns, tb_per_s=b["bytes"] / ms / 1e9,
                              share_of_bound=b["bound_ms"] / ms,
                              kernel_share_of_bound=b["bound_ms"] / kernel_ms)
                 row[name] = entry
                 out[name][label] = {k_: entry[k_] for k_ in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
-                    "share_of_bound")}
+                    "share_of_bound", "host_us")}
             row["library"] = {"moe_fill": "torch.index_select over the rows with a zero row",
                               "moe_combine": "F.embedding_bag, sum, the gates as per-sample "
                                              "weights, y with a zero row at the padding index"}
             emit(row)
-        del inp, rows, src, y, padded, ypad, bag, bag_gate
+        del inp, routes, rows, y, dest, kept, gate, padded, src, ypad, bag, bag_gate, live
         gc.collect()
         torch.cuda.empty_cache()
     result = {}
@@ -2861,7 +2876,7 @@ def moe_route_check(smi: str, counters: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def kernel_split(fn, want: dict, calls: int = 3, tries: int = 3) -> dict:
+def kernel_split(fn, want: dict, calls: int = 3, tries: int = 5) -> dict:
     """Device ms per call of ``fn`` by kernel (``torch.profiler``) for the
     kernels in ``want``, each launched ``want[name]`` times a call. The
     profiler can drop a launch's record, which would read as no time: a

@@ -9,16 +9,20 @@ serving kernels. olmoe at full width and depth, bf16, random weights from
 seed 0, 4 requests of 1024 random prompt tokens (seed 3): ``generate`` of
 32 greedy tokens once to warm up and ``--runs`` times on the host clock,
 then ``moe_profile`` of one prefill and of 8 decode steps, as
-``chip_smoke.py``'s phase ``profile`` takes them. Prints one JSON line with
-``--label``. A checkout from before B2 has no ``moe_dispatch``: its fill
+``chip_smoke.py``'s phase ``profile`` takes them, and a SHA-256 of the bits
+of every MoE layer's output and of the logits of one prefill, for holding
+two checkouts' outputs equal. Prints one JSON line with ``--label``. A checkout from before B2 has no ``moe_dispatch``: its fill
 counts under the split's ``rest``, its ``_combine`` under ``combine_ops``.
 """
 import argparse
+import hashlib
+import importlib
 import importlib.util
 import json
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 ARCH, BATCH, PROMPT, NEW, DECODE_PROFILED = "olmoe-1b-7b", 4, 1024, 32, 8
 
@@ -64,15 +68,36 @@ def main() -> None:
                 _, c, n = forward_decode(model, tokens[:, -1:], c, n)
         prefill = smoke.moe_profile(lambda: forward_prefill(model, tokens, PROMPT + 1))
         decode = smoke.moe_profile(decode_steps)
+        moe_sha, logits_sha = output_digests(model, tokens, forward_prefill)
     keep = ("wall_ms", "device_busy_ms", "moe_ffn_ms", "moe_calls", "b2_launches", "split_ms",
             "dispatch_split_ms")
     print(json.dumps({"label": args.label, "arch": ARCH, "batch": BATCH, "prompt": PROMPT,
                       "prefill_s": [r.prefill_s for r in served],
                       "decode_step_ms": [r.decode_s / NEW * 1e3 for r in served],
                       "prefill_ids_sample": served[0].ids[0, :8].tolist(),
+                      "moe_outputs_sha256": moe_sha, "prefill_logits_sha256": logits_sha,
                       "prefill": {k: prefill[k] for k in keep},
                       f"decode_{DECODE_PROFILED}_steps": {k: decode[k] for k in keep},
                       "smi": smi}), flush=True)
+
+
+def output_digests(model, tokens, forward_prefill):
+    """SHA-256 of the bits of every MoE layer's output, in the order the
+    layers run, and of the logits, over one prefill."""
+    import torch
+    transformer = importlib.import_module("repro_torch.models.transformer")
+    moe_ffn = transformer.moe_ffn
+    moe_sha = hashlib.sha256()
+
+    def recorded(*args, **kw):
+        out = moe_ffn(*args, **kw)
+        first = out[0] if isinstance(out, tuple) else out
+        moe_sha.update(first.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return out
+    with mock.patch.object(transformer, "moe_ffn", recorded):
+        logits = forward_prefill(model, tokens, PROMPT + 1)[0]
+    logits_sha = hashlib.sha256(logits.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return moe_sha.hexdigest(), logits_sha.hexdigest()
 
 
 if __name__ == "__main__":

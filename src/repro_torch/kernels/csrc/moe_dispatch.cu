@@ -1,68 +1,104 @@
 // The MoE layer's dispatch and combine (sm_90a), CUDA C++: B2.
 //
-// Replaces no Pallas kernel. The two kernels stand for what XLA makes of
-// the reference's sort dispatch in `moe_ffn` (src/repro/models/moe.py:67):
+// Replaces no Pallas kernel. The kernels stand for what XLA makes of the
+// reference's sort dispatch in `moe_ffn` (src/repro/models/moe.py:67):
 //
-// * moe_fill_kernel, the buffer's scatter (:108-110),
+// * the fill, the buffer's scatter (:108-110),
 //   `zeros((E, C+1, D)).at[sorted_expert, slot].set(x[sorted_token])[:, :C]`:
-//   one pass writes every row of the (E, C, D) buffer, row (e, c) from
-//   `rows[src[e, c]]`, or zeros where `src[e, c]` is the sentinel `fill`
-//   (= the number of rows). It takes the place of the zeros, the gather,
-//   the index_put and the waste slot C;
+//   one pass writes every row of the (E, C, D) buffer, token t's row of x
+//   to each of its kept destinations and zeros to every slot past its
+//   expert's kept count. It takes the place of the zeros, the gather, the
+//   index_put and the waste slot C;
 // * moe_combine_kernel, the combine's gather-scale-mask and scatter-add
 //   (:121-124): token t's output row is the sum of its k assignments'
 //   `y[e, slot] * gate`, added as the plain version (`moe_combine_plain`)
 //   adds them: the gate rounded to y's dtype, each product rounded, a
 //   dropped assignment the +0.0 of the `where` that still takes part in the
 //   sum (the sign of a zero sum depends on it), the partial sums in
-//   ascending sorted position (ascending expert id), each sum rounded. bf16
-//   works through f32 with `__float2bfloat16_rn` after every op; f32 uses
-//   `__fmul_rn` and `__fadd_rn`, so that nvcc contracts nothing into an fma.
-//   No atomics: one warp writes each piece of a token's row. So the output
-//   equals the plain version's bit for bit.
+//   ascending expert id, each sum rounded. bf16 works through f32 with
+//   `__float2bfloat16_rn` after every op; f32 uses `__fmul_rn` and
+//   `__fadd_rn`, so that nvcc contracts nothing into an fma. No atomics:
+//   one warp writes each piece of a token's row. So the output equals the
+//   plain version's bit for bit.
 //
-// The combine reads the plan as the sort dispatch left it: its sorted
-// entries (expert, slot, keep, gate) and, built by torch ops, `inverse`,
-// the argsort's inverse permutation, so that token t's k assignments sit
-// at sorted positions inverse[t*k .. t*k+k-1]. A warp puts them in
-// ascending order itself.
+// Both read one token-major route table, made once a layer by torch ops
+// (`route_table` in models/moe.py): dest (T, k) int32, token t's j-th
+// destination row `e * C + slot` of the buffer, or `-1 - e` where the
+// assignment is dropped (the expert id kept, for the combine's order);
+// kept (E,) int32, the slots of each expert that are filled (its first
+// kept[e]: the count of its rows in dest, which the fill trusts); gate
+// (T, k) f32.
 //
 // What bounds both on this card: bytes. They are copies with a multiply
 // and an add; neither does an operation a byte worth counting.
-// * fill: write E*C*D elements, read each referenced row of `rows` once:
-//   olmoe-1b-7b's prefill (T 4096, E 64, C 640, D 2048, bf16) writes
-//   167.8 MB and reads x's 16.8 MB, 0.055 ms at 3.35 TB/s. A token's row is
-//   read by up to k slots; at olmoe's prefill x fits the 50 MB L2, so the
-//   repeats should hit it. kimi-k2's x (T 4096, D 7168) is 58.7 MB and does
-//   not fit: its repeats go back to device memory;
-// * combine: read each kept assignment's row of y and the plan's T*k
-//   entries once and write T*D: at most T*k*D elements read (134.2 MB at
-//   olmoe's prefill) and 16.8 MB written, 0.045 ms.
-// What the design does about it: a warp a slot row (fill) or a chunk of
-// 32 x ILP units of a token's row (combine), a grid stride over them; each
-// lane moves 16 bytes at a time (8 bf16 or 4 f32) where D and the pointers
-// allow (`vector`), ILP of them in flight from a row, of JB rows at once in
-// the combine; any other D takes an element at a time (`scalar`), the same
-// arithmetic. The fill streams its stores (`__stcs`): the buffer is not
-// read again before it leaves the L2, the rows are. Splitting a token's
-// row into chunks gives decode's few tokens several warps each. No shared
-// memory and no tensor cores: nothing is reused within a block.
+// * fill: write E*C*D elements and read each token's row of x once:
+//   kimi-k2's prefill (T 4096, E 384, C 107, D 7168, bf16) writes 589 MB
+//   and reads x's 58.7 MB, 0.193 ms at 3.35 TB/s. x does not fit the 50 MB
+//   L2, so a slot-major fill, which reads a token's row once for each of
+//   its k slots, goes back to device memory for the repeats;
+// * combine: read each kept assignment's row of y and the table's T*k
+//   (dest, gate) pairs once and write T*D: at most T*k*D elements read
+//   (134.2 MB at olmoe-1b-7b's prefill) and 16.8 MB written, 0.045 ms.
+// What the design does about it:
+// * the fill is token-major (`moe_fill_kernel`): a warp a token, lane j < k
+//   holding its j-th destination; the warp reads the token's row once into
+//   registers, 4 units a lane in flight (16 bytes on `vector`, one element
+//   on `scalar`), and stores them to each kept destination, streamed
+//   (`__stcs`). x is read once. The grid's warps first zero the empty
+//   slots, streamed 16-byte stores of whole rows: each warp tests 32 slot
+//   rows at once against `kept`, rows a grid's worth of warps apart, and
+//   zeroes those past it. An expert's empty slots are one run of rows:
+//   given to warps in runs of 32, jamba-1.5-large's 2048 empty rows of 16 KB
+//   fall to the warps of 46 blocks, and the fill loses to `index_select`.
+//   `examples/moe_fill_probe_torch.py` times this kernel against those runs
+//   of 32 and against a bulk-copy design (the row staged in a shared-memory
+//   ring by 1-D bulk copies and bulk-stored to its slots), which it keeps;
+// * the combine: a warp a chunk of 32 x CILP units of a token's row (16
+//   bytes, 8 bf16 or 4 f32, on `vector`, one element on `scalar`). Lane j < k
+//   reads the token's j-th (dest, gate) pair (two 32-byte reads a token),
+//   the warp ranks the k pairs by expert id (stable, by shuffles) and loads
+//   its rows' units, JB rows in flight, before it adds them in that order:
+//   16 units a lane in flight, 2 of each of 8 rows (k 5-8; olmoe, kimi-k2)
+//   or 4 of each of 4 (k <= 4; jamba's 2), or 1 of each of 8 rows where the
+//   tokens are few (decode's 4 tokens at D 2048 make 32 warps over 8 blocks
+//   of 4 warps), so small calls spread over SMs. No shared memory: nothing
+//   is reused within a block.
 //
 // Entry points: `moe_fill` and `moe_combine`, plain C functions that
-// launch on the given stream and return cudaGetLastError().
+// launch on the given stream of the given device and return
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int WARPS = NTHREADS / 32;
-constexpr int ILP = 4;                  // units of a row in flight a lane
-constexpr int JB = 2;                   // rows in flight at once (combine)
+constexpr int FILL_THREADS = 256;
+constexpr int FILL_WARPS = FILL_THREADS / 32;
+constexpr int COMBINE_THREADS = 128;
+constexpr int COMBINE_WARPS = COMBINE_THREADS / 32;
+constexpr int ILP = 4;                  // units of a row in flight a lane (fill)
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_K = 32;               // a token's assignments, one a lane
+constexpr int MAX_DEVICES = 64;
+
+// An entry point's small arguments in one int (each argument of a ctypes
+// call costs host time, and decode's calls are host-paced): bit 0 the
+// route (1 for 16-byte units, 0 for an element at a time), bit 1 the dtype
+// (0 f32, 1 bf16), bits 2-7 k, the bits from 8 the device.
+constexpr int MODE_DTYPE_SHIFT = 1;
+constexpr int MODE_K_SHIFT = 2;
+constexpr int MODE_DEVICE_SHIFT = 8;
+
+struct Mode {
+  int vector, dtype, k, device;
+  explicit Mode(int m)
+      : vector(m & 1), dtype((m >> MODE_DTYPE_SHIFT) & 1), k((m >> MODE_K_SHIFT) & 63),
+        device(m >> MODE_DEVICE_SHIFT) {}
+};
 
 template <typename T> struct Traits;
 
@@ -97,29 +133,60 @@ template <> struct Traits<__nv_bfloat16> {
 // moves (uint4: 16 bytes; uint16_t or uint32_t: one element)
 // ---------------------------------------------------------------------------
 
+// Zeroes the buffer's empty slots (row r = e * cap + c with c >= kept[e]):
+// warp `w` of `warps` takes rows w, w + warps, w + 2 warps, ..., tests 32 of
+// them at a time (one a lane) and zeroes the empty ones with the whole warp,
+// streamed stores. The stride spreads an expert's empty tail, consecutive
+// rows, over as many warps (and SMs) as it has rows.
 template <typename U>
-__global__ void __launch_bounds__(NTHREADS)
-moe_fill_kernel(const U* __restrict__ rows, const int32_t* __restrict__ src, U* __restrict__ out,
-                int64_t slots, int64_t n_rows, int64_t units) {
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = int64_t(gridDim.x) * WARPS;
-  for (int64_t r = int64_t(blockIdx.x) * WARPS + threadIdx.x / 32; r < slots; r += stride) {
-    const int32_t s = src[r];
-    U* o = out + r * units;
-    if (s == n_rows) {                  // the sentinel: an empty slot
-      for (int64_t j = lane; j < units; j += 32) __stcs(o + j, U{});
-      continue;
+__device__ __forceinline__ void zero_empty_slots(U* __restrict__ out,
+                                                 const int32_t* __restrict__ kept, int64_t slots,
+                                                 int64_t cap, int64_t units, int64_t w,
+                                                 int64_t warps, int lane) {
+  for (int64_t first = w; first < slots; first += 32 * warps) {
+    const int64_t r = first + lane * warps;
+    bool empty = false;
+    if (r < slots) {
+      const int64_t e = r / cap;
+      empty = r - e * cap >= kept[e];
     }
-    if (s < 0 || s > n_rows) __trap();  // as an index kernel's device assert
-    const U* in = rows + int64_t(s) * units;
-    for (int64_t j = lane; j < units; j += 32 * ILP) {
+    for (unsigned m = __ballot_sync(FULL, empty); m; m &= m - 1) {
+      U* o = out + (first + (__ffs(m) - 1) * warps) * units;
+      for (int64_t j = lane; j < units; j += 32) __stcs(o + j, U{});
+    }
+  }
+}
+
+// A warp a token, lane j < k holding its j-th destination; ILP units of
+// the row a lane in flight, each stored to every kept destination. The
+// grid's warps first zero the empty slots.
+template <typename U>
+__global__ void __launch_bounds__(FILL_THREADS)
+moe_fill_kernel(const U* __restrict__ rows, const int32_t* __restrict__ dest,
+                const int32_t* __restrict__ kept, U* __restrict__ out, int64_t tokens, int k,
+                int64_t slots, int64_t cap, int64_t units) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = int64_t(blockIdx.x) * FILL_WARPS + threadIdx.x / 32;
+  const int64_t warps = int64_t(gridDim.x) * FILL_WARPS;
+  zero_empty_slots(out, kept, slots, cap, units, warp, warps, lane);
+  for (int64_t t = warp; t < tokens; t += warps) {
+    const int32_t d = lane < k ? dest[t * k + lane] : -1;
+    if (d >= slots) __trap();           // as an index kernel's device assert
+    const unsigned live = __ballot_sync(FULL, d >= 0);
+    const U* in = rows + t * units;
+    // the same trip count on every lane: the shuffles below take the whole warp
+    for (int64_t j0 = 0; j0 < units; j0 += 32 * ILP) {
+      const int64_t j = j0 + lane;
       U v[ILP];
 #pragma unroll
       for (int u = 0; u < ILP; ++u)
         if (j + u * 32 < units) v[u] = in[j + u * 32];
+      for (unsigned m = live; m; m &= m - 1) {
+        U* o = out + int64_t(__shfl_sync(FULL, d, __ffs(m) - 1)) * units + j;
 #pragma unroll
-      for (int u = 0; u < ILP; ++u)
-        if (j + u * 32 < units) __stcs(o + j + u * 32, v[u]);
+        for (int u = 0; u < ILP; ++u)
+          if (j + u * 32 < units) __stcs(o + u * 32, v[u]);
+      }
     }
   }
 }
@@ -168,55 +235,50 @@ template <typename T> struct Unit<T, false> {
   }
 };
 
-// A work item is one chunk of a token's output row, CHUNK = 32 x ILP
-// units, a warp an item: lane l takes units l, l+32, l+64, l+96 of the
-// chunk. The warp reads the token's k sorted positions (`inverse`, the
-// argsort's inverse permutation, at t*k .. t*k+k-1) and the plan's entries
-// at them, one assignment a lane, and orders them by position (ranks by
-// shuffles: the positions are distinct). Then it walks them in that order,
-// JB rows at a time: each lane loads its ILP units of each row (the warp
-// 2 KB contiguous of a bf16 row), and adds their gated contributions.
-template <typename T, bool VECTOR>
-__global__ void __launch_bounds__(NTHREADS)
-moe_combine_kernel(const T* __restrict__ y, const int64_t* __restrict__ inverse,
-                   const int64_t* __restrict__ expert, const int64_t* __restrict__ slot,
-                   const bool* __restrict__ keep, const float* __restrict__ gate,
-                   T* __restrict__ out, int64_t tokens, int k, int64_t d, int64_t experts,
-                   int64_t cap) {
+// A work item is one chunk of a token's output row, CHUNK = 32 x CILP
+// units, a warp an item: lane l takes units l, l+32, ... of the chunk.
+// Lane j < k reads the token's j-th (dest, gate); the warp ranks them by
+// expert id, ties by j (the plain version's stable order), so that lane r
+// then holds the r-th. It walks them in that order, JB rows at a time:
+// each lane loads its CILP units of each of the JB rows, then adds their
+// gated contributions. CILP x JB units a lane are in flight.
+template <typename T, bool VECTOR, int CILP, int JB>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+moe_combine_kernel(const T* __restrict__ y, const int32_t* __restrict__ dest,
+                   const float* __restrict__ gate, T* __restrict__ out, int64_t tokens, int k,
+                   int64_t d, int64_t rows_y, int64_t cap, int64_t expert0) {
   using U = Unit<T, VECTOR>;
   constexpr int N = U::N;
   const int lane = threadIdx.x & 31;
   const int64_t units = d / N;
-  const int64_t chunks = (units + 32 * ILP - 1) / (32 * ILP);
-  const int64_t n = tokens * k;
-  const int64_t stride = int64_t(gridDim.x) * WARPS;
-  for (int64_t item = int64_t(blockIdx.x) * WARPS + threadIdx.x / 32; item < tokens * chunks;
-       item += stride) {
+  const int64_t chunks = (units + 32 * CILP - 1) / (32 * CILP);
+  const int64_t stride = int64_t(gridDim.x) * COMBINE_WARPS;
+  for (int64_t item = int64_t(blockIdx.x) * COMBINE_WARPS + threadIdx.x / 32;
+       item < tokens * chunks; item += stride) {
     const int64_t t = item / chunks;
-    const int64_t base = (item - t * chunks) * 32 * ILP + lane;
-    int64_t p = INT64_MAX;
+    const int64_t base = (item - t * chunks) * 32 * CILP + lane;
     int32_t row = -1;
+    int64_t key = INT64_MAX;            // the expert id; lanes >= k sort last
     float g = 0.0f;
     if (lane < k) {
-      p = inverse[t * k + lane];
-      if (p < 0 || p >= n) __trap();
-      if (keep[p]) {
-        const int64_t e = expert[p], s = slot[p];
-        if (e < 0 || e >= experts || s < 0 || s >= cap) __trap();
-        row = static_cast<int32_t>(e * cap + s);
-      }
-      g = Traits<T>::round(gate[p]);
+      row = dest[t * k + lane];
+      if (row >= rows_y) __trap();
+      key = row >= 0 ? expert0 + row / cap : -1 - int64_t(row);
+      g = Traits<T>::round(gate[t * k + lane]);
     }
     // every lane runs the shuffles: k is the same across the warp
     int rank = 0;
-    for (int l = 0; l < k; ++l) rank += __shfl_sync(FULL, p, l) < p;
+    for (int l = 0; l < k; ++l) {
+      const int64_t kl = __shfl_sync(FULL, key, l);
+      rank += kl < key || (kl == key && l < lane);
+    }
     int src = 0;
     for (int l = 0; l < k; ++l) src = __shfl_sync(FULL, rank, l) == lane ? l : src;
-    row = __shfl_sync(FULL, row, src);     // lane j < k: the j-th in sorted position
+    row = __shfl_sync(FULL, row, src);     // lane j < k: the j-th in expert order
     g = __shfl_sync(FULL, g, src);
-    float acc[ILP][N] = {};
+    float acc[CILP][N] = {};
     for (int j0 = 0; j0 < k; j0 += JB) {
-      U v[JB][ILP];
+      U v[JB][CILP];
       int32_t r[JB];
       float gj[JB];
 #pragma unroll
@@ -226,7 +288,7 @@ moe_combine_kernel(const T* __restrict__ y, const int64_t* __restrict__ inverse,
         if (j0 + b < k && r[b] >= 0) {
           const T* in = y + int64_t(r[b]) * d;
 #pragma unroll
-          for (int i = 0; i < ILP; ++i)
+          for (int i = 0; i < CILP; ++i)
             if (base + i * 32 < units) v[b][i].load(in, base + i * 32);
         }
       }
@@ -234,7 +296,7 @@ moe_combine_kernel(const T* __restrict__ y, const int64_t* __restrict__ inverse,
       for (int b = 0; b < JB; ++b) {
         if (j0 + b < k) {
 #pragma unroll
-          for (int i = 0; i < ILP; ++i)
+          for (int i = 0; i < CILP; ++i)
 #pragma unroll
             for (int e = 0; e < N; ++e)
               acc[i][e] = accumulate<T>(acc[i][e],
@@ -244,80 +306,138 @@ moe_combine_kernel(const T* __restrict__ y, const int64_t* __restrict__ inverse,
       }
     }
 #pragma unroll
-    for (int i = 0; i < ILP; ++i)
+    for (int i = 0; i < CILP; ++i)
       if (base + i * 32 < units) U::store(out + t * d, base + i * 32, acc[i]);
   }
 }
 
-// blocks for `items` warps' work: one warp an item, capped at 32 waves of
-// full blocks (a grid stride covers the rest)
-int grid_for(int64_t items) {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-    sms = 132;
-  const int64_t want = (items + WARPS - 1) / WARPS;
-  const int64_t cap = int64_t(sms) * 32;
-  return static_cast<int>(want < cap ? want : cap);
+// ---- host side -------------------------------------------------------------
+
+// The device's SM count, asked once a device.
+int sm_count(int dev) {
+  static int counts[MAX_DEVICES] = {};
+  if (dev < 0 || dev >= MAX_DEVICES) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      return 132;
+    counts[dev] = n;
+  }
+  return counts[dev];
+}
+
+// blocks of `warps_a_block` warps for `items` warps' work, capped at
+// `per_sm` blocks an SM (a grid stride covers the rest)
+int grid_for(int64_t items, int warps_a_block, int per_sm, int dev) {
+  const int64_t want = (items + warps_a_block - 1) / warps_a_block;
+  const int64_t cap = int64_t(sm_count(dev)) * per_sm;
+  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// Makes `dev` current for the launch and restores the caller's device.
+struct OnDevice {
+  int prev = -1;
+  explicit OnDevice(int dev) {
+    if (cudaGetDevice(&prev) == cudaSuccess && prev != dev) cudaSetDevice(dev);
+    else prev = -1;
+  }
+  ~OnDevice() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
 }  // namespace
 
-// dtype 0: f32, 1: bf16. vector 1: 16-byte vectors (D a multiple of 16
-// bytes' elements, rows and out 16-byte aligned), 0: an element at a time.
-// src (slots,) int32, each a row of `rows` (n_rows, D) or n_rows for zeros.
-extern "C" int moe_fill(int dtype, int vector, const void* rows, const int32_t* src, void* out,
-                        long long slots, long long n_rows, long long d, void* stream) {
-  if ((dtype != 0 && dtype != 1) || slots < 0 || n_rows < 0 || d < 0 ||
-      (slots > 0 && (src == nullptr || out == nullptr)) || n_rows > INT32_MAX)
+// mode (Mode): the route, 1 for 16-byte units (D a multiple of 16 bytes'
+// elements, rows and out 16-byte aligned) or 0 for an element at a time,
+// the dtype, k and the device. rows (tokens, D); dest (tokens, k) int32,
+// each a row of out (experts * cap, D) or negative for none; kept
+// (experts,) int32, the count of each expert's rows in dest: the kernel
+// zeroes the rest of its slots and trusts the count (`route_table` makes it
+// from the same plan).
+extern "C" int moe_fill(int mode, const void* rows, const int32_t* dest, const int32_t* kept,
+                        void* out, long long tokens, long long experts, long long cap,
+                        long long d, void* stream) {
+  const Mode m(mode);
+  const int vector = m.vector, dtype = m.dtype, k = m.k, device = m.device;
+  const long long slots = experts * cap;
+  if (tokens < 0 || experts < 0 || cap < 0 || d < 0 || k < 1 || k > MAX_K || slots > INT32_MAX ||
+      (slots > 0 && d > 0 && (!out || !kept || (tokens > 0 && (!rows || !dest)))))
     return cudaErrorInvalidValue;
   if (slots == 0 || d == 0) return cudaSuccess;
   const int64_t bytes = d * (dtype == 0 ? 4 : 2);
+  if (vector && (bytes % 16 != 0 || !aligned16(rows) || !aligned16(out)))
+    return cudaErrorInvalidValue;
+  OnDevice on(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = grid_for(slots);
+  // a warp for each token, and enough warps to spread the zeros: one for
+  // each 32 slot rows, and a block an SM where there are that many rows
+  // (decode's few tokens would leave the zeros to a block or two)
+  const int64_t spread = std::min<int64_t>(slots, int64_t(sm_count(device)) * FILL_WARPS);
+  const int64_t warps = std::max<int64_t>({tokens, slots / 32, spread});
+  const int blocks = grid_for(warps, FILL_WARPS, 32, device);
   if (vector) {
-    if (bytes % 16 != 0 || !aligned16(rows) || !aligned16(out)) return cudaErrorInvalidValue;
-    moe_fill_kernel<uint4><<<blocks, NTHREADS, 0, st>>>(
-        static_cast<const uint4*>(rows), src, static_cast<uint4*>(out), slots, n_rows, bytes / 16);
+    moe_fill_kernel<uint4><<<blocks, FILL_THREADS, 0, st>>>(
+        static_cast<const uint4*>(rows), dest, kept, static_cast<uint4*>(out), tokens, k, slots,
+        cap, bytes / 16);
   } else if (dtype == 0) {
-    moe_fill_kernel<uint32_t><<<blocks, NTHREADS, 0, st>>>(
-        static_cast<const uint32_t*>(rows), src, static_cast<uint32_t*>(out), slots, n_rows, d);
+    moe_fill_kernel<uint32_t><<<blocks, FILL_THREADS, 0, st>>>(
+        static_cast<const uint32_t*>(rows), dest, kept, static_cast<uint32_t*>(out), tokens, k,
+        slots, cap, d);
   } else {
-    moe_fill_kernel<uint16_t><<<blocks, NTHREADS, 0, st>>>(
-        static_cast<const uint16_t*>(rows), src, static_cast<uint16_t*>(out), slots, n_rows, d);
+    moe_fill_kernel<uint16_t><<<blocks, FILL_THREADS, 0, st>>>(
+        static_cast<const uint16_t*>(rows), dest, kept, static_cast<uint16_t*>(out), tokens, k,
+        slots, cap, d);
   }
   return cudaGetLastError();
 }
 
-// y (experts, cap, D) in dtype; inverse, expert, slot (tokens*k,) int64, keep
-// bool and gate f32: the inverse of the plan's argsort and the plan's
-// sorted entries; out (tokens, D) in dtype.
-extern "C" int moe_combine(int dtype, int vector, const void* y, const int64_t* inverse,
-                           const int64_t* expert, const int64_t* slot, const bool* keep,
-                           const float* gate, void* out, long long tokens, int k, long long d,
-                           long long experts, long long cap, void* stream) {
-  if ((dtype != 0 && dtype != 1) || tokens < 0 || d < 0 || experts < 0 || cap < 0 || k < 1 ||
-      k > MAX_K || experts * cap > INT32_MAX ||
-      (tokens > 0 && (!inverse || !expert || !slot || !keep || !gate || !out)))
+// mode (Mode): the route, 1 for 16-byte units (D a multiple of 16 bytes'
+// elements, y and out 16-byte aligned) or 0 for an element at a time, the
+// dtype, k and the device. y (experts, cap, D); dest, gate (tokens, k) int32
+// and f32, a row of y or negative for a dropped assignment of expert
+// -1 - dest; out (tokens, D). y's first expert is expert `expert0` of the
+// layer.
+extern "C" int moe_combine(int mode, const void* y, const int32_t* dest, const float* gate,
+                           void* out, long long tokens, long long experts, long long cap,
+                           long long d, long long expert0, void* stream) {
+  const Mode m(mode);
+  const int vector = m.vector, dtype = m.dtype, k = m.k, device = m.device;
+  if (tokens < 0 || d < 0 || experts < 0 || cap < 0 || k < 1 ||
+      k > MAX_K || experts * cap > INT32_MAX || expert0 < 0 || (cap == 0 && experts > 0) ||
+      (tokens > 0 && d > 0 && (!dest || !gate || !out || (experts * cap > 0 && !y))))
     return cudaErrorInvalidValue;
   if (tokens == 0 || d == 0) return cudaSuccess;
   const int64_t bytes = d * (dtype == 0 ? 4 : 2);
   if (vector && (bytes % 16 != 0 || !aligned16(y) || !aligned16(out)))
     return cudaErrorInvalidValue;
   const int64_t units = vector ? bytes / 16 : d;
-  const int blocks = grid_for(tokens * ((units + 32 * ILP - 1) / (32 * ILP)));
+  const int64_t rows_y = experts * cap;
+  const int64_t cap1 = cap > 0 ? cap : 1;   // no kept row without a slot: any divisor
+  OnDevice on(device);
+  // 16 units a lane in flight: 4 of each of 4 rows where k <= 4, else 2 of
+  // each of 8; 1 of each of 8 where that would give fewer than 8 warps an SM
+  int cilp = k <= 4 ? 4 : 2;
+  if (tokens * ((units + 32 * cilp - 1) / (32 * cilp)) < int64_t(sm_count(device)) * 8) cilp = 1;
+  const int64_t items = tokens * ((units + 32 * cilp - 1) / (32 * cilp));
+  const int blocks = grid_for(items, COMBINE_WARPS, 32, device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define B2_COMBINE(T, V)                                                                    \
-  moe_combine_kernel<T, V><<<blocks, NTHREADS, 0, st>>>(                                     \
-      static_cast<const T*>(y), inverse, expert, slot, keep, gate, static_cast<T*>(out),    \
-      tokens, k, d, experts, cap)
+#define B2_COMBINE(T, V, I, J)                                                               \
+  moe_combine_kernel<T, V, I, J><<<blocks, COMBINE_THREADS, 0, st>>>(                       \
+      static_cast<const T*>(y), dest, gate, static_cast<T*>(out), tokens, k, d, rows_y, cap1, \
+      expert0)
+#define B2_COMBINE_ILP(T, V)                       \
+  if (cilp == 1) B2_COMBINE(T, V, 1, 8);           \
+  else if (cilp == 2) B2_COMBINE(T, V, 2, 8);      \
+  else B2_COMBINE(T, V, 4, 4)
   if (dtype == 0) {
-    if (vector) B2_COMBINE(float, true); else B2_COMBINE(float, false);
+    if (vector) { B2_COMBINE_ILP(float, true); } else { B2_COMBINE_ILP(float, false); }
   } else {
-    if (vector) B2_COMBINE(__nv_bfloat16, true); else B2_COMBINE(__nv_bfloat16, false);
+    if (vector) { B2_COMBINE_ILP(__nv_bfloat16, true); } else { B2_COMBINE_ILP(__nv_bfloat16, false); }
   }
+#undef B2_COMBINE_ILP
 #undef B2_COMBINE
   return cudaGetLastError();
 }

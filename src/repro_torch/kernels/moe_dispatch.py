@@ -8,28 +8,34 @@ the buffer's scatter and the combine's gather-scale-mask and scatter-add.
 :mod:`repro_torch.kernels.build`, holds both; its header says what bounds
 each (bytes) and what its design does about that.
 
-* :func:`moe_fill`: the (E, C, D) expert buffer in one pass, slot (e, c)
-  holding ``rows[src[e, c]]``, or zeros where ``src[e, c]`` is the
-  sentinel ``fill`` (the number of rows);
-* :func:`moe_combine`: each token's k gated contributions
-  ``y[expert, slot] · gate`` (+0.0 where dropped) added in ascending sorted
-  position, i.e. by expert id, every product and sum rounded to y's dtype,
-  as :func:`moe_combine_plain` adds them, so the two agree bit for bit.
-  The kernel reads the plan's sorted entries as they are and, built here
-  by torch ops, the argsort's inverse permutation (:func:`inverse_order`),
-  which gives each token's k sorted positions; a warp orders them itself.
+Both read one token-major route table (``repro_torch.models.moe.route_table``):
+
+* ``dest`` (T, k) int32: token t's j-th assignment goes to row
+  ``dest[t, j]`` of the (E, C, D) buffer (``e·C + slot``, e counted from the
+  table's first expert), or is dropped where ``dest[t, j] < 0``: then
+  ``-1 - dest[t, j]`` is its (global) expert;
+* ``kept`` (E,) int32: how many slots of each expert are filled (its
+  first ``kept[e]``); the others are zeros. It is derived from ``dest`` (the
+  count of each expert's rows there): the fill kernel trusts it to tell
+  which slots to zero, the plain fill reads only its length;
+* ``gate`` (T, k) f32, the router's gates.
+
+:func:`moe_fill` writes the buffer: every token's row to its kept
+destinations, zeros elsewhere. :func:`moe_combine` adds each token's k gated
+contributions ``y[dest] · gate`` (+0.0 where dropped) in ascending expert
+id, every product and sum rounded to y's dtype, as :func:`moe_combine_plain`
+adds them, so the two agree bit for bit.
 
 A CUDA tensor goes to the kernel or raises; CPU and meta tensors (the
 tests, the dry run) go to the plain versions. Each wrapper counts its
 launches under a lock, in ``launches`` and in ``launches_by_route``:
-``vector`` (16-byte vectors: D a multiple of 8 bf16 or 4 f32 elements,
-the tensors 16-byte aligned) or ``scalar`` (an element at a time).
-Neither kernel has a backward: ``ops`` refuses a CUDA input that
-requires a gradient.
+``vector`` (16-byte pieces: D a multiple of 8 bf16 or 4 f32 elements, the
+rows 16-byte aligned) or ``scalar`` (an element at a time). Neither
+kernel has a backward: ``ops`` refuses a CUDA input that requires a
+gradient.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import threading
@@ -41,26 +47,22 @@ from .build import load_library
 ROUTES = ("vector", "scalar")
 MAX_K = 32                       # a token's assignments: one a lane of a warp
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_INT32, _FLOAT32 = torch.int32, torch.float32
 _LAUNCH_LOCK = threading.Lock()
+# an entry point's `mode`: the route (1 vector), the dtype, k and the device
+# in one int (each ctypes argument costs host time; decode's calls are
+# host-paced)
+_MODE_DTYPE_SHIFT, _MODE_K_SHIFT, _MODE_DEVICE_SHIFT = 1, 2, 8
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+# mode, rows, dest, kept, out, tokens, experts, cap, d, stream
+_FILL_ARGTYPES = [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P]
+# mode, y, dest, gate, out, tokens, experts, cap, d, expert0, stream
+_COMBINE_ARGTYPES = [_I, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P]
 
 
-def _route(d: int, *tensors: torch.Tensor) -> str:
-    """``vector`` where rows of D elements are whole 16-byte vectors and
-    every tensor starts on a 16-byte boundary, else ``scalar``."""
-    whole = d * tensors[0].element_size() % 16 == 0
-    return "vector" if whole and all(t.data_ptr() % 16 == 0 for t in tensors) else "scalar"
-
-
-def _on(t: torch.Tensor):
-    """The context that makes ``t``'s card current (none where it is)."""
-    index = t.get_device()
-    return contextlib.nullcontext() if index == torch.cuda.current_device() \
-        else torch.cuda.device(index)
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s card, as the kernels take it."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
+def _mode(vector: bool, dtype: torch.dtype, k: int, device: int) -> int:
+    return (int(vector) | _DTYPE_CODE[dtype] << _MODE_DTYPE_SHIFT | k << _MODE_K_SHIFT
+            | device << _MODE_DEVICE_SHIFT)
 
 
 def _count(fn, route: str) -> None:
@@ -69,81 +71,104 @@ def _count(fn, route: str) -> None:
         fn.launches_by_route[route] += 1
 
 
-def moe_fill_plain(rows: torch.Tensor, src: torch.Tensor, fill: int) -> torch.Tensor:
-    """``rows`` (N, D) gathered into a contiguous (E, C, D) buffer by ``src``
-    (E, C): slot (e, c) holds ``rows[src[e, c]]``, zeros where ``src[e, c]``
-    is ``fill`` (= N). The rows with a zero row appended, indexed."""
-    padded = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
-    return padded[src].contiguous()
+def _raise(name: str, err: int) -> None:
+    raise RuntimeError(f"{name} kernel launch failed: "
+                       f"{_lib().moe_error_string(err).decode()} ({err})")
 
 
-def moe_combine_plain(y: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
-                      gate: torch.Tensor, keep: torch.Tensor, order: torch.Tensor, k: int
-                      ) -> torch.Tensor:
-    """Each token's gated contributions ``y[expert, slot] · gate`` of the
-    sorted assignments (zero where not ``keep``; a dropped assignment's slot
-    may be C), added per token in ascending sorted position, i.e. by expert
-    id: the order in which the reference's scatter-add applies them.
-    y (E, C, D); the rest are the plan's (T·k,) sorted entries. Returns
-    (T, D) in y's dtype."""
-    e, _, d = y.shape
-    ypad = torch.cat([y, torch.zeros((e, 1, d), dtype=y.dtype, device=y.device)], dim=1)
-    contrib = ypad[expert, slot] * gate[:, None].to(ypad.dtype)
-    contrib = torch.where(keep[:, None], contrib, torch.zeros((), dtype=ypad.dtype,
-                                                              device=ypad.device))
-    per_token = contrib[inverse_order(order).view(-1, k).sort(dim=1).values]   # (t, k, D)
-    out2d = per_token[:, 0]
-    for j in range(1, k):
-        out2d = out2d + per_token[:, j]
+def moe_fill_plain(rows: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor,
+                   cap: int) -> torch.Tensor:
+    """The contiguous (E, cap, D) buffer, E = ``kept``'s length: row
+    ``dest[t, j]`` holds ``rows[t]`` for every kept destination, zeros
+    elsewhere. ``rows`` (T, D). An index_put into zeros with a waste row for
+    the dropped assignments, cut away."""
+    e, (t, k), d = kept.shape[0], dest.shape, rows.shape[1]
+    flat = dest.reshape(-1)
+    slot = torch.where(flat >= 0, flat, e * cap)
+    buf = torch.index_put(rows.new_zeros((e * cap + 1, d)), (slot,),
+                          rows.repeat_interleave(k, dim=0))
+    return buf[:-1].view(e, cap, d)
+
+
+def expert_order(dest: torch.Tensor, cap: int, expert0: int = 0) -> torch.Tensor:
+    """(T, k): each token's assignments in ascending expert id (stable),
+    the order in which the reference's scatter-add applies them."""
+    expert = torch.where(dest >= 0, torch.div(dest, cap, rounding_mode="floor") + expert0,
+                         -1 - dest)
+    return torch.argsort(expert, dim=1, stable=True)
+
+
+def moe_combine_plain(y: torch.Tensor, dest: torch.Tensor, gate: torch.Tensor,
+                      expert0: int = 0) -> torch.Tensor:
+    """Each token's gated contributions ``y[dest] · gate`` of its k routes
+    (+0.0 where dropped, which still takes part in the sum), added in
+    ascending expert id (:func:`expert_order`), the product and each sum in
+    y's dtype. y (E, C, D); ``expert0`` the global id of y's first expert.
+    Returns (T, D) in y's dtype."""
+    e, cap, d = y.shape
+    order = expert_order(dest, cap, expert0)
+    dest, gate = dest.gather(1, order), gate.gather(1, order)
+    kept = dest >= 0
+    rows = y.reshape(e * cap, d)[torch.where(kept, dest, 0).long()]          # (T, k, D)
+    contrib = rows * gate[..., None].to(y.dtype)
+    contrib = torch.where(kept[..., None], contrib, torch.zeros((), dtype=y.dtype,
+                                                                device=y.device))
+    out2d = contrib[:, 0]
+    for j in range(1, dest.shape[1]):
+        out2d = out2d + contrib[:, j]
     return out2d
 
 
-def inverse_order(order: torch.Tensor) -> torch.Tensor:
-    """The inverse of the plan's argsort: ``inverse[order[p]] = p``, so token
-    t's k assignments sit at sorted positions ``inverse[t·k : t·k + k]``."""
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(order.shape[0], device=order.device)
-    return inverse
+def _fill_shapes(rows, dest, kept) -> None:
+    if rows.dim() != 2 or dest.dim() != 2 or kept.dim() != 1 or dest.shape[0] != rows.shape[0]:
+        raise ValueError(f"moe_fill: want rows (T, D), dest (T, k) and kept (E,); got "
+                         f"{tuple(rows.shape)}, {tuple(dest.shape)}, {tuple(kept.shape)}")
 
 
-def _check_fill(rows: torch.Tensor, src: torch.Tensor, fill: int) -> None:
-    if rows.dim() != 2 or src.dim() != 2:
-        raise ValueError(f"moe_fill: want rows (N, D) and src (E, C); got "
-                         f"{tuple(rows.shape)}, {tuple(src.shape)}")
-    if fill != rows.shape[0]:
-        raise ValueError(f"moe_fill: the sentinel must be the number of rows "
-                         f"{rows.shape[0]}; got {fill}")
-    if src.device != rows.device:
-        raise ValueError(f"moe_fill: rows on {rows.device}, src on {src.device}")
+def _refuse(name: str, k: int, *tensors) -> None:
+    """Raises for what a CUDA call was refused: a tensor on another device,
+    of another dtype or not contiguous, or k out of range; ``tensors`` are
+    (tensor, dtype, or None for f32 or bf16)."""
+    first = tensors[0][0]
+    for t, dt in tensors:
+        if t.device != first.device:
+            raise ValueError(f"{name}: want every tensor on {first.device}; got {t.device}")
+        if (t.dtype not in _DTYPE_CODE) if dt is None else t.dtype != dt:
+            raise TypeError(f"{name}: want {dt or list(_DTYPE_CODE)}; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous")
+    raise ValueError(f"{name}: k must be in 1..{MAX_K}; got {k}")
 
 
-def moe_fill(rows: torch.Tensor, src: torch.Tensor, fill: int) -> torch.Tensor:
-    """The (E, C, D) buffer of :func:`moe_fill_plain`, contiguous: on the card
-    one launch of the fill kernel on the current stream (rows f32 or bf16
-    and contiguous, src int32 and contiguous); on the CPU (or meta) the
-    plain version."""
-    _check_fill(rows, src, fill)
-    if rows.device.type != "cuda":
-        return moe_fill_plain(rows, src, fill)
-    if rows.dtype not in _DTYPE_CODE or src.dtype != torch.int32:
-        raise TypeError(f"moe_fill: want rows in {list(_DTYPE_CODE)} and src int32; got "
-                        f"{rows.dtype}, {src.dtype}")
-    if not (rows.is_contiguous() and src.is_contiguous()):
-        raise ValueError("moe_fill: rows and src must be contiguous")
-    e, c = src.shape
-    n, d = rows.shape
-    out = torch.empty((e, c, d), dtype=rows.dtype, device=rows.device)
-    if out.numel() == 0:
-        return out
-    route = _route(d, rows, out)
-    lib = _lib()
-    with _on(rows):
-        err = lib.moe_fill(_DTYPE_CODE[rows.dtype], int(route == "vector"), rows.data_ptr(),
-                           src.data_ptr(), out.data_ptr(), e * c, n, d, _stream(rows))
-    if err != 0:
-        raise RuntimeError(f"moe_fill kernel launch failed: "
-                           f"{lib.moe_error_string(err).decode()} ({err})")
-    _count(moe_fill, route)
+def moe_fill(rows: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor,
+             cap: int) -> torch.Tensor:
+    """The (E, cap, D) buffer of :func:`moe_fill_plain`: on the card one
+    launch of the fill kernel on the current stream (rows f32 or bf16,
+    dest and kept int32, each contiguous on one card); on the CPU (or
+    meta) the plain version. ``kept`` must be the count of each expert's
+    rows in ``dest``, as ``route_table`` makes it. The checks are one
+    expression over each tensor's shape read once: decode's calls are
+    host-paced, and each tensor attribute read costs host time."""
+    if not rows.is_cuda:
+        _fill_shapes(rows, dest, kept)
+        return moe_fill_plain(rows, dest, kept, cap)
+    rs, ds, ks, dev = rows.shape, dest.shape, kept.shape, rows.get_device()
+    if not (len(rs) == 2 and len(ds) == 2 and len(ks) == 1 and ds[0] == rs[0]
+            and 0 < ds[1] <= MAX_K and rows.dtype in _DTYPE_CODE and dest.dtype == _INT32
+            and kept.dtype == _INT32 and rows.is_contiguous() and dest.is_contiguous()
+            and kept.is_contiguous() and dest.get_device() == dev and kept.get_device() == dev):
+        _fill_shapes(rows, dest, kept)
+        _refuse("moe_fill", ds[1], (rows, None), (dest, _INT32), (kept, _INT32))
+    (t, d), k, e = rs, ds[1], ks[0]
+    out = rows.new_empty((e, cap, d))
+    rp, op = rows.data_ptr(), out.data_ptr()
+    vector = d * rows.element_size() % 16 == 0 and (rp | op) % 16 == 0
+    err = _lib().moe_fill(_mode(vector, rows.dtype, k, dev), rp, dest.data_ptr(),
+                          kept.data_ptr(), op, t, e, cap, d,
+                          torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _raise("moe_fill", err)
+    _count(moe_fill, "vector" if vector else "scalar")
     return out
 
 
@@ -151,49 +176,31 @@ moe_fill.launches = 0
 moe_fill.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def moe_combine(y: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor,
-                keep: torch.Tensor, order: torch.Tensor, k: int) -> torch.Tensor:
-    """The (T, D) output of :func:`moe_combine_plain`: on the card the plan's
-    inverse permutation (:func:`inverse_order`) and one launch of the
-    combine kernel on the current stream (y f32 or bf16 and contiguous;
-    expert, slot and order int64, keep bool, gate f32, each contiguous;
-    k ≤ ``MAX_K``); on the CPU (or meta) the plain version."""
-    if y.dim() != 3 or order.shape[0] % k:
-        raise ValueError(f"moe_combine: want y (E, C, D) and T·k assignments; got "
-                         f"{tuple(y.shape)}, {order.shape[0]} for k {k}")
-    if y.device.type != "cuda":
-        return moe_combine_plain(y, expert, slot, gate, keep, order, k)
-    plan = {"expert": (expert, torch.int64), "slot": (slot, torch.int64),
-            "order": (order, torch.int64), "keep": (keep, torch.bool),
-            "gate": (gate, torch.float32)}
-    if y.dtype not in _DTYPE_CODE or any(t.dtype != dt for t, dt in plan.values()):
-        raise TypeError(f"moe_combine: want y in {list(_DTYPE_CODE)} and the plan as "
-                        f"{ {n: dt for n, (_, dt) in plan.items()} }; got y {y.dtype}, "
-                        f"{ {n: t.dtype for n, (t, _) in plan.items()} }")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"moe_combine: k must be in 1..{MAX_K}; got {k}")
-    if not (y.is_contiguous() and all(t.is_contiguous() and t.shape == order.shape
-                                      for t, _ in plan.values())):
-        raise ValueError("moe_combine: y and the plan's (T·k,) entries must be contiguous")
-    if any(t.device != y.device for t, _ in plan.values()):
-        raise ValueError(f"moe_combine: want the plan on y's {y.device}")
-    e, cap, d = y.shape
-    tokens = order.shape[0] // k
-    out = torch.empty((tokens, d), dtype=y.dtype, device=y.device)
-    if out.numel() == 0:
-        return out
-    inverse = inverse_order(order)
-    route = _route(d, y, out)
-    lib = _lib()
-    with _on(y):
-        err = lib.moe_combine(_DTYPE_CODE[y.dtype], int(route == "vector"), y.data_ptr(),
-                              inverse.data_ptr(), expert.data_ptr(), slot.data_ptr(),
-                              keep.data_ptr(), gate.data_ptr(), out.data_ptr(), tokens, k, d, e,
-                              cap, _stream(y))
-    if err != 0:
-        raise RuntimeError(f"moe_combine kernel launch failed: "
-                           f"{lib.moe_error_string(err).decode()} ({err})")
-    _count(moe_combine, route)
+def moe_combine(y: torch.Tensor, dest: torch.Tensor, gate: torch.Tensor,
+                expert0: int = 0) -> torch.Tensor:
+    """The (T, D) output of :func:`moe_combine_plain`: on the card one
+    launch of the combine kernel on the current stream (y f32 or bf16, dest
+    int32 and gate f32, (T, k) with k ≤ ``MAX_K``, each contiguous on one
+    card); on the CPU (or meta) the plain version."""
+    if y.dim() != 3 or dest.dim() != 2 or gate.shape != dest.shape:
+        raise ValueError(f"moe_combine: want y (E, C, D), dest and gate (T, k); got "
+                         f"{tuple(y.shape)}, {tuple(dest.shape)}, {tuple(gate.shape)}")
+    if not y.is_cuda:
+        return moe_combine_plain(y, dest, gate, expert0)
+    (e, cap, d), (t, k), dev = y.shape, dest.shape, y.get_device()
+    if not (0 < k <= MAX_K and y.dtype in _DTYPE_CODE and dest.dtype == _INT32
+            and gate.dtype == _FLOAT32 and y.is_contiguous() and dest.is_contiguous()
+            and gate.is_contiguous() and dest.get_device() == dev and gate.get_device() == dev):
+        _refuse("moe_combine", k, (y, None), (dest, _INT32), (gate, _FLOAT32))
+    out = y.new_empty((t, d))
+    yp, op = y.data_ptr(), out.data_ptr()
+    vector = d * y.element_size() % 16 == 0 and (yp | op) % 16 == 0
+    err = _lib().moe_combine(_mode(vector, y.dtype, k, dev), yp, dest.data_ptr(),
+                             gate.data_ptr(), op, t, e, cap, d, expert0,
+                             torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _raise("moe_combine", err)
+    _count(moe_combine, "vector" if vector else "scalar")
     return out
 
 
@@ -204,12 +211,9 @@ moe_combine.launches_by_route = dict.fromkeys(ROUTES, 0)
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = load_library("moe_dispatch")
-    lib.moe_fill.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                             + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    lib.moe_fill.argtypes = _FILL_ARGTYPES
     lib.moe_fill.restype = ctypes.c_int
-    lib.moe_combine.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                                + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 3
-                                + [ctypes.c_void_p])
+    lib.moe_combine.argtypes = _COMBINE_ARGTYPES
     lib.moe_combine.restype = ctypes.c_int
     lib.moe_error_string.argtypes = [ctypes.c_int]
     lib.moe_error_string.restype = ctypes.c_char_p

@@ -217,19 +217,20 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
     return torch.mul(q, scale[:, None], out=out)
 
 
-def fill_expert_slots(rows: torch.Tensor, src: torch.Tensor, fill: int) -> torch.Tensor:
-    """The MoE layer's (E, C, D) expert buffer: slot (e, c) holds
-    ``rows[src[e, c]]`` of ``rows`` (N, D), zeros where ``src[e, c]`` is the
-    sentinel ``fill`` (= N)."""
+def fill_expert_slots(rows: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor,
+                      cap: int) -> torch.Tensor:
+    """The MoE layer's (E, cap, D) expert buffer from the route table: row
+    ``dest[t, j]`` holds ``rows[t]`` of ``rows`` (T, D) for each kept
+    destination, zeros past each expert's ``kept`` slots."""
     _no_cuda_grad("fill_expert_slots", "no MoE configuration trains on the card yet", rows)
-    return moe_fill(rows, src, fill)
+    return moe_fill(rows, dest, kept, cap)
 
 
-def combine_expert_rows(y: torch.Tensor, expert: torch.Tensor, slot: torch.Tensor,
-                        gate: torch.Tensor, keep: torch.Tensor, order: torch.Tensor,
-                        k: int) -> torch.Tensor:
-    """The MoE layer's output (T, D): each token's gated rows of the experts'
-    output y (E, C, D), by the plan's sorted entries, added by expert id."""
+def combine_expert_rows(y: torch.Tensor, dest: torch.Tensor, gate: torch.Tensor,
+                        expert0: int = 0) -> torch.Tensor:
+    """The MoE layer's output (T, D): each token's gated rows ``dest`` of the
+    experts' output y (E, C, D), added by expert id (y's first expert is
+    ``expert0``)."""
     _no_cuda_grad("combine_expert_rows", "no MoE configuration trains on the card yet", y,
                   gate)
-    return moe_combine(y, expert, slot, gate, keep, order, k)
+    return moe_combine(y, dest, gate, expert0)

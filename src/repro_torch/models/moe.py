@@ -10,15 +10,18 @@ Which kernel computes which step (on the card; CPU and meta tensors take
 each kernel's plain version):
 
 * the router (:func:`router_topk`: f32 product, softmax, top-k) and the
-  plan (:func:`dispatch_plan`: stable argsort, ``searchsorted`` ranks;
-  :func:`slot_sources`: the token of each expert slot) are torch ops on
-  T·k entries;
+  plan (:func:`dispatch_plan`: stable argsort, ``searchsorted`` ranks and
+  each expert's kept count) are torch ops on T·k entries;
+* the route table (:func:`route_table`: each token's k destinations,
+  ``expert·C + slot`` or a marker ``-1 - expert`` where dropped, beside
+  its gates as ``router_topk`` returns them) is one scatter through the
+  plan's order, made once a layer; both of B2's kernels read it;
 * the buffer, every slot's row of x or zeros, is one launch of B2's fill
-  kernel (``ops.fill_expert_slots`` → ``kernels/csrc/moe_dispatch.cu``);
+  kernel (``ops.fill_expert_slots`` → ``kernels/csrc/moe_dispatch.cu``),
+  which reads each token's row once and writes it to its slots;
 * the experts are cuBLAS's batched products with SiLU·up between them;
 * the combine is one launch of B2's combine kernel
-  (``ops.combine_expert_rows``), which reads the plan's sorted entries as
-  they are and the argsort's inverse permutation, which torch ops build.
+  (``ops.combine_expert_rows``), a warp reading a token's k routes.
 
 What the port keeps of the reference's behaviour, on purpose:
 
@@ -164,6 +167,17 @@ class Plan(NamedTuple):
     token: torch.Tensor                  # (T·k,) its token
     keep: torch.Tensor                   # (T·k,) within its expert's capacity
     slot: torch.Tensor                   # (T·k,) its slot; the capacity where dropped
+    kept: torch.Tensor                   # (E,) int32, min(assignments to e, capacity)
+
+
+class Routes(NamedTuple):
+    """The route table of one MoE layer, token-major: what B2's fill and
+    combine read (:func:`route_table`). The buffer's capacity and its first
+    expert are the ones the table was made with."""
+
+    dest: torch.Tensor                   # (T, k) int32: e_l·cap + slot, or -1 - e dropped
+    gate: torch.Tensor                   # (T, k) f32, as ``router_topk`` returns them
+    kept: torch.Tensor                   # (E_l,) int32: each expert's rows in ``dest``
 
 
 def dispatch_plan(idx: torch.Tensor, num_experts: int, cap: int) -> Plan:
@@ -175,21 +189,35 @@ def dispatch_plan(idx: torch.Tensor, num_experts: int, cap: int) -> Plan:
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
     positions = torch.arange(t * k, device=idx.device)
-    experts = torch.arange(num_experts, device=idx.device, dtype=sorted_expert.dtype)
-    seg_start = torch.searchsorted(sorted_expert, experts)
-    rank = positions - seg_start[sorted_expert]
+    experts = torch.arange(num_experts + 1, device=idx.device, dtype=sorted_expert.dtype)
+    bounds = torch.searchsorted(sorted_expert, experts)             # (E+1,) group starts, T·k
+    rank = positions - bounds[:-1][sorted_expert]
     keep = rank < cap
     slot = torch.where(keep, rank, torch.full_like(rank, cap))      # overflow → slot C
-    return Plan(order, sorted_expert, order // k, keep, slot)
+    kept = torch.diff(bounds).clamp_(max=cap).to(torch.int32)
+    return Plan(order, sorted_expert, order // k, keep, slot, kept)
 
 
-def slot_sources(plan: Plan, num_experts: int, cap: int, fill: int) -> torch.Tensor:
-    """(E, cap) int32, contiguous: the token of each expert slot, ``fill``
-    where the slot is empty. Overflowing assignments write a waste column
-    that is cut away."""
-    src = torch.full((num_experts, cap + 1), fill, dtype=torch.int32, device=plan.token.device)
-    src[plan.expert, torch.where(plan.keep, plan.slot, cap)] = plan.token.to(torch.int32)
-    return src[:, :cap].contiguous()
+def route_table(plan: Plan, gates: torch.Tensor, cap: int, expert0: int = 0,
+                experts: int = 0) -> Routes:
+    """The plan token-major, by one scatter through its order: token t's
+    j-th assignment goes to row ``(e - expert0)·cap + slot`` of the
+    (``experts``, cap, D) buffer where it is kept and its expert is among
+    the table's ``experts`` (0: all of them), else it is the marker
+    ``-1 - e``, which keeps the expert id (the combine adds by it). ``cap``
+    may exceed the plan's capacity (the mesh's padded one): slots past an
+    expert's kept count are empty. ``gates`` (T, k) f32 as ``router_topk``
+    returns them."""
+    t, k = gates.shape
+    local, keep, kept = plan.expert, plan.keep, plan.kept
+    if experts:
+        local = plan.expert - expert0
+        keep = keep & (local >= 0) & (local < experts)
+        kept = kept[expert0:expert0 + experts]
+    routed = torch.where(keep, plan.slot.add(local, alpha=cap), -1 - plan.expert)
+    dest = torch.empty((t, k), dtype=torch.int32, device=gates.device)
+    dest.view(-1)[plan.order] = routed.to(torch.int32)
+    return Routes(dest, gates, kept)
 
 
 def moe_ffn(params: Params, x: torch.Tensor, num_experts: int, k: int,
@@ -206,13 +234,13 @@ def moe_ffn(params: Params, x: torch.Tensor, num_experts: int, k: int,
     gates, idx, probs = router_topk(x2d, params["router"], k)
     cap = capacity(t, k, num_experts, capacity_factor)
     plan = dispatch_plan(idx, num_experts, cap)
+    routes = route_table(plan, gates, cap)
 
     wdt = torch.promote_types(x.dtype, params["w_gate"].dtype)
-    src = slot_sources(plan, num_experts, cap, t)
-    buf = ops.fill_expert_slots(x2d.to(wdt).contiguous(), src, t)           # (E, C, D)
+    buf = ops.fill_expert_slots(x2d.to(wdt).contiguous(), routes.dest, routes.kept,
+                                cap)                                        # (E, C, D)
     y = expert_swiglu(buf, params["w_gate"], params["w_up"], params["w_down"])
-    out2d = ops.combine_expert_rows(y.contiguous(), plan.expert, plan.slot,
-                                    gates.reshape(-1)[plan.order], plan.keep, plan.order, k)
+    out2d = ops.combine_expert_rows(y.contiguous(), routes.dest, routes.gate)
     out = out2d.reshape(b, s, d).to(x.dtype)
     if return_aux:
         return out, load_balance_loss(probs, idx, num_experts)
@@ -288,16 +316,17 @@ def moe_device_body(x2d: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Ten
     plan = dispatch_plan(idx_all, num_experts, cap)
     capp = padded_capacity(cap, lay)
 
-    # the token of each of its experts' slots, T (a zero row) where empty
+    # its experts' routes at the padded capacity; the slots from cap to capp stay empty
     e0 = lay.experts * e_local
-    src = slot_sources(plan, num_experts, capp, tokens)[e0:e0 + e_local]
+    routes = route_table(plan, gates_all, capp, e0, e_local)
 
     wdt = torch.promote_types(x2d.dtype, w_gate.dtype)
     dp = -(-d // nb) * nb                # D padded to a multiple of the batch group
     xe = yield coll.sum_grads(x2d.to(wdt), ("experts", "slots"))
     xe = F.pad(xe, (0, dp - d))
     cols = yield coll.all_to_all(_to_pieces(xe, nb, 1), "batch")    # (T, D_c)
-    slab = ops.fill_expert_slots(cols.contiguous(), src, tokens)    # (E_l, C_p, D_c)
+    slab = ops.fill_expert_slots(cols.contiguous(), routes.dest, routes.kept,
+                                 capp)                              # (E_l, C_p, D_c)
     rows = yield coll.all_to_all(_to_pieces(slab, nb, 1), "batch")
     rows = _from_pieces(rows, nb, 2)[..., :d]                       # (E_l, C_p/n_b, D)
     cs = rows.shape[1] // lay.n_slots
@@ -314,12 +343,7 @@ def moe_device_body(x2d: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Ten
     y = yield coll.all_to_all(_to_pieces(y, nb, 2), "batch")
     y = _from_pieces(y, nb, 1)                                      # (E_l, C_p, D_c)
 
-    local = plan.expert - e0
-    mine = plan.keep & (local >= 0) & (local < e_local)
-    part = ops.combine_expert_rows(
-        y.contiguous(), torch.where(mine, local, torch.zeros_like(local)),
-        torch.where(mine, plan.slot, torch.full_like(plan.slot, capp)),
-        gates_all.reshape(-1)[plan.order], mine, plan.order, k)     # (T, D_c)
+    part = ops.combine_expert_rows(y.contiguous(), routes.dest, routes.gate, e0)  # (T, D_c)
     part = yield coll.reduce(part, "experts")
     out = yield coll.all_to_all(_to_pieces(part, nb, 0), "batch")
     out = _from_pieces(out, nb, 1)[:, :d]                           # (T_b, D)

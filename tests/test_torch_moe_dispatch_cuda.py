@@ -6,7 +6,8 @@ Without a card every case skips.
 
 The fill is a copy and the combine rounds every product and sum as
 ``moe_combine_plain``'s eager ops do, so both are held to their plain
-versions bit for bit (``torch.equal`` on the bits), with no tolerance.
+versions bit for bit (``torch.equal`` on the bits), with no tolerance. Both
+read the route table (``moe.route_table``).
 """
 import pytest
 import torch
@@ -22,13 +23,18 @@ pytestmark = pytest.mark.cuda
 
 DTYPES = (torch.float32, torch.bfloat16)
 # (tokens, k, experts, d, capacity factor): olmoe's k and E at a narrow
-# width, an odd width (the scalar route), one token, heavy drops, jamba's k
+# width, an odd width (the scalar route), one token, heavy drops, jamba's k,
+# kimi-k2's and jamba's widths, a scalar width whose last pass a lane takes
+# holds only two of a warp's lanes
 SHAPES = {
     "olmoe_narrow": (512, 8, 64, 256, 1.25),
     "odd_width": (96, 4, 16, 77, 1.25),
     "one_token": (1, 8, 64, 128, 1.25),
     "drops": (256, 8, 64, 128, 0.5),
     "k2": (300, 2, 16, 136, 1.25),
+    "kimi_k2_width": (64, 8, 384, 7168, 1.25),
+    "jamba_width": (48, 2, 16, 8192, 1.25),
+    "scalar_tail": (64, 8, 64, 2050, 1.25),   # a row of 2050: 2 units past 16 x 128
 }
 
 
@@ -46,39 +52,39 @@ def _gen(seed):
 
 def _plan(t, k, e, cf, gen):
     """A routing of k distinct experts a token with normalised gates: its
-    plan, its sorted gates (f32) and the capacity."""
+    plan, its route table and the capacity."""
     scores = torch.rand((t, e), generator=gen, device="cuda")
     gates, idx = torch.topk(scores, k, dim=-1)
     gates = gates.clamp(min=1e-3)
     gates = gates / gates.sum(dim=-1, keepdim=True)
     cap = moe.capacity(t, k, e, cf)
     plan = moe.dispatch_plan(idx, e, cap)
-    return plan, gates.reshape(-1)[plan.order].float(), cap
+    return plan, moe.route_table(plan, gates, cap), cap
 
 
 def _bits(a):
     return a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32)
 
 
-def _fill_both(rows, src, fill):
-    before = (md.moe_fill.launches, dict(md.moe_fill.launches_by_route))
-    got = md.moe_fill(rows, src, fill)
-    took = md.moe_fill.launches - before[0]
-    routes = {r: md.moe_fill.launches_by_route[r] - before[1][r] for r in md.ROUTES}
-    want = md.moe_fill_plain(rows, src, fill)
+def _fill_both(rows, routes, cap):
+    fill = md.moe_fill
+    before = (fill.launches, dict(fill.launches_by_route))
+    got = fill(rows, routes.dest, routes.kept, cap)
+    took = fill.launches - before[0]
+    by_route = {r: fill.launches_by_route[r] - before[1][r] for r in md.ROUTES}
+    want = md.moe_fill_plain(rows, routes.dest, routes.kept, cap)
     torch.cuda.synchronize()
-    return got, want, took, routes
+    return got, want, took, by_route
 
 
-def _combine_both(y, plan, gate, k, keep=None):
-    keep = plan.keep if keep is None else keep
+def _combine_both(y, routes, expert0=0):
     before = (md.moe_combine.launches, dict(md.moe_combine.launches_by_route))
-    got = md.moe_combine(y, plan.expert, plan.slot, gate, keep, plan.order, k)
+    got = md.moe_combine(y, routes.dest, routes.gate, expert0)
     took = md.moe_combine.launches - before[0]
-    routes = {r: md.moe_combine.launches_by_route[r] - before[1][r] for r in md.ROUTES}
-    want = md.moe_combine_plain(y, plan.expert, plan.slot, gate, keep, plan.order, k)
+    by_route = {r: md.moe_combine.launches_by_route[r] - before[1][r] for r in md.ROUTES}
+    want = md.moe_combine_plain(y, routes.dest, routes.gate, expert0)
     torch.cuda.synchronize()
-    return got, want, took, routes
+    return got, want, took, by_route
 
 
 def _want_route(d, dtype):
@@ -90,14 +96,13 @@ def _want_route(d, dtype):
 def test_fill_equals_plain(shape, dtype):
     t, k, e, d, cf = SHAPES[shape]
     gen = _gen(0)
-    plan, _, cap = _plan(t, k, e, cf, gen)
+    plan, routes, cap = _plan(t, k, e, cf, gen)
     rows = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
-    src = moe.slot_sources(plan, e, cap, t)
-    got, want, took, routes = _fill_both(rows, src, t)
+    got, want, took, by_route = _fill_both(rows, routes, cap)
     assert got.is_contiguous() and got.shape == want.shape == (e, cap, d)
     assert torch.equal(_bits(got), _bits(want))
     route = _want_route(d, dtype)
-    assert took == 1 and routes == {r: int(r == route) for r in md.ROUTES}
+    assert took == 1 and by_route == {r: int(r == route) for r in md.ROUTES}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -105,14 +110,14 @@ def test_fill_equals_plain(shape, dtype):
 def test_combine_equals_plain(shape, dtype):
     t, k, e, d, cf = SHAPES[shape]
     gen = _gen(1)
-    plan, gate, cap = _plan(t, k, e, cf, gen)
+    plan, routes, cap = _plan(t, k, e, cf, gen)
     y = torch.randn((e, cap, d), generator=gen, device="cuda").to(dtype)
     y[:, :, 0] = -0.0                       # sums of signed zeros in one column
-    got, want, took, routes = _combine_both(y, plan, gate, k)
+    got, want, took, by_route = _combine_both(y, routes)
     assert got.shape == want.shape == (t, d)
     assert torch.equal(_bits(got), _bits(want))
     route = _want_route(d, dtype)
-    assert took == 1 and routes == {r: int(r == route) for r in md.ROUTES}
+    assert took == 1 and by_route == {r: int(r == route) for r in md.ROUTES}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -125,46 +130,104 @@ def test_an_expert_without_tokens_and_one_full_expert(dtype):
     idx = torch.cat([torch.ones_like(other), other], dim=1)
     cap = moe.capacity(t, k, e, 1.25)
     plan = moe.dispatch_plan(idx, e, cap)
-    src = moe.slot_sources(plan, e, cap, t)
-    assert bool((src[0] == t).all()) and bool((src[1] != t).all())
+    routes = moe.route_table(plan, torch.rand((t, k), generator=gen, device="cuda"), cap)
+    assert routes.kept[0].item() == 0 and routes.kept[1].item() == cap
     rows = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
-    got, want, _, _ = _fill_both(rows, src, t)
+    got, want, _, _ = _fill_both(rows, routes, cap)
     assert torch.equal(_bits(got), _bits(want)) and not got[0].any()
-    gate = torch.rand(t * k, generator=gen, device="cuda")
     y = torch.randn((e, cap, d), generator=gen, device="cuda").to(dtype)
-    got, want, _, _ = _combine_both(y, plan, gate, k)
+    got, want, _, _ = _combine_both(y, routes)
     assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_all_sentinels_and_all_dropped(dtype):
-    t, e, cap, d, k = 16, 4, 3, 40, 2
+    """Every slot empty (every assignment dropped, kept counts 0): the
+    buffer all zeros, the output +0.0 throughout."""
+    t, e, d, k = 16, 4, 40, 2
+    _, routes, cap = _plan(t, k, e, 1.0, _gen(3))
+    dropped = -1 - torch.where(routes.dest >= 0, routes.dest // cap, -1 - routes.dest)
+    none = routes._replace(dest=dropped.to(torch.int32).contiguous(),
+                           kept=torch.zeros_like(routes.kept))
     rows = torch.randn((t, d), device="cuda").to(dtype)
-    src = torch.full((e, cap), t, dtype=torch.int32, device="cuda")
-    got, want, took, _ = _fill_both(rows, src, t)
+    got, want, took, _ = _fill_both(rows, none, cap)
     assert took == 1 and torch.equal(_bits(got), _bits(want)) and not got.any()
-    plan, gate, _ = _plan(t, k, e, 1.0, _gen(3))
-    y = torch.randn((e, plan.slot.max().item() + 1, d), device="cuda").to(dtype)
-    none = torch.zeros_like(plan.keep)
-    got, want, _, _ = _combine_both(y, plan, gate, k, keep=none)
+    y = -torch.rand((e, cap, d), device="cuda").to(dtype)
+    got, want, _, _ = _combine_both(y, none)
     assert torch.equal(_bits(got), _bits(want))
     assert not torch.signbit(got).any()     # +0.0 throughout
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_token_whose_assignments_are_all_dropped(dtype):
+    """Every token routes to expert 0 and one other, capacity 1: most
+    tokens keep nothing, their output rows +0.0 and nothing of theirs in
+    the buffer; the -0.0 column of y shows the sign of every zero sum."""
+    t, k, e, d = 40, 2, 8, 256
+    gen = _gen(9)
+    other = torch.randint(1, e, (t, 1), generator=gen, device="cuda")
+    idx = torch.cat([torch.zeros_like(other), other], dim=1)
+    plan = moe.dispatch_plan(idx, e, 1)
+    routes = moe.route_table(plan, torch.rand((t, k), generator=gen, device="cuda"), 1)
+    all_dropped = (routes.dest < 0).all(dim=1)
+    assert int(all_dropped.sum()) > 0
+    rows = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+    got, want, _, _ = _fill_both(rows, routes, 1)
+    assert torch.equal(_bits(got), _bits(want))
+    y = torch.randn((e, 1, d), generator=gen, device="cuda").to(dtype)
+    y[:, :, 0] = -0.0
+    got, want, _, _ = _combine_both(y, routes)
+    assert torch.equal(_bits(got), _bits(want))
+    assert not got[all_dropped].any() and not torch.signbit(got[all_dropped]).any()
+
+
+@pytest.mark.parametrize("tokens", [1, 2, 3])
+@pytest.mark.parametrize("d", [2048, 10000])
+def test_fewer_tokens_than_a_block_has_warps(tokens, d):
+    """Fewer tokens than a block's eight warps, rows of olmoe's D and of
+    20,000 bytes (not a whole number of a lane's 4 x 32 units): most warps
+    only zero slots."""
+    gen = _gen(10)
+    plan, routes, cap = _plan(tokens, 8, 64, 1.25, gen)
+    rows = torch.randn((tokens, d), generator=gen, device="cuda").to(torch.bfloat16)
+    got, want, took, by_route = _fill_both(rows, routes, cap)
+    assert torch.equal(_bits(got), _bits(want)) and by_route["vector"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_the_mesh_slice_at_a_padded_capacity(dtype):
+    """A device's experts of a 2-way expert split at a capacity padded by
+    3: slots from cap to capp zero, the combine over its experts only
+    (expert0 16 of 32)."""
+    t, k, e, d = 256, 8, 32, 512
+    gen = _gen(11)
+    scores = torch.rand((t, e), generator=gen, device="cuda")
+    gates, idx = torch.topk(scores, k, dim=-1)
+    cap = moe.capacity(t, k, e, 1.25)
+    plan = moe.dispatch_plan(idx, e, cap)
+    routes = moe.route_table(plan, gates, cap + 3, 16, 16)
+    rows = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+    got, want, _, _ = _fill_both(rows, routes, cap + 3)
+    assert torch.equal(_bits(got), _bits(want)) and not got[:, cap:].any()
+    y = torch.randn((16, cap + 3, d), generator=gen, device="cuda").to(dtype)
+    y[:, :, 0] = -0.0
+    got, want, _, _ = _combine_both(y, routes, 16)
+    assert torch.equal(_bits(got), _bits(want))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_views_off_alignment_take_the_scalar_route(dtype):
     t, k, e, d = 64, 4, 8, 64
     gen = _gen(4)
-    plan, gate, cap = _plan(t, k, e, 1.25, gen)
+    plan, routes, cap = _plan(t, k, e, 1.25, gen)
     base = torch.randn(t * d + 1, generator=gen, device="cuda").to(dtype)
     rows = base[1:].view(t, d)              # one element off 16 bytes
-    src = moe.slot_sources(plan, e, cap, t)
-    got, want, _, routes = _fill_both(rows, src, t)
-    assert torch.equal(_bits(got), _bits(want)) and routes["scalar"] == 1
+    got, want, _, by_route = _fill_both(rows, routes, cap)
+    assert torch.equal(_bits(got), _bits(want)) and by_route["scalar"] == 1
     ybase = torch.randn(e * cap * d + 1, generator=gen, device="cuda").to(dtype)
     y = ybase[1:].view(e, cap, d)
-    got, want, _, routes = _combine_both(y, plan, gate, k)
-    assert torch.equal(_bits(got), _bits(want)) and routes["scalar"] == 1
+    got, want, _, by_route = _combine_both(y, routes)
+    assert torch.equal(_bits(got), _bits(want)) and by_route["scalar"] == 1
 
 
 def test_f32_rows_over_the_witness_buffer():
@@ -172,45 +235,52 @@ def test_f32_rows_over_the_witness_buffer():
     output."""
     t, k, e, d = 256, 8, 64, 128
     gen = _gen(5)
-    plan, gate, cap = _plan(t, k, e, 1.25, gen)
+    plan, routes, cap = _plan(t, k, e, 1.25, gen)
     rows = torch.randn((t, d), generator=gen, device="cuda")
-    got, want, _, _ = _fill_both(rows, moe.slot_sources(plan, e, cap, t), t)
+    got, want, _, _ = _fill_both(rows, routes, cap)
     assert got.dtype == torch.float32 and torch.equal(got, want)
     y = torch.randn((e, cap, d), generator=gen, device="cuda")
-    got, want, _, _ = _combine_both(y, plan, gate, k)
+    got, want, _, _ = _combine_both(y, routes)
     assert got.dtype == torch.float32 and torch.equal(_bits(got), _bits(want))
 
 
 def test_a_cuda_input_that_requires_grad_raises():
     t, k, e, d = 32, 2, 4, 16
-    plan, gate, cap = _plan(t, k, e, 1.25, _gen(6))
+    plan, routes, cap = _plan(t, k, e, 1.25, _gen(6))
     rows = torch.randn((t, d), device="cuda", requires_grad=True)
-    src = moe.slot_sources(plan, e, cap, t)
     before = (md.moe_fill.launches, md.moe_combine.launches)
     with pytest.raises(NotImplementedError, match="fill_expert_slots"):
-        ops.fill_expert_slots(rows, src, t)
+        ops.fill_expert_slots(rows, routes.dest, routes.kept, cap)
     y = torch.randn((e, cap, d), device="cuda", requires_grad=True)
     with pytest.raises(NotImplementedError, match="combine_expert_rows"):
-        ops.combine_expert_rows(y, plan.expert, plan.slot, gate, plan.keep, plan.order, k)
+        ops.combine_expert_rows(y, routes.dest, routes.gate)
     assert (md.moe_fill.launches, md.moe_combine.launches) == before
     with torch.no_grad():
-        ops.fill_expert_slots(rows, src, t)
+        ops.fill_expert_slots(rows, routes.dest, routes.kept, cap)
     assert md.moe_fill.launches == before[0] + 1
 
 
 def test_refusals_on_the_card():
     rows = torch.zeros((4, 8), device="cuda")
+    kept = torch.zeros(2, dtype=torch.int32, device="cuda")
+    dest = torch.zeros((4, 2), dtype=torch.int32, device="cuda")
+    before = (md.moe_fill.launches, md.moe_combine.launches)
     with pytest.raises(TypeError, match="int32"):
-        md.moe_fill(rows, torch.zeros((2, 2), dtype=torch.long, device="cuda"), 4)
+        md.moe_fill(rows, dest.long(), kept, 4)
     with pytest.raises(TypeError):
-        md.moe_fill(rows.half(), torch.zeros((2, 2), dtype=torch.int32, device="cuda"), 4)
-    n = 2 * 33
-    plan = [torch.zeros(n, dtype=torch.long, device="cuda")] * 2
+        md.moe_fill(rows.half(), dest, kept, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        md.moe_fill(rows, dest.t().contiguous().t(), kept, 4)
+    with pytest.raises(ValueError, match="on cuda"):
+        md.moe_fill(rows, dest, kept.cpu(), 4)
+    wide = torch.zeros((4, 33), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="k must be"):
-        md.moe_combine(torch.zeros((2, 3, 8), device="cuda"), *plan,
-                       torch.zeros(n, device="cuda"), torch.zeros(n, dtype=torch.bool,
-                                                                  device="cuda"),
-                       torch.arange(n, device="cuda"), 33)
+        md.moe_combine(torch.zeros((2, 3, 8), device="cuda"), wide,
+                       torch.zeros((4, 33), device="cuda"))
+    with pytest.raises(TypeError, match="float32"):
+        md.moe_combine(torch.zeros((2, 3, 8), device="cuda"), dest,
+                       torch.zeros((4, 2), device="cuda", dtype=torch.bfloat16))
+    assert (md.moe_fill.launches, md.moe_combine.launches) == before
 
 
 def test_olmoe_smoke_prefill_equal_under_both_routes():
