@@ -53,11 +53,19 @@ Run from the root of a checkout. Phases, one JSON line each:
    kimi-k2 and jamba-1.5-large at 4 x 1024 tokens, olmoe's decode at 4
    tokens and capacity 1, f32 rows over the f32 witness's buffer,
    capacity factor 0.5, an expert without tokens, and a width of 2050 on
-   the ``scalar`` route), the fill also against ``torch.index_select``
-   over the rows with a zero row appended and the combine against
-   ``F.embedding_bag``, both built from the same table; the first four
-   timed in turns with the plain versions and the library calls, beside the bound by bytes, with each kernel's own
-   device time and each call's host µs;
+   the ``scalar`` route, and olmoe's training batch, the prefill's shape),
+   the fill also against ``torch.index_select`` over the rows with a zero
+   row appended and the combine against ``F.embedding_bag``, both built
+   from the same table; the first four timed in turns with the plain
+   versions and the library calls, beside the bound by bytes, with each
+   kernel's own device time and each call's host µs; B2's adjoints
+   (``moe_fill_bwd``, ``moe_combine_bwd``) at every case of ``B2_CASES``
+   against ``moe_fill_bwd_plain`` and ``moe_combine_bwd_plain``: dx and
+   dy bit for bit, dgate within ``b2_dgate_close``, one launch each on the
+   route the width gives, the fill's adjoint also against
+   ``F.embedding_bag``; timed at olmoe's training shape and the three
+   prefill shapes (``B2_BWD_TIMED``) in turns with the plain versions and
+   that library call (none computes the combine's adjoint);
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -97,7 +105,11 @@ Run from the root of a checkout. Phases, one JSON line each:
      mamba2-1.3b cut to one layer and jamba-1.5-large cut to one
      ``ssm_mlp`` layer (256 heads a group) likewise through K3's forward and
      backward kernels (``SsdScanFn``), the limits rejecting a backward whose
-     dB and dC are zeroed;
+     dB and dC are zeroed; then olmoe-1b-7b cut to one layer through K2
+     and B2's forward and adjoint kernels (``MoeFillFn``,
+     ``MoeCombineFn``) against B2's plain forwards under autograd, the
+     limits rejecting a combine adjoint whose dgate is zeroed (the
+     router's gradient lost);
    - adamw_routes: phi4-mini-3.8b at full width cut to two layers, three
      steps from the same weights with B3, with ``adamw_update_plain`` in its
      place and with B3 again: every parameter and loss equal bit for bit;
@@ -112,7 +124,13 @@ Run from the root of a checkout. Phases, one JSON line each:
      optimizer (B3's kernel by name and the ops under its range) and the
      rest; then mamba2-1.3b at full width and depth (48 ssm layers, d 2048,
      vocab 50280) the same way with 6 counted steps (K3's forward 2 x 48 a
-     step and its backward 48, all ``sm90``, K2 none);
+     step and its backward 48, all ``sm90``, K2 none); then olmoe-1b-7b at
+     full width cut to 8 of its 16 layers (d 2048, 64 experts top-8,
+     expert d_ff 1024, vocab 50304; AdamW's state is 83 GB at 16 layers)
+     with 6 counted steps (K2's forward 2 x 8 a step and its backward 8,
+     ``sm90``; B2's fill and combine 2 x 8 and each adjoint 8, ``vector``;
+     B3 once a step), its profile with B2's forward and adjoint kernels
+     apart;
    - train_ckpt: the f32 100M demo of ``examples/train_100m_torch.py``
      through ``repro_torch.train.train``, 60 steps with a checkpoint at 40,
      then resumed from it: the resumed first loss equals the uninterrupted
@@ -225,7 +243,8 @@ entry too; K2's backward with its launches in the two training runs, both source
 its launches by route; K3's backward with its launches in mamba2's training
 run and mesh step; B3's with its launches in the three training runs and
 the two mesh train steps; B2's fill and combine with their launches in
-the MoE serve runs and the ``moe_mesh`` phase), the
+the MoE serve runs, olmoe's training run and the ``moe_mesh`` phase, and
+B2's two adjoints with theirs in olmoe's training run), the
 ``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -415,6 +434,10 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = "phi4-mini-3.8b"
 TRAIN_LR = 1e-3            # the launcher's default (repro_torch.launch.train)
 # mamba2-1.3b at full width and depth (48 ssm layers), the same batch, after phi4
 SSM_TRAIN_ARCH, SSM_TRAIN_STEPS = "mamba2-1.3b", 6
+# olmoe-1b-7b at full width cut to 8 of its 16 layers, the same batch, after
+# mamba2: AdamW's 12 bytes a parameter come to 83.0 GB at 16 layers and 42.8
+# GB at 8, which leaves the card room for remat's activations
+MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, MOE_TRAIN_CUT = "olmoe-1b-7b", 6, {"num_layers": 8}
 # train_check: (arch, its cut, the kernels swapped) at full width: phi4-mini
 # one layer through K2; mamba2 one layer and jamba one ssm_mlp layer (256
 # heads a group through the model; no optimizer) through K3. The loss through
@@ -423,7 +446,8 @@ SSM_TRAIN_ARCH, SSM_TRAIN_STEPS = "mamba2-1.3b", 6
 # rounding gives well under 1%; a lost dQ or dK gives 100% on wq or wk)
 TRAIN_CHECKS = (("phi4-mini-3.8b", {"num_layers": 1}, "attention"),
                 ("mamba2-1.3b", {"num_layers": 1}, "ssd"),
-                ("jamba-1.5-large-398b", {"layout_pattern": ("ssm_mlp",), "num_layers": 1}, "ssd"))
+                ("jamba-1.5-large-398b", {"layout_pattern": ("ssm_mlp",), "num_layers": 1}, "ssd"),
+                ("olmoe-1b-7b", {"num_layers": 1}, "moe"))
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
 # train_ckpt: the 100M demo (f32) of examples/train_100m_torch.py at its batch
 # and sequence, a checkpoint at CKPT_AT of CKPT_STEPS, then the resume
@@ -1649,7 +1673,8 @@ def expected_launches(cfg, decode_steps: int = 0) -> dict:
     b2 = sum(k in (ATTN_MOE, SSM_MOE) for k in kinds) * (1 + decode_steps)
     return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
             "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
-            "adamw": 0, "moe_fill": b2, "moe_combine": b2}
+            "adamw": 0, "moe_fill": b2, "moe_combine": b2, "moe_fill_bwd": 0,
+            "moe_combine_bwd": 0}
 
 
 def random_cross_src(cfg, batch: int, gen):
@@ -1676,6 +1701,9 @@ GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 MOE_RANGES = ("moe_ffn", "moe_experts", "moe_router", "moe_plan", "moe_fill", "moe_combine")
 B2 = ("moe_fill", "moe_combine")
 B2_KERNELS = {"moe_fill": ("moe_fill_kernel",), "moe_combine": ("moe_combine_kernel",)}
+# B2's adjoints: the wrappers' names and their kernels'
+B2_BWD = ("moe_fill_bwd", "moe_combine_bwd")
+B2_BWD_KERNELS = {"moe_fill_bwd": "moe_fill_bwd_kernel", "moe_combine_bwd": "moe_combine_bwd_kernel"}
 
 
 @contextlib.contextmanager
@@ -2589,6 +2617,9 @@ def adamw_route_check(smi: str, counters: dict) -> None:
 B2_CASES = (
     ("olmoe-1b-7b prefill", "olmoe-1b-7b", SERVE_BATCH * SERVE_PROMPT, None, "bfloat16", False,
      True),
+    # the train phase's batch: the same shape as the prefill (C 640), another draw
+    ("olmoe-1b-7b train", "olmoe-1b-7b", TRAIN_BATCH * TRAIN_SEQ, None, "bfloat16", False,
+     False),
     ("kimi-k2-1t-a32b prefill", "kimi-k2-1t-a32b", SERVE_BATCH * SERVE_PROMPT, None, "bfloat16",
      False, True),
     ("jamba-1.5-large-398b prefill", "jamba-1.5-large-398b", SERVE_BATCH * SERVE_PROMPT, None,
@@ -2603,6 +2634,10 @@ B2_CASES = (
     ("d 2050 (scalar route)", (8, 64, 2050), 1024, 1.25, "bfloat16", False, False),
 )
 B2_ROUTE_LAYERS, B2_ROUTE_DECODE = 2, 8        # moe_routes: olmoe cut to 2 layers, 8 decode steps
+# B2's adjoints are checked at every case and timed at these, the training
+# shape first (its kernels line entry)
+B2_BWD_TIMED = ("olmoe-1b-7b train", "olmoe-1b-7b prefill", "kimi-k2-1t-a32b prefill",
+                "jamba-1.5-large-398b prefill")
 # bytes of the route table a kernel reads: the combine a route's dest (int32)
 # and gate (f32), the fill a route's dest and an expert's kept count (int32)
 B2_COMBINE_ROUTE_BYTES, B2_FILL_ROUTE_BYTES, B2_KEPT_BYTES = 4 + 4, 4, 4
@@ -2665,6 +2700,175 @@ def b2_bounds(inp) -> dict:
     return out
 
 
+def b2_bwd_bounds(inp) -> dict:
+    """Least time for each adjoint's work on these inputs, by bytes: the
+    fill's adjoint reads each kept route's row of the buffer's gradient and
+    the table's dest and writes T·D; the combine's adjoint writes dy
+    (E·C·D) and dgate, reads grad_out (T·D), each kept route's row of y,
+    the table's dest and gate and the kept counts. Their operations (an
+    add an element; two products and an add) are counted against the f32
+    peak."""
+    routes, y = inp["routes"], inp["y"]
+    elt, d, n, t = y.element_size(), inp["d"], routes.dest.numel(), inp["t"]
+    kept = int((routes.dest >= 0).sum())
+    fill = (kept * d * elt + t * d * elt + n * B2_FILL_ROUTE_BYTES, kept * d)
+    comb = (inp["e"] * inp["cap"] * d * elt + t * d * elt + kept * d * elt
+            + n * B2_COMBINE_ROUTE_BYTES + inp["e"] * B2_KEPT_BYTES + n * 4, 3 * kept * d)
+    out = {}
+    for name, (nbytes, flops) in (("moe_fill_bwd", fill), ("moe_combine_bwd", comb)):
+        by_bytes, by_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
+        out[name] = dict(bytes=nbytes, bound_ms=max(by_bytes, by_ops) * 1e3,
+                         bound_by="bytes" if by_bytes >= by_ops else "operations")
+    return out
+
+
+def b2_dgate_close(got, want, grad_out, y, dest) -> bool:
+    """The combine adjoint's dgate against the plain one's, which differ by
+    the order of an f32 sum over D: in bf16 within one bf16 ulp of the
+    plain value, plus 4e-6 of the sum of the products' magnitudes (where
+    the dot cancels to near zero an ulp of the small result is less than
+    the f32 order's difference); in f32 within 1e-5 of the largest |dgate|."""
+    import torch
+    if y.dtype == torch.float32:
+        return bool(((got - want).abs() <= 1e-5 * float(want.abs().max())).all())
+    e, cap, d = y.shape
+    rows = y.reshape(e * cap, d)[torch.where(dest >= 0, dest, 0).long()]
+    mag = (grad_out[:, None, :] * rows).abs().float().sum(dim=-1)
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 8)
+    return bool(((got - want).abs() <= ulp + 4e-6 * mag).all())
+
+
+def check_moe_dispatch_bwd(inp, label: str, gen, smi: str) -> dict:
+    """B2's adjoints at one case of ``B2_CASES``: ``moe_fill_bwd`` and
+    ``moe_combine_bwd`` against ``moe_fill_bwd_plain`` and
+    ``moe_combine_bwd_plain`` on the same table and N(0, 1) gradients, one
+    launch each on the route the width gives: dx and dy bits equal, dgate
+    within ``b2_dgate_close``, a dropped route's dgate +0.0; the fill's
+    adjoint also within ``TOL`` of ``F.embedding_bag`` (sum, a dropped
+    route at the padding index of a zero row appended to the buffer's
+    gradient). At ``B2_BWD_TIMED`` both timed in turns with the plain
+    versions and that library call (the combine's adjoint has none: no one
+    PyTorch call writes dy and dgate), beside the bound by bytes, with each
+    kernel's own device time and each call's host µs. Returns the timed
+    entries (empty elsewhere) and each adjoint's largest error."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.moe_dispatch import (ROUTES as B2_ROUTES, moe_combine_bwd,
+                                                  moe_combine_bwd_plain, moe_fill_bwd,
+                                                  moe_fill_bwd_plain)
+    t, k, d, e, cap = inp["t"], inp["k"], inp["d"], inp["e"], inp["cap"]
+    routes, y = inp["routes"], inp["y"]
+    dest, kept, gate = routes.dest, routes.kept, routes.gate
+    grad_buf = torch.randn((e, cap, d), generator=gen, device=y.device).to(y.dtype)
+    grad_out = torch.randn((t, d), generator=gen, device=y.device).to(y.dtype)
+    gpad = torch.cat([grad_buf.reshape(e * cap, d), grad_buf.new_zeros((1, d))])
+    bag = torch.where(dest >= 0, dest, e * cap).long()
+
+    def bits(a):
+        return a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32)
+
+    def fill_k():
+        return moe_fill_bwd(grad_buf, dest)
+
+    def fill_p():
+        return moe_fill_bwd_plain(grad_buf, dest)
+
+    def fill_l():
+        return F.embedding_bag(bag, gpad, mode="sum", padding_idx=e * cap)
+
+    def comb_k():
+        return moe_combine_bwd(grad_out, y, dest, gate, kept)
+
+    def comb_p():
+        return moe_combine_bwd_plain(grad_out, y, dest, gate)
+
+    route = "vector" if d * y.element_size() % 16 == 0 else "scalar"
+    want_took = {r: int(r == route) for r in B2_ROUTES}
+    took = {}
+    for name, fn, call in (("moe_fill_bwd", moe_fill_bwd, fill_k),
+                           ("moe_combine_bwd", moe_combine_bwd, comb_k)):
+        before = (fn.launches, dict(fn.launches_by_route))
+        got = call()
+        took[name] = (fn.launches - before[0],
+                      {r: fn.launches_by_route[r] - before[1][r] for r in B2_ROUTES})
+        if name == "moe_fill_bwd":
+            dx = got
+        else:
+            dy, dgate = got
+    want_dx = fill_p()
+    want_dy, want_dgate = comb_p()
+    torch.cuda.synchronize()
+    dropped = dest < 0
+    lib = fill_l().float()
+    record = {"phase": "kernel_check", "kernel": "moe_dispatch_bwd", "case": label,
+              "dtype": str(y.dtype).split(".")[1], "tokens": t, "k": k, "experts": e, "d": d,
+              "capacity": cap, "kept": int((~dropped).sum()), "dropped": int(dropped.sum()),
+              "moe_fill_bwd": {
+                  "bits_equal": bool(torch.equal(bits(dx), bits(want_dx))),
+                  "max_abs_err": float((dx.float() - want_dx.float()).abs().max()),
+                  "launches": took["moe_fill_bwd"][1], "want_launches": want_took,
+                  "library_max_abs_err": float((lib - want_dx.float()).abs().max()),
+                  "library_close": bool(torch.allclose(lib, want_dx.float(),
+                                                       **TOL[str(y.dtype).split(".")[1]]))},
+              "moe_combine_bwd": {
+                  "dy_bits_equal": bool(torch.equal(bits(dy), bits(want_dy))),
+                  "dy_max_abs_err": float((dy.float() - want_dy.float()).abs().max()),
+                  "dgate_close": b2_dgate_close(dgate, want_dgate, grad_out, y, dest),
+                  "dgate_max_abs_err": float((dgate - want_dgate).abs().max()),
+                  "dgate_max_abs": float(want_dgate.abs().max()),
+                  "dropped_dgate_zero": bool(not dgate[dropped].any()
+                                             and not torch.signbit(dgate[dropped]).any()),
+                  "launches": took["moe_combine_bwd"][1], "want_launches": want_took}}
+    f, c = record["moe_fill_bwd"], record["moe_combine_bwd"]
+    record["ok"] = (f["bits_equal"] and f["library_close"] and c["dy_bits_equal"]
+                    and c["dgate_close"] and c["dropped_dgate_zero"]
+                    and all(took[n] == (1, want_took) for n in took))
+    emit(record)
+    if not record["ok"]:
+        raise AssertionError(f"moe_dispatch_bwd differs from its plain version ({label}): "
+                             f"{record}")
+    errs = {"moe_fill_bwd": f["max_abs_err"], "moe_combine_bwd": c["dgate_max_abs_err"]}
+    del dx, dy, dgate, want_dx, want_dy, want_dgate, lib
+    timed = {}
+    if label in B2_BWD_TIMED:
+        iters = {"kernel": 20, "plain": 5, "library": 20}
+        bounds = b2_bwd_bounds(inp)
+        row = {"phase": "kernel_time", "kernel": "moe_dispatch_bwd", "path": label,
+               "dtype": record["dtype"], "tokens": t, "k": k, "experts": e, "d": d,
+               "capacity": cap, "kept": record["kept"], "dropped": record["dropped"], "smi": smi}
+        for name, contenders in (
+                ("moe_fill_bwd", {"kernel": fill_k, "plain": fill_p, "library": fill_l}),
+                ("moe_combine_bwd", {"kernel": comb_k, "plain": comb_p})):
+            turns = {who: [] for who in contenders}
+            for who in list(contenders) + list(reversed(contenders)):
+                turns[who].append(cuda_ms(contenders[who], iters=iters[who], warmup=2))
+            host = {who: [] for who in contenders}
+            for who in list(contenders) + list(reversed(contenders)):
+                host[who].append(host_ms_per_call(contenders[who], calls=20) * 1e3)
+                torch.cuda.synchronize()
+            b = bounds[name]
+            kernel_name = B2_BWD_KERNELS[name]
+            kernel_ms = kernel_split(contenders["kernel"], {kernel_name: 1}, calls=5)[kernel_name]
+            ms = min(turns["kernel"])
+            library_ms = min(turns["library"]) if "library" in turns else None
+            entry = dict(ms=ms, plain_ms=min(turns["plain"]), library_ms=library_ms,
+                         bound_ms=b["bound_ms"], bound_by=b["bound_by"], bytes=b["bytes"],
+                         kernel_device_ms=kernel_ms,
+                         host_us={who: min(v) for who, v in host.items()}, turns_ms=turns,
+                         tb_per_s=b["bytes"] / ms / 1e9, share_of_bound=b["bound_ms"] / ms,
+                         kernel_share_of_bound=b["bound_ms"] / kernel_ms)
+            row[name] = entry
+            timed[name] = {k_: entry[k_] for k_ in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+                "share_of_bound", "host_us")}
+        row["library"] = {"moe_fill_bwd": "F.embedding_bag, sum, a dropped route at the "
+                                          "padding index of a zero row",
+                          "moe_combine_bwd": None}
+        emit(row)
+    del grad_buf, grad_out, gpad, bag
+    return {"timed": timed, "errs": errs}
+
+
 def check_moe_dispatch(gen, smi: str) -> dict:
     """B2's fill and combine against ``moe_fill_plain`` and
     ``moe_combine_plain`` on the same route table, bits equal, one launch
@@ -2691,8 +2895,8 @@ def check_moe_dispatch(gen, smi: str) -> dict:
     def route_of(d, a):
         return "vector" if d * a.element_size() % 16 == 0 else "scalar"
 
-    out = {"moe_fill": {}, "moe_combine": {}}
-    worst = {"moe_fill": 0.0, "moe_combine": 0.0}
+    out = {name: {} for name in B2 + B2_BWD}
+    worst = dict.fromkeys(B2 + B2_BWD, 0.0)
     for case in B2_CASES:
         label, timed = case[0], case[6]
         inp = b2_inputs(case, gen)
@@ -2761,6 +2965,11 @@ def check_moe_dispatch(gen, smi: str) -> dict:
         if not record["ok"]:
             raise AssertionError(f"moe_dispatch differs from its plain version ({label}): "
                                  f"{record}")
+        bwd = check_moe_dispatch_bwd(inp, label, gen, smi)
+        for name in B2_BWD:
+            worst[name] = max(worst[name], bwd["errs"][name])
+            if name in bwd["timed"]:
+                out[name][label] = bwd["timed"][name]
         if timed:
             prefill = t > SERVE_BATCH
             iters = {"kernel": 20 if prefill else 200, "plain": 5 if prefill else 100,
@@ -2813,6 +3022,14 @@ def check_moe_dispatch(gen, smi: str) -> dict:
                                             if name == "moe_fill" else
                                             "F.embedding_bag (sum, per-sample gates, a zero row "
                                             "at the padding index); adds in its own order"))
+    for name in B2_BWD:
+        first = out[name].pop(B2_BWD_TIMED[0])
+        result[name] = dict(max_abs_err=worst[name], **first, path=B2_BWD_TIMED[0],
+                            other_shapes=out[name],
+                            library_layout=("F.embedding_bag (sum, a zero row at the padding "
+                                            "index); adds in its own order"
+                                            if name == "moe_fill_bwd" else
+                                            "none: no one PyTorch call writes dy and dgate"))
     return result
 
 
@@ -2879,9 +3096,12 @@ def moe_route_check(smi: str, counters: dict) -> None:
 def kernel_split(fn, want: dict, calls: int = 3, tries: int = 5) -> dict:
     """Device ms per call of ``fn`` by kernel (``torch.profiler``) for the
     kernels in ``want``, each launched ``want[name]`` times a call. The
-    profiler can drop a launch's record, which would read as no time: a
-    profile counts only where it recorded every launch (``calls`` ×
-    ``want[name]`` of each); after ``tries`` incomplete profiles it raises."""
+    profiler can drop a launch's record (one of five of B2's fill adjoint in
+    five profiles running, in a full ``chip_smoke.py`` run), which divided
+    by the calls would read as less time: a complete profile (``calls`` ×
+    ``want[name]`` records of each) is taken where one of ``tries`` gives
+    it, else the last one's mean over the launches it recorded, times
+    ``want[name]``. More records than launches, or none, raise."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2895,16 +3115,19 @@ def kernel_split(fn, want: dict, calls: int = 3, tries: int = 5) -> dict:
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         seen = {n: sum(e.count for e in events if named(n, e.key)) for n in want}
         if all(seen[n] == calls * want[n] for n in want):
-            return {n: sum(e.self_device_time_total for e in events if named(n, e.key))
-                    / calls / 1e3 for n in want}
-    raise AssertionError(f"kernel_split: the profiler recorded {seen} launches in {calls} calls "
-                         f"of {want} a call, {tries} times")
+            break
+    if not all(0 < seen[n] <= calls * want[n] for n in want):
+        raise AssertionError(f"kernel_split: the profiler recorded {seen} launches in {calls} "
+                             f"calls of {want} a call")
+    return {n: sum(e.self_device_time_total for e in events if named(n, e.key))
+            / seen[n] * want[n] / 1e3 for n in want}
 
 
 def train_profile(model, opt, state, tokens, labels) -> dict:
     """Device ms of one train step split by what runs: K2's forward, K2's
     backward (its three kernels on either route, also apart), K3's forward
-    and its backward (both passes, also apart), cuBLAS, the optimizer's
+    and its backward (both passes, also apart), B2's forward kernels (fill
+    and combine) and its adjoint kernels (also apart), cuBLAS, the optimizer's
     update (B3's kernel by its name, launched through ``ctypes`` with no
     PyTorch op around it, and the ops under the optimizer's
     ``record_function`` range: the bias corrections) and the rest (norms,
@@ -2938,7 +3161,11 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     ssd_fwd = ms(lambda key: any(named(n, key) for n in SSD_FWD_KERNELS))
     ssd_bwd = ms(lambda key: any(named(n, key) for n in SSD_BWD_KERNELS))
     ssd_bwd_by_kernel = {n: ms(lambda key, n=n: named(n, key)) for n in SSD_BWD_KERNELS}
+    moe_fwd = ms(lambda key: any(named(n[0], key) for n in B2_KERNELS.values()))
+    moe_bwd_by_kernel = {n: ms(lambda key, n=n: named(n, key)) for n in B2_BWD_KERNELS.values()}
+    moe_bwd = sum(moe_bwd_by_kernel.values())
     gemm = ms(lambda key: any(n in key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass")))
+
     def inside(e, name):
         p = e.cpu_parent
         while p is not None:
@@ -2953,8 +3180,9 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     adamw = ms(lambda key: named("adamw_kernel", key))
     optimizer = optimizer_ops + adamw
     split = {"attention_forward": fwd, "attention_backward": bwd, "ssd_forward": ssd_fwd,
-             "ssd_backward": ssd_bwd, "cublas": gemm, "optimizer": optimizer,
-             "rest": busy - fwd - bwd - ssd_fwd - ssd_bwd - gemm - optimizer}
+             "ssd_backward": ssd_bwd, "moe_dispatch_forward": moe_fwd,
+             "moe_dispatch_backward": moe_bwd, "cublas": gemm, "optimizer": optimizer,
+             "rest": busy - fwd - bwd - ssd_fwd - ssd_bwd - moe_fwd - moe_bwd - gemm - optimizer}
     if split["rest"] < -1e-3 * busy:
         raise AssertionError(f"train profile counts some kernel twice: {split}, busy {busy}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "split_ms": split,
@@ -2962,6 +3190,7 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
             "split_sum_ms": sum(split.values()),
             "attention_backward_ms": {n: t for n, t in bwd_by_kernel.items() if t},
             "ssd_backward_ms": {n: t for n, t in ssd_bwd_by_kernel.items() if t},
+            "moe_dispatch_backward_ms": {n: t for n, t in moe_bwd_by_kernel.items() if t},
             "device_share": busy / wall_ms,
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
                     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]]}, state
@@ -2969,11 +3198,33 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
 
 def train_swaps(kind: str):
     """What ``train_check`` swaps into ``ops`` for ``kind`` (``attention``:
-    K2, ``ssd``: K3): the Function's name there, a stand-in running the
-    plain forward, which autograd differentiates, and the kernels' Function
-    with the backward's gradients of the two inputs the scores are formed
-    from zeroed (dQ and dK; dB and dC), with that fault's name."""
+    K2, ``ssd``: K3, ``moe``: B2): {name there: a stand-in running the
+    plain forward, which autograd differentiates}, {name there: the
+    kernels' Function with a faulty backward} and that fault's name. The
+    faults zero the gradients of the two inputs the scores are formed from
+    (dQ and dK; dB and dC), or the gates' gradient (the router's only
+    path to the loss)."""
     import torch
+    if kind == "moe":
+        md = importlib.import_module("repro_torch.kernels.moe_dispatch")
+
+        class PlainFill:
+            @staticmethod
+            def apply(rows, dest, kept, cap):
+                return md.moe_fill_plain(rows, dest, kept, cap)
+
+        class PlainCombine:
+            @staticmethod
+            def apply(y, dest, gate, kept, expert0):
+                return md.moe_combine_plain(y, dest, gate, expert0)
+
+        class LostDgate(md.MoeCombineFn):
+            @staticmethod
+            def backward(ctx, grad_out):
+                dy, ddest, dgate, *rest = md.MoeCombineFn.backward(ctx, grad_out)
+                return (dy, ddest, torch.zeros_like(dgate), *rest)
+        return ({"MoeFillFn": PlainFill, "MoeCombineFn": PlainCombine},
+                {"MoeCombineFn": LostDgate}, "lost_dgate")
     if kind == "attention":
         fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
@@ -2988,7 +3239,8 @@ def train_swaps(kind: str):
             def backward(ctx, do):
                 dq, dk, *rest = fa.FlashAttentionFn.backward(ctx, do)
                 return (torch.zeros_like(dq), torch.zeros_like(dk), *rest)
-        return "FlashAttentionFn", PlainAttention, LostDqDk, "lost_dq_dk"
+        return ({"FlashAttentionFn": PlainAttention}, {"FlashAttentionFn": LostDqDk},
+                "lost_dq_dk")
     ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
     class PlainSsd:
@@ -3002,7 +3254,7 @@ def train_swaps(kind: str):
         def backward(ctx, dy, dstate):
             dx, ddt, dA, dB, dC, *rest = ssd.SsdScanFn.backward(ctx, dy, dstate)
             return (dx, ddt, dA, torch.zeros_like(dB), torch.zeros_like(dC), *rest)
-    return "SsdScanFn", PlainSsd, LostDbDc, "lost_db_dc"
+    return {"SsdScanFn": PlainSsd}, {"SsdScanFn": LostDbDc}, "lost_db_dc"
 
 
 def train_check(counters: dict, arch: str, cut, kind: str) -> None:
@@ -3015,7 +3267,10 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     swapped for the plain forward, which autograd differentiates. The loss
     within ``TRAIN_LOSS_TOL`` and every parameter's gradient within
     ``TRAIN_GRAD_TOL`` (relative L2). Then the kernels again with the
-    backward's faulty stand-in: the same limits must reject that."""
+    backward's faulty stand-in: the same limits must reject that. For
+    ``moe`` (olmoe-1b-7b) K2 runs in all three runs; only B2's Functions
+    are swapped, both for the plain forwards, and the fault zeroes the
+    gates' gradient."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import forward_train, init_params
@@ -3028,7 +3283,13 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                     batch_size=TRAIN_BATCH, seed=0))
     tokens, labels = (torch.from_numpy(a).to(dev, torch.int64) for a in next(data.batches()))
-    fn_name, plain, faulty, fault = train_swaps(kind)
+    plain, faulty, fault = train_swaps(kind)
+
+    def swapped(swaps):
+        stack = contextlib.ExitStack()
+        for name, stand_in in swaps.items():
+            stack.enter_context(mock.patch.object(ops, name, stand_in))
+        return stack
 
     def run():
         model.zero_grad(set_to_none=True)
@@ -3045,9 +3306,9 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     zero_counts(counters)
     loss_k, grads_k = run()
     counted = read_counts(counters)
-    with mock.patch.object(ops, fn_name, plain):
+    with swapped(plain):
         loss_p, grads_p = run()
-    with mock.patch.object(ops, fn_name, faulty):
+    with swapped(faulty):
         loss_z, grads_z = run()
     torch.cuda.synchronize()
     errs, errs_z = rel(grads_k, grads_p), rel(grads_z, grads_p)
@@ -3060,7 +3321,8 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
           and rejects_fault and len(grads_p) == sum(1 for _ in model.parameters()))
     emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers,
           "pattern": cfg.layout_pattern, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-          "ssm_heads": cfg.ssm_heads, "ssm_groups": cfg.ssm_groups, "batch": TRAIN_BATCH,
+          "ssm_heads": cfg.ssm_heads, "ssm_groups": cfg.ssm_groups,
+          "experts": cfg.num_experts, "top_k": cfg.experts_per_token, "batch": TRAIN_BATCH,
           "seq": TRAIN_SEQ, "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_err,
           "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": errs, "grad_tol": TRAIN_GRAD_TOL,
           f"{fault}_grad_rel_err": errs_z, f"{fault}_rejected": rejects_fault,
@@ -3075,40 +3337,47 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
 
 def train_launches(cfg, steps: int, adamw_per_step: int = 0) -> dict:
     """Kernel launches of ``steps`` train steps with remat: each forward kernel
-    twice a layer and step (the forward, then its recomputation in the
-    backward), each backward kernel once, and AdamW's ``adamw_per_step``
-    times a step (0 where no optimizer runs)."""
+    (K2, K3, B2's fill and combine) twice a layer and step (the forward,
+    then its recomputation in the backward), each backward kernel (K2's,
+    K3's, B2's two adjoints) once, and AdamW's ``adamw_per_step`` times a
+    step (0 where no optimizer runs)."""
     per = expected_launches(cfg)
     want = dict.fromkeys(per, 0)
     want.update(flash_attention=2 * per["flash_attention"] * steps,
                 flash_attention_bwd=per["flash_attention"] * steps,
                 ssd_scan=2 * per["ssd_scan"] * steps, ssd_scan_bwd=per["ssd_scan"] * steps,
                 adamw=adamw_per_step * steps)
+    for fwd, bwd in zip(B2, B2_BWD):
+        want.update({fwd: 2 * per[fwd] * steps, bwd: per[fwd] * steps})
     return want
 
 
 def train_routes(want: dict) -> dict:
     """Each kernel's launches in ``want`` by route: K2, its backward, K3's
     forward and its backward all on ``sm90`` (bf16 at these shapes), B2's
-    on ``vector``."""
+    forward and adjoint kernels on ``vector``."""
     routes = {k: {"sm90": want[k], "simt": 0}
               for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
-    routes.update({k: {"vector": want[k], "scalar": 0} for k in B2})
+    routes.update({k: {"vector": want[k], "scalar": 0} for k in B2 + B2_BWD})
     return routes
 
 
 def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
-                steps: int = TRAIN_STEPS) -> dict:
+                steps: int = TRAIN_STEPS, cut=None) -> dict:
     """``arch`` at full width and depth (phi4-mini-3.8b: 32 layers, d 3072,
-    vocab 200064; mamba2-1.3b: 48 ssm layers, d 2048, vocab 50280), bf16,
+    vocab 200064; mamba2-1.3b: 48 ssm layers, d 2048, vocab 50280), or cut
+    in depth by ``cut`` (olmoe-1b-7b: 8 of 16 layers, d 2048, 64 experts
+    top-8, expert d_ff 1024, vocab 50304), bf16,
     random weights from seed 0, the optimizer ``optimizer_for_config`` picks
     (AdamW) at ``TRAIN_LR``, remat on, batches of ``TRAIN_BATCH`` x
     ``TRAIN_SEQ`` from ``MarkovDataset``: ``TRAIN_WARMUP`` steps, then
     ``steps`` through ``train_step`` with every kernel's count zeroed just
     before and read just after (``train_launches``: K2's forward 2 x 32 a
     step and its backward 32, all ``sm90``, for phi4; K3's forward 2 x 48 and
-    its backward 48, all ``sm90``, for mamba2; B3 ``adamw_per_step`` times
-    a step), each step on the
+    its backward 48, all ``sm90``, for mamba2; K2's forward 2 x 8 and its
+    backward 8, B2's fill and combine 2 x 8 and each adjoint 8, all
+    ``vector``, for olmoe; B3 ``adamw_per_step`` times a step), each step
+    on the
     host clock; the loss finite and falling (the last three steps' mean below
     the first three's); the peak memory; then one more step under the
     profiler. Returns the counted launches."""
@@ -3118,7 +3387,7 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
     from repro_torch.train import (DataConfig, MarkovDataset, make_optimizer,
                                    optimizer_for_config, train_step)
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = get_config(arch) if cut is None else cut_config(get_config(arch), cut)
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device=dev)
     model.requires_grad_(True)
@@ -3159,6 +3428,8 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
     ok = (counts == want and routes == train_routes(want)
           and all(math.isfinite(x) for x in losses) and sum(losses[-3:]) < sum(losses[:3]))
     emit({"phase": "train", "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+          "full_layers": get_config(arch).num_layers, "experts": cfg.num_experts,
+          "top_k": cfg.experts_per_token, "moe_d_ff": cfg.moe_d_ff,
           "vocab": cfg.vocab_size, "params": n_params, "dtype": cfg.dtype,
           "optimizer": opt_name, "lr": TRAIN_LR, "remat": True, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
           "init_s": init_s, "state_gb_before_step": state_gb, "data_s": data_s,
@@ -3291,8 +3562,8 @@ def beside(seconds: float, terms: dict) -> dict:
 
 
 def zero_counts(counters: dict) -> None:
+    from repro_torch.kernels import moe_dispatch
     from repro_torch.kernels.flash_attention import ROUTES, flash_attention, flash_attention_bwd
-    from repro_torch.kernels.moe_dispatch import ROUTES as B2_ROUTES, moe_combine, moe_fill
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES, ssd_scan, ssd_scan_bwd
     for c in counters.values():
         c.launches = 0
@@ -3300,21 +3571,21 @@ def zero_counts(counters: dict) -> None:
     flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
     ssd_scan_bwd.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
-    moe_fill.launches_by_route = dict.fromkeys(B2_ROUTES, 0)
-    moe_combine.launches_by_route = dict.fromkeys(B2_ROUTES, 0)
+    for name in B2 + B2_BWD:
+        getattr(moe_dispatch, name).launches_by_route = dict.fromkeys(moe_dispatch.ROUTES, 0)
 
 
 def read_counts(counters: dict) -> dict:
+    from repro_torch.kernels import moe_dispatch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.moe_dispatch import moe_combine, moe_fill
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"launches": {k: c.launches for k, c in counters.items()},
             "routes": {"flash_attention": dict(flash_attention.launches_by_route),
                        "flash_attention_bwd": dict(flash_attention_bwd.launches_by_route),
                        "ssd_scan": dict(ssd_scan.launches_by_route),
                        "ssd_scan_bwd": dict(ssd_scan_bwd.launches_by_route),
-                       "moe_fill": dict(moe_fill.launches_by_route),
-                       "moe_combine": dict(moe_combine.launches_by_route)}}
+                       **{name: dict(getattr(moe_dispatch, name).launches_by_route)
+                          for name in B2 + B2_BWD}}}
 
 
 def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
@@ -3786,7 +4057,8 @@ def main() -> int:
                                                      flash_attention_bwd, flash_attention_plain)
     from repro_torch.kernels.batchsim_advance import batchsim_advance
     from repro_torch.kernels.int8_quant import quantize_int8
-    from repro_torch.kernels.moe_dispatch import moe_combine, moe_fill
+    from repro_torch.kernels.moe_dispatch import (moe_combine, moe_combine_bwd, moe_fill,
+                                                  moe_fill_bwd)
     from repro_torch.kernels.ssd_scan import ROUTES as SSD_ROUTES
     from repro_torch.kernels.ssd_scan import _route as ssd_route
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd, ssd_scan_plain
@@ -3829,7 +4101,8 @@ def main() -> int:
     counters = {"flash_attention": flash_attention, "ssd_scan": ssd_scan,
                 "int8_quant": quantize_int8, "batchsim_advance": batchsim_advance,
                 "flash_attention_bwd": flash_attention_bwd, "ssd_scan_bwd": ssd_scan_bwd,
-                "adamw": adamw_update, "moe_fill": moe_fill, "moe_combine": moe_combine}
+                "adamw": adamw_update, "moe_fill": moe_fill, "moe_combine": moe_combine,
+                "moe_fill_bwd": moe_fill_bwd, "moe_combine_bwd": moe_combine_bwd}
 
     # 3. kernel against plain --------------------------------------------------
     t0 = time.perf_counter()
@@ -3940,6 +4213,7 @@ def main() -> int:
     adamw_route_check(smi, counters)
     trained = train_phase(smi, counters)
     trained_ssm = train_phase(smi, counters, SSM_TRAIN_ARCH, SSM_TRAIN_STEPS)
+    trained_moe = train_phase(smi, counters, MOE_TRAIN_ARCH, MOE_TRAIN_STEPS, MOE_TRAIN_CUT)
     ckpt = train_ckpt_phase(smi, counters)
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
     by_path["flash_attention"]["phi4-mini-3.8b train"] = trained["flash_attention"]
@@ -3950,7 +4224,13 @@ def main() -> int:
     by_path["ssd_scan_bwd"] = {f"{SSM_TRAIN_ARCH} train": trained_ssm["ssd_scan_bwd"]}
     by_path["adamw"] = {f"{TRAIN_ARCH} train": trained["adamw"],
                         f"{SSM_TRAIN_ARCH} train": trained_ssm["adamw"],
+                        f"{MOE_TRAIN_ARCH} train": trained_moe["adamw"],
                         "demo-100m train": ckpt["adamw"]}
+    moe_train = f"{MOE_TRAIN_ARCH} train"
+    by_path["flash_attention"][moe_train] = trained_moe["flash_attention"]
+    by_path["flash_attention_bwd"][moe_train] = trained_moe["flash_attention_bwd"]
+    for kernel in B2 + B2_BWD:
+        by_path.setdefault(kernel, {})[moe_train] = trained_moe[kernel]
 
     # 4c. the mesh steps on the card's 1×1 mesh, the dry run, the lane figures
     t0 = time.perf_counter()
@@ -4031,8 +4311,8 @@ def main() -> int:
              "simt": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"},
          "replaces": "src/repro/models/attention.py:58",
          "launches": launches["flash_attention_bwd"],
-         "launches_by_route": {"sm90": by_path["flash_attention_bwd"]["phi4-mini-3.8b train"]
-                               + by_path["flash_attention_bwd"][f"steps {TRAIN_ARCH} train"],
+         "launches_by_route": {"sm90": launches["flash_attention_bwd"]
+                               - by_path["flash_attention_bwd"]["demo-100m train"],
                                "simt": by_path["flash_attention_bwd"]["demo-100m train"]},
          "launches_by_path": by_path["flash_attention_bwd"],
          **timings["flash_attention_bwd"]},
@@ -4056,7 +4336,17 @@ def main() -> int:
         {"name": "moe_combine", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
          "replaces": "src/repro/models/moe.py:121", "launches": launches["moe_combine"],
-         "launches_by_path": by_path["moe_combine"], **timings["moe_combine"]}]})
+         "launches_by_path": by_path["moe_combine"], **timings["moe_combine"]},
+        {"name": "moe_fill_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+         "replaces": "src/repro/models/moe.py:108",
+         "launches": launches["moe_fill_bwd"], "launches_by_path": by_path["moe_fill_bwd"],
+         **timings["moe_fill_bwd"]},
+        {"name": "moe_combine_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_dispatch.cu",
+         "replaces": "src/repro/models/moe.py:121",
+         "launches": launches["moe_combine_bwd"], "launches_by_path": by_path["moe_combine_bwd"],
+         **timings["moe_combine_bwd"]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

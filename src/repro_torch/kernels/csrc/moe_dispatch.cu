@@ -64,9 +64,32 @@
 //   of 4 warps), so small calls spread over SMs. No shared memory: nothing
 //   is reused within a block.
 //
-// Entry points: `moe_fill` and `moe_combine`, plain C functions that
-// launch on the given stream of the given device and return
-// cudaGetLastError().
+// The adjoints, for training (`MoeFillFn` and `MoeCombineFn` in
+// kernels/moe_dispatch.py; XLA's autodiff of the same lines in the
+// reference). Each equals its plain version (`moe_fill_bwd_plain`,
+// `moe_combine_bwd_plain`) bit for bit, but for dgate's f32 order; no
+// atomics: one warp writes each piece of an output.
+// * moe_fill_bwd_kernel, the fill's adjoint, has the combine's shape (the
+//   same ranking and loads, `combine_rows` with GATED false): token t's
+//   gradient is the sum of its kept slots' rows of the buffer's gradient,
+//   in f32 from +0.0 in ascending expert id, rounded once to the dtype; a
+//   dropped route adds nothing. Bound by bytes: each kept route's row read,
+//   T*D written and the table's dest: at olmoe-1b-7b's training shape (T
+//   4096, k 8, E 64, C 640, D 2048, bf16) ~151 MB, 0.045 ms at 3.35 TB/s.
+// * moe_combine_bwd_kernel, the combine's adjoint, has the fill's shape: a
+//   warp a token reads grad_out's row once and, for each kept route, stores
+//   grad_out * gate (the gate rounded to the dtype, the product rounded)
+//   to the route's slot of dy and forms the route's dot with y's row (the
+//   products rounded to the dtype, an f32 sum by lanes, then xor shuffles
+//   in a fixed order), rounded to the dtype and widened to f32 as dgate; a
+//   dropped route's dgate is 0. The empty slots of dy are zeroed first,
+//   streamed, as the fill zeroes them. Bound by bytes: E*C*D written, the
+//   kept routes' rows of y and T*D of grad_out read, the table read and
+//   dgate written: ~319 MB at olmoe's training shape, 0.095 ms.
+//
+// Entry points: `moe_fill`, `moe_combine`, `moe_fill_bwd` and
+// `moe_combine_bwd`, plain C functions that launch on the given stream of
+// the given device and return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -195,17 +218,22 @@ moe_fill_kernel(const U* __restrict__ rows, const int32_t* __restrict__ dest,
 // combine
 // ---------------------------------------------------------------------------
 
-// Adds v into acc as the plain version does: the first term as it is, each
-// later one by a rounded sum.
-template <typename T>
+// Adds v into acc. GATED (the combine), as moe_combine_plain does: the
+// first term as it is, each later one by a rounded sum. Otherwise (the
+// fill's adjoint, moe_fill_bwd_plain): an f32 sum from +0.0, rounded once
+// at the store.
+template <typename T, bool GATED>
 __device__ __forceinline__ float accumulate(float acc, float v, bool first) {
+  if (!GATED) return __fadd_rn(acc, v);
   return first ? v : Traits<T>::round(__fadd_rn(acc, v));
 }
 
-// The gated contribution of y element yv: the product rounded to T, or the
-// +0.0 of a dropped assignment.
-template <typename T>
+// A route's term of element yv: GATED, the product by the gate rounded to
+// T; otherwise yv itself; the +0.0 of a dropped assignment either way
+// (which leaves the adjoint's sum from +0.0 as it is).
+template <typename T, bool GATED>
 __device__ __forceinline__ float contribution(float yv, float g, bool kept) {
+  if (!GATED) return kept ? yv : 0.0f;
   return kept ? Traits<T>::round(__fmul_rn(yv, g)) : 0.0f;
 }
 
@@ -241,12 +269,15 @@ template <typename T> struct Unit<T, false> {
 // expert id, ties by j (the plain version's stable order), so that lane r
 // then holds the r-th. It walks them in that order, JB rows at a time:
 // each lane loads its CILP units of each of the JB rows, then adds their
-// gated contributions. CILP x JB units a lane are in flight.
-template <typename T, bool VECTOR, int CILP, int JB>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-moe_combine_kernel(const T* __restrict__ y, const int32_t* __restrict__ dest,
-                   const float* __restrict__ gate, T* __restrict__ out, int64_t tokens, int k,
-                   int64_t d, int64_t rows_y, int64_t cap, int64_t expert0) {
+// gated contributions (GATED: the combine) or the rows themselves (the
+// fill's adjoint, which reads no gate). CILP x JB units a lane are in
+// flight.
+template <typename T, bool VECTOR, int CILP, int JB, bool GATED>
+__device__ __forceinline__ void combine_rows(const T* __restrict__ y,
+                                             const int32_t* __restrict__ dest,
+                                             const float* __restrict__ gate, T* __restrict__ out,
+                                             int64_t tokens, int k, int64_t d, int64_t rows_y,
+                                             int64_t cap, int64_t expert0) {
   using U = Unit<T, VECTOR>;
   constexpr int N = U::N;
   const int lane = threadIdx.x & 31;
@@ -264,7 +295,7 @@ moe_combine_kernel(const T* __restrict__ y, const int32_t* __restrict__ dest,
       row = dest[t * k + lane];
       if (row >= rows_y) __trap();
       key = row >= 0 ? expert0 + row / cap : -1 - int64_t(row);
-      g = Traits<T>::round(gate[t * k + lane]);
+      if (GATED) g = Traits<T>::round(gate[t * k + lane]);
     }
     // every lane runs the shuffles: k is the same across the warp
     int rank = 0;
@@ -299,15 +330,119 @@ moe_combine_kernel(const T* __restrict__ y, const int32_t* __restrict__ dest,
           for (int i = 0; i < CILP; ++i)
 #pragma unroll
             for (int e = 0; e < N; ++e)
-              acc[i][e] = accumulate<T>(acc[i][e],
-                                        contribution<T>(v[b][i].get(e), gj[b], r[b] >= 0),
-                                        j0 + b == 0);
+              acc[i][e] = accumulate<T, GATED>(
+                  acc[i][e], contribution<T, GATED>(v[b][i].get(e), gj[b], r[b] >= 0),
+                  j0 + b == 0);
         }
       }
     }
 #pragma unroll
     for (int i = 0; i < CILP; ++i)
       if (base + i * 32 < units) U::store(out + t * d, base + i * 32, acc[i]);
+  }
+}
+
+template <typename T, bool VECTOR, int CILP, int JB>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+moe_combine_kernel(const T* __restrict__ y, const int32_t* __restrict__ dest,
+                   const float* __restrict__ gate, T* __restrict__ out, int64_t tokens, int k,
+                   int64_t d, int64_t rows_y, int64_t cap, int64_t expert0) {
+  combine_rows<T, VECTOR, CILP, JB, true>(y, dest, gate, out, tokens, k, d, rows_y, cap,
+                                          expert0);
+}
+
+// ---------------------------------------------------------------------------
+// the adjoints
+// ---------------------------------------------------------------------------
+
+// The fill's adjoint: token t's gradient is the f32 sum of its kept slots'
+// rows of the buffer's gradient, in ascending expert id, rounded once.
+template <typename T, bool VECTOR, int CILP, int JB>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+moe_fill_bwd_kernel(const T* __restrict__ grad_buf, const int32_t* __restrict__ dest,
+                    T* __restrict__ out, int64_t tokens, int k, int64_t d, int64_t rows_y,
+                    int64_t cap) {
+  combine_rows<T, VECTOR, CILP, JB, false>(grad_buf, dest, nullptr, out, tokens, k, d, rows_y,
+                                           cap, 0);
+}
+
+// The raw unit zero_empty_slots stores: 16 bytes, or one element of T.
+template <typename T, bool VECTOR> struct Raw { using type = uint4; };
+template <> struct Raw<float, false> { using type = uint32_t; };
+template <> struct Raw<__nv_bfloat16, false> { using type = uint16_t; };
+
+// The combine's adjoint, shaped as the fill: a warp a token, lane j < k
+// holding its j-th (dest, gate). The warp reads ILP units of grad_out's
+// row a lane at a time, once, and for each kept route stores their
+// products by the gate (rounded to T, as the combine rounds it) to the
+// route's slot of dy and forms its part of the route's dot with y's row:
+// each product grad_out * y rounded to T, the lane's sum in f32, then the
+// warp's by xor shuffles (every lane the same value, the same order each
+// run), added to the route's lane in chunk order. The route's dgate is
+// that sum rounded to T and widened to f32; a dropped route's is 0. The
+// grid's warps first zero dy's empty slots, as the fill zeroes them.
+template <typename T, bool VECTOR>
+__global__ void __launch_bounds__(FILL_THREADS)
+moe_combine_bwd_kernel(const T* __restrict__ grad_out, const T* __restrict__ y,
+                       const int32_t* __restrict__ dest, const float* __restrict__ gate,
+                       const int32_t* __restrict__ kept, T* __restrict__ dy,
+                       float* __restrict__ dgate, int64_t tokens, int k, int64_t slots,
+                       int64_t cap, int64_t d) {
+  using U = Unit<T, VECTOR>;
+  constexpr int N = U::N;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = int64_t(blockIdx.x) * FILL_WARPS + threadIdx.x / 32;
+  const int64_t warps = int64_t(gridDim.x) * FILL_WARPS;
+  const int64_t units = d / N;
+  zero_empty_slots(reinterpret_cast<typename Raw<T, VECTOR>::type*>(dy), kept, slots, cap,
+                   units, warp, warps, lane);
+  for (int64_t t = warp; t < tokens; t += warps) {
+    int32_t r = -1;
+    float g = 0.0f;
+    if (lane < k) {
+      r = dest[t * k + lane];
+      if (r >= slots) __trap();
+      g = Traits<T>::round(gate[t * k + lane]);
+    }
+    const unsigned live = __ballot_sync(FULL, r >= 0);
+    const T* go_row = grad_out + t * d;
+    float dg = 0.0f;                    // lane j: route j's dot
+    // the same trip count on every lane: the shuffles below take the whole warp
+    for (int64_t j0 = 0; j0 < units; j0 += 32 * ILP) {
+      const int64_t j = j0 + lane;
+      U go[ILP];
+#pragma unroll
+      for (int u = 0; u < ILP; ++u)
+        if (j + u * 32 < units) go[u].load(go_row, j + u * 32);
+      for (unsigned m = live; m; m &= m - 1) {
+        const int src = __ffs(m) - 1;
+        const int64_t row = __shfl_sync(FULL, r, src);
+        const float gj = __shfl_sync(FULL, g, src);
+        const T* y_row = y + row * d;
+        U yv[ILP];
+#pragma unroll
+        for (int u = 0; u < ILP; ++u)
+          if (j + u * 32 < units) yv[u].load(y_row, j + u * 32);
+        float p = 0.0f;
+#pragma unroll
+        for (int u = 0; u < ILP; ++u) {
+          if (j + u * 32 < units) {
+            float x[N];
+#pragma unroll
+            for (int e = 0; e < N; ++e) {
+              const float o = go[u].get(e);
+              x[e] = Traits<T>::round(__fmul_rn(o, gj));
+              p = __fadd_rn(p, Traits<T>::round(__fmul_rn(o, yv[u].get(e))));
+            }
+            U::store(dy + row * d, j + u * 32, x);
+          }
+        }
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1) p = __fadd_rn(p, __shfl_xor_sync(FULL, p, s));
+        if (lane == src) dg = __fadd_rn(dg, p);
+      }
+    }
+    if (lane < k) dgate[t * k + lane] = r >= 0 ? Traits<T>::round(dg) : 0.0f;
   }
 }
 
@@ -335,6 +470,26 @@ int grid_for(int64_t items, int warps_a_block, int per_sm, int dev) {
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The combine's (and the fill adjoint's) units in flight and grid: 16 units
+// a lane, 4 of each of 4 rows where k <= 4, else 2 of each of 8; 1 of each
+// of 8 where that would give fewer than 8 warps an SM
+void combine_grid(int64_t tokens, int64_t units, int k, int dev, int& cilp, int& blocks) {
+  cilp = k <= 4 ? 4 : 2;
+  if (tokens * ((units + 32 * cilp - 1) / (32 * cilp)) < int64_t(sm_count(dev)) * 8) cilp = 1;
+  const int64_t items = tokens * ((units + 32 * cilp - 1) / (32 * cilp));
+  blocks = grid_for(items, COMBINE_WARPS, 32, dev);
+}
+
+// The fill's grid (and the combine adjoint's): a warp for each token, and
+// enough warps to spread the zeros: one for each 32 slot rows, and a block
+// an SM where there are that many rows (decode's few tokens would leave the
+// zeros to a block or two)
+int fill_grid(int64_t tokens, int64_t slots, int dev) {
+  const int64_t spread = std::min<int64_t>(slots, int64_t(sm_count(dev)) * FILL_WARPS);
+  const int64_t warps = std::max<int64_t>({tokens, slots / 32, spread});
+  return grid_for(warps, FILL_WARPS, 32, dev);
+}
 
 // Makes `dev` current for the launch and restores the caller's device.
 struct OnDevice {
@@ -372,12 +527,7 @@ extern "C" int moe_fill(int mode, const void* rows, const int32_t* dest, const i
     return cudaErrorInvalidValue;
   OnDevice on(device);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // a warp for each token, and enough warps to spread the zeros: one for
-  // each 32 slot rows, and a block an SM where there are that many rows
-  // (decode's few tokens would leave the zeros to a block or two)
-  const int64_t spread = std::min<int64_t>(slots, int64_t(sm_count(device)) * FILL_WARPS);
-  const int64_t warps = std::max<int64_t>({tokens, slots / 32, spread});
-  const int blocks = grid_for(warps, FILL_WARPS, 32, device);
+  const int blocks = fill_grid(tokens, slots, device);
   if (vector) {
     moe_fill_kernel<uint4><<<blocks, FILL_THREADS, 0, st>>>(
         static_cast<const uint4*>(rows), dest, kept, static_cast<uint4*>(out), tokens, k, slots,
@@ -417,12 +567,8 @@ extern "C" int moe_combine(int mode, const void* y, const int32_t* dest, const f
   const int64_t rows_y = experts * cap;
   const int64_t cap1 = cap > 0 ? cap : 1;   // no kept row without a slot: any divisor
   OnDevice on(device);
-  // 16 units a lane in flight: 4 of each of 4 rows where k <= 4, else 2 of
-  // each of 8; 1 of each of 8 where that would give fewer than 8 warps an SM
-  int cilp = k <= 4 ? 4 : 2;
-  if (tokens * ((units + 32 * cilp - 1) / (32 * cilp)) < int64_t(sm_count(device)) * 8) cilp = 1;
-  const int64_t items = tokens * ((units + 32 * cilp - 1) / (32 * cilp));
-  const int blocks = grid_for(items, COMBINE_WARPS, 32, device);
+  int cilp, blocks;
+  combine_grid(tokens, units, k, device, cilp, blocks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define B2_COMBINE(T, V, I, J)                                                               \
   moe_combine_kernel<T, V, I, J><<<blocks, COMBINE_THREADS, 0, st>>>(                       \
@@ -439,6 +585,84 @@ extern "C" int moe_combine(int mode, const void* y, const int32_t* dest, const f
   }
 #undef B2_COMBINE_ILP
 #undef B2_COMBINE
+  return cudaGetLastError();
+}
+
+// The fill's adjoint. mode (Mode) as moe_fill's; grad_buf (experts, cap, D)
+// the gradient of the fill's buffer; dest (tokens, k) int32 as moe_fill
+// reads it; out (tokens, D) the rows' gradient, in grad_buf's dtype.
+extern "C" int moe_fill_bwd(int mode, const void* grad_buf, const int32_t* dest, void* out,
+                            long long tokens, long long experts, long long cap, long long d,
+                            void* stream) {
+  const Mode m(mode);
+  const int vector = m.vector, dtype = m.dtype, k = m.k, device = m.device;
+  if (tokens < 0 || d < 0 || experts < 0 || cap < 0 || k < 1 || k > MAX_K ||
+      experts * cap > INT32_MAX || (cap == 0 && experts > 0) ||
+      (tokens > 0 && d > 0 && (!dest || !out || (experts * cap > 0 && !grad_buf))))
+    return cudaErrorInvalidValue;
+  if (tokens == 0 || d == 0) return cudaSuccess;
+  const int64_t bytes = d * (dtype == 0 ? 4 : 2);
+  if (vector && (bytes % 16 != 0 || !aligned16(grad_buf) || !aligned16(out)))
+    return cudaErrorInvalidValue;
+  const int64_t units = vector ? bytes / 16 : d;
+  const int64_t rows_y = experts * cap;
+  const int64_t cap1 = cap > 0 ? cap : 1;
+  OnDevice on(device);
+  int cilp, blocks;
+  combine_grid(tokens, units, k, device, cilp, blocks);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define B2_FILL_BWD(T, V, I, J)                                                         \
+  moe_fill_bwd_kernel<T, V, I, J><<<blocks, COMBINE_THREADS, 0, st>>>(                 \
+      static_cast<const T*>(grad_buf), dest, static_cast<T*>(out), tokens, k, d, rows_y, \
+      cap1)
+#define B2_FILL_BWD_ILP(T, V)                      \
+  if (cilp == 1) B2_FILL_BWD(T, V, 1, 8);          \
+  else if (cilp == 2) B2_FILL_BWD(T, V, 2, 8);     \
+  else B2_FILL_BWD(T, V, 4, 4)
+  if (dtype == 0) {
+    if (vector) { B2_FILL_BWD_ILP(float, true); } else { B2_FILL_BWD_ILP(float, false); }
+  } else {
+    if (vector) { B2_FILL_BWD_ILP(__nv_bfloat16, true); } else { B2_FILL_BWD_ILP(__nv_bfloat16, false); }
+  }
+#undef B2_FILL_BWD_ILP
+#undef B2_FILL_BWD
+  return cudaGetLastError();
+}
+
+// The combine's adjoint. mode (Mode) as moe_combine's; grad_out (tokens, D)
+// the gradient of the combine's output and y (experts, cap, D), both of the
+// dtype; dest, gate (tokens, k) as moe_combine reads them; kept (experts,)
+// int32 as moe_fill reads it: dy's slots past it are zeroed. Writes dy
+// (experts, cap, D) and dgate (tokens, k) f32.
+extern "C" int moe_combine_bwd(int mode, const void* grad_out, const void* y,
+                               const int32_t* dest, const float* gate, const int32_t* kept,
+                               void* dy, float* dgate, long long tokens, long long experts,
+                               long long cap, long long d, void* stream) {
+  const Mode m(mode);
+  const int vector = m.vector, dtype = m.dtype, k = m.k, device = m.device;
+  const long long slots = experts * cap;
+  if (tokens < 0 || d < 0 || experts < 0 || cap < 0 || k < 1 || k > MAX_K ||
+      slots > INT32_MAX ||
+      (tokens > 0 && (!dest || !gate || !dgate || (d > 0 && !grad_out))) ||
+      (slots > 0 && d > 0 && (!y || !dy || !kept)))
+    return cudaErrorInvalidValue;
+  if (tokens == 0 && (slots == 0 || d == 0)) return cudaSuccess;
+  const int64_t bytes = d * (dtype == 0 ? 4 : 2);
+  if (vector && (bytes % 16 != 0 || !aligned16(grad_out) || !aligned16(y) || !aligned16(dy)))
+    return cudaErrorInvalidValue;
+  OnDevice on(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = fill_grid(tokens, slots, device);
+#define B2_COMBINE_BWD(T, V)                                                                  \
+  moe_combine_bwd_kernel<T, V><<<blocks, FILL_THREADS, 0, st>>>(                             \
+      static_cast<const T*>(grad_out), static_cast<const T*>(y), dest, gate, kept,            \
+      static_cast<T*>(dy), dgate, tokens, k, slots, cap > 0 ? cap : 1, d)
+  if (dtype == 0) {
+    if (vector) { B2_COMBINE_BWD(float, true); } else { B2_COMBINE_BWD(float, false); }
+  } else {
+    if (vector) { B2_COMBINE_BWD(__nv_bfloat16, true); } else { B2_COMBINE_BWD(__nv_bfloat16, false); }
+  }
+#undef B2_COMBINE_BWD
   return cudaGetLastError();
 }
 

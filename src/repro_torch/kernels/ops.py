@@ -12,14 +12,18 @@ Gradients: attention is differentiable through
 forward and its backward kernel), the SSD scan through
 :class:`~repro_torch.kernels.ssd_scan.SsdScanFn` (K3's forward and its
 backward kernel), each taken when grad mode is on and an input requires a
-gradient; serving stays on the plain forward call. The int8 quantizer is on
-no training path and has no backward: a CUDA input that requires a
+gradient; serving stays on the plain forward call. The MoE layer's
+dispatch and combine (B2, :func:`fill_expert_slots` and
+:func:`combine_expert_rows`) likewise take
+:class:`~repro_torch.kernels.moe_dispatch.MoeFillFn` and
+:class:`~repro_torch.kernels.moe_dispatch.MoeCombineFn` (B2's forward
+kernels and their adjoint kernels) under grad on the card and on the CPU
+(plain forwards and plain backwards there); meta tensors (the dry run)
+keep the plain forwards, which autograd differentiates. The int8 quantizer
+is on no training path and has no backward: a CUDA input that requires a
 gradient raises (its output would carry no ``grad_fn`` and the gradient
 would be lost). On the CPU its plain version is ordinary differentiable
-PyTorch. The MoE layer's dispatch and combine (B2, :func:`fill_expert_slots`
-and :func:`combine_expert_rows`) are likewise on no training path on the
-card yet: they refuse a CUDA input that requires a gradient, and train on
-the CPU through their plain versions.
+PyTorch.
 
 On a mesh (``DTensor`` inputs: the dry run) each kernel runs on every
 device's shards (``local_map``). Batch and heads stay sharded as they come
@@ -38,7 +42,7 @@ import torch
 
 from .flash_attention import FlashAttentionFn, flash_attention
 from .int8_quant import quantize_int8
-from .moe_dispatch import moe_combine, moe_fill
+from .moe_dispatch import MoeCombineFn, MoeFillFn, moe_combine, moe_fill
 from .ssd_scan import SsdScanFn, ssd_scan
 
 
@@ -222,15 +226,20 @@ def fill_expert_slots(rows: torch.Tensor, dest: torch.Tensor, kept: torch.Tensor
     """The MoE layer's (E, cap, D) expert buffer from the route table: row
     ``dest[t, j]`` holds ``rows[t]`` of ``rows`` (T, D) for each kept
     destination, zeros past each expert's ``kept`` slots."""
-    _no_cuda_grad("fill_expert_slots", "no MoE configuration trains on the card yet", rows)
+    if torch.is_grad_enabled() and rows.requires_grad and not rows.is_meta:
+        return MoeFillFn.apply(rows, dest, kept, cap)
     return moe_fill(rows, dest, kept, cap)
 
 
 def combine_expert_rows(y: torch.Tensor, dest: torch.Tensor, gate: torch.Tensor,
-                        expert0: int = 0) -> torch.Tensor:
+                        expert0: int = 0, kept: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The MoE layer's output (T, D): each token's gated rows ``dest`` of the
     experts' output y (E, C, D), added by expert id (y's first expert is
-    ``expert0``)."""
-    _no_cuda_grad("combine_expert_rows", "no MoE configuration trains on the card yet", y,
-                  gate)
+    ``expert0``). Under grad the backward needs ``kept``, each expert's kept
+    rows in ``dest`` (the route table's)."""
+    if (torch.is_grad_enabled() and (y.requires_grad or gate.requires_grad)
+            and not y.is_meta):
+        if kept is None:
+            raise ValueError("combine_expert_rows: under grad its backward needs kept")
+        return MoeCombineFn.apply(y, dest, gate, kept, expert0)
     return moe_combine(y, dest, gate, expert0)

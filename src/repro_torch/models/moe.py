@@ -23,6 +23,20 @@ each kernel's plain version):
 * the combine is one launch of B2's combine kernel
   (``ops.combine_expert_rows``), a warp reading a token's k routes.
 
+Under grad the two entry points take B2's autograd Functions
+(``MoeFillFn``, ``MoeCombineFn``), whose backwards are B2's adjoint
+kernels over the same route table: the rows' gradient, a warp summing a
+token's kept slots of the buffer's gradient; y's and the gates' gradients,
+a warp a token writing ``grad_out · gate`` to each kept slot (zeros in the
+empty ones) and the gate's dot with y's row. The route table holds no
+gradient: the router's gradient reaches it through the gates alone. With
+remat (``torch.utils.checkpoint`` over each pattern repetition) the
+backward recomputes the layer from its saved input: the router's f32
+product, its softmax, ``topk``, the stable argsort and the scatter of
+:func:`route_table` are the same ops on the same bits, so the
+recomputation rebuilds the same route table and the same buffer, and the
+adjoints read the table the forward read.
+
 What the port keeps of the reference's behaviour, on purpose:
 
 * the capacity is ``int(max(1, round(t·k/E·cf)))`` with Python's
@@ -240,7 +254,7 @@ def moe_ffn(params: Params, x: torch.Tensor, num_experts: int, k: int,
     buf = ops.fill_expert_slots(x2d.to(wdt).contiguous(), routes.dest, routes.kept,
                                 cap)                                        # (E, C, D)
     y = expert_swiglu(buf, params["w_gate"], params["w_up"], params["w_down"])
-    out2d = ops.combine_expert_rows(y.contiguous(), routes.dest, routes.gate)
+    out2d = ops.combine_expert_rows(y.contiguous(), routes.dest, routes.gate, kept=routes.kept)
     out = out2d.reshape(b, s, d).to(x.dtype)
     if return_aux:
         return out, load_balance_loss(probs, idx, num_experts)
@@ -343,7 +357,8 @@ def moe_device_body(x2d: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Ten
     y = yield coll.all_to_all(_to_pieces(y, nb, 2), "batch")
     y = _from_pieces(y, nb, 1)                                      # (E_l, C_p, D_c)
 
-    part = ops.combine_expert_rows(y.contiguous(), routes.dest, routes.gate, e0)  # (T, D_c)
+    part = ops.combine_expert_rows(y.contiguous(), routes.dest, routes.gate, e0,
+                                   routes.kept)                     # (T, D_c)
     part = yield coll.reduce(part, "experts")
     out = yield coll.all_to_all(_to_pieces(part, nb, 0), "batch")
     out = _from_pieces(out, nb, 1)[:, :d]                           # (T_b, D)

@@ -431,8 +431,9 @@ def test_moe_ffn_through_the_ops_equals_the_indexing_before(b, s, d, e, k, ff, c
 
 
 def test_moe_ffn_gradients_through_the_plain_versions_equal_the_indexing_before():
-    """CPU training keeps the plain versions and their autograd: x's and
-    every expert tensor's gradient equal the old indexing's."""
+    """CPU training goes through B2's Functions, whose backwards there are
+    the plain adjoints: x's and every expert tensor's gradient equal the
+    old indexing's autograd but for the order of f32 sums."""
     gen = torch.Generator().manual_seed(8)
     params = moe.init_moe(gen, 16, 8, 32)
     x = torch.randn((2, 12, 16), generator=gen)

@@ -8,6 +8,15 @@ The fill is a copy and the combine rounds every product and sum as
 ``moe_combine_plain``'s eager ops do, so both are held to their plain
 versions bit for bit (``torch.equal`` on the bits), with no tolerance. Both
 read the route table (``moe.route_table``).
+
+Their adjoints likewise: the fill's adjoint (``moe_fill_bwd``, an f32 sum
+in expert order rounded once) and the combine's ``dy`` (one rounded product
+a slot) bit for bit; the combine's ``dgate`` differs from
+``moe_combine_bwd_plain``'s only by the order of its f32 sum over D: in
+bf16 within one bf16 ulp of the plain value, plus 4e-6 of the sum of the
+products' magnitudes where the dot cancels to near zero (there an f32
+order difference exceeds an ulp of the small result); in f32 within 1e-5
+of the case's largest |dgate|.
 """
 import pytest
 import torch
@@ -89,6 +98,54 @@ def _combine_both(y, routes, expert0=0):
 
 def _want_route(d, dtype):
     return "vector" if d * torch.empty((), dtype=dtype).element_size() % 16 == 0 else "scalar"
+
+
+def _counted(fn, call):
+    """``call()``'s result, ``fn``'s launches and its launches by route in it."""
+    before = (fn.launches, dict(fn.launches_by_route))
+    got = call()
+    took = fn.launches - before[0]
+    return got, took, {r: fn.launches_by_route[r] - before[1][r] for r in md.ROUTES}
+
+
+def _dgate_close(got, want, grad_out, y, dest):
+    """The module docstring's dgate tolerance."""
+    if y.dtype == torch.float32:
+        scale = max(float(want.abs().max()), 1e-30)
+        return bool(((got - want).abs() <= 1e-5 * scale).all())
+    e, cap, d = y.shape
+    rows = y.reshape(e * cap, d)[torch.where(dest >= 0, dest, 0).long()]
+    mag = (grad_out[:, None, :] * rows).abs().float().sum(dim=-1)
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 8)
+    return bool(((got - want).abs() <= ulp + 4e-6 * mag).all())
+
+
+def _backward_both(grad_buf, grad_out, y, routes):
+    """Both adjoints on the card and their plain versions: (dx, want dx,
+    dy, want dy, dgate, want dgate, launches of each kernel, its routes)."""
+    dx, took_f, route_f = _counted(md.moe_fill_bwd, lambda: md.moe_fill_bwd(grad_buf, routes.dest))
+    (dy, dgate), took_c, route_c = _counted(
+        md.moe_combine_bwd,
+        lambda: md.moe_combine_bwd(grad_out, y, routes.dest, routes.gate, routes.kept))
+    want_dx = md.moe_fill_bwd_plain(grad_buf, routes.dest)
+    want_dy, want_dgate = md.moe_combine_bwd_plain(grad_out, y, routes.dest, routes.gate)
+    torch.cuda.synchronize()
+    return (dx, want_dx, dy, want_dy, dgate, want_dgate, (took_f, took_c), (route_f, route_c))
+
+
+def _check_backward(grad_buf, grad_out, y, routes, route=None):
+    dx, want_dx, dy, want_dy, dgate, want_dgate, took, by_route = _backward_both(
+        grad_buf, grad_out, y, routes)
+    assert dx.shape == want_dx.shape and torch.equal(_bits(dx), _bits(want_dx))
+    assert dy.shape == want_dy.shape and torch.equal(_bits(dy), _bits(want_dy))
+    assert dgate.dtype == torch.float32 and dgate.shape == routes.dest.shape
+    assert _dgate_close(dgate, want_dgate, grad_out, y, routes.dest)
+    dropped = routes.dest < 0
+    assert not dgate[dropped].any() and not torch.signbit(dgate[dropped]).any()
+    assert took == (1, 1)
+    if route is not None:
+        assert by_route == ({r: int(r == route) for r in md.ROUTES},) * 2
+    return dx, dy, dgate
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -244,20 +301,104 @@ def test_f32_rows_over_the_witness_buffer():
     assert got.dtype == torch.float32 and torch.equal(_bits(got), _bits(want))
 
 
-def test_a_cuda_input_that_requires_grad_raises():
-    t, k, e, d = 32, 2, 4, 16
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_kernels_equal_plain(shape, dtype):
+    t, k, e, d, cf = SHAPES[shape]
+    gen = _gen(12)
+    plan, routes, cap = _plan(t, k, e, cf, gen)
+    grad_buf = torch.randn((e, cap, d), generator=gen, device="cuda").to(dtype)
+    grad_out = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+    y = torch.randn((e, cap, d), generator=gen, device="cuda").to(dtype)
+    grad_buf[:, :, 0] = -0.0                # signed zeros through the adjoint's sum
+    _check_backward(grad_buf, grad_out, y, routes, _want_route(d, dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["empty_expert", "all_dropped_token", "mesh_slice",
+                                  "off_alignment"])
+def test_backward_kernels_at_the_edges(kind, dtype):
+    """An expert without tokens (its dy slots all zero), tokens whose every
+    route is dropped (dx +0.0, dgate 0), a device's experts at a padded
+    capacity, and views off 16-byte alignment (the scalar route)."""
+    gen = _gen(13)
+    t, k, e, d = 200, 2, 8, 64
+    route = "vector"
+    if kind == "empty_expert":
+        other = torch.randint(2, e, (t, 1), generator=gen, device="cuda")
+        idx = torch.cat([torch.ones_like(other), other], dim=1)
+        cap = moe.capacity(t, k, e, 1.25)
+        routes = moe.route_table(moe.dispatch_plan(idx, e, cap),
+                                 torch.rand((t, k), generator=gen, device="cuda"), cap)
+    elif kind == "all_dropped_token":
+        other = torch.randint(1, e, (t, 1), generator=gen, device="cuda")
+        idx = torch.cat([torch.zeros_like(other), other], dim=1)
+        cap = 1
+        routes = moe.route_table(moe.dispatch_plan(idx, e, cap),
+                                 torch.rand((t, k), generator=gen, device="cuda"), cap)
+    elif kind == "mesh_slice":
+        t, k, e, d = 256, 8, 32, 512
+        gates, idx = torch.topk(torch.rand((t, e), generator=gen, device="cuda"), k, dim=-1)
+        cap0 = moe.capacity(t, k, e, 1.25)
+        cap = cap0 + 3
+        routes = moe.route_table(moe.dispatch_plan(idx, e, cap0), gates, cap, 16, 16)
+        e = 16
+    else:
+        _, routes, cap = _plan(t, k, e, 1.25, gen)
+        route = "scalar"
+    rnd = (lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype))
+    if kind == "off_alignment":
+        grad_buf = rnd(e * cap * d + 1)[1:].view(e, cap, d)
+        grad_out = rnd(t * d + 1)[1:].view(t, d)
+        y = rnd(e * cap * d + 1)[1:].view(e, cap, d)
+    else:
+        grad_buf, grad_out, y = rnd(e, cap, d), rnd(t, d), rnd(e, cap, d)
+    dx, dy, dgate = _check_backward(grad_buf, grad_out, y, routes, route)
+    empty = torch.arange(cap, device="cuda")[None, :] >= routes.kept[:, None]
+    assert not dy[empty].any()
+    if kind == "empty_expert":
+        assert routes.kept[0].item() == 0 and not dy[0].any()
+    if kind == "all_dropped_token":
+        none = (routes.dest < 0).all(dim=1)
+        assert int(none.sum()) > 0 and not dx[none].any()
+        assert not torch.signbit(dx[none]).any()
+
+
+def test_backward_kernels_give_the_same_bits_twice():
+    gen = _gen(14)
+    plan, routes, cap = _plan(512, 8, 64, 1.25, gen)
+    grad_buf = torch.randn((64, cap, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    grad_out = torch.randn((512, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    y = torch.randn((64, cap, 256), generator=gen, device="cuda").to(torch.bfloat16)
+    first = _backward_both(grad_buf, grad_out, y, routes)
+    again = _backward_both(grad_buf, grad_out, y, routes)
+    for i in (0, 2, 4):
+        assert torch.equal(first[i], again[i])
+
+
+def test_a_cuda_input_that_requires_grad_gets_it_through_the_kernels():
+    """Replaces the refusal B2 had before its adjoints: under grad the
+    entry points take ``MoeFillFn`` and ``MoeCombineFn``, each forward and
+    each backward one counted launch, the gradients the plain adjoints'."""
+    t, k, e, d = 64, 8, 16, 128
     plan, routes, cap = _plan(t, k, e, 1.25, _gen(6))
     rows = torch.randn((t, d), device="cuda", requires_grad=True)
-    before = (md.moe_fill.launches, md.moe_combine.launches)
-    with pytest.raises(NotImplementedError, match="fill_expert_slots"):
-        ops.fill_expert_slots(rows, routes.dest, routes.kept, cap)
-    y = torch.randn((e, cap, d), device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="combine_expert_rows"):
-        ops.combine_expert_rows(y, routes.dest, routes.gate)
-    assert (md.moe_fill.launches, md.moe_combine.launches) == before
+    gate = routes.gate.clone().requires_grad_(True)
+    counters = (md.moe_fill, md.moe_combine, md.moe_fill_bwd, md.moe_combine_bwd)
+    before = [c.launches for c in counters]
+    buf = ops.fill_expert_slots(rows, routes.dest, routes.kept, cap)
+    y = buf * 2.0                           # stands for the experts
+    out = ops.combine_expert_rows(y, routes.dest, gate, kept=routes.kept)
+    grad_out = torch.randn_like(out)
+    out.backward(grad_out)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
+    dy, dgate = md.moe_combine_bwd_plain(grad_out, y.detach(), routes.dest, routes.gate)
+    assert torch.equal(rows.grad, md.moe_fill_bwd_plain(dy * 2.0, routes.dest))
+    assert _dgate_close(gate.grad, dgate, grad_out, y.detach(), routes.dest)
     with torch.no_grad():
         ops.fill_expert_slots(rows, routes.dest, routes.kept, cap)
-    assert md.moe_fill.launches == before[0] + 1
+    assert md.moe_fill.launches == before[0] + 2 and md.moe_fill_bwd.launches == before[2] + 1
 
 
 def test_refusals_on_the_card():

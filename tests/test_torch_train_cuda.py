@@ -1,6 +1,7 @@
 """Training on the card: K2's and K3's backward kernels against their plain
-versions, the autograd wiring, the guard on K1 (no backward), train steps,
-and a closed runtime's CUDA graphs.
+versions, the autograd wiring, the guard on K1 (no backward), train steps
+(phi4's, mamba2's and olmoe's smoke configs, the last through B2's adjoint
+kernels), and a closed runtime's CUDA graphs.
 
 Imports no JAX, so it runs where only PyTorch is installed:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_train_cuda.py``.
@@ -390,6 +391,17 @@ def test_mamba2_train_steps_on_the_card_match_the_cpu():
     and step."""
     launches = _losses_on_cpu_and_card("mamba2-1.3b", 64, ssd_scan_bwd)
     assert launches == {"cpu": 0, "cuda": 2 * get_smoke_config("mamba2-1.3b").num_layers}
+
+
+def test_olmoe_train_steps_on_the_card_match_the_cpu():
+    """The same for olmoe's smoke config (f32, 64 experts' dispatch at 4
+    experts top-2): on the card the MoE layer's fill and combine train
+    through their adjoint kernels, each once per layer and step."""
+    from repro_torch.kernels import moe_dispatch as md
+    fills = md.moe_fill_bwd.launches
+    launches = _losses_on_cpu_and_card("olmoe-1b-7b", 64, md.moe_combine_bwd)
+    n = 2 * get_smoke_config("olmoe-1b-7b").num_layers
+    assert launches == {"cpu": 0, "cuda": n} and md.moe_fill_bwd.launches - fills == n
 
 
 def test_closed_runtime_frees_its_graphs_and_a_capture_holds_with_the_collector_on():
