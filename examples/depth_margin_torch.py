@@ -1,8 +1,8 @@
 """How far a bf16 prefill's logits lie from their plain version, over draws.
 
 ``chip_smoke.py``'s ``depth_check`` holds a served model's prefill through
-the kernels to the same prefill with the kernels' plain versions, within 2%
-of the largest logit, on one draw of tokens. This script repeats that check
+the kernels to the same prefill with the kernels' plain versions (K2's, K3's,
+B2's, B4's and B5's), within 2% of the largest logit, on one draw of tokens. This script repeats that check
 for one model over several token draws and adds an f32 witness: the same
 weights cast to f32 (exact for bf16 values), its prefill with the plain
 attention and scan, the expert choices pinned as in ``depth_check``
@@ -59,6 +59,8 @@ def prefill(model, tokens, cross, kernels: bool, mode: str, chosen: list) -> tor
         if not kernels:
             stack.enter_context(mock.patch.object(ops, "flash_attention", flash_attention_plain))
             stack.enter_context(mock.patch.object(ops, "ssd_scan", ssd_scan_plain))
+            stack.enter_context(smoke.b2_plain())
+            stack.enter_context(smoke.norm_conv_plain())
         return forward_prefill(model, tokens, smoke.SERVE_PROMPT + 1, cross)[0].float()
 
 

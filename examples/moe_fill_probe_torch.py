@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import moe_dispatch as md
-from repro_torch.kernels.build import CSRC, NVCC_FLAGS, _nvcc
+from repro_torch.kernels.build import CSRC, NVCC_FLAGS, NVCC_INCLUDES, _nvcc
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "moe_fill_probe"
@@ -69,7 +69,8 @@ def build_all() -> dict:
     procs = {}
     for name, (cu, defines) in jobs.items():
         so = OUT / f"{name}.so"
-        procs[name] = (subprocess.Popen([_nvcc(), *NVCC_FLAGS, *defines, "-o", str(so), str(cu)],
+        procs[name] = (subprocess.Popen([_nvcc(), *NVCC_FLAGS, *NVCC_INCLUDES, *defines,
+                                         "-o", str(so), str(cu)],
                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), so)
     libs = {}

@@ -1,15 +1,20 @@
-"""phi4-mini-3.8b's and mamba2-1.3b's train steps on the card, profiled as a
-checkout's ``chip_smoke.py`` profiles them: for holding two checkouts of the
-port against each other in turns (a, b, b, a) within one call.
+"""phi4-mini-3.8b's, mamba2-1.3b's and olmoe-1b-7b's train steps on the
+card, each checkout's step profiled by one measurement: for holding two
+checkouts of the port against each other in turns (a, b, b, a) within one
+call.
 
     python examples/train_profile_turns_torch.py --root <checkout> --label <name>
 
 Puts ``<checkout>/src`` first on the path, builds that checkout's training
 kernels, and runs ``train_phase`` of ``<checkout>/chip_smoke.py`` for each
-of ``--archs`` (full width and depth, bf16, AdamW, remat, 4 × 1024 tokens:
-two warm-up steps, the counted steps on the host clock, then one step under
-``torch.profiler`` split into the kernels, cuBLAS, the optimizer and the
-rest), printing its JSON line with ``--label``.
+of ``--archs`` (bf16, AdamW, remat, 4 × 1024 tokens; phi4 and mamba2 at full
+width and depth, olmoe cut to 8 of its 16 layers: two warm-up steps, the
+counted steps on the host clock, then one step under ``torch.profiler``),
+printing its JSON line with ``--label``. The profiled step is split by
+``train_profile`` of the ``chip_smoke.py`` beside this script, whatever the
+checkout: the kernels by name, cuBLAS, the optimizer, the rest, and the
+rest by op and input shapes (``rest_by_op``), so both checkouts are read
+by the same code.
 """
 import argparse
 import importlib
@@ -19,14 +24,22 @@ import subprocess
 import sys
 from pathlib import Path
 
-STEPS = {"phi4-mini-3.8b": 8, "mamba2-1.3b": 6}      # chip_smoke.py's counted steps
+# chip_smoke.py's counted steps and depth cut
+STEPS = {"phi4-mini-3.8b": (8, None), "mamba2-1.3b": (6, None),
+         "olmoe-1b-7b": (6, {"num_layers": 8})}
 # chip_smoke.py's launch counters: its name, the module and the wrapper
 KERNELS = (("flash_attention", "flash_attention", "flash_attention"),
            ("flash_attention_bwd", "flash_attention", "flash_attention_bwd"),
            ("ssd_scan", "ssd_scan", "ssd_scan"), ("ssd_scan_bwd", "ssd_scan", "ssd_scan_bwd"),
            ("int8_quant", "int8_quant", "quantize_int8"),
            ("batchsim_advance", "batchsim_advance", "batchsim_advance"),
-           ("adamw", "adamw", "adamw_update"))
+           ("adamw", "adamw", "adamw_update"),
+           *((n, "moe_dispatch", n) for n in ("moe_fill", "moe_combine", "moe_fill_bwd",
+                                              "moe_combine_bwd")),
+           *((n, "rms_norm", n) for n in ("rms_norm_fwd", "gated_rms_norm_fwd", "rms_norm_bwd",
+                                          "gated_rms_norm_bwd")),
+           *((n, "causal_conv", n) for n in ("causal_conv1d_fwd", "causal_conv1d_bwd")))
+HERE = Path(__file__).resolve().parents[1]
 
 
 def main() -> None:
@@ -37,17 +50,17 @@ def main() -> None:
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root / "src"))
-    spec = importlib.util.spec_from_file_location("chip_smoke_of_root", root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = load(root / "chip_smoke.py", "chip_smoke_of_root")
     smoke.emit = lambda obj: print(json.dumps({"label": args.label, **obj}), flush=True)
+    smoke.train_profile = load(HERE / "chip_smoke.py", "chip_smoke_here").train_profile
 
     import torch
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False
     csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
     build.build([n for n in ("flash_attention_sm90", "flash_attention_bwd_sm90", "ssd_scan_sm90",
-                             "ssd_scan_bwd_sm90", "adamw") if (csrc / f"{n}.cu").exists()])
+                             "ssd_scan_bwd_sm90", "adamw", "moe_dispatch", "rms_norm",
+                             "causal_conv1d") if (csrc / f"{n}.cu").exists()])
     counters = {}
     for name, module, wrapper in KERNELS:
         try:
@@ -58,7 +71,15 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     for arch in args.archs:
-        smoke.train_phase(smi, counters, arch, STEPS[arch])
+        steps, cut = STEPS[arch]
+        smoke.train_phase(smi, counters, arch, steps, cut)
+
+
+def load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 if __name__ == "__main__":

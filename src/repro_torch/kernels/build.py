@@ -1,10 +1,12 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-Each ``csrc/<name>.cu`` is a self-contained file with a plain ``extern "C"``
-interface. It is compiled by ``nvcc`` for ``sm_90a`` into
+Each ``csrc/<name>.cu`` is a source with a plain ``extern "C"`` interface.
+It is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/repro_torch/<name>-<hash>.so`` at the root of the checkout, keyed by
-a hash of the source and the flags, and loaded with ``ctypes``. A missing
-``nvcc`` or a failed build raises.
+a hash of the source, the shared headers beside it (``csrc/*.cuh``, on the
+include path) and the flags, and loaded with ``ctypes``. A
+missing ``nvcc`` or a failed build raises. :func:`require` is the wrappers'
+refusal of inputs a kernel does not take.
 """
 from __future__ import annotations
 
@@ -14,12 +16,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the shared headers' directory on the include path (a copy of a source
+# built elsewhere, as a probe builds one, finds them too)
+NVCC_INCLUDES = ("-I", str(CSRC))
 
 
 def _nvcc() -> str:
@@ -33,8 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -51,7 +58,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *NVCC_INCLUDES, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     logs: Dict[str, str] = {}
@@ -72,3 +79,15 @@ def load_library(name: str) -> ctypes.CDLL:
     """The compiled ``csrc/<name>.cu``, built first if it is missing."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def require(name: str, checks: Sequence[Tuple[bool, str]], *inputs) -> None:
+    """Raises ``ValueError`` for the first failed (ok, message) pair of
+    ``checks``, naming ``name`` and each input's shape, dtype, strides and
+    device (None where absent); nothing where all hold."""
+    for ok, msg in checks:
+        if not ok:
+            got = "; ".join("None" if t is None else
+                            f"{tuple(t.shape)} {t.dtype} strides {t.stride()} on {t.device}"
+                            for t in inputs)
+            raise ValueError(f"{name}: want {msg}; got {got}")

@@ -1,0 +1,310 @@
+"""Mamba2's causal depthwise convolution: the CUDA kernels' wrappers (B5),
+the plain PyTorch version and its adjoint.
+
+Replaces no Pallas kernel: the kernels are the counterpart of what XLA
+fuses out of the reference's ``repro.models.ssm.causal_conv1d`` (the
+history's concatenation, W taps, the bias, SiLU) inside its jitted steps.
+``csrc/causal_conv1d.cu``, CUDA C++ for sm_90a built by
+:mod:`repro_torch.kernels.build`, holds the forward and adjoint kernels; its
+header says what bounds them (bytes) and what their design does about that.
+
+The function, over x (B, S, C) and an optional (B, W-1, C) ``state`` of the
+W-1 inputs before t = 0 (zeros where None): ``xin = [state, x]``,
+``out[t] = silu(Σ_i xin[t+i]·w[i] + b)`` with each tap's product and each
+add rounded to x's dtype, as :func:`causal_conv1d_plain` computes it, and
+the new state ``xin[S:S+W-1]``. The forward kernel equals the plain version
+bit for bit; it reads x at its (b, s) strides, so the model hands it the
+x|B|C columns of the input projection in place. One kernel serves
+prefill, training and decode (S = 1, with the cache's state).
+
+The adjoint (:func:`causal_conv1d_bwd`; plain :func:`causal_conv1d_bwd_plain`,
+written out by hand in f32) recomputes the pre-activation with the same
+roundings and gives dx (the taps shifted the other way, one pass), the
+state's gradient where asked, and dw, db as f32 partials of blocks of rows
+summed in a fixed order and rounded once. Training goes through
+:class:`CausalConv1dFn`.
+
+A CUDA tensor goes to the kernels or raises; CPU tensors (the tests) take
+the plain versions. Each wrapper counts its launches under a lock, in
+``launches`` and in ``launches_by_route``: ``vector`` (8-byte units of
+channels: C and every row start 8-byte aligned) or ``scalar`` (a channel
+at a time).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from .build import load_library, require
+
+ROUTES = ("vector", "scalar")
+# csrc/causal_conv1d.cu's layout: L time steps a thread, blocks of UNITS_X
+# channel units by TILES_Y tiles, widths up to MAX_W; the adjoint's grid
+# about BWD_BLOCKS_PER_SM blocks an SM
+L, UNITS_X, TILES_Y, MAX_W, BWD_BLOCKS_PER_SM = 16, 32, 8, 4, 4
+MAX_GRID_Y = 65535
+_DTYPES = (torch.float32, torch.bfloat16)
+_MODE_DTYPE, _MODE_W_SHIFT, _MODE_DEVICE_SHIFT = 2, 2, 8
+_LAUNCH_LOCK = threading.Lock()
+_LL, _P = ctypes.c_longlong, ctypes.c_void_p
+# mode, x, state, w, b, out, new_state, B, S, C, xsb, xss, stream
+_FWD_ARGTYPES = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P]
+# mode, x, state, w, b, g, dx, dstate, dwb, part, B, S, C, xsb, xss, grid_y, stream
+_BWD_ARGTYPES = [ctypes.c_int] + [_P] * 9 + [_LL] * 6 + [_P]
+
+
+def _history(x: torch.Tensor, width: int, state: Optional[torch.Tensor]):
+    """(the state, zeros where None; xin = [state, x], (B, S+W-1, C))."""
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    return state, torch.cat([state, x], dim=1)
+
+
+def causal_conv1d_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        state: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over (B, S, C); returns (silu(y), new_state).
+
+    ``state`` is the trailing (width-1) inputs from the previous call (used
+    at decode time); None means zero history. The taps accumulate in x's
+    dtype, one rounding per tap, as the reference does."""
+    width = w.shape[0]
+    bsz, s, c = x.shape
+    state, xin = _history(x, width, state)
+    y = torch.zeros((bsz, s, c), dtype=x.dtype, device=x.device)
+    for i in range(width):
+        y = y + xin[:, i:i + s] * w[i]
+    y = y + b
+    new_state = xin[:, -(width - 1):] if width > 1 else state
+    return F.silu(y), new_state
+
+
+def _wide(dtype: torch.dtype) -> torch.dtype:
+    """The plain adjoint's arithmetic: f32 (f64 where x is)."""
+    return torch.promote_types(torch.float32, dtype)
+
+
+def causal_conv1d_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor, state: Optional[torch.Tensor] = None,
+                            need_dstate: bool = False):
+    """The gradients of :func:`causal_conv1d_plain`'s output by x, w, b and
+    (where asked) the state, in f32 (f64 where x is): the pre-activation
+    recomputed with the forward's roundings, ``dpre = g·silu'(pre)``
+    (``silu'(v) = s·(1 + v·(1 − s))``, s the sigmoid), ``dx[t] = Σ_i
+    dpre[t+W−1−i]·w[i]`` (taps in ascending order), ``dw[i] = Σ dpre[u]·
+    xin[u+i]``, ``db = Σ dpre``, the state's row j ``Σ_{i≤j} dpre[j−i]·w[i]``.
+    Returns (dx, dw, db, dstate or None), each rounded once to its tensor's
+    dtype."""
+    width = w.shape[0]
+    bsz, s, c = x.shape
+    wide = _wide(x.dtype)
+    _, xin = _history(x, width, state)
+    pre = torch.zeros((bsz, s, c), dtype=x.dtype, device=x.device)
+    for i in range(width):
+        pre = pre + xin[:, i:i + s] * w[i]
+    pre = (pre + b).to(wide)
+    sig = torch.sigmoid(pre)
+    dpre = g.to(wide) * (sig * (1 + pre * (1 - sig)))
+    # dpre at xin's positions: row j of xin takes dpre[j - i] of tap i
+    padded = torch.cat([dpre, dpre.new_zeros((bsz, width - 1, c))], dim=1)   # u < S+W-1
+    ww = w.to(wide)
+    dxin = torch.zeros((bsz, s + width - 1, c), dtype=wide, device=x.device)
+    for i in range(width):                     # row j: dpre[j - i] * w[i], i ascending
+        shifted = torch.cat([dpre.new_zeros((bsz, i, c)), padded[:, :s + width - 1 - i]], dim=1)
+        dxin = dxin + shifted * ww[i]
+    xw = xin.to(wide)
+    dw = torch.stack([(dpre * xw[:, i:i + s]).sum((0, 1)) for i in range(width)])
+    db = dpre.sum((0, 1))
+    dstate = dxin[:, :width - 1].to(x.dtype) if need_dstate and state is not None else None
+    return dxin[:, width - 1:].to(x.dtype), dw.to(w.dtype), db.to(b.dtype), dstate
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers
+# ---------------------------------------------------------------------------
+
+def _count(fn, route: str) -> None:
+    with _LAUNCH_LOCK:
+        fn.launches += 1
+        fn.launches_by_route[route] += 1
+
+
+def _raise(name: str, err: int) -> None:
+    raise RuntimeError(f"{name} kernel launch failed: "
+                       f"{_lib().causal_conv1d_error_string(err).decode()} ({err})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan(batch: int, seq: int, channels: int, vector: bool, esize: int,
+         device: int) -> int:
+    """The adjoint's blocks over the tiles (grid.y): about
+    ``BWD_BLOCKS_PER_SM`` blocks an SM over the channel blocks, no more
+    than the tiles need; each writes one (W+1, C) f32 partial."""
+    units = channels // (4 // esize) if vector else channels      # the adjoint's 4-byte units
+    gx = -(-units // UNITS_X)
+    tiles = batch * -(-seq // L)
+    need = -(-tiles // TILES_Y)
+    return max(1, min(need, -(-BWD_BLOCKS_PER_SM * _sm_count(device) // gx), MAX_GRID_Y))
+
+
+def conv_checks(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                state: Optional[torch.Tensor]):
+    """The kernels' conditions as (ok, message) pairs, each shape read once:
+    x (B, S>=1, C) with the channels contiguous; x, w, b and the state of
+    one dtype, f32 or bf16; w (W, C) with W <= ``MAX_W``, b (C,) and the
+    state (B, W-1, C) contiguous; one card; the tiles within the grid."""
+    if x.dim() != 3 or w.dim() != 2:
+        return ((False, "x (B, S, C) and w (W, C)"),)
+    (bsz, s, c), width, dtype, dev = x.shape, w.shape[0], x.dtype, x.get_device()
+    return (
+        (x.stride(-1) == 1 and s >= 1, "x (B, S>=1, C), channels contiguous"),
+        (dtype in _DTYPES and w.dtype == dtype and b.dtype == dtype,
+         "x, w and b of one dtype, f32 or bf16"),
+        (w.shape == (width, c) and b.shape == (c,) and w.is_contiguous() and b.is_contiguous(),
+         "w (W, C) and b (C,) contiguous"),
+        (1 <= width <= MAX_W, "width 1..MAX_W"),
+        (state is None or (state.shape == (bsz, width - 1, c) and state.dtype == dtype
+                           and state.is_contiguous()),
+         "state (B, W-1, C) of x's dtype, contiguous"),
+        (w.get_device() == dev and b.get_device() == dev
+         and (state is None or state.get_device() == dev), "one device"),
+        (-(-bsz * -(-s // L) // TILES_Y) <= MAX_GRID_Y, "at most MAX_GRID_Y blocks of tiles"))
+
+
+def causal_conv1d_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      state: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(silu of the taps (B, S, C), new state (B, W-1, C)) of
+    :func:`causal_conv1d_plain`: on the card one launch of the forward
+    kernel on the current stream (x, w, b and state of one dtype, f32 or
+    bf16; x at its (b, s) strides with the channels contiguous; w, b and
+    state contiguous; W <= ``MAX_W``); on the CPU the plain version."""
+    if not x.is_cuda:
+        return causal_conv1d_plain(x, w, b, state)
+    require("causal_conv1d_fwd", conv_checks(x, w, b, state), x, w, b, state)
+    (bsz, s, c), width, dtype, dev = x.shape, w.shape[0], x.dtype, x.get_device()
+    out = torch.empty((bsz, s, c), dtype=dtype, device=x.device)
+    if width == 1:
+        new_state = state if state is not None else x.new_zeros((bsz, 0, c))
+        ns = None
+    else:
+        new_state = torch.empty((bsz, width - 1, c), dtype=dtype, device=x.device)
+        ns = new_state.data_ptr()
+    es = x.element_size()
+    xsb, xss, _ = x.stride()
+    sp = 0 if state is None else state.data_ptr()
+    xp, wp, bp, op = x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr()
+    vector = (c * es % 8 == 0 and (xsb * es | xss * es) % 8 == 0
+              and (xp | wp | bp | op | sp | (ns or 0)) % 8 == 0)
+    mode = (int(vector) | (_MODE_DTYPE if dtype == torch.bfloat16 else 0)
+            | width << _MODE_W_SHIFT | dev << _MODE_DEVICE_SHIFT)
+    err = _lib().causal_conv1d_fwd(mode, xp, sp or None, wp, bp, op, ns, bsz, s, c, xsb, xss,
+                                   torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _raise("causal_conv1d_fwd", err)
+    _count(causal_conv1d_fwd, "vector" if vector else "scalar")
+    return out, new_state
+
+
+causal_conv1d_fwd.launches = 0
+causal_conv1d_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def causal_conv1d_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      state: Optional[torch.Tensor] = None, need_dstate: bool = False):
+    """(dx (B, S, C) contiguous, dw, db, dstate or None) of
+    :func:`causal_conv1d_bwd_plain`: on the card one launch of the adjoint
+    kernel and its sum pass (inputs as the forward takes them, g (B, S, C)
+    contiguous of x's dtype); on the CPU the plain version."""
+    if not x.is_cuda:
+        return causal_conv1d_bwd_plain(g, x, w, b, state, need_dstate)
+    require("causal_conv1d_bwd", conv_checks(x, w, b, state) + (
+        (g.shape == x.shape and g.dtype == x.dtype and g.is_contiguous()
+         and g.get_device() == x.get_device(), "g shaped like x, of its dtype, contiguous"),),
+        x, w, b, state, g)
+    (bsz, s, c), width, dtype, dev = x.shape, w.shape[0], x.dtype, x.get_device()
+    es = x.element_size()
+    dx = torch.empty((bsz, s, c), dtype=dtype, device=x.device)
+    dwb = torch.empty((width + 1, c), dtype=dtype, device=x.device)
+    dstate = (torch.empty((bsz, width - 1, c), dtype=dtype, device=x.device)
+              if need_dstate and state is not None else None)
+    xsb, xss, _ = x.stride()
+    sp = 0 if state is None else state.data_ptr()
+    dsp = 0 if dstate is None else dstate.data_ptr()
+    xp, wp, bp, gp, dp, dwp = (x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
+                               dx.data_ptr(), dwb.data_ptr())
+    vector = (c * es % 8 == 0 and (xsb * es | xss * es) % 8 == 0
+              and (xp | wp | bp | gp | dp | sp | dsp) % 8 == 0)
+    grid_y = plan(bsz, s, c, vector, es, dev)
+    part = torch.empty((grid_y, width + 1, c), dtype=torch.float32, device=x.device)
+    mode = (int(vector) | (_MODE_DTYPE if dtype == torch.bfloat16 else 0)
+            | width << _MODE_W_SHIFT | dev << _MODE_DEVICE_SHIFT)
+    err = _lib().causal_conv1d_bwd(mode, xp, sp or None, wp, bp, gp, dp, dsp or None, dwp,
+                                   part.data_ptr(), bsz, s, c, xsb, xss, grid_y,
+                                   torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _raise("causal_conv1d_bwd", err)
+    _count(causal_conv1d_bwd, "vector" if vector else "scalar")
+    return dx, dwb[:width], dwb[width], dstate
+
+
+causal_conv1d_bwd.launches = 0
+causal_conv1d_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+class CausalConv1dFn(torch.autograd.Function):
+    """:func:`causal_conv1d_fwd` with :func:`causal_conv1d_bwd` as the
+    backward: x's, w's, b's and the state's gradients. Gradients are not
+    materialised; the new state's (where it reaches the loss) is added to
+    the inputs it copies. On the CPU both directions take their plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, state):
+        out, new_state = causal_conv1d_fwd(x, w, b, state)
+        ctx.save_for_backward(x, w, b, state)
+        ctx.set_materialize_grads(False)
+        return out, new_state
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g, g_state):
+        x, w, b, state = ctx.saved_tensors
+        need_dstate = state is not None and ctx.needs_input_grad[3]
+        if g is None:
+            g = torch.zeros_like(x, memory_format=torch.contiguous_format)
+        dx, dw, db, dstate = causal_conv1d_bwd(g.to(x.dtype).contiguous(), x, w, b, state,
+                                               need_dstate)
+        if g_state is not None and w.shape[0] > 1:
+            # new_state = xin[S:S+W-1]: its rows are x's last rows and,
+            # where S < W-1, the state's last rows
+            w1, s = w.shape[0] - 1, x.shape[1]
+            if s >= w1:
+                dx[:, s - w1:] += g_state.to(dx.dtype)
+            else:
+                dx += g_state[:, w1 - s:].to(dx.dtype)
+                if dstate is not None:
+                    dstate[:, s:] += g_state[:, :w1 - s].to(dstate.dtype)
+        return dx, dw, db, dstate
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load_library("causal_conv1d")
+    lib.causal_conv1d_fwd.argtypes = _FWD_ARGTYPES
+    lib.causal_conv1d_fwd.restype = ctypes.c_int
+    lib.causal_conv1d_bwd.argtypes = _BWD_ARGTYPES
+    lib.causal_conv1d_bwd.restype = ctypes.c_int
+    lib.causal_conv1d_error_string.argtypes = [ctypes.c_int]
+    lib.causal_conv1d_error_string.restype = ctypes.c_char_p
+    return lib

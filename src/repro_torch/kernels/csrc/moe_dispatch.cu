@@ -95,6 +95,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 #include <algorithm>
 
 namespace {
@@ -490,18 +492,6 @@ int fill_grid(int64_t tokens, int64_t slots, int dev) {
   const int64_t warps = std::max<int64_t>({tokens, slots / 32, spread});
   return grid_for(warps, FILL_WARPS, 32, dev);
 }
-
-// Makes `dev` current for the launch and restores the caller's device.
-struct OnDevice {
-  int prev = -1;
-  explicit OnDevice(int dev) {
-    if (cudaGetDevice(&prev) == cudaSuccess && prev != dev) cudaSetDevice(dev);
-    else prev = -1;
-  }
-  ~OnDevice() {
-    if (prev >= 0) cudaSetDevice(prev);
-  }
-};
 
 }  // namespace
 

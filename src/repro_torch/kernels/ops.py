@@ -19,17 +19,24 @@ dispatch and combine (B2, :func:`fill_expert_slots` and
 :class:`~repro_torch.kernels.moe_dispatch.MoeCombineFn` (B2's forward
 kernels and their adjoint kernels) under grad on the card and on the CPU
 (plain forwards and plain backwards there); meta tensors (the dry run)
-keep the plain forwards, which autograd differentiates. The int8 quantizer
+keep the plain forwards, which autograd differentiates. So do every
+RMSNorm (B4, :func:`rms_norm`, through
+:class:`~repro_torch.kernels.rms_norm.RmsNormFn`), Mamba2's gated norm
+(:func:`gated_rms_norm`, :class:`~repro_torch.kernels.rms_norm.GatedRmsNormFn`)
+and its causal convolution (B5, :func:`causal_conv1d`,
+:class:`~repro_torch.kernels.causal_conv.CausalConv1dFn`); meta tensors (the
+dry run) keep their eager chains. The int8 quantizer
 is on no training path and has no backward: a CUDA input that requires a
 gradient raises (its output would carry no ``grad_fn`` and the gradient
 would be lost). On the CPU its plain version is ordinary differentiable
 PyTorch.
 
-On a mesh (``DTensor`` inputs: the dry run) each kernel runs on every
-device's shards (``local_map``). Batch and heads stay sharded as they come
-where the kernel's arithmetic allows it (k/v heads sharded like q's; SSM
-groups sharded like the heads, or a single group replicated); a mesh dim
-that shards anything else is gathered first (decode over a cache whose
+On a mesh (``DTensor`` inputs) each kernel runs on every device's shards
+(``local_map``). Batch and heads stay sharded as they come where the
+kernel's arithmetic allows it (k/v heads sharded like q's; SSM groups
+sharded like the heads, or a single group replicated; a norm's rows; the
+convolution's channels); a mesh dim that shards anything else is gathered
+first (decode over a cache whose
 sequence is sharded does not come here: ``models.attention`` reduces its
 softmax across the pieces). ``DTensor`` is never asked to flatten two
 sharded dims into the kernels' (batch·heads) layout.
@@ -40,9 +47,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from .causal_conv import CausalConv1dFn, causal_conv1d_fwd, causal_conv1d_plain
 from .flash_attention import FlashAttentionFn, flash_attention
 from .int8_quant import quantize_int8
 from .moe_dispatch import MoeCombineFn, MoeFillFn, moe_combine, moe_fill
+from .rms_norm import (GatedRmsNormFn, RmsNormFn, gated_rms_norm_fwd, gated_rms_norm_plain,
+                       rms_norm_fwd, rms_norm_plain)
 from .ssd_scan import SsdScanFn, ssd_scan
 
 
@@ -243,3 +253,110 @@ def combine_expert_rows(y: torch.Tensor, dest: torch.Tensor, gate: torch.Tensor,
             raise ValueError("combine_expert_rows: under grad its backward needs kept")
         return MoeCombineFn.apply(y, dest, gate, kept, expert0)
     return moe_combine(y, dest, gate, expert0)
+
+
+def _norm_on_shards(x, scale, eps):
+    """:func:`rms_norm` on the shards: per mesh dim, a sharded dim of x's
+    rows (any but the last) stays sharded, ``scale`` is replicated and its
+    gradient summed over those mesh dims; the normalised dim is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..sharding.collectives import summing_grads
+    mesh, r = x.device_mesh, Replicate()
+    kept = [p if isinstance(p, Shard) and p.dim < x.ndim - 1 else r for p in x.placements]
+    sums = [i for i, p in enumerate(kept) if p != r]
+    return _on_shards(lambda x, scale: rms_norm(x, summing_grads(scale, mesh, sums), eps),
+                      [x, scale], [kept, [r] * mesh.ndim], kept)
+
+
+def _gated_on_shards(y, xh, D, z, scale, eps):
+    """:func:`gated_rms_norm` on the shards: per mesh dim, the batch or the
+    sequence (dim 0 or 1, sharded alike in y, xh and z) stays sharded, D
+    and ``scale`` are replicated and their gradients summed over those mesh
+    dims; the heads, which the norm spans, are gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..sharding.collectives import summing_grads
+    mesh, r = z.device_mesh, Replicate()
+    kept = [p if p in (Shard(0), Shard(1)) and p == py == px else r
+            for p, py, px in zip(z.placements, y.placements, xh.placements)]
+    sums = [i for i, p in enumerate(kept) if p != r]
+
+    def local(y, xh, D, z, scale):
+        D, scale = (summing_grads(t, mesh, sums) for t in (D, scale))
+        return gated_rms_norm(y, xh, D, z, scale, eps)
+    reps = [r] * mesh.ndim
+    return _on_shards(local, [y, xh, D, z, scale], [kept, kept, reps, kept, reps], kept)
+
+
+def _conv_on_shards(x, w, b, state):
+    """:func:`causal_conv1d` on the shards: per mesh dim, the batch (x's and
+    the state's dim 0; w and b replicated, their gradients summed over it)
+    or the channels (dim 2, w's and b's sharded alike) stay sharded; the
+    sequence, which the taps span, is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from ..sharding.collectives import summing_grads
+    mesh, r = x.device_mesh, Replicate()
+    xs, ws, bs, sums = [], [], [], []
+    for i, p in enumerate(x.placements):
+        if p == Shard(0):
+            sums.append(i)
+        p = p if p in (Shard(0), Shard(2)) else r
+        xs.append(p)
+        ws.append(Shard(1) if p == Shard(2) else r)
+        bs.append(Shard(0) if p == Shard(2) else r)
+
+    def local(x, w, b, state):
+        w, b = (summing_grads(t, mesh, sums) for t in (w, b))
+        return causal_conv1d(x, w, b, state)
+    return _on_shards(local, [x, w, b, state], [xs, ws, bs, xs], (xs, xs))
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm over x's last dim (B4): f32 statistics, cast to x's dtype,
+    then times ``scale``. Under grad :class:`RmsNormFn` (the forward kernel
+    keeping each row's rstd, the adjoint kernel as its backward), else the
+    forward kernel alone; on the CPU their plain versions. Meta tensors
+    keep the eager chain; a ``DTensor`` runs on its shards."""
+    if x.is_meta:
+        return rms_norm_plain(x, scale, eps)
+    if _is_dtensor(x):
+        return _norm_on_shards(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RmsNormFn.apply(x, scale, eps)
+    return rms_norm_fwd(x, scale, eps)[0]
+
+
+def gated_rms_norm(y: torch.Tensor, xh: torch.Tensor, D: torch.Tensor, z: torch.Tensor,
+                   scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's gated norm (B4's gated form): ``rms_norm((y + xh·D)·silu(z))``
+    with the reference's roundings, y and xh (B, S, H, P) (y the SSD scan's
+    output where it lies, f32 at decode), D (H,) f32, z (B, S, H·P); returns
+    (B, S, H·P) in z's dtype. Under grad :class:`GatedRmsNormFn`, else the
+    forward kernel; on the CPU their plain versions. Meta tensors keep the
+    eager chain; ``DTensor``s run on their shards."""
+    if z.is_meta:
+        return gated_rms_norm_plain(y, xh, D, z, scale, eps)
+    if _is_dtensor(z):
+        return _gated_on_shards(y, xh, D, z, scale, eps)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (y, xh, D, z, scale)):
+        return GatedRmsNormFn.apply(y, xh, D, z, scale, eps)
+    return gated_rms_norm_fwd(y, xh, D, z, scale, eps)[0]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's causal depthwise convolution (B5) over x (B, S, C) read at
+    its strides: (silu of the W taps plus the bias, the new (B, W-1, C)
+    state). Under grad :class:`CausalConv1dFn`, else the forward kernel; on
+    the CPU their plain versions. Meta tensors keep the eager chain;
+    ``DTensor``s run on their shards."""
+    if x.is_meta:
+        return causal_conv1d_plain(x, w, b, state)
+    if _is_dtensor(x):
+        return _conv_on_shards(x, w, b, state)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, w, b, state)):
+        return CausalConv1dFn.apply(x, w, b, state)
+    return causal_conv1d_fwd(x, w, b, state)

@@ -13,6 +13,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from ..sharding.context import matmul
 
 Params = Dict[str, torch.Tensor]
@@ -20,10 +21,11 @@ Spec = Dict[str, Tuple[Optional[str], ...]]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """f32 statistics, cast to x's dtype, *then* multiply by ``scale``."""
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * scale
+    """f32 statistics, cast to x's dtype, *then* multiply by ``scale``: B4
+    (:func:`repro_torch.kernels.ops.rms_norm`) on the card, its plain
+    version on the CPU, the eager chain on meta tensors; a ``DTensor`` on its
+    shards."""
+    return ops.rms_norm(x, scale, eps)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -6,8 +6,10 @@ Q; within a chunk the SSD computes an attention-like quadratic form, and a
 (B, H, P, N) state carries across chunks. :func:`mamba2_mixer`'s chunked
 scan is the SSD kernel (:func:`repro_torch.kernels.ops.ssd_bshp`);
 :func:`ssd_chunked`, the reference's pure-jnp scan, stays here as that
-kernel's model-level oracle. :func:`mamba2_decode_step` is plain PyTorch,
-as the reference leaves it to XLA.
+kernel's model-level oracle. The causal convolution is B5 and the gated
+norm B4's gated form (:mod:`repro_torch.kernels.ops`); the rest of
+:func:`mamba2_decode_step` is plain PyTorch, as the reference leaves it to
+XLA.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..sharding.context import matmul
-from .layers import dense_init, rms_norm
+from .layers import dense_init
 
 Params = Dict[str, torch.Tensor]
 
@@ -81,19 +83,11 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     ``state`` is the trailing (width-1) inputs from the previous call (used
     at decode time); None means zero history. The taps accumulate in x's
-    dtype, one rounding per tap, as the reference does.
+    dtype, one rounding per tap, as the reference does: B5
+    (:func:`repro_torch.kernels.ops.causal_conv1d`) on the card, its plain
+    version (``kernels.causal_conv.causal_conv1d_plain``) on the CPU.
     """
-    width = w.shape[0]
-    bsz, s, c = x.shape
-    if state is None:
-        state = torch.zeros((bsz, width - 1, c), dtype=x.dtype, device=x.device)
-    xin = torch.cat([state, x], dim=1)                  # (B, S+w-1, C)
-    y = torch.zeros((bsz, s, c), dtype=x.dtype, device=x.device)
-    for i in range(width):
-        y = y + xin[:, i:i + s] * w[i]
-    y = y + b
-    new_state = xin[:, -(width - 1):] if width > 1 else state
-    return F.silu(y), new_state
+    return ops.causal_conv1d(x, w, b, state)
 
 
 def segsum(x: torch.Tensor) -> torch.Tensor:
@@ -161,8 +155,9 @@ def mamba2_mixer(
     gn = cfg.ssm_groups * cfg.ssm_state
     heads = cfg.ssm_heads
     proj = matmul(xin, params["in_proj"])
-    z, x, bm, cm, dt = _split_proj(proj, d_inner, gn, heads)
-    xbc = torch.cat([x, bm, cm], dim=-1)
+    z, _, _, _, dt = _split_proj(proj, d_inner, gn, heads)
+    # x|B|C are adjacent in proj: one slice, the reference's concatenation
+    xbc = proj[..., d_inner:2 * d_inner + 2 * gn]
     xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
     x = xbc[..., :d_inner]
     bm = xbc[..., d_inner:d_inner + gn]
@@ -175,9 +170,8 @@ def mamba2_mixer(
     A = -torch.exp(params["A_log"])
     y, new_ssm_state = ops.ssd_bshp(xh, dt, A, bmh, cmh, chunk=min(cfg.ssm_chunk, s_),
                                     initial_state=ssm_state)
-    y = y + xh * params["D"][None, None, :, None]       # skip connection, in f32
-    y = y.reshape(b_, s_, d_inner).to(xin.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps).to(xin.dtype)
+    # the skip connection y + xh·D in f32, ·silu(z), the norm: B4's gated form
+    y = ops.gated_rms_norm(y, xh, params["D"], z, params["norm"], cfg.norm_eps).to(xin.dtype)
     out = matmul(y, params["out_proj"])
     if return_state:
         return out, (new_conv_state, new_ssm_state)
@@ -196,8 +190,8 @@ def mamba2_decode_step(
     gn = cfg.ssm_groups * cfg.ssm_state
     heads = cfg.ssm_heads
     proj = matmul(xin, params["in_proj"])
-    z, x, bm, cm, dt = _split_proj(proj, d_inner, gn, heads)
-    xbc = torch.cat([x, bm, cm], dim=-1)
+    z, _, _, _, dt = _split_proj(proj, d_inner, gn, heads)
+    xbc = proj[..., d_inner:2 * d_inner + 2 * gn]
     xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
     x = xbc[..., :d_inner]
     bm = xbc[..., d_inner:d_inner + gn]
@@ -215,9 +209,8 @@ def mamba2_decode_step(
     # both are sharded (torch 2.11)
     outer = (dt1[:, :, None] * xh)[..., None] * bmh.float()[:, :, None, :]
     new_state = decay[:, :, None, None] * ssm_state + outer
-    y = (cmh.float()[:, :, None, :] * new_state).sum(dim=-1)
-    y = y + xh * params["D"][None, :, None]
-    y = y.reshape(b_, 1, d_inner).to(xin.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps).to(xin.dtype)
+    y = (cmh.float()[:, :, None, :] * new_state).sum(dim=-1)       # (B, H, P) f32
+    y = ops.gated_rms_norm(y[:, None], x.reshape(b_, 1, heads, cfg.ssm_head_dim),
+                           params["D"], z, params["norm"], cfg.norm_eps).to(xin.dtype)
     out = matmul(y, params["out_proj"])
     return out, (new_conv_state, new_state)

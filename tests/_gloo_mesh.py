@@ -10,7 +10,9 @@ writes the largest differences to ``<out>/rank<r>.json``; then the loss
 and every gradient of a train step's forward and backward (olmoe's and
 jamba's smoke configs) on the mesh against the plain model's. It also
 holds ``collectives.on_mesh`` over a group of both mesh dims to the
-``rank_by_rank``.
+``rank_by_rank``, and records how often B4 and B5 (the norms, Mamba2's
+gated norm and convolution) ran on the mesh's shards and every condition
+their kernels would refuse in the shards' layouts.
 """
 import dataclasses
 import json
@@ -41,6 +43,39 @@ def _collectives(mesh) -> float:
     got = coll.on_mesh(body(rank_input(me)), mesh, {"all": [0, 1]})
     want = coll.rank_by_rank(lambda c: body(rank_input(c["all"])), {"all": 4})[(me,)]
     return float((got - want).abs().max())
+
+
+def _watch_norm_conv() -> dict:
+    """Counts the entries of B4's and B5's shard paths (``ops``'
+    ``_norm_on_shards``, ``_gated_on_shards``, ``_conv_on_shards``) and
+    lists each condition of the kernels' own checks (``norm_checks``,
+    ``gated_checks``, ``conv_checks``, which the card's wrappers apply) that
+    a wrapper's inputs fail here on the CPU, where the plain versions run."""
+    from repro_torch.kernels import causal_conv as cc
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rms_norm as rn
+    seen = {"shards": {}, "refused": []}
+    checks = {
+        (rn, "rms_norm_fwd"): lambda x, s, *_: rn.norm_checks(x, s, rn._row_stride(x)),
+        (rn, "rms_norm_bwd"): lambda g, x, s, *_: rn.norm_checks(x, s, rn._row_stride(x)),
+        (rn, "gated_rms_norm_fwd"): lambda y, xh, D, z, s, *_: rn.gated_checks(y, xh, D, z, s),
+        (rn, "gated_rms_norm_bwd"): lambda g, y, xh, D, z, s, *_: rn.gated_checks(
+            y, xh, D, z, s),
+        (cc, "causal_conv1d_fwd"): lambda x, w, b, st=None: cc.conv_checks(x, w, b, st),
+        (cc, "causal_conv1d_bwd"): lambda g, x, w, b, st=None, *_: cc.conv_checks(x, w, b, st)}
+    for (mod, name), check in checks.items():
+        def watched(*args, _fn=getattr(mod, name), _name=name, _check=check, **kw):
+            seen["refused"] += [[_name, msg] for ok, msg in _check(*args) if not ok]
+            return _fn(*args, **kw)
+        setattr(mod, name, watched)
+        if hasattr(ops, name):
+            setattr(ops, name, watched)
+    for name in ("_norm_on_shards", "_gated_on_shards", "_conv_on_shards"):
+        def counted(*args, _fn=getattr(ops, name), _name=name):
+            seen["shards"][_name] = seen["shards"].get(_name, 0) + 1
+            return _fn(*args)
+        setattr(ops, name, counted)
+    return seen
 
 
 def _train(model, placed, tokens, mesh, b) -> dict:
@@ -84,7 +119,7 @@ def run(rank: int, world: int, store_path: str, out: str) -> None:
                             world_size=world)
     try:
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-        result = {"collectives": _collectives(mesh)}
+        result = {"collectives": _collectives(mesh), "norm_conv": _watch_norm_conv()}
         # one kv head: it does not divide "model", so decode's cache has its
         # sequence sharded over "model"
         cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"), num_kv_heads=1)

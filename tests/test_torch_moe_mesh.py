@@ -16,7 +16,8 @@ package's ``repro.models.moe.moe_ffn`` on the same numpy inputs.
   the MoE layer on the mesh path and, with one kv head, the decode cache's
   sequence sharded over "model", equal to the plain ``forward_prefill`` and
   ``forward_decode`` within f32 rounding, and a train step's gradients
-  (olmoe's and jamba's) equal the plain model's.
+  (olmoe's and jamba's) equal the plain model's; the norms and Mamba2's
+  convolution run on the shards, in layouts their kernels take.
 """
 import json
 import os
@@ -166,7 +167,9 @@ def test_olmoe_steps_on_a_4_rank_gloo_group(tmp_path):
     train step's loss and every gradient (olmoe's and jamba's smoke
     configs) equal the plain model's within f32 rounding (each gradient
     within 1e-4 of its largest); ``collectives.on_mesh`` over both mesh
-    dims equals ``rank_by_rank``. Limited to ``GLOO_LIMIT_S`` seconds."""
+    dims equals ``rank_by_rank``; B4 and B5 (every norm, jamba's gated norm
+    and convolution) ran on the mesh's shards, each shard in a layout their
+    kernels' checks take. Limited to ``GLOO_LIMIT_S`` seconds."""
     import torch.multiprocessing as mp
     t0 = time.monotonic()
     ctx = mp.start_processes(_gloo_mesh.run, args=(4, str(tmp_path / "store"), str(tmp_path)),
@@ -182,6 +185,9 @@ def test_olmoe_steps_on_a_4_rank_gloo_group(tmp_path):
     results = [json.loads((tmp_path / f"rank{r}.json").read_text()) for r in range(4)]
     for r in results:
         assert r["collectives"] == 0.0
+        assert r["norm_conv"]["refused"] == []
+        assert set(r["norm_conv"]["shards"]) == {"_norm_on_shards", "_gated_on_shards",
+                                                 "_conv_on_shards"}
         assert r["cache_placements"] == ["S(0)", "S(1)"]
         assert r["prefill"] <= 1e-5 * r["prefill_scale"] and r["prefill_cache"] <= 1e-5
         assert all(d <= 1e-5 * s for d, s in zip(r["decode"], r["decode_scale"]))

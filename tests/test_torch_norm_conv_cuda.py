@@ -1,0 +1,315 @@
+"""B4's and B5's kernels (``csrc/rms_norm.cu``, ``csrc/causal_conv1d.cu``) on
+the card, each against its plain version on the same inputs.
+
+Imports no JAX, so it runs where only PyTorch is installed:
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_norm_conv_cuda.py``.
+Without a card every case skips.
+
+* B5's forward rounds every tap, add and SiLU as ``causal_conv1d_plain``'s
+  eager ops do: output and new state equal bit for bit.
+* B4's forward rounds as the eager chain does, but sums a row's squares in
+  its own order. So its output is the eager chain's evaluated at the
+  kernel's own rstd, bit for bit on every row: equal to the plain output on
+  every row whose rstd equals the plain one (computed by the same ops as
+  the plain forward); the rstd within 1e-5 of the plain one (relative: an
+  f32 sum of at most 16384 squares in another order), which moves the
+  output by at most two ulps of the dtype in bf16 (``round(x·rstd)`` by
+  one, then the product with ``scale`` rounds again).
+* The adjoints differ from their plain versions (f32 on the card) only by
+  the order of their f32 sums (a row's dot, the column sums of dscale, dD,
+  dw and db): the relative error of the difference's norm is held within
+  ``chip_smoke.norm_adj_tol``: 1e-5 in f32; in bf16 2e-4, or 2^-6/sqrt(n)
+  for a gradient of n elements where that is more (each output is rounded
+  once to bf16, and an f32 order difference moves a value across a
+  rounding boundary by one ulp now and then), which an adjoint computing
+  in bf16 (~4e-3) exceeds (``tests/test_torch_norm_conv.py`` holds that on
+  the CPU).
+"""
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels import causal_conv as cc
+from repro_torch.kernels import ops
+from repro_torch.kernels import rms_norm as rn
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import norm_adj_tol  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+DTYPES = (torch.float32, torch.bfloat16)
+# B4's plain widths: q/k norms (128), the trained and served models' d_model
+PLAIN_WIDTHS = (128, 1024, 2048, 3072, 4096, 5120, 7168, 8192)
+# the gated form (H, P): mamba2-1.3b's d_inner 4096, jamba's 16384
+GATED = ((64, 64), (256, 64))
+# B5's channels: mamba2-1.3b's 4352, jamba's 16640, a width off the vector route
+CHANNELS = (4352, 16640, 77)
+
+
+@pytest.fixture(autouse=True)
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _gen(seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def _randn(shape, gen, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t.view(torch.int32)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def _adjoint_close(got, want, dtype) -> bool:
+    """An adjoint's output within ``norm_adj_tol`` of its plain version's."""
+    return _rel(got, want) <= norm_adj_tol(str(dtype).split(".")[1], want.numel())
+
+
+def _ulps(a, b):
+    """|a - b| in units of b's last place (of its dtype: 8 bits of precision
+    in bf16, 24 in f32)."""
+    bits = 8 if b.dtype == torch.bfloat16 else 24
+    _, e = torch.frexp(b.float())
+    ulp = torch.ldexp(torch.ones_like(b, dtype=torch.float32), e - bits)
+    return (a.float() - b.float()).abs() / ulp.clamp_min(torch.finfo(b.dtype).tiny)
+
+
+def _took(fn, before):
+    return {r: fn.launches_by_route[r] - before[r] for r in fn.launches_by_route}
+
+
+def _statistic_rule(got, rstd, want, want_rstd, normed, scale):
+    """The kernel's output is the eager chain's at the kernel's rstd, bit for
+    bit (``normed`` the tensor the norm takes: x, or the gated product);
+    rows whose rstd equals the plain one equal the plain output bit for bit;
+    the rstd within 1e-5 of the plain one; bf16 outputs within two ulps."""
+    again = (normed.float() * rstd[..., None]).to(got.dtype) * scale
+    assert torch.equal(_bits(got), _bits(again.contiguous()))
+    assert float(((rstd - want_rstd).abs() / want_rstd).max()) <= 1e-5
+    same = (rstd == want_rstd).reshape(-1)
+    rows_got, rows_want = got.reshape(same.numel(), -1), want.reshape(same.numel(), -1)
+    assert torch.equal(_bits(rows_got[same]), _bits(rows_want[same]))
+    if got.dtype == torch.bfloat16 and (~same).any():
+        assert float(_ulps(rows_got[~same], rows_want[~same]).max()) <= 2.0
+    return float(same.float().mean())
+
+
+# ---------------------------------------------------------------------------
+# B4, plain form
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", PLAIN_WIDTHS)
+@pytest.mark.parametrize("layout", ["contiguous", "last_rows"])
+def test_rms_norm_forward_and_adjoint(dtype, d, layout):
+    gen = _gen(d)
+    rows = 40 * 64 if d == 128 else 256
+    full = _randn((4, rows // 4, d), gen, dtype)
+    x = full if layout == "contiguous" else full[:, -1:]       # rows S·D apart (logits)
+    scale = _randn((d,), gen, dtype, 0.5) + 1
+    before = dict(rn.rms_norm_fwd.launches_by_route)
+    got, rstd = rn.rms_norm_fwd(x, scale, 1e-5, keep_rstd=True)
+    assert _took(rn.rms_norm_fwd, before) == {"vector": 1, "scalar": 0}
+    want, want_rstd = rn.rms_norm_fwd_plain(x, scale, 1e-5, keep_rstd=True)
+    _statistic_rule(got, rstd, want, want_rstd, x, scale)
+    g = _randn(x.shape, gen, dtype)
+    before = dict(rn.rms_norm_bwd.launches_by_route)
+    dx, ds = rn.rms_norm_bwd(g, x, scale, rstd)
+    assert _took(rn.rms_norm_bwd, before) == {"vector": 1, "scalar": 0}
+    wdx, wds = rn.rms_norm_bwd_plain(g, x, scale, rstd)
+    assert dx.dtype == dtype and ds.dtype == dtype
+    assert _adjoint_close(dx, wdx, dtype) and _adjoint_close(ds, wds, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [77, 1000, 3 * 1024 + 4])
+def test_rms_norm_scalar_route(dtype, d):
+    """A width that is no whole number of 16-byte units, and rows off
+    16-byte alignment (a slice starting one element in): the scalar route."""
+    gen = _gen(d)
+    x = _randn((3, 50, d + 1), gen, dtype)[..., 1:]
+    scale = _randn((d,), gen, dtype, 0.5) + 1
+    before = dict(rn.rms_norm_fwd.launches_by_route)
+    got, rstd = rn.rms_norm_fwd(x, scale, 1e-6, keep_rstd=True)
+    assert _took(rn.rms_norm_fwd, before) == {"vector": 0, "scalar": 1}
+    want, want_rstd = rn.rms_norm_fwd_plain(x, scale, 1e-6, keep_rstd=True)
+    _statistic_rule(got, rstd, want, want_rstd, x, scale)
+    g = _randn(x.shape, gen, dtype)
+    dx, ds = rn.rms_norm_bwd(g, x, scale, rstd)
+    wdx, wds = rn.rms_norm_bwd_plain(g, x, scale, rstd)
+    assert _adjoint_close(dx, wdx, dtype) and _adjoint_close(ds, wds, dtype)
+
+
+def test_rms_norm_refuses_what_it_does_not_take():
+    x = torch.randn(4, 64, device="cuda")
+    with pytest.raises(ValueError):
+        rn.rms_norm_fwd(x, torch.ones(64, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        rn.rms_norm_fwd(x.half(), torch.ones(64, device="cuda", dtype=torch.half))
+    with pytest.raises(ValueError):
+        rn.rms_norm_fwd(torch.randn(2, rn.MAX_WIDTH + 8, device="cuda"),
+                        torch.ones(rn.MAX_WIDTH + 8, device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# B4, gated form
+# ---------------------------------------------------------------------------
+
+def _gated(b, s, h, p, dtype, gen, decode=False):
+    """The layouts ``mamba2_mixer`` hands over: y the SSD kernel's (B, H, S,
+    P) buffer seen as (B, S, H, P) (at decode (B, 1, H, P) f32), xh the
+    first H·P columns of the convolution's output, z the first H·P columns
+    of the projection."""
+    d = h * p
+    if decode:
+        y = _randn((b, h, p), gen, torch.float32)[:, None]
+    else:
+        y = _randn((b, h, s, p), gen, dtype).transpose(1, 2)
+    xh = _randn((b, s, d + 256), gen, dtype)[..., :d].reshape(b, s, h, p)
+    z = _randn((b, s, 2 * d + 320), gen, dtype)[..., :d]
+    D = _randn((h,), gen, torch.float32)
+    scale = _randn((d,), gen, dtype, 0.5) + 1
+    return y, xh, D, z, scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hp", GATED)
+def test_gated_forward_and_adjoint(dtype, hp):
+    h, p = hp
+    gen = _gen(h)
+    y, xh, D, z, scale = _gated(2, 512, h, p, dtype, gen)
+    before = dict(rn.gated_rms_norm_fwd.launches_by_route)
+    got, rstd = rn.gated_rms_norm_fwd(y, xh, D, z, scale, 1e-5, keep_rstd=True)
+    assert _took(rn.gated_rms_norm_fwd, before) == {"vector": 1, "scalar": 0}
+    want, want_rstd = rn.gated_rms_norm_fwd_plain(y, xh, D, z, scale, 1e-5, keep_rstd=True)
+    _statistic_rule(got, rstd, want, want_rstd, rn.gated_product_plain(y, xh, D, z), scale)
+    g = _randn(z.shape, gen, dtype)
+    before = dict(rn.gated_rms_norm_bwd.launches_by_route)
+    grads = rn.gated_rms_norm_bwd(g, y, xh, D, z, scale, rstd)
+    assert _took(rn.gated_rms_norm_bwd, before) == {"vector": 1, "scalar": 0}
+    want = rn.gated_rms_norm_bwd_plain(g, y, xh, D, z, scale, rstd)
+    assert grads[0].stride() == y.stride()             # dy in the SSD kernel's layout
+    for name, a, w in zip(("dy", "dxh", "dD", "dz", "dscale"), grads, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert _adjoint_close(a, w, dtype), (name, _rel(a, w))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_decode_step_takes_an_f32_y(dtype):
+    gen = _gen(7)
+    y, xh, D, z, scale = _gated(4, 1, 64, 64, dtype, gen, decode=True)
+    got, rstd = rn.gated_rms_norm_fwd(y, xh, D, z, scale, 1e-5, keep_rstd=True)
+    want, want_rstd = rn.gated_rms_norm_fwd_plain(y, xh, D, z, scale, 1e-5, keep_rstd=True)
+    _statistic_rule(got, rstd, want, want_rstd, rn.gated_product_plain(y, xh, D, z), scale)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gated_scalar_route(dtype):
+    """Heads of 5 elements: no whole 16-byte unit, the scalar route."""
+    gen = _gen(9)
+    y, xh, D, z, scale = _gated(2, 33, 12, 5, dtype, gen)
+    before = dict(rn.gated_rms_norm_fwd.launches_by_route)
+    got, rstd = rn.gated_rms_norm_fwd(y, xh, D, z, scale, 1e-5, keep_rstd=True)
+    assert _took(rn.gated_rms_norm_fwd, before) == {"vector": 0, "scalar": 1}
+    want, want_rstd = rn.gated_rms_norm_fwd_plain(y, xh, D, z, scale, 1e-5, keep_rstd=True)
+    _statistic_rule(got, rstd, want, want_rstd, rn.gated_product_plain(y, xh, D, z), scale)
+    g = _randn(z.shape, gen, dtype)
+    grads = rn.gated_rms_norm_bwd(g, y, xh, D, z, scale, rstd)
+    want = rn.gated_rms_norm_bwd_plain(g, y, xh, D, z, scale, rstd)
+    for name, a, w in zip(("dy", "dxh", "dD", "dz", "dscale"), grads, want):
+        assert _adjoint_close(a, w, dtype), (name, _rel(a, w))
+
+
+# ---------------------------------------------------------------------------
+# B5
+# ---------------------------------------------------------------------------
+
+def _conv(b, s, c, dtype, gen, with_state, strided=True):
+    """x the x|B|C columns of a wider projection (as ``mamba2_mixer`` hands
+    it), w (4, C) at the model's init scale, a small bias."""
+    x = _randn((b, s, c + 4160), gen, dtype)[..., 4096:4096 + c] if strided else \
+        _randn((b, s, c), gen, dtype)
+    w = _randn((4, c), gen, dtype, 0.5)
+    bias = _randn((c,), gen, dtype, 0.1)
+    state = _randn((b, 3, c), gen, dtype) if with_state else None
+    return x, w, bias, state
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", CHANNELS)
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [1024, 1, 37])
+def test_conv_forward_bits_and_adjoint(dtype, c, with_state, s):
+    gen = _gen(c + s)
+    x, w, bias, state = _conv(2 if c > 5000 else 4, s, c, dtype, gen, with_state)
+    route = "vector" if c * x.element_size() % 8 == 0 else "scalar"
+    before = dict(cc.causal_conv1d_fwd.launches_by_route)
+    out, new_state = cc.causal_conv1d_fwd(x, w, bias, state)
+    assert _took(cc.causal_conv1d_fwd, before) == {r: int(r == route) for r in cc.ROUTES}
+    want, want_state = cc.causal_conv1d_plain(x, w, bias, state)
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.equal(_bits(new_state), _bits(want_state.contiguous()))
+    g = _randn(out.shape, gen, dtype)
+    before = dict(cc.causal_conv1d_bwd.launches_by_route)
+    grads = cc.causal_conv1d_bwd(g, x, w, bias, state, need_dstate=True)
+    assert _took(cc.causal_conv1d_bwd, before) == {r: int(r == route) for r in cc.ROUTES}
+    want = cc.causal_conv1d_bwd_plain(g, x, w, bias, state, need_dstate=True)
+    for name, a, wv in zip(("dx", "dw", "db", "dstate"), grads, want):
+        assert (a is None) == (wv is None), name
+        if a is not None:
+            assert a.shape == wv.shape and a.dtype == wv.dtype, name
+            assert _adjoint_close(a, wv, dtype), (name, _rel(a, wv))
+
+
+def test_conv_function_under_grad_on_the_card():
+    """``ops.causal_conv1d`` under grad: the Function, its gradients those of
+    autograd through the plain forward (f32), the new state's included."""
+    gen = _gen(11)
+    x, w, bias, state = _conv(2, 40, 96, torch.float32, gen, True)
+    gs = _randn((2, 3, 96), gen, torch.float32)
+    g = _randn((2, 40, 96), gen, torch.float32)
+
+    def grads(fn):
+        ins = [t.detach().clone().requires_grad_(True) for t in (x, w, bias, state)]
+        out, ns = fn(*ins)
+        torch.autograd.backward([out, ns], [g, gs])
+        return [t.grad for t in ins]
+    got = grads(ops.causal_conv1d)
+    want = grads(cc.causal_conv1d_plain)
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= 1e-5
+
+
+def test_norms_under_grad_on_the_card():
+    """``ops.rms_norm`` and ``ops.gated_rms_norm`` under grad: the Functions,
+    their gradients those of autograd through the plain forwards (f32)."""
+    gen = _gen(12)
+    x = _randn((2, 30, 256), gen, torch.float32)
+    scale = _randn((256,), gen, torch.float32, 0.5) + 1
+    g = _randn(x.shape, gen, torch.float32)
+
+    def grads(fn, inputs, gout):
+        ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+        torch.autograd.backward([fn(*ins)], [gout])
+        return [t.grad for t in ins]
+    for a, b in zip(grads(lambda *a: ops.rms_norm(*a, 1e-5), (x, scale), g),
+                    grads(lambda *a: rn.rms_norm_plain(*a, 1e-5), (x, scale), g)):
+        assert _rel(a, b) <= 1e-5
+    y, xh, D, z, sc = _gated(2, 30, 8, 16, torch.float32, gen)
+    gz = _randn(z.shape, gen, torch.float32)
+    for a, b in zip(grads(lambda *a: ops.gated_rms_norm(*a, 1e-5), (y, xh, D, z, sc), gz),
+                    grads(lambda *a: rn.gated_rms_norm_plain(*a, 1e-5), (y, xh, D, z, sc), gz)):
+        assert _rel(a, b) <= 1e-5
