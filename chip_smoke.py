@@ -1817,9 +1817,10 @@ B4_GATED_B5 = ("gated_rms_norm_fwd", "causal_conv1d_fwd")
 B4_GATED_B5_BWD = ("gated_rms_norm_bwd", "causal_conv1d_bwd")
 NORM_CONV = B4 + B4_BWD + B5 + B5_BWD
 NORM_CONV_KERNELS = {"norm_forward": ("rms_norm_fwd_kernel",),
-                     "norm_backward": ("rms_norm_bwd_kernel", "sum_partials"),
+                     "norm_backward": ("rms_norm_bwd_kernel", "norm_sum_partials"),
                      "conv_forward": ("conv_fwd_kernel",),
-                     "conv_backward": ("conv_bwd_kernel", "conv_sum_partials")}
+                     "conv_backward": ("causal_conv_bwd_kernel", "causal_conv_sum_partials",
+                                       "causal_conv_bwd_scalar_kernel", "causal_conv_sum_rows")}
 
 
 @contextlib.contextmanager
@@ -3197,6 +3198,7 @@ def moe_route_check(smi: str, counters: dict) -> None:
 # phi4-mini's 3072, mamba2/olmoe's 2048, qwen3's 5120, llama-vision's 4096,
 # whisper's 1024, kimi-k2's 7168, jamba's 8192, the f32 demo's 512
 NORM_CHECKS = (("qk_norm", "bfloat16", (4, 1024 * 40), 128),
+               ("olmoe-1b-7b q/k", "bfloat16", (4, 1024 * 16), 128),
                ("phi4-mini-3.8b", "bfloat16", (4, 1024), 3072),
                ("mamba2-1.3b", "bfloat16", (4, 1024), 2048),
                ("qwen3-14b", "bfloat16", (4, 1024), 5120),
@@ -3218,8 +3220,9 @@ CONV_CHECKS = (("mamba2-1.3b", "bfloat16", (4, 1024), 4352, 8512, False),
                ("mamba2-1.3b decode", "bfloat16", (4, 1), 4352, 8512, True),
                ("mamba2-1.3b f32", "float32", (4, 1024), 4352, 8512, False))
 # the timed shapes: mamba2-1.3b's training shape for the gated form, B5 and
-# the plain form at 2048 (its ln1), and phi4-mini's plain form at 3072
-NORM_TIMED = ("mamba2-1.3b", "phi4-mini-3.8b")
+# the plain form at 2048 (its ln1), phi4-mini's plain form at 3072 and
+# olmoe-1b-7b's q/k norms (16 heads of 128 over 4 x 1024 tokens)
+NORM_TIMED = ("mamba2-1.3b", "phi4-mini-3.8b", "olmoe-1b-7b q/k")
 
 
 def norm_adj_tol(dtype: str, n: int) -> float:
@@ -3318,10 +3321,15 @@ def check_norm_conv(gen, smi: str) -> dict:
     ``norm_adj_tol`` (relative error of the difference's norm), the bf16
     control beyond it (``adjoint_readings``). Then the
     ``NORM_TIMED`` shapes in turns with the plain versions and, for the
-    plain form's forward, ``F.rms_norm`` (a yardstick never on the path: it
-    scales before it casts, one rounding fewer), each beside its bound by
-    bytes, with the kernels' own device time and each call's host µs.
-    Returns the kernels line's entries."""
+    plain form's forward,
+    ``F.rms_norm`` (a yardstick never on the path: it scales before it
+    casts, one rounding fewer), each beside its bound by bytes, with the
+    kernels' own device time, each call's host µs and, for the adjoints,
+    each kernel's registers and local memory (spills included) and the
+    blocks an SM holds, as the runtime reports them. B5's staged adjoint
+    recomputes the pre-activation with packed bf16 products and sums: it
+    must equal the plain chain's bit for bit (``conv_preactivation``), and
+    its SiLU the forward's output. Returns the kernels line's entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import causal_conv as cc
@@ -3428,10 +3436,18 @@ def check_norm_conv(gen, smi: str) -> dict:
         adj = adjoint_readings(("dx", "dw", "db", "dstate"), grads, wants, dt,
                                lambda: cc.causal_conv1d_bwd_plain(g, x, w, bias, state,
                                                                   need_dstate=with_state))
+        pre = cc.conv_preactivation(g, x, w, bias, state)
+        xin = torch.cat([state if with_state else x.new_zeros((b, 3, c)), x], dim=1)
+        want_pre = torch.zeros_like(pre)
+        for i in range(4):
+            want_pre = want_pre + xin[:, i:i + s] * w[i]
+        want_pre = want_pre + bias
         torch.cuda.synchronize()
         same_bits = (bool(torch.equal(bits(out), bits(want)))
                      and bool(torch.equal(bits(new_state), bits(want_state.contiguous()))))
-        ok = same_bits and fwd_took == one and bwd_took == one and adj.pop("ok")
+        pre_bits = (bool(torch.equal(bits(pre), bits(want_pre)))
+                    and bool(torch.equal(bits(F.silu(pre)), bits(out))))
+        ok = same_bits and pre_bits and fwd_took == one and bwd_took == one and adj.pop("ok")
         worst["causal_conv1d_fwd"] = max(worst["causal_conv1d_fwd"],
                                          float((out.float() - want.float()).abs().max()))
         worst["causal_conv1d_bwd"] = max(worst["causal_conv1d_bwd"], max(
@@ -3439,27 +3455,45 @@ def check_norm_conv(gen, smi: str) -> dict:
             if a is not None))
         emit({"phase": "kernel_check", "kernel": "causal_conv1d", "path": label, "dtype": dt,
               "batch": b, "seq": s, "channels": c, "row_stride": width, "state": with_state,
-              "forward_bits_equal": same_bits, **adj,
-              "launches": {"fwd": fwd_took, "bwd": bwd_took}, "ok": ok})
+              "forward_bits_equal": same_bits, "adjoint_preactivation_bits_equal": pre_bits,
+              **adj, "launches": {"fwd": fwd_took, "bwd": bwd_took}, "ok": ok})
         if not ok:
             raise AssertionError(f"causal_conv1d differs from its plain version at {label}: "
-                                 f"bits {same_bits}, {adj}, launches {fwd_took} {bwd_took}")
+                                 f"bits {same_bits}, pre {pre_bits}, {adj}, launches {fwd_took} "
+                                 f"{bwd_took}")
         if label in NORM_TIMED:
             conv[label] = (x, w, bias, g)
-        del proj, out, new_state, want, want_state, grads, wants
+        del proj, out, new_state, want, want_state, grads, wants, pre, want_pre, xin
     gc.collect()
     torch.cuda.empty_cache()
 
     # timing, in turns
     entries = {name: {} for name in NORM_CONV}
 
+    dev = torch.cuda.current_device()
+
+    def norm_resources(d, dtype, gated):
+        """The one-pass adjoint's registers and local memory, and the blocks
+        an SM holds (the runtime's occupancy), at width d, 16-byte units."""
+        nu, tpr, _ = rn.bwd_plan(d, True, 2 if dtype == torch.bfloat16 else 4, gated)
+        mode = rn._mode(True, dtype, dev, gated=gated)
+        return dict(rn.bwd_attributes(dtype, gated, dev, nu=nu), threads_a_row=tpr,
+                    units_a_thread=nu, blocks_per_sm=rn._bwd_residency(dev, mode, nu, tpr, d))
+
+    def conv_resources(dtype):
+        bf16 = dtype == torch.bfloat16
+        return dict(cc.bwd_attributes("vector", bf16, 4, dev),
+                    blocks_per_sm=cc._residency(dev, "vector", bf16, 4))
+
     def time_pair(label, shape, dtype, fwd, bwd):
         """The forward and the adjoint of one shape, each (name, contenders,
-        kernels a call, bound), in turns with their plain versions."""
-        for name, contenders, split, bound in (fwd, bwd):
+        kernels a call, bound[, resources]), in turns with their plain
+        versions."""
+        for name, contenders, split, bound, *resources in (fwd, bwd):
             t = timed_in_turns(contenders, NC_ITERS, split, 100)
+            extra = {"resources": resources[0]} if resources else {}
             entries[name][label] = dict(shape=shape, dtype=str(dtype), **t, **bound,
-                                        share_of_bound=bound["bound_ms"] / t["ms"])
+                                        share_of_bound=bound["bound_ms"] / t["ms"], **extra)
     fwd_split, bwd_split = {"rms_norm_fwd_kernel": 1}, {"rms_norm_bwd_kernel": 1,
                                                         "norm_sum_partials": 1}
     for label, (x, scale, g, rstd) in timed.items():
@@ -3474,7 +3508,8 @@ def check_norm_conv(gen, smi: str) -> dict:
             "rms_norm_bwd",
             {"kernel": lambda: rn.rms_norm_bwd(g, x, scale, rstd),
              "plain": lambda: rn.rms_norm_bwd_plain(g, x, scale, rstd)},
-            bwd_split, nc_bound(3 * n * es + d * es + rows * 4 + d * es, 10 * n)))
+            bwd_split, nc_bound(3 * n * es + d * es + rows * 4 + d * es, 10 * n),
+            norm_resources(d, x.dtype, False)))
     for label, (y, xh, D, z, scale, g, rstd) in gated.items():
         (b, s, h, p), d = xh.shape, z.shape[-1]
         n, es = b * s * d, z.element_size()
@@ -3488,7 +3523,8 @@ def check_norm_conv(gen, smi: str) -> dict:
             {"kernel": lambda: rn.gated_rms_norm_bwd(g, y, xh, D, z, scale, rstd),
              "plain": lambda: rn.gated_rms_norm_bwd_plain(g, y, xh, D, z, scale, rstd)},
             bwd_split, nc_bound(7 * n * es + d * es + h * 4 + b * s * 4 + d * es + h * 4,
-                                40 * n)))
+                                40 * n),
+            norm_resources(d, z.dtype, True)))
     for label, (x, w, bias, g) in conv.items():
         (b, s, c), es = x.shape, x.element_size()
         n = b * s * c
@@ -3502,7 +3538,8 @@ def check_norm_conv(gen, smi: str) -> dict:
             {"kernel": lambda: cc.causal_conv1d_bwd(g, x, w, bias),
              "plain": lambda: cc.causal_conv1d_bwd_plain(g, x, w, bias)},
             {"causal_conv_bwd_kernel": 1, "causal_conv_sum_partials": 1},
-            nc_bound(3 * n * es + 5 * c * es + 5 * c * es, 30 * n)))
+            nc_bound(3 * n * es + 5 * c * es + 5 * c * es, 30 * n),
+            conv_resources(x.dtype)))
     for name, rows in entries.items():
         for label, e in rows.items():
             emit({"phase": "kernel_time", "kernel": name, "path": label, "smi": smi,
@@ -3516,13 +3553,15 @@ def check_norm_conv(gen, smi: str) -> dict:
     for name in NORM_CONV:
         first_label = "mamba2-1.3b" if "mamba2-1.3b" in entries[name] else next(iter(entries[name]))
         first = dict(entries[name].pop(first_label))
+        extra = ("resources",)
         result[name] = {"max_abs_err": worst[name], "path": first_label,
                         **{k: first[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                  "bound_by", "kernel_device_ms",
-                                                 "share_of_bound", "host_us", "shape")},
+                                                 "share_of_bound", "host_us", "shape") + extra
+                           if k in first},
                         "other_shapes": {lb: {k: e[k] for k in (
                             "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                            "kernel_device_ms", "share_of_bound", "shape")}
+                            "kernel_device_ms", "share_of_bound", "shape") + extra if k in e}
                             for lb, e in entries[name].items()},
                         "library_layout": libraries.get(name, "none: no one PyTorch call "
                                                               "computes it")}

@@ -20,15 +20,20 @@ prefill, training and decode (S = 1, with the cache's state).
 The adjoint (:func:`causal_conv1d_bwd`; plain :func:`causal_conv1d_bwd_plain`,
 written out by hand in f32) recomputes the pre-activation with the same
 roundings and gives dx (the taps shifted the other way, one pass), the
-state's gradient where asked, and dw, db as f32 partials of blocks of rows
-summed in a fixed order and rounded once. Training goes through
+state's gradient where asked, and dw, db as f32 partial rows summed in a
+fixed order and rounded once. Training goes through
 :class:`CausalConv1dFn`.
 
 A CUDA tensor goes to the kernels or raises; CPU tensors (the tests) take
 the plain versions. Each wrapper counts its launches under a lock, in
-``launches`` and in ``launches_by_route``: ``vector`` (8-byte units of
-channels: C and every row start 8-byte aligned) or ``scalar`` (a channel
-at a time).
+``launches`` and in ``launches_by_route``. The forward's routes: ``vector``
+(8-byte units of channels: C and every row start 8-byte aligned) or
+``scalar`` (a channel at a time). The adjoint's: ``vector``, the staged
+kernel (tiles of x and G brought to shared memory by TMA: x, G, every
+pointer and row stride 16-byte aligned), or ``scalar``, the register-window
+kernel a channel a thread. :func:`conv_preactivation` returns the staged
+kernel's recomputed pre-activation, for the tests that hold it to the
+forward's.
 """
 from __future__ import annotations
 
@@ -44,19 +49,24 @@ from torch.autograd.function import once_differentiable
 from .build import load_library, require
 
 ROUTES = ("vector", "scalar")
-# csrc/causal_conv1d.cu's layout: L time steps a thread, blocks of UNITS_X
-# channel units by TILES_Y tiles, widths up to MAX_W; the adjoint's grid
-# about BWD_BLOCKS_PER_SM blocks an SM
-L, UNITS_X, TILES_Y, MAX_W, BWD_BLOCKS_PER_SM = 16, 32, 8, 4, 4
+# csrc/causal_conv1d.cu's layout: the forward's and the scalar adjoint's L
+# time steps a thread, blocks of UNITS_X channel units by TILES_Y tiles,
+# widths up to MAX_W; the staged adjoint's tiles of TL steps by CHUNK_BYTES
+# of channels, SEG steps a warp
+L, UNITS_X, TILES_Y, MAX_W = 16, 32, 8, 4
+TL, SEG, CHUNK_BYTES = 64, 8, 128
 MAX_GRID_Y = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
-_MODE_DTYPE, _MODE_W_SHIFT, _MODE_DEVICE_SHIFT = 2, 2, 8
+# the mode int: the route in bits 0-1, the dtype bit, the width from bit 3
+_ROUTE_CODE = {"scalar": 0, "vector": 1}
+_MODE_DTYPE, _MODE_W_SHIFT, _MODE_DEVICE_SHIFT = 4, 3, 8
 _LAUNCH_LOCK = threading.Lock()
 _LL, _P = ctypes.c_longlong, ctypes.c_void_p
+_IP = ctypes.POINTER(ctypes.c_int)
 # mode, x, state, w, b, out, new_state, B, S, C, xsb, xss, stream
 _FWD_ARGTYPES = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P]
-# mode, x, state, w, b, g, dx, dstate, dwb, part, B, S, C, xsb, xss, grid_y, stream
-_BWD_ARGTYPES = [ctypes.c_int] + [_P] * 9 + [_LL] * 6 + [_P]
+# mode, x, state, w, b, g, dx, dstate, dwb, part, pre, B, S, C, xsb, xss, grid, slots, stream
+_BWD_ARGTYPES = [ctypes.c_int] + [_P] * 10 + [_LL] * 7 + [_P]
 
 
 def _history(x: torch.Tensor, width: int, state: Optional[torch.Tensor]):
@@ -145,16 +155,58 @@ def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def plan(batch: int, seq: int, channels: int, vector: bool, esize: int,
-         device: int) -> int:
-    """The adjoint's blocks over the tiles (grid.y): about
-    ``BWD_BLOCKS_PER_SM`` blocks an SM over the channel blocks, no more
-    than the tiles need; each writes one (W+1, C) f32 partial."""
-    units = channels // (4 // esize) if vector else channels      # the adjoint's 4-byte units
-    gx = -(-units // UNITS_X)
-    tiles = batch * -(-seq // L)
-    need = -(-tiles // TILES_Y)
-    return max(1, min(need, -(-BWD_BLOCKS_PER_SM * _sm_count(device) // gx), MAX_GRID_Y))
+@functools.lru_cache(maxsize=None)
+def _residency(device: int, route: str, bf16: bool, width: int) -> int:
+    """Blocks of the adjoint's kernel for ``route`` an SM of ``device`` holds
+    at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` for the
+    built kernel, its shared memory included)."""
+    mode = (_ROUTE_CODE[route] | (_MODE_DTYPE if bf16 else 0) | width << _MODE_W_SHIFT
+            | device << _MODE_DEVICE_SHIFT)
+    n = _lib().causal_conv1d_bwd_residency(mode)
+    if n <= 0:
+        _raise("causal_conv1d_bwd_residency", -n if n else 1)
+    return n
+
+
+def bwd_attributes(route: str, bf16: bool, width: int, device: int) -> dict:
+    """The adjoint kernel's registers a thread and local memory (its stack
+    frame, spills included) on ``route`` as the runtime reports them."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    mode = (_ROUTE_CODE[route] | (_MODE_DTYPE if bf16 else 0) | width << _MODE_W_SHIFT
+            | device << _MODE_DEVICE_SHIFT)
+    err = _lib().causal_conv1d_bwd_attributes(mode, ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        _raise("causal_conv1d_bwd_attributes", err)
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def staged_units(batch: int, seq: int, channels: int, esize: int) -> Tuple[int, int]:
+    """(the staged adjoint's units: chunks × batch × SEG-step segments, the
+    units of one chunk)."""
+    per_chunk = batch * -(-seq // SEG)
+    return -(-channels * esize // CHUNK_BYTES) * per_chunk, per_chunk
+
+
+def plan(batch: int, seq: int, channels: int, esize: int, route: str, sms: int,
+         per_sm: int) -> Tuple[int, int]:
+    """The adjoint's grid and its partial rows (slots), for ``sms`` SMs that
+    hold ``per_sm`` of the route's blocks at once.
+
+    ``vector`` (the staged kernel): a persistent grid of at most one wave,
+    ``sms · per_sm`` blocks over the units (at least a tile's worth each),
+    and the partial rows a chunk's units can meet: ``ceil(per_chunk /
+    (units // grid)) + 1``. ``scalar``: ``grid`` blocks over the tiles
+    (grid.y), at most a wave over the channel blocks, one partial row
+    each."""
+    wave = max(1, sms * per_sm)
+    if route == "vector":
+        units, per_chunk = staged_units(batch, seq, channels, esize)
+        grid = max(1, min(wave, -(-units // (TL // SEG))))
+        return grid, min(grid, -(-per_chunk // (units // grid)) + 1)
+    gx = -(-channels // UNITS_X)
+    need = -(-batch * -(-seq // L) // TILES_Y)
+    grid = max(1, min(need, -(-wave // gx), MAX_GRID_Y))
+    return grid, grid
 
 
 def conv_checks(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -206,8 +258,7 @@ def causal_conv1d_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     xp, wp, bp, op = x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr()
     vector = (c * es % 8 == 0 and (xsb * es | xss * es) % 8 == 0
               and (xp | wp | bp | op | sp | (ns or 0)) % 8 == 0)
-    mode = (int(vector) | (_MODE_DTYPE if dtype == torch.bfloat16 else 0)
-            | width << _MODE_W_SHIFT | dev << _MODE_DEVICE_SHIFT)
+    mode = _mode("vector" if vector else "scalar", dtype, width, dev)
     err = _lib().causal_conv1d_fwd(mode, xp, sp or None, wp, bp, op, ns, bsz, s, c, xsb, xss,
                                    torch._C._cuda_getCurrentRawStream(dev))
     if err:
@@ -220,46 +271,96 @@ causal_conv1d_fwd.launches = 0
 causal_conv1d_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def causal_conv1d_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                      state: Optional[torch.Tensor] = None, need_dstate: bool = False):
-    """(dx (B, S, C) contiguous, dw, db, dstate or None) of
-    :func:`causal_conv1d_bwd_plain`: on the card one launch of the adjoint
-    kernel and its sum pass (inputs as the forward takes them, g (B, S, C)
-    contiguous of x's dtype); on the CPU the plain version."""
-    if not x.is_cuda:
-        return causal_conv1d_bwd_plain(g, x, w, b, state, need_dstate)
-    require("causal_conv1d_bwd", conv_checks(x, w, b, state) + (
+def _mode(route: str, dtype: torch.dtype, width: int, device: int) -> int:
+    return (_ROUTE_CODE[route] | (_MODE_DTYPE if dtype == torch.bfloat16 else 0)
+            | width << _MODE_W_SHIFT | device << _MODE_DEVICE_SHIFT)
+
+
+def _bwd_checks(g, x, w, b, state):
+    return conv_checks(x, w, b, state) + (
         (g.shape == x.shape and g.dtype == x.dtype and g.is_contiguous()
-         and g.get_device() == x.get_device(), "g shaped like x, of its dtype, contiguous"),),
-        x, w, b, state, g)
+         and g.get_device() == x.get_device(), "g shaped like x, of its dtype, contiguous"),)
+
+
+def _staged_ok(x, g, es: int, ptrs) -> bool:
+    """The staged route's conditions: TMA's 16-byte alignment of x, G and
+    their row strides, C a whole number of 16 bytes; 16-byte pointers."""
+    c, (xsb, xss, _) = x.shape[-1], x.stride()
+    pa = 0
+    for p in ptrs:
+        pa |= p
+    return c * es % 16 == 0 and (xsb * es | xss * es) % 16 == 0 and pa % 16 == 0
+
+
+def _bwd(name: str, g, x, w, b, state, need_dstate: bool, route: Optional[str],
+         keep_pre: bool = False):
+    """One launch of the adjoint and its sum pass on ``route`` (None: the
+    staged kernel where it takes the layout, else ``scalar``); returns (the
+    route, dx, dw, db, dstate or None, the pre-activation or None)."""
+    require(name, _bwd_checks(g, x, w, b, state), x, w, b, state, g)
     (bsz, s, c), width, dtype, dev = x.shape, w.shape[0], x.dtype, x.get_device()
     es = x.element_size()
     dx = torch.empty((bsz, s, c), dtype=dtype, device=x.device)
     dwb = torch.empty((width + 1, c), dtype=dtype, device=x.device)
     dstate = (torch.empty((bsz, width - 1, c), dtype=dtype, device=x.device)
               if need_dstate and state is not None else None)
+    pre = torch.empty((bsz, s, c), dtype=dtype, device=x.device) if keep_pre else None
     xsb, xss, _ = x.stride()
     sp = 0 if state is None else state.data_ptr()
     dsp = 0 if dstate is None else dstate.data_ptr()
+    pp = 0 if pre is None else pre.data_ptr()
     xp, wp, bp, gp, dp, dwp = (x.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
                                dx.data_ptr(), dwb.data_ptr())
-    vector = (c * es % 8 == 0 and (xsb * es | xss * es) % 8 == 0
-              and (xp | wp | bp | gp | dp | sp | dsp) % 8 == 0)
-    grid_y = plan(bsz, s, c, vector, es, dev)
-    part = torch.empty((grid_y, width + 1, c), dtype=torch.float32, device=x.device)
-    mode = (int(vector) | (_MODE_DTYPE if dtype == torch.bfloat16 else 0)
-            | width << _MODE_W_SHIFT | dev << _MODE_DEVICE_SHIFT)
-    err = _lib().causal_conv1d_bwd(mode, xp, sp or None, wp, bp, gp, dp, dsp or None, dwp,
-                                   part.data_ptr(), bsz, s, c, xsb, xss, grid_y,
-                                   torch._C._cuda_getCurrentRawStream(dev))
+    ptrs = (xp, wp, bp, gp, dp, sp, dsp, pp)
+    if route is None:
+        route = "vector" if _staged_ok(x, g, es, ptrs) else "scalar"
+    elif route == "vector":
+        require(name, ((_staged_ok(x, g, es, ptrs),
+                        "x, g, every pointer and row stride 16-byte aligned"),), x, g)
+    per_sm = _residency(dev, route, dtype == torch.bfloat16, width)
+    grid, slots = plan(bsz, s, c, es, route, _sm_count(dev), per_sm)
+    part = torch.empty((slots, width + 1, c), dtype=torch.float32, device=x.device)
+    err = _lib().causal_conv1d_bwd(_mode(route, dtype, width, dev), xp, sp or None, wp, bp, gp,
+                                   dp, dsp or None, dwp, part.data_ptr(), pp or None, bsz, s, c,
+                                   xsb, xss, grid, slots, torch._C._cuda_getCurrentRawStream(dev))
     if err:
-        _raise("causal_conv1d_bwd", err)
-    _count(causal_conv1d_bwd, "vector" if vector else "scalar")
-    return dx, dwb[:width], dwb[width], dstate
+        _raise(name, err)
+    return route, dx, dwb[:width], dwb[width], dstate, pre
+
+
+def causal_conv1d_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      state: Optional[torch.Tensor] = None, need_dstate: bool = False):
+    """(dx (B, S, C) contiguous, dw, db, dstate or None) of
+    :func:`causal_conv1d_bwd_plain`: on the card one launch of the adjoint
+    kernel and its sum pass (inputs as the forward takes them, g (B, S, C)
+    contiguous of x's dtype): the staged kernel where x, g, every pointer
+    and row stride are 16-byte aligned and C a whole number of 16 bytes, the
+    ``scalar`` route otherwise; on the CPU the plain version."""
+    if not x.is_cuda:
+        return causal_conv1d_bwd_plain(g, x, w, b, state, need_dstate)
+    route, dx, dw, db, dstate, _ = _bwd("causal_conv1d_bwd", g, x, w, b, state, need_dstate,
+                                        None)
+    _count(causal_conv1d_bwd, route)
+    return dx, dw, db, dstate
 
 
 causal_conv1d_bwd.launches = 0
 causal_conv1d_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def conv_preactivation(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The pre-activation (B, S, C) the staged adjoint recomputes (packed bf16
+    products and sums in bf16), from one launch of it; for the checks that
+    hold it to the forward's bit for bit. Raises where the staged route does
+    not take the layout."""
+    *_, pre = _bwd("conv_preactivation", g, x, w, b, state, False, "vector", keep_pre=True)
+    _count(conv_preactivation, "vector")
+    return pre
+
+
+conv_preactivation.launches = 0
+conv_preactivation.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 class CausalConv1dFn(torch.autograd.Function):
@@ -298,13 +399,22 @@ class CausalConv1dFn(torch.autograd.Function):
         return dx, dw, db, dstate
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load_library("causal_conv1d")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The entry points' argument and result types on a built
+    ``csrc/causal_conv1d.cu`` (or a variant of it, as the probes build)."""
     lib.causal_conv1d_fwd.argtypes = _FWD_ARGTYPES
     lib.causal_conv1d_fwd.restype = ctypes.c_int
     lib.causal_conv1d_bwd.argtypes = _BWD_ARGTYPES
     lib.causal_conv1d_bwd.restype = ctypes.c_int
+    lib.causal_conv1d_bwd_residency.argtypes = [ctypes.c_int]
+    lib.causal_conv1d_bwd_residency.restype = ctypes.c_int
+    lib.causal_conv1d_bwd_attributes.argtypes = [ctypes.c_int, _IP, _IP]
+    lib.causal_conv1d_bwd_attributes.restype = ctypes.c_int
     lib.causal_conv1d_error_string.argtypes = [ctypes.c_int]
     lib.causal_conv1d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return _bind(load_library("causal_conv1d"))

@@ -49,22 +49,26 @@ from torch.autograd.function import once_differentiable
 from .build import load_library, require
 
 ROUTES = ("vector", "scalar")
-# csrc/rms_norm.cu's layout: a thread holds at most ELEMS elements of a row,
-# a row takes at most MAX_TPR threads, a block max(ROW_BLOCK, tpr) threads;
-# the adjoint's grid at most BWD_BLOCKS_PER_SM blocks an SM (what the
-# adjoint's 96-128 registers a thread let an SM hold)
-ELEMS, MAX_TPR, ROW_BLOCK, BWD_BLOCKS_PER_SM = 32, 512, 256, 2
+# csrc/rms_norm.cu's layout: the forward's thread holds at most ELEMS
+# elements of a row, a row takes at most MAX_TPR threads, a block
+# max(ROW_BLOCK, tpr) threads; the one-pass adjoint's row takes at most
+# BWD_MAX_TPR threads, NU units each (BWD_NU on the vector route, the
+# gated form first, then the plain; SCALAR_NU elements on the scalar), a
+# block BWD_ROW_BLOCK // tpr rows where a row takes fewer threads
+ELEMS, MAX_TPR, ROW_BLOCK = 32, 512, 256
+BWD_MAX_TPR, BWD_ROW_BLOCK, BWD_NU, SCALAR_NU = 1024, 512, (1, 2, 4), 16
 MAX_WIDTH = MAX_TPR * ELEMS
 _DTYPES = (torch.float32, torch.bfloat16)
 _F32 = torch.float32
 _MODE_DTYPE, _MODE_GATED, _MODE_Y_F32, _MODE_DEVICE_SHIFT = 2, 4, 8, 8
 _LAUNCH_LOCK = threading.Lock()
 _I, _LL, _P, _F = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # mode, x, y, xh, z, D, scale, out, rstd, rows, d, x_stride, S, P, strides, eps, tpr, stream
 _FWD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P, _F, _I, _P]
 # mode, x, y, xh, z, D, scale, g, rstd, dx, dy, dxh, dz, dD, dscale, part, part_d,
-# rows, d, x_stride, S, P, strides, tpr, blocks, stream
-_BWD_ARGTYPES = [_I] + [_P] * 16 + [_LL] * 5 + [_P, _I, _LL, _P]
+# rows, d, x_stride, S, P, strides, tpr, nu, blocks, stream
+_BWD_ARGTYPES = [_I] + [_P] * 16 + [_LL] * 5 + [_P, _I, _I, _LL, _P]
 
 
 # ---------------------------------------------------------------------------
@@ -212,11 +216,67 @@ def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def bwd_blocks(rows: int, d: int, vector: bool, esize: int, device: int) -> int:
-    """The adjoint's grid: one block a group of rows up to
-    ``BWD_BLOCKS_PER_SM`` blocks an SM; each block writes one partial row."""
-    tpr, block = plan(d, vector, esize)
-    return max(1, min(-(-rows // (block // tpr)), BWD_BLOCKS_PER_SM * _sm_count(device)))
+@functools.lru_cache(maxsize=None)
+def bwd_plan(d: int, vector: bool, esize: int, gated: bool) -> Tuple[int, int, int]:
+    """(units a thread NU, threads a row tpr, threads a block) of the one-pass
+    adjoint for rows of ``d`` elements: NU the least of ``BWD_NU`` from 1
+    (gated) or 2 (plain) whose threads hold the row within ``BWD_MAX_TPR``
+    (``SCALAR_NU`` elements on the scalar route); tpr the units over NU, a
+    power of two up to 32, else a multiple of 32; the block
+    ``BWD_ROW_BLOCK // tpr`` rows where tpr < ``BWD_ROW_BLOCK``, else one."""
+    v = 16 // esize if vector else 1
+    units = -(-d // v)
+    if vector:
+        nus = [n for n in BWD_NU if n >= (1 if gated else 2)]
+        nu = next((n for n in nus if -(-units // n) <= BWD_MAX_TPR), nus[-1])
+    else:
+        nu = SCALAR_NU
+    need = -(-units // nu)
+    if need > BWD_MAX_TPR:
+        raise ValueError(f"rms_norm: rows of {d} elements; the adjoint takes at most "
+                         f"{BWD_MAX_TPR * nu * v}")
+    tpr = 1 << (need - 1).bit_length() if need <= 32 else -(-need // 32) * 32
+    return nu, tpr, tpr if tpr >= BWD_ROW_BLOCK else BWD_ROW_BLOCK // tpr * tpr
+
+
+def bwd_blocks(rows: int, groups: int, sms: int, per_sm: int) -> int:
+    """The one-pass adjoint's grid: a persistent wave, ``sms · per_sm``
+    blocks (what the card holds at once), no more than the row groups of
+    ``groups`` rows; each block writes one partial row."""
+    return max(1, min(-(-rows // groups), sms * per_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_residency(device: int, mode: int, nu: int, tpr: int, d: int) -> int:
+    """Blocks of the one-pass adjoint an SM of ``device`` holds at once for
+    this plan (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` for the
+    built kernel and its shared memory)."""
+    n = _lib().rms_norm_bwd_residency(mode, nu, tpr, d)
+    if n <= 0:
+        _raise("rms_norm_bwd_residency", -n if n else 1)
+    return n
+
+
+def bwd_attributes(dtype: torch.dtype, gated: bool, device: int, vector: bool = True,
+                   nu: int = 0) -> dict:
+    """The adjoint kernel's registers a thread and local memory (its stack
+    frame, spills included) as the runtime reports them, for ``nu`` units a
+    thread."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    mode = _mode(vector, dtype, device, gated=gated)
+    err = _lib().rms_norm_bwd_attributes(mode, nu, ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        _raise("rms_norm_bwd_attributes", err)
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def _bwd_grid(rows: int, d: int, vector: bool, esize: int, gated: bool, mode: int,
+              device: int) -> Tuple[int, int, int]:
+    """(tpr, nu, blocks) of the adjoint: the one-pass plan on a persistent
+    grid of the measured residency."""
+    nu, tpr, block = bwd_plan(d, vector, esize, gated)
+    per_sm = _bwd_residency(device, mode, nu, tpr, d)
+    return tpr, nu, bwd_blocks(rows, block // tpr, _sm_count(device), per_sm)
 
 
 def _row_stride(x: torch.Tensor) -> Optional[int]:
@@ -282,28 +342,50 @@ def _strides(*vals: int):
     return (_LL * len(vals))(*vals)
 
 
+# the plain forward's layouts that passed its checks, keyed by x's and
+# scale's (shape, strides, dtype, device): (rows, d, row stride, whether the
+# shape takes 16-byte units, tpr and mode bits of each route, the device)
+_FWD_LAYOUTS: dict = {}
+
+
+def _fwd_layout(x: torch.Tensor, scale: torch.Tensor) -> tuple:
+    """The plain forward's checks (:func:`norm_checks`, raising on a refusal)
+    and plan for x's and scale's layout, made once a layout."""
+    key = (x.shape, x.stride(), x.dtype, x.device, scale.shape, scale.stride(), scale.dtype,
+           scale.device)
+    lay = _FWD_LAYOUTS.get(key)
+    if lay is None:
+        rs = _row_stride(x)
+        require("rms_norm_fwd", norm_checks(x, scale, rs), x, scale)
+        d, dev, es = x.shape[-1], x.get_device(), x.element_size()
+        vector = d * es % 16 == 0 and rs * es % 16 == 0
+        lay = (x.numel() // d, d, rs, vector, plan(d, True, es)[0] if vector else 0,
+               plan(d, False, es)[0], _mode(True, x.dtype, dev), _mode(False, x.dtype, dev), dev)
+        if len(_FWD_LAYOUTS) >= 4096:
+            _FWD_LAYOUTS.clear()
+        _FWD_LAYOUTS[key] = lay
+    return lay
+
+
 def rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
                  keep_rstd: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(the plain form's output, rows' f32 rstd or None): on the card one
     launch of the forward kernel on the current stream (x f32 or bf16 with
     its rows evenly spaced and the last dim contiguous, ``scale`` (d,) of
     x's dtype, contiguous, on the same card); on the CPU the plain
-    version. The checks (:func:`norm_checks`) read each shape once."""
+    version. The checks (:func:`norm_checks`) and the plan are made once a
+    layout (:func:`_fwd_layout`); a call reads its pointers' alignment."""
     if not x.is_cuda:
         return rms_norm_fwd_plain(x, scale, eps, keep_rstd)
-    rs = _row_stride(x)
-    require("rms_norm_fwd", norm_checks(x, scale, rs), x, scale)
-    d, dev, dtype = x.shape[-1], x.get_device(), x.dtype
-    rows = x.numel() // d
-    out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    rows, d, rs, shape_vector, tpr_v, tpr_s, mode_v, mode_s, dev = _fwd_layout(x, scale)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     rstd = torch.empty(x.shape[:-1], dtype=_F32, device=x.device) if keep_rstd else None
-    es = x.element_size()
     xp, sp, op = x.data_ptr(), scale.data_ptr(), out.data_ptr()
-    vector = d * es % 16 == 0 and rs * es % 16 == 0 and (xp | sp | op) % 16 == 0
-    tpr, _ = plan(d, vector, es)
-    err = _lib().rms_norm_fwd(_mode(vector, dtype, dev), xp, None, None, None, None, sp, op,
+    vector = shape_vector and (xp | sp | op) % 16 == 0
+    err = _lib().rms_norm_fwd(mode_v if vector else mode_s, xp, None, None, None, None, sp, op,
                               None if rstd is None else rstd.data_ptr(), rows, d, rs, 0, 0, None,
-                              eps, tpr, torch._C._cuda_getCurrentRawStream(dev))
+                              eps, tpr_v if vector else tpr_s,
+                              torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _raise("rms_norm_fwd", err)
     _count(rms_norm_fwd, "vector" if vector else "scalar")
@@ -353,17 +435,10 @@ gated_rms_norm_fwd.launches = 0
 gated_rms_norm_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
-                 rstd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dx in x's shape, contiguous; dscale) of :func:`rms_norm_bwd_plain`:
-    on the card one launch of the adjoint kernel and its sum pass (g
-    contiguous, shaped like x and of its dtype; rstd the forward's, f32,
-    contiguous); on the CPU the plain version."""
-    if not x.is_cuda:
-        return rms_norm_bwd_plain(g, x, scale, rstd)
+def _norm_bwd(name: str, g, x, scale, rstd):
     d, dev, dtype = x.shape[-1], x.get_device(), x.dtype
     rs = _row_stride(x)
-    require("rms_norm_bwd", norm_checks(x, scale, rs) + (
+    require(name, norm_checks(x, scale, rs) + (
         (g.shape == x.shape and g.dtype == dtype and g.is_contiguous(),
          "g shaped like x, of its dtype, contiguous"),
         (rstd.dtype == _F32 and rstd.is_contiguous() and rstd.numel() * d == x.numel(),
@@ -375,16 +450,28 @@ def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     dscale = torch.empty_like(scale)
     xp, gp, dp, sp = x.data_ptr(), g.data_ptr(), dx.data_ptr(), scale.data_ptr()
     vector = d * es % 16 == 0 and rs * es % 16 == 0 and (xp | gp | dp | sp) % 16 == 0
-    tpr, _ = plan(d, vector, es)
-    blocks = bwd_blocks(rows, d, vector, es, dev)
+    mode = _mode(vector, dtype, dev)
+    tpr, nu, blocks = _bwd_grid(rows, d, vector, es, False, mode, dev)
     part = torch.empty((blocks, d), dtype=_F32, device=x.device)
-    err = _lib().rms_norm_bwd(_mode(vector, dtype, dev), xp, None, None, None, None, sp, gp,
-                              rstd.data_ptr(), dp, None, None, None, None, dscale.data_ptr(),
-                              part.data_ptr(), None, rows, d, rs, 0, 0, None, tpr, blocks,
+    err = _lib().rms_norm_bwd(mode, xp, None, None, None, None, sp, gp, rstd.data_ptr(), dp,
+                              None, None, None, None, dscale.data_ptr(), part.data_ptr(), None,
+                              rows, d, rs, 0, 0, None, tpr, nu, blocks,
                               torch._C._cuda_getCurrentRawStream(dev))
     if err:
-        _raise("rms_norm_bwd", err)
-    _count(rms_norm_bwd, "vector" if vector else "scalar")
+        _raise(name, err)
+    return "vector" if vector else "scalar", dx, dscale
+
+
+def rms_norm_bwd(g: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                 rstd: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx in x's shape, contiguous; dscale) of :func:`rms_norm_bwd_plain`:
+    on the card one launch of the one-pass adjoint kernel and its sum pass
+    (g contiguous, shaped like x and of its dtype; rstd the forward's, f32,
+    contiguous); on the CPU the plain version."""
+    if not x.is_cuda:
+        return rms_norm_bwd_plain(g, x, scale, rstd)
+    route, dx, dscale = _norm_bwd("rms_norm_bwd", g, x, scale, rstd)
+    _count(rms_norm_bwd, route)
     return dx, dscale
 
 
@@ -405,17 +492,9 @@ def _like_strided(t: torch.Tensor) -> torch.Tensor:
     return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype, device=t.device)
 
 
-def gated_rms_norm_bwd(g: torch.Tensor, y: torch.Tensor, xh: torch.Tensor, D: torch.Tensor,
-                       z: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor):
-    """(dy at y's strides, dxh and dz contiguous, dD f32, dscale) of
-    :func:`gated_rms_norm_bwd_plain`: on the card one launch of the adjoint
-    kernel and its sum pass (y, xh, z and scale of one dtype, laid out as
-    the forward takes them; g (B, S, H·P) contiguous of that dtype; rstd
-    the forward's); on the CPU the plain version."""
-    if not z.is_cuda:
-        return gated_rms_norm_bwd_plain(g, y, xh, D, z, scale, rstd)
+def _gated_bwd(name: str, g, y, xh, D, z, scale, rstd):
     dtype, dev = z.dtype, z.get_device()
-    require("gated_rms_norm_bwd", gated_checks(y, xh, D, z, scale) + (
+    require(name, gated_checks(y, xh, D, z, scale) + (
         (dtype in _DTYPES and y.dtype == xh.dtype == scale.dtype == g.dtype == dtype,
          "y, xh, z, scale and g of one dtype, f32 or bf16"),
         (g.shape == z.shape and g.is_contiguous(), "g shaped like z, contiguous"),
@@ -438,21 +517,32 @@ def gated_rms_norm_bwd(g: torch.Tensor, y: torch.Tensor, xh: torch.Tensor, D: to
     for v in strides:
         pa |= v * es
     vector = p * es % 16 == 0 and pa % 16 == 0
-    tpr, _ = plan(d, vector, es)
-    blocks = bwd_blocks(b * s, d, vector, es, dev)
-    v = 16 // es if vector else 1
+    mode = _mode(vector, dtype, dev, gated=True)
+    tpr, nu, blocks = _bwd_grid(b * s, d, vector, es, True, mode, dev)
     part = torch.empty((blocks, d), dtype=_F32, device=z.device)
-    part_d = torch.empty((blocks, d // v), dtype=_F32, device=z.device)
-    err = _lib().rms_norm_bwd(_mode(vector, dtype, dev, gated=True), None, ptrs[0], ptrs[1],
-                              ptrs[2], D.data_ptr(), ptrs[3], ptrs[4], rstd.data_ptr(), None,
-                              ptrs[5], ptrs[6], ptrs[7], dD.data_ptr(), dscale.data_ptr(),
-                              part.data_ptr(), part_d.data_ptr(), b * s, d, 0, s, p,
-                              _strides(*strides), tpr, blocks,
-                              torch._C._cuda_getCurrentRawStream(dev))
+    part_d = torch.empty((blocks, h), dtype=_F32, device=z.device)     # dD's, one a head
+    err = _lib().rms_norm_bwd(mode, None, ptrs[0], ptrs[1], ptrs[2], D.data_ptr(), ptrs[3],
+                              ptrs[4], rstd.data_ptr(), None, ptrs[5], ptrs[6], ptrs[7],
+                              dD.data_ptr(), dscale.data_ptr(), part.data_ptr(),
+                              part_d.data_ptr(), b * s, d, 0, s, p, _strides(*strides), tpr, nu,
+                              blocks, torch._C._cuda_getCurrentRawStream(dev))
     if err:
-        _raise("gated_rms_norm_bwd", err)
-    _count(gated_rms_norm_bwd, "vector" if vector else "scalar")
-    return dy, dxh, dD, dz, dscale
+        _raise(name, err)
+    return "vector" if vector else "scalar", (dy, dxh, dD, dz, dscale)
+
+
+def gated_rms_norm_bwd(g: torch.Tensor, y: torch.Tensor, xh: torch.Tensor, D: torch.Tensor,
+                       z: torch.Tensor, scale: torch.Tensor, rstd: torch.Tensor):
+    """(dy at y's strides, dxh and dz contiguous, dD f32, dscale) of
+    :func:`gated_rms_norm_bwd_plain`: on the card one launch of the one-pass
+    adjoint kernel and its sum pass (y, xh, z and scale of one dtype, laid
+    out as the forward takes them; g (B, S, H·P) contiguous of that dtype;
+    rstd the forward's); on the CPU the plain version."""
+    if not z.is_cuda:
+        return gated_rms_norm_bwd_plain(g, y, xh, D, z, scale, rstd)
+    route, grads = _gated_bwd("gated_rms_norm_bwd", g, y, xh, D, z, scale, rstd)
+    _count(gated_rms_norm_bwd, route)
+    return grads
 
 
 gated_rms_norm_bwd.launches = 0
@@ -499,13 +589,22 @@ class GatedRmsNormFn(torch.autograd.Function):
         return (*(t if need else None for t, need in zip(grads, ctx.needs_input_grad)), None)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = load_library("rms_norm")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The entry points' argument and result types on a built
+    ``csrc/rms_norm.cu`` (or a variant of it, as the probes build)."""
     lib.rms_norm_fwd.argtypes = _FWD_ARGTYPES
     lib.rms_norm_fwd.restype = ctypes.c_int
     lib.rms_norm_bwd.argtypes = _BWD_ARGTYPES
     lib.rms_norm_bwd.restype = ctypes.c_int
+    lib.rms_norm_bwd_residency.argtypes = [_I, _I, _I, _LL]
+    lib.rms_norm_bwd_residency.restype = ctypes.c_int
+    lib.rms_norm_bwd_attributes.argtypes = [_I, _I, _IP, _IP]
+    lib.rms_norm_bwd_attributes.restype = ctypes.c_int
     lib.rms_norm_error_string.argtypes = [ctypes.c_int]
     lib.rms_norm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return _bind(load_library("rms_norm"))

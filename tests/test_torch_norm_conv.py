@@ -422,6 +422,110 @@ def test_the_cu_constants_match_the_bindings():
         assert f"constexpr int {name} = {value};" in conv, name
 
 
+def test_the_adjoints_cu_constants_match_the_bindings():
+    """The one-pass norm adjoint's and the staged convolution adjoint's
+    layout constants in ``csrc/*.cu`` equal the wrappers' own."""
+    csrc = Path(rn.__file__).parent / "csrc"
+    norm = (csrc / "rms_norm.cu").read_text()
+    for name, value in (("BWD_MAX_TPR", rn.BWD_MAX_TPR), ("BWD_ROW_BLOCK", rn.BWD_ROW_BLOCK)):
+        assert f"constexpr int {name} = {value};" in norm, name
+    conv = (csrc / "causal_conv1d.cu").read_text()
+    for name, value in (("TL", cc.TL), ("SEG", cc.SEG), ("ROW_BYTES", cc.CHUNK_BYTES)):
+        assert f"constexpr int {name} = {value};" in conv, name
+
+
+# B5's staged adjoint on a card of `sms` SMs holding `per_sm` of its blocks:
+# (B, S, C, bytes an element), mamba2-1.3b's and jamba's training shapes, a
+# ragged S, S < W-1, C off the chunk, f32
+CONV_PLANS = [(4, 1024, 4352, 2), (2, 1024, 16640, 2), (2, 100, 72, 2), (3, 2, 40, 4),
+              (4, 1024, 4352, 4), (1, 37, 8, 2)]
+CARDS = [(132, 4), (132, 3), (1, 1), (7, 2)]
+
+
+@pytest.mark.parametrize("shape", CONV_PLANS)
+@pytest.mark.parametrize("sms,per_sm", CARDS)
+def test_conv_plan_is_one_whole_wave_covering_every_tile(shape, sms, per_sm):
+    """``plan``'s staged grid is at most the blocks the card holds at once
+    (one wave), at least a tile's units each; the blocks' ranges cover every
+    (chunk, sequence, segment) unit once, in order, their sizes within one
+    of each other; and ``slots`` bounds the blocks any chunk's units meet."""
+    b, s, c, es = shape
+    grid, slots = cc.plan(b, s, c, es, "vector", sms, per_sm)
+    units, per_chunk = cc.staged_units(b, s, c, es)
+    assert units == -(-c * es // cc.CHUNK_BYTES) * b * -(-s // cc.SEG)
+    assert 1 <= grid <= sms * per_sm and grid <= -(-units // (cc.TL // cc.SEG))
+    # each block's units, [g·units//grid, (g+1)·units//grid), as the kernel splits them
+    ranges = [(g * units // grid, (g + 1) * units // grid) for g in range(grid)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == units
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(grid - 1))
+    sizes = {hi - lo for lo, hi in ranges}
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    for chunk in range(units // per_chunk):
+        lo, hi = chunk * per_chunk, (chunk + 1) * per_chunk
+        meet = sum(1 for r0, r1 in ranges if r0 < hi and r1 > lo)
+        assert meet <= slots, (chunk, meet, slots)
+
+
+@pytest.mark.parametrize("sms,per_sm", [(132, 4), (132, 2)])
+def test_conv_partial_rows_stay_few(sms, per_sm):
+    """At mamba2-1.3b's training shape the staged adjoint's f32 partial rows
+    of dw and db (slots x (W+1) x C) stay under 1% of the bytes its inputs
+    and dx move, at most ten rows a chunk, and every block of the wave has
+    work."""
+    b, s, c, es = 4, 1024, 4352, 2
+    grid, slots = cc.plan(b, s, c, es, "vector", sms, per_sm)
+    assert slots * 5 * c * 4 < 0.01 * 3 * b * s * c * es
+    assert slots <= 10
+    assert grid == sms * per_sm
+
+
+def test_conv_scalar_plan_stays_within_a_wave_of_its_blocks():
+    """The scalar route's register-window kernel: blocks over the tiles
+    (grid.y) at most a wave over the channel blocks, one partial row each."""
+    grid, slots = cc.plan(4, 1024, 4352, 2, "scalar", 132, 2)
+    gx = -(-4352 // cc.UNITS_X)
+    assert grid == slots and 1 <= grid and (grid - 1) * gx < 132 * 2
+
+
+# B4's one-pass adjoint: (d, vector, bytes an element, gated) -> (NU, tpr)
+NORM_PLANS = [((128, True, 2, False), (2, 8)), ((2048, True, 2, False), (2, 128)),
+              ((3072, True, 2, False), (2, 192)), ((4096, True, 2, True), (1, 512)),
+              ((16384, True, 2, True), (2, 1024)), ((16384, True, 4, False), (4, 1024)),
+              ((512, True, 4, False), (2, 64)), ((4096, True, 4, True), (1, 1024)),
+              ((77, False, 4, False), (16, 8)), ((3076, False, 2, False), (16, 224)),
+              ((16384, False, 2, True), (16, 1024))]
+
+
+@pytest.mark.parametrize("key,want", NORM_PLANS)
+def test_norm_bwd_plan(key, want):
+    """The one-pass adjoint's threads hold the row at NU units each; tpr a
+    power of two up to 32 (a 128-wide row on a quarter-warp), else a
+    multiple of 32; the block BWD_ROW_BLOCK // tpr rows below
+    BWD_ROW_BLOCK, else one; ``csrc/rms_norm.cu``'s ``bwd_plan_ok`` takes
+    the same."""
+    d, vector, es, gated = key
+    nu, tpr, block = rn.bwd_plan(d, vector, es, gated)
+    assert (nu, tpr) == want
+    v = 16 // es if vector else 1
+    assert tpr * nu * v >= d and tpr <= rn.BWD_MAX_TPR
+    assert (tpr & (tpr - 1)) == 0 if tpr <= 32 else tpr % 32 == 0
+    assert block == (tpr if tpr >= rn.BWD_ROW_BLOCK else rn.BWD_ROW_BLOCK // tpr * tpr)
+
+
+@pytest.mark.parametrize("rows,groups", [(4096, 4), (4096, 1), (65536, 64), (163840, 64),
+                                         (3, 1), (50, 64)])
+@pytest.mark.parametrize("sms,per_sm", CARDS)
+def test_norm_bwd_blocks_are_one_whole_wave(rows, groups, sms, per_sm):
+    """``bwd_blocks``: at most the blocks the card holds at once, no more than
+    the row groups; the blocks' row groups (a grid's worth apart) differ by
+    at most one, so the wave ends together."""
+    blocks = rn.bwd_blocks(rows, groups, sms, per_sm)
+    nrg = -(-rows // groups)
+    assert 1 <= blocks <= min(nrg, sms * per_sm)
+    per_block = [len(range(g, nrg, blocks)) for g in range(blocks)]
+    assert sum(per_block) == nrg and max(per_block) - min(per_block) <= 1
+
+
 @pytest.mark.parametrize("kernel,n", [("rms_norm", 128), ("rms_norm", 2048), ("gated", 64),
                                       ("gated", 256), ("conv", 77), ("conv", 4352)])
 def test_the_bf16_adjoint_limit_refuses_bf16_arithmetic(kernel, n):

@@ -15,6 +15,12 @@ Without a card every case skips.
   f32 sum of at most 16384 squares in another order), which moves the
   output by at most two ulps of the dtype in bf16 (``round(x·rstd)`` by
   one, then the product with ``scale`` rounds again).
+* The redesigned adjoints (the staged convolution adjoint, the one-pass
+  norm adjoint) are held the same way at the edges of their plans: steps
+  off the tile, channels off the chunk, S < W-1 with a state, the scalar
+  route, grids of one block and of the card's wave; the staged kernel's
+  recomputed pre-activation (packed bf16 products and sums) equals the
+  plain chain's bit for bit.
 * The adjoints differ from their plain versions (f32 on the card) only by
   the order of their f32 sums (a row's dot, the column sums of dscale, dD,
   dw and db): the relative error of the difference's norm is held within
@@ -313,3 +319,160 @@ def test_norms_under_grad_on_the_card():
     for a, b in zip(grads(lambda *a: ops.gated_rms_norm(*a, 1e-5), (y, xh, D, z, sc), gz),
                     grads(lambda *a: rn.gated_rms_norm_plain(*a, 1e-5), (y, xh, D, z, sc), gz)):
         assert _rel(a, b) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the redesigned adjoints at the edges of their plans
+# ---------------------------------------------------------------------------
+
+def _conv_adjoint_close(x, w, bias, state, gen, route):
+    """The adjoint on ``route`` against the plain one; the staged kernel's
+    recomputed pre-activation equal to the plain chain's bit for bit and its
+    SiLU to the forward's output."""
+    g = _randn(x.shape, gen, x.dtype)
+    before = dict(cc.causal_conv1d_bwd.launches_by_route)
+    grads = cc.causal_conv1d_bwd(g, x, w, bias, state, need_dstate=state is not None)
+    assert _took(cc.causal_conv1d_bwd, before) == {r: int(r == route) for r in cc.ROUTES}
+    want = cc.causal_conv1d_bwd_plain(g, x, w, bias, state, need_dstate=state is not None)
+    for name, a, wv in zip(("dx", "dw", "db", "dstate"), grads, want):
+        assert (a is None) == (wv is None), name
+        if a is not None:
+            assert _adjoint_close(a, wv, x.dtype), (name, _rel(a, wv))
+    if route == "vector":
+        pre = cc.conv_preactivation(g, x, w, bias, state)
+        s = x.shape[1]
+        xin = torch.cat([state if state is not None else x.new_zeros((x.shape[0], 3, x.shape[2])),
+                         x], dim=1)
+        chain = torch.zeros_like(pre)
+        for i in range(4):
+            chain = chain + xin[:, i:i + s] * w[i]
+        chain = chain + bias
+        assert torch.equal(_bits(pre), _bits(chain))
+        out, _ = cc.causal_conv1d_fwd(x, w, bias, state)
+        assert torch.equal(_bits(torch.nn.functional.silu(pre)), _bits(out))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [100, 65, 127, 2, 8])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_conv_staged_adjoint_ragged_steps(dtype, s, with_state):
+    """S off the 64-step tile and the 8-step segment, and S < W-1 with a
+    state (its gradient from the first segment's dpre alone)."""
+    gen = _gen(s + 7)
+    x, w, bias, state = _conv(3, s, 4352, dtype, gen, with_state)
+    _conv_adjoint_close(x, w, bias, state, gen, "vector")
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.bfloat16, 72), (torch.bfloat16, 4360),
+                                     (torch.float32, 36), (torch.float32, 100)])
+def test_conv_staged_adjoint_channels_off_the_chunk(dtype, c):
+    """C a whole number of 16 bytes but not of the 128-byte chunk: the last
+    chunk's channels past C are zero-filled by TMA and never stored."""
+    gen = _gen(c)
+    x, w, bias, state = _conv(2, 300, c, dtype, gen, True)
+    _conv_adjoint_close(x, w, bias, state, gen, "vector")
+
+
+@pytest.mark.parametrize("case", ["c_8_bytes", "x_offset_8_bytes"])
+def test_conv_adjoint_takes_the_scalar_route_off_tma_alignment(case):
+    """A layout the staged kernel's tensor maps do not take (C or x's start
+    8-byte but not 16-byte aligned) goes to the scalar route, counted there;
+    the forward still takes its 8-byte route."""
+    gen = _gen(3)
+    if case == "c_8_bytes":
+        x, w, bias, state = _conv(2, 70, 4356, torch.bfloat16, gen, True)
+    else:
+        full = _randn((2, 70, 4352 + 8), gen, torch.bfloat16)
+        x = full[..., 4:4 + 4352]
+        _, w, bias, state = _conv(2, 70, 4352, torch.bfloat16, gen, True)
+    before = dict(cc.causal_conv1d_fwd.launches_by_route)
+    cc.causal_conv1d_fwd(x, w, bias, state)
+    assert _took(cc.causal_conv1d_fwd, before) == {"vector": 1, "scalar": 0}
+    _conv_adjoint_close(x, w, bias, state, gen, "scalar")
+    with pytest.raises(ValueError, match="16-byte"):
+        cc.conv_preactivation(_randn(x.shape, gen, x.dtype), x, w, bias, state)
+
+
+@pytest.mark.parametrize("sms,per_sm", [(1, 1), (3, 1), (132, 3)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_staged_adjoint_on_small_grids(sms, per_sm, dtype, monkeypatch):
+    """One block walking every tile of every chunk and sequence, three blocks
+    whose ranges each cross many chunks (a partial row each time), and the
+    card's own wave: the same gradients."""
+    monkeypatch.setattr(cc, "_sm_count", lambda dev: sms)
+    monkeypatch.setattr(cc, "_residency", lambda *a: per_sm)
+    gen = _gen(sms)
+    x, w, bias, state = _conv(2, 200, 1088, dtype, gen, True)
+    _conv_adjoint_close(x, w, bias, state, gen, "vector")
+
+
+# B4's one-pass plan at its edges: a 128-wide row on a quarter-warp, 2048 on
+# 128 threads, 3072 on 192, 4096 gated on 512; a tpr rounded up to a
+# multiple of 32, rows past 8192 (NU 2) and f32 past 8192 (NU 4)
+EDGE_WIDTHS = (128, 2048, 3072, 4096, 4104, 136, 16384)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", EDGE_WIDTHS)
+def test_rms_norm_one_pass_adjoint_widths(dtype, d):
+    gen = _gen(d + 1)
+    rows = 8 * 64 if d <= 4104 else 64
+    x = _randn((rows, d), gen, dtype)
+    scale = _randn((d,), gen, dtype, 0.5) + 1
+    _, rstd = rn.rms_norm_fwd_plain(x, scale, 1e-5, keep_rstd=True)
+    g = _randn(x.shape, gen, dtype)
+    before = dict(rn.rms_norm_bwd.launches_by_route)
+    dx, ds = rn.rms_norm_bwd(g, x, scale, rstd)
+    assert _took(rn.rms_norm_bwd, before) == {"vector": 1, "scalar": 0}
+    wdx, wds = rn.rms_norm_bwd_plain(g, x, scale, rstd)
+    assert _adjoint_close(dx, wdx, dtype) and _adjoint_close(ds, wds, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hp", [(64, 64), (128, 64), (2, 64)])
+@pytest.mark.parametrize("sms,per_sm", [(1, 1), (2, 1), (132, 2)])
+def test_norm_adjoints_on_small_grids(dtype, hp, sms, per_sm, monkeypatch):
+    """One block over every row (its row groups' shared accumulators added
+    in order once), two blocks, and the card's wave; the gated form at
+    mamba2's heads, twice as many, and two."""
+    monkeypatch.setattr(rn, "_sm_count", lambda dev: sms)
+    monkeypatch.setattr(rn, "_bwd_residency", lambda *a: per_sm)
+    h, p = hp
+    gen = _gen(h + sms)
+    y, xh, D, z, scale = _gated(2, 96, h, p, dtype, gen)
+    _, rstd = rn.gated_rms_norm_fwd_plain(y, xh, D, z, scale, 1e-5, keep_rstd=True)
+    g = _randn(z.shape, gen, dtype)
+    grads = rn.gated_rms_norm_bwd(g, y, xh, D, z, scale, rstd)
+    want = rn.gated_rms_norm_bwd_plain(g, y, xh, D, z, scale, rstd)
+    for name, a, w in zip(("dy", "dxh", "dD", "dz", "dscale"), grads, want):
+        assert _adjoint_close(a, w, dtype), (name, _rel(a, w))
+    x = _randn((3, 70, h * p // 2), gen, dtype)
+    sc = _randn((h * p // 2,), gen, dtype, 0.5) + 1
+    _, r = rn.rms_norm_fwd_plain(x, sc, 1e-5, keep_rstd=True)
+    gx = _randn(x.shape, gen, dtype)
+    dx, ds = rn.rms_norm_bwd(gx, x, sc, r)
+    wdx, wds = rn.rms_norm_bwd_plain(gx, x, sc, r)
+    assert _adjoint_close(dx, wdx, dtype) and _adjoint_close(ds, wds, dtype)
+
+
+def test_plain_forward_caches_its_layout_and_keeps_its_refusals():
+    """A layout's checks and plan are made once (the cache holds it after a
+    call), a pointer off 16 bytes in a cached layout still takes the scalar
+    route, and a refused layout raises every time."""
+    gen = _gen(31)
+    x = _randn((4, 1, 2048), gen, torch.bfloat16)
+    scale = _randn((2048,), gen, torch.bfloat16, 0.5) + 1
+    rn.rms_norm_fwd(x, scale)
+    assert any(k[0] == x.shape and k[1] == x.stride() for k in rn._FWD_LAYOUTS)
+    full = _randn((4, 1, 2048 + 8), gen, torch.bfloat16)
+    shifted = full[..., 8:]                   # 16-byte aligned, x's strides
+    odd = full[..., 4:4 + 2048]              # 8 bytes in: the scalar route
+    for t, route in ((shifted, "vector"), (odd, "scalar")):
+        before = dict(rn.rms_norm_fwd.launches_by_route)
+        got, rstd = rn.rms_norm_fwd(t, scale, 1e-5, keep_rstd=True)
+        assert _took(rn.rms_norm_fwd, before) == {r: int(r == route) for r in rn.ROUTES}
+        want, want_rstd = rn.rms_norm_fwd_plain(t, scale, 1e-5, keep_rstd=True)
+        _statistic_rule(got, rstd, want, want_rstd, t, scale)
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            rn.rms_norm_fwd(x, scale.float())
