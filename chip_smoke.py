@@ -74,12 +74,15 @@ Run from the root of a checkout. Phases, one JSON line each:
    jamba's d_inner and mamba2's decode step with an f32 y, the convolution
    at mamba2's and jamba's channels over the projection's columns, with the
    cache's state at decode; f32 at the demo's and mamba2's shapes), one
-   launch each on the ``vector`` route: B5's forward and new state bit for
-   bit, B4's forward bit for bit on every row whose rstd equals the plain
+   launch each on the ``vector`` route (B5's forward on ``staged``, its
+   decode step on ``vector``): B5's forward and new state bit for bit, its
+   SiLU equal to ``F.silu`` on every bf16 input (``silu_check``), B4's
+   forward bit for bit on every row whose rstd equals the plain
    one (within an ulp elsewhere), the adjoints within ``norm_adj_tol``
    (and the bf16 control, ``narrow_adjoints``, beyond it);
    timed at mamba2-1.3b's training shape (and phi4-mini's plain form at
-   3072) in turns with the plain versions and, for the plain forward,
+   3072, olmoe's q/k rows, B5's forward at jamba's shape and mamba2's
+   decode step) in turns with the plain versions and, for the plain forward,
    ``F.rms_norm`` (a yardstick never on the path), beside the bound by
    bytes, with each kernel's own device time and each call's host µs;
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
@@ -1818,9 +1821,31 @@ B4_GATED_B5_BWD = ("gated_rms_norm_bwd", "causal_conv1d_bwd")
 NORM_CONV = B4 + B4_BWD + B5 + B5_BWD
 NORM_CONV_KERNELS = {"norm_forward": ("rms_norm_fwd_kernel",),
                      "norm_backward": ("rms_norm_bwd_kernel", "norm_sum_partials"),
-                     "conv_forward": ("conv_fwd_kernel",),
+                     "conv_forward": ("causal_conv_fwd_kernel", "causal_conv_fwd_window_kernel"),
                      "conv_backward": ("causal_conv_bwd_kernel", "causal_conv_sum_partials",
                                        "causal_conv_bwd_scalar_kernel", "causal_conv_sum_rows")}
+
+
+# B5's forward launches by route over the paths the kernels line counts
+# (``tally_conv_routes`` after each path's route check)
+CONV_FWD_ROUTES = {"staged": 0, "vector": 0, "scalar": 0}
+
+
+def nc_routes(want: dict, decode_convs: int = 0) -> dict:
+    """B4's and B5's launches in ``want`` by route: the norms and B5's
+    adjoint on ``vector``; B5's forward on ``staged`` but for the
+    ``decode_convs`` calls of decode steps (S = 1), which keep the register
+    window's ``vector`` route."""
+    routes = {k: {"vector": want[k], "scalar": 0} for k in NORM_CONV}
+    n = want["causal_conv1d_fwd"]
+    routes["causal_conv1d_fwd"] = {"staged": n - decode_convs, "vector": decode_convs,
+                                   "scalar": 0}
+    return routes
+
+
+def tally_conv_routes(routes: dict) -> None:
+    for route, n in routes["causal_conv1d_fwd"].items():
+        CONV_FWD_ROUTES[route] += n
 
 
 @contextlib.contextmanager
@@ -2143,7 +2168,8 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     peak = torch.cuda.max_memory_allocated()
     want = expected_launches(cfg, SERVE_NEW)
     want_routes = {k: {"sm90": want[k], "simt": 0} for k in ("flash_attention", "ssd_scan")}
-    want_routes.update({k: {"vector": want[k], "scalar": 0} for k in B2 + NORM_CONV})
+    want_routes.update({k: {"vector": want[k], "scalar": 0} for k in B2})
+    want_routes.update(nc_routes(want, norm_conv_counts(cfg)["ssm"] * SERVE_NEW))
     same_bits = b2_plain_bits = None
     if cfg.uses_moe:               # the MoE combine is deterministic: equal bits
         with torch.inference_mode():
@@ -2178,6 +2204,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
         raise AssertionError(f"{arch}: serve check failed: launches {counts}, want {want}; "
                              f"routes {routes}, want {want_routes}; equal bits {same_bits}, "
                              f"under B2's plain versions {b2_plain_bits}")
+    tally_conv_routes(routes)
 
     if arch in PROFILED:
         # where the time goes: device kernel time per phase, and the prefill
@@ -3221,8 +3248,10 @@ CONV_CHECKS = (("mamba2-1.3b", "bfloat16", (4, 1024), 4352, 8512, False),
                ("mamba2-1.3b f32", "float32", (4, 1024), 4352, 8512, False))
 # the timed shapes: mamba2-1.3b's training shape for the gated form, B5 and
 # the plain form at 2048 (its ln1), phi4-mini's plain form at 3072 and
-# olmoe-1b-7b's q/k norms (16 heads of 128 over 4 x 1024 tokens)
+# olmoe-1b-7b's q/k norms (16 heads of 128 over 4 x 1024 tokens); B5's
+# forward also at jamba's shape and mamba2's decode step
 NORM_TIMED = ("mamba2-1.3b", "phi4-mini-3.8b", "olmoe-1b-7b q/k")
+CONV_TIMED = NORM_TIMED + ("jamba-1.5-large-398b", "mamba2-1.3b decode")
 
 
 def norm_adj_tol(dtype: str, n: int) -> float:
@@ -3307,6 +3336,39 @@ def nc_statistic(got, rstd, want, want_rstd, normed, scale) -> dict:
             "chain_at_kernel_rstd_bits_equal": chain, "rstd_max_rel_diff": rstd_rel,
             "max_ulps_elsewhere": off, "max_abs_err": float((g - w).abs().max()),
             "ok": eq and chain and rstd_rel <= 1e-5}
+
+
+def silu_check(cc) -> None:
+    """The staged forward's SiLU (a fast form, the exact chain near bf16
+    rounding boundaries) against ``F.silu`` on each of the 65,536 bf16 bit
+    patterns as a pre-activation: w's last tap 1, the others and the bias 0,
+    so the pre-activation is x itself. Width 1 takes every pattern, width 4
+    the finite ones (a zero tap times an infinity is NaN). Every output must
+    equal the plain version's bit for bit, NaN where it is NaN."""
+    import torch
+    pats = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    result = {}
+    for width in (1, 4):
+        x = (pats if width == 1 else torch.where(torch.isfinite(pats), pats,
+                                                 torch.zeros_like(pats)))
+        x = x.reshape(1, 256, 256).cuda()
+        w = torch.zeros((width, 256), dtype=torch.bfloat16, device="cuda")
+        w[-1] = 1
+        bias = torch.zeros(256, dtype=torch.bfloat16, device="cuda")
+        before = dict(cc.causal_conv1d_fwd.launches_by_route)
+        out, _ = cc.causal_conv1d_fwd(x, w, bias)
+        routes = {r: n - before[r] for r, n in cc.causal_conv1d_fwd.launches_by_route.items()}
+        want, _ = cc.causal_conv1d_plain(x, w, bias)
+        nan = torch.isnan(want)
+        same = (bool(torch.equal(torch.isnan(out), nan))
+                and bool(torch.equal(bits(out)[~nan], bits(want)[~nan])))
+        result[width] = {"routes": routes, "inputs": int(x.numel()),
+                         "differing": int((bits(out) != bits(want))[~nan].sum()), "ok": same}
+    ok = all(r["ok"] and r["routes"]["staged"] == 1 for r in result.values())
+    emit({"phase": "kernel_check", "kernel": "causal_conv1d_fwd silu", "widths": result,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"causal_conv1d_fwd's SiLU differs from F.silu: {result}")
 
 
 def check_norm_conv(gen, smi: str) -> dict:
@@ -3427,6 +3489,7 @@ def check_norm_conv(gen, smi: str) -> dict:
         before = dict(cc.causal_conv1d_fwd.launches_by_route)
         out, new_state = cc.causal_conv1d_fwd(x, w, bias, state)
         fwd_took = took(cc.causal_conv1d_fwd, before)
+        fwd_route = "staged" if s > 1 else "vector"      # a decode step: the register window
         want, want_state = cc.causal_conv1d_plain(x, w, bias, state)
         g = randn((b, s, c), dtype)
         before = dict(cc.causal_conv1d_bwd.launches_by_route)
@@ -3447,7 +3510,8 @@ def check_norm_conv(gen, smi: str) -> dict:
                      and bool(torch.equal(bits(new_state), bits(want_state.contiguous()))))
         pre_bits = (bool(torch.equal(bits(pre), bits(want_pre)))
                     and bool(torch.equal(bits(F.silu(pre)), bits(out))))
-        ok = same_bits and pre_bits and fwd_took == one and bwd_took == one and adj.pop("ok")
+        ok = (same_bits and pre_bits and bwd_took == one and adj.pop("ok")
+              and fwd_took == {r: int(r == fwd_route) for r in cc.FWD_ROUTES})
         worst["causal_conv1d_fwd"] = max(worst["causal_conv1d_fwd"],
                                          float((out.float() - want.float()).abs().max()))
         worst["causal_conv1d_bwd"] = max(worst["causal_conv1d_bwd"], max(
@@ -3455,15 +3519,17 @@ def check_norm_conv(gen, smi: str) -> dict:
             if a is not None))
         emit({"phase": "kernel_check", "kernel": "causal_conv1d", "path": label, "dtype": dt,
               "batch": b, "seq": s, "channels": c, "row_stride": width, "state": with_state,
-              "forward_bits_equal": same_bits, "adjoint_preactivation_bits_equal": pre_bits,
+              "forward_route": fwd_route, "forward_bits_equal": same_bits,
+              "adjoint_preactivation_bits_equal": pre_bits,
               **adj, "launches": {"fwd": fwd_took, "bwd": bwd_took}, "ok": ok})
         if not ok:
             raise AssertionError(f"causal_conv1d differs from its plain version at {label}: "
                                  f"bits {same_bits}, pre {pre_bits}, {adj}, launches {fwd_took} "
                                  f"{bwd_took}")
-        if label in NORM_TIMED:
-            conv[label] = (x, w, bias, g)
+        if label in CONV_TIMED:
+            conv[label] = (x, w, bias, g, state)
         del proj, out, new_state, want, want_state, grads, wants, pre, want_pre, xin
+    silu_check(cc)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3484,6 +3550,13 @@ def check_norm_conv(gen, smi: str) -> dict:
         bf16 = dtype == torch.bfloat16
         return dict(cc.bwd_attributes("vector", bf16, 4, dev),
                     blocks_per_sm=cc._residency(dev, "vector", bf16, 4))
+
+    def conv_fwd_resources(dtype, route):
+        """The forward kernel's registers and local memory on ``route`` and,
+        on the staged route, the blocks an SM holds."""
+        bf16 = dtype == torch.bfloat16
+        extra = {"blocks_per_sm": cc._fwd_residency(dev, bf16, 4)} if route == "staged" else {}
+        return dict(cc.fwd_attributes(route, bf16, 4, dev), route=route, **extra)
 
     def time_pair(label, shape, dtype, fwd, bwd):
         """The forward and the adjoint of one shape, each (name, contenders,
@@ -3525,15 +3598,27 @@ def check_norm_conv(gen, smi: str) -> dict:
             bwd_split, nc_bound(7 * n * es + d * es + h * 4 + b * s * 4 + d * es + h * 4,
                                 40 * n),
             norm_resources(d, z.dtype, True)))
-    for label, (x, w, bias, g) in conv.items():
+    for label, (x, w, bias, g, state) in conv.items():
         (b, s, c), es = x.shape, x.element_size()
         n = b * s * c
-        time_pair(label, [b, s, c], x.dtype, (
-            "causal_conv1d_fwd",
-            {"kernel": lambda: cc.causal_conv1d_fwd(x, w, bias),
-             "plain": lambda: cc.causal_conv1d_plain(x, w, bias)},
-            {"causal_conv_fwd_kernel": 1},
-            nc_bound(2 * n * es + 5 * c * es + 3 * b * c * es, 10 * n)), (
+        route = "staged" if s > 1 else "vector"
+        # x read and the output written, w and b, the new state written and
+        # the old one read where there is one
+        fwd = ("causal_conv1d_fwd",
+               {"kernel": lambda: cc.causal_conv1d_fwd(x, w, bias, state),
+                "plain": lambda: cc.causal_conv1d_plain(x, w, bias, state)},
+               {"causal_conv_fwd_kernel" if route == "staged" else
+                "causal_conv_fwd_window_kernel": 1},
+               nc_bound(2 * n * es + 5 * c * es + (6 if state is not None else 3) * b * c * es,
+                        10 * n),
+               conv_fwd_resources(x.dtype, route))
+        if label not in NORM_TIMED:                # the forward alone at jamba's and decode
+            t = timed_in_turns(fwd[1], NC_ITERS, fwd[2], 100)
+            entries[fwd[0]][label] = dict(shape=[b, s, c], dtype=str(x.dtype), **t, **fwd[3],
+                                          share_of_bound=fwd[3]["bound_ms"] / t["ms"],
+                                          resources=fwd[4])
+            continue
+        time_pair(label, [b, s, c], x.dtype, fwd, (
             "causal_conv1d_bwd",
             {"kernel": lambda: cc.causal_conv1d_bwd(g, x, w, bias),
              "plain": lambda: cc.causal_conv1d_bwd_plain(g, x, w, bias)},
@@ -3889,10 +3974,12 @@ def train_launches(cfg, steps: int, adamw_per_step: int = 0, remat: bool = True)
 def train_routes(want: dict) -> dict:
     """Each kernel's launches in ``want`` by route: K2, its backward, K3's
     forward and its backward all on ``sm90`` (bf16 at these shapes), B2's,
-    B4's and B5's forward and adjoint kernels on ``vector``."""
+    B4's and B5's adjoint kernels and B4's forward on ``vector``, B5's
+    forward on ``staged`` (``nc_routes``)."""
     routes = {k: {"sm90": want[k], "simt": 0}
               for k in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")}
-    routes.update({k: {"vector": want[k], "scalar": 0} for k in B2 + B2_BWD + NORM_CONV})
+    routes.update({k: {"vector": want[k], "scalar": 0} for k in B2 + B2_BWD})
+    routes.update(nc_routes(want))
     return routes
 
 
@@ -3975,6 +4062,7 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
     if not ok:
         raise AssertionError(f"train {arch}: launches {counts} (want {want}), routes {routes}, "
                              f"losses {losses}")
+    tally_conv_routes(routes)
     del model, state, opt, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4212,7 +4300,7 @@ def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
           and routes["flash_attention"]["simt"] == 0 and routes["flash_attention_bwd"]["simt"] == 0
           and routes["ssd_scan"]["simt"] == 0 and routes["ssd_scan_bwd"]["simt"] == 0
           and routes["ssd_scan_bwd"]["sm90"] == want["ssd_scan_bwd"]
-          and all(routes[k] == {"vector": want[k], "scalar": 0} for k in NORM_CONV)
+          and all(routes[k] == v for k, v in nc_routes(want).items())
           and all(math.isfinite(x) for x in losses))
     emit({"phase": "steps", "step": "make_train_step", "arch": cfg.name, "mesh": "1x1",
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": opt_name, "remat": True,
@@ -4225,6 +4313,7 @@ def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
     if not ok:
         raise AssertionError(f"steps: {arch} train step {losses} vs {direct}, {param_rel}, "
                              f"{counted}")
+    tally_conv_routes(routes)
     del model, opt, state, step, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -4313,7 +4402,8 @@ def steps_phase(smi: str, counters: dict) -> dict:
         ssm = want_launches["ssd_scan"]
         ok = (ok and counted["launches"] == want_launches
               and counted["routes"]["flash_attention"]["simt"] == 0
-              and counted["routes"]["ssd_scan"]["simt"] == 0)
+              and counted["routes"]["ssd_scan"]["simt"] == 0
+              and all(counted["routes"][k] == v for k, v in nc_routes(want_launches).items()))
         best = min(prefill_s)
         record = {"phase": "steps", "step": "make_prefill_step" + (
                       " + make_decode_step" if with_decode else ""),
@@ -4332,6 +4422,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
         emit(record)
         if not ok:
             raise AssertionError(f"steps: {arch} prefill/decode: err {err}, {counted}")
+        tally_conv_routes(counted["routes"])
         if want_launches["flash_attention"]:
             by_path["flash_attention"][f"steps {arch} prefill"] = counted["launches"]["flash_attention"]
         if ssm:
@@ -4843,6 +4934,9 @@ def main() -> int:
     timings["int8_quant"]["max_abs_err"] = max(timings["int8_quant"]["max_abs_err"],
                                                k1_staged_err)
 
+    if sum(CONV_FWD_ROUTES.values()) != launches["causal_conv1d_fwd"]:
+        raise AssertionError(f"B5's forward: launches by route {CONV_FWD_ROUTES}, by path "
+                             f"{by_path['causal_conv1d_fwd']}")
     emit({"phase": "done", "seconds_since_build": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
@@ -4911,7 +5005,9 @@ def main() -> int:
          **timings["moe_combine_bwd"]},
         *({"name": name, "route": "cuda",
            "source": f"src/repro_torch/kernels/csrc/{source}.cu", "replaces": replaces,
-           "launches": launches[name], "launches_by_path": by_path[name], **timings[name]}
+           "launches": launches[name], "launches_by_path": by_path[name],
+           **({"launches_by_route": dict(CONV_FWD_ROUTES)} if name == "causal_conv1d_fwd"
+              else {}), **timings[name]}
           for name, source, replaces in (
               ("rms_norm_fwd", "rms_norm", "src/repro/models/layers.py:17"),
               ("rms_norm_bwd", "rms_norm", "src/repro/models/layers.py:17"),

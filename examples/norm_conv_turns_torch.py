@@ -1,6 +1,7 @@
-"""B4's and B5's adjoints on the card, this checkout's kernels in turns with
-another checkout's (a ``git archive`` of an earlier commit), and the plain
-norm forward's host time a call.
+"""B5's forward and B4's and B5's adjoints on the card, this checkout's
+kernels in turns with another checkout's (a ``git archive`` of an earlier
+commit), and the host time a call of the plain norm forward and of B5's
+forward.
 
     PYTHONPATH=src python examples/norm_conv_turns_torch.py --other <checkout>
 
@@ -9,18 +10,25 @@ Loads ``<checkout>/src/repro_torch/kernels``' ``rms_norm`` and
 wrappers live in one process), builds both checkouts' ``rms_norm.cu`` and
 ``causal_conv1d.cu``, and prints, as JSON lines:
 
-* ``check``: each adjoint of both checkouts against its plain version
+* ``check``: B5's forward of both checkouts against its plain version bit
+  for bit (output and new state, with the route this checkout took) at
+  ``CONV_FWD``'s shapes: mamba2-1.3b's and jamba-1.5-large's training shapes
+  and mamba2's decode step (the cache's state), x the x|B|C slice of the
+  projection; each adjoint of both checkouts against its plain version
   (within ``chip_smoke.norm_adj_tol``) at mamba2-1.3b's training shapes
   (the convolution over the x|B|C slice of the projection, the gated norm
   with y in the SSD kernel's layout), the plain norm at mamba2's 2048,
   phi4-mini's 3072 and olmoe-1b-7b's 128-wide q/k rows;
-* ``time``: each adjoint timed in turns (CUDA events over whole calls:
-  this, other, other, this, three rounds; each checkout's kernels' device
-  time a call by the profiler) beside its bound by bytes, and, for the plain
-  form, ``torch.add`` of g and x (one elementwise kernel of the same reads);
-* ``host_us``: the plain forward's host µs a call at a decode step's rows
-  (4 × 1 × 2048), back to back with ``F.rms_norm`` and the parts of a call
-  (the layout's lookup, the output's allocation, the ctypes launch).
+* ``time``: B5's forward at each of ``CONV_FWD``'s shapes and each adjoint,
+  timed in turns (CUDA events over whole calls: this, other, other, this,
+  three rounds; each checkout's kernels' device time a call by the
+  profiler) beside its bound by bytes, and, for the plain form,
+  ``torch.add`` of g and x (one elementwise kernel of the same reads);
+* ``host_us``: the host µs a call, back to back, of the plain norm forward
+  at a decode step's rows (4 × 1 × 2048) beside ``F.rms_norm``, and of B5's
+  forward at mamba2's decode step beside the other checkout's, each with
+  the parts of a call (the layout's lookup, the outputs' allocation, the
+  ctypes launch).
 """
 import argparse
 import importlib
@@ -44,7 +52,16 @@ from repro_torch.launch.roofline import H100_HBM_BW as PEAK_BYTES  # noqa: E402
 # (label, rows (B, S), width): the plain form's adjoint on the training paths
 PLAIN = (("mamba2-1.3b", (4, 1024), 2048), ("phi4-mini-3.8b", (4, 1024), 3072),
          ("olmoe-1b-7b q/k", (4, 1024 * 16), 128))
-# each adjoint's kernels a call, by name (both checkouts use these names)
+# B5's forward: (label, (B, S), C, the projection's width, a state)
+CONV_FWD = (("mamba2-1.3b", (4, 1024), 4352, 8512, False),
+            ("jamba-1.5-large-398b", (4, 1024), 16640, 33280, False),
+            ("mamba2-1.3b decode", (4, 1), 4352, 8512, True))
+# each kernel's launches a call, by name: B5's forward by this checkout's
+# route (the staged kernel, or the register window at a decode step) and in
+# a checkout before the staged forward (its one kernel, named as the staged
+# one is now); the adjoints' kernels (both checkouts use these names)
+CONV_FWD_KERNELS = {"staged": {"causal_conv_fwd_kernel": 1},
+                    "vector": {"causal_conv_fwd_window_kernel": 1}}
 CONV_KERNELS = {"causal_conv_bwd_kernel": 1, "causal_conv_sum_partials": 1}
 NORM_KERNELS = {"rms_norm_bwd_kernel": 1, "norm_sum_partials": 1}
 
@@ -71,10 +88,11 @@ def close(names, got, want):
                      for e, w in zip(errs.values(), want))
 
 
-def timed(label, this, other, nbytes, kernels, smi):
+def timed(label, this, other, nbytes, kernels, smi, other_kernels=None):
     t = in_turns(this, other, iters=30, rounds=3, warmup=2)
     bound = nbytes / PEAK_BYTES * 1e3
-    dev = [sum(kernel_split(fn, kernels, calls=5).values()) for fn in (this, other)]
+    dev = [sum(kernel_split(fn, ks, calls=5).values())
+           for fn, ks in ((this, kernels), (other, other_kernels or kernels))]
     emit({"phase": "time", "kernel": label, "kernel_ms": dev[0], "other_kernel_ms": dev[1],
           "bound_ms": bound, "share_of_bound": bound / dev[0],
           "other_share_of_bound": bound / dev[1], "call_ms": min(t[0]),
@@ -95,6 +113,26 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     ok = True
+
+    # B5's forward, bit for bit, x the x|B|C slice of the projection
+    fwd = {}
+    for label, (fb, fs), fc, fwidth, with_state in CONV_FWD:
+        fproj = randn((fb, fs, fwidth), gen)
+        fx = fproj[..., fc - 256:2 * fc - 256]      # after z's d_inner = C - 2 · 128 columns
+        fw, fbias = randn((4, fc), gen, scale=0.5), randn((fc,), gen, scale=0.1)
+        fstate = randn((fb, 3, fc), gen) if with_state else None
+        want, want_state = cc.causal_conv1d_plain(fx, fw, fbias, fstate)
+        for who, mod in (("this", cc), ("other", occ)):
+            before = dict(mod.causal_conv1d_fwd.launches_by_route)
+            got, got_state = mod.causal_conv1d_fwd(fx, fw, fbias, fstate)
+            took = {r: n - before[r] for r, n in mod.causal_conv1d_fwd.launches_by_route.items()}
+            good = (torch.equal(got.view(torch.int16), want.view(torch.int16)) and
+                    torch.equal(got_state.view(torch.int16),
+                                want_state.contiguous().view(torch.int16)))
+            emit({"phase": "check", "kernel": "causal_conv1d_fwd", "path": label,
+                  "checkout": who, "bits_equal": good, "routes": took})
+            ok &= good
+        fwd[label] = (fx, fw, fbias, fstate)
 
     # B5 at mamba2-1.3b's training shape: x the x|B|C slice of the projection
     b, s, c, width = 4, 1024, 4352, 8512
@@ -146,6 +184,14 @@ def main() -> int:
     if not ok:
         return 1
 
+    for label, (fx, fw, fbias, fstate) in fwd.items():
+        (fb, fs, fc), nst = fx.shape, 0 if fstate is None else 3
+        route = cc.fwd_route(fs, fc, 2, *fx.stride()[:2], 0)
+        other_names = getattr(occ, "FWD_ROUTES", None) and CONV_FWD_KERNELS[route]
+        timed(f"causal_conv1d_fwd {label}", lambda a=fwd[label]: cc.causal_conv1d_fwd(*a),
+              lambda a=fwd[label]: occ.causal_conv1d_fwd(*a),
+              (2 * fb * fs * fc + 5 * fc + 3 * fb * fc + nst * fb * fc) * 2,
+              CONV_FWD_KERNELS[route], smi, other_names or {"causal_conv_fwd_kernel": 1})
     n = b * s * c
     timed("causal_conv1d_bwd", conv["this"], conv["other"], 3 * n * 2 + 10 * c * 2,
           CONV_KERNELS, smi)
@@ -180,12 +226,33 @@ def main() -> int:
              "part: ctypes launch": lambda: lib.rms_norm_fwd(mode, xp, None, None, None, None, sp,
                                                              op, None, rows, d, rs, 0, 0, None,
                                                              1e-5, tpr, stream)}
+    host_turns(calls, list(xx.shape), smi)
+
+    # B5's forward at mamba2's decode step, this checkout's against the other's
+    fx, fw, fbias, fstate = fwd["mamba2-1.3b decode"]
+    fb, fs, c, es, width, xsb, xss, grid, modes, dev = cc._fwd_layout(fx, fw, fbias, fstate)
+    route = cc.fwd_route(fs, c, es, xsb, xss, 0)
+    out, new_state = torch.empty_like(fx), torch.empty_like(fstate)
+    clib = cc._lib()
+    ptrs = (fx.data_ptr(), fstate.data_ptr(), fw.data_ptr(), fbias.data_ptr(), out.data_ptr(),
+            new_state.data_ptr())
+    host_turns({
+        "causal_conv1d_fwd": lambda: cc.causal_conv1d_fwd(fx, fw, fbias, fstate),
+        "other causal_conv1d_fwd": lambda: occ.causal_conv1d_fwd(fx, fw, fbias, fstate),
+        "part: layout lookup": lambda: cc._fwd_layout(fx, fw, fbias, fstate),
+        "part: new_empty x2": lambda: (fx.new_empty(fx.shape), fx.new_empty(fstate.shape)),
+        f"part: ctypes launch ({route})": lambda: clib.causal_conv1d_fwd(
+            modes[route], *ptrs, fb, fs, c, xsb, xss, grid, stream)}, list(fx.shape), smi)
+    return 0
+
+
+def host_turns(calls: dict, shape, smi) -> None:
+    """Each call's host µs (``host_ms_per_call``, 400 calls back to back),
+    in turns: in order, then back; the least of each."""
     host = {k: [] for k in calls}
     for k in list(calls) + list(calls)[::-1]:
         host[k].append(host_ms_per_call(calls[k], calls=400) * 1e3)
-    emit({"phase": "host_us", "shape": list(xx.shape), "smi": smi,
-          **{k: min(v) for k, v in host.items()}})
-    return 0
+    emit({"phase": "host_us", "shape": shape, "smi": smi, **{k: min(v) for k, v in host.items()}})
 
 
 if __name__ == "__main__":

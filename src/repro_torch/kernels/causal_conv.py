@@ -26,14 +26,19 @@ fixed order and rounded once. Training goes through
 
 A CUDA tensor goes to the kernels or raises; CPU tensors (the tests) take
 the plain versions. Each wrapper counts its launches under a lock, in
-``launches`` and in ``launches_by_route``. The forward's routes: ``vector``
-(8-byte units of channels: C and every row start 8-byte aligned) or
-``scalar`` (a channel at a time). The adjoint's: ``vector``, the staged
-kernel (tiles of x and G brought to shared memory by TMA: x, G, every
-pointer and row stride 16-byte aligned), or ``scalar``, the register-window
-kernel a channel a thread. :func:`conv_preactivation` returns the staged
-kernel's recomputed pre-activation, for the tests that hold it to the
-forward's.
+``launches`` and in ``launches_by_route``. The forward's routes
+(``FWD_ROUTES``), by layout alone (:func:`fwd_route`): ``staged`` (tiles of
+x brought to shared memory by TMA, a persistent grid of the measured
+residency, ``fwd_plan``: x, the state, every pointer and row stride 16-byte
+aligned, C a whole number of 16 bytes, more than one step), else
+``vector`` (the register-window kernel in 8-byte units: C and every row
+start 8-byte aligned; a decode step), else ``scalar`` (the same a channel at
+a time); its checks and plan are made once a layout (:func:`_fwd_layout`).
+The adjoint's: ``vector``, the staged kernel (tiles
+of x and G brought to shared memory by TMA: x, G, every pointer and row
+stride 16-byte aligned), or ``scalar``, the register-window kernel a channel
+a thread. :func:`conv_preactivation` returns the staged adjoint's
+recomputed pre-activation, for the tests that hold it to the forward's.
 """
 from __future__ import annotations
 
@@ -49,22 +54,26 @@ from torch.autograd.function import once_differentiable
 from .build import load_library, require
 
 ROUTES = ("vector", "scalar")
-# csrc/causal_conv1d.cu's layout: the forward's and the scalar adjoint's L
-# time steps a thread, blocks of UNITS_X channel units by TILES_Y tiles,
-# widths up to MAX_W; the staged adjoint's tiles of TL steps by CHUNK_BYTES
-# of channels, SEG steps a warp
+FWD_ROUTES = ("staged", "vector", "scalar")
+# csrc/causal_conv1d.cu's layout: the window forward's and the scalar
+# adjoint's L time steps a thread, blocks of UNITS_X channel units by
+# TILES_Y tiles, widths up to MAX_W; the staged adjoint's tiles of TL steps
+# by CHUNK_BYTES of channels, SEG steps a warp; the staged forward's tiles
+# of FWD_TL steps by FWD_CHUNK_BYTES, FWD_SEG steps a warp
 L, UNITS_X, TILES_Y, MAX_W = 16, 32, 8, 4
 TL, SEG, CHUNK_BYTES = 64, 8, 128
+FWD_TL, FWD_SEG, FWD_CHUNK_BYTES = 64, 8, 256
 MAX_GRID_Y = 65535
 _DTYPES = (torch.float32, torch.bfloat16)
-# the mode int: the route in bits 0-1, the dtype bit, the width from bit 3
-_ROUTE_CODE = {"scalar": 0, "vector": 1}
+# the mode int: the route in bits 0-1 (the forward's staged route 2), the
+# dtype bit, the width from bit 3
+_ROUTE_CODE = {"scalar": 0, "vector": 1, "staged": 2}
 _MODE_DTYPE, _MODE_W_SHIFT, _MODE_DEVICE_SHIFT = 4, 3, 8
 _LAUNCH_LOCK = threading.Lock()
 _LL, _P = ctypes.c_longlong, ctypes.c_void_p
 _IP = ctypes.POINTER(ctypes.c_int)
-# mode, x, state, w, b, out, new_state, B, S, C, xsb, xss, stream
-_FWD_ARGTYPES = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _P]
+# mode, x, state, w, b, out, new_state, B, S, C, xsb, xss, grid, stream
+_FWD_ARGTYPES = [ctypes.c_int, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P]
 # mode, x, state, w, b, g, dx, dstate, dwb, part, pre, B, S, C, xsb, xss, grid, slots, stream
 _BWD_ARGTYPES = [ctypes.c_int] + [_P] * 10 + [_LL] * 7 + [_P]
 
@@ -180,6 +189,46 @@ def bwd_attributes(route: str, bf16: bool, width: int, device: int) -> dict:
     return {"registers": regs.value, "local_bytes": local.value}
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_residency(device: int, bf16: bool, width: int) -> int:
+    """Blocks of the staged forward kernel an SM of ``device`` holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, its shared memory
+    included)."""
+    n = _lib().causal_conv1d_fwd_residency(_mode("staged", torch.bfloat16 if bf16
+                                                 else torch.float32, width, device))
+    if n <= 0:
+        _raise("causal_conv1d_fwd_residency", -n if n else 1)
+    return n
+
+
+def fwd_attributes(route: str, bf16: bool, width: int, device: int) -> dict:
+    """The forward kernel's registers a thread and local memory (its stack
+    frame, spills included) on ``route`` as the runtime reports them."""
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    err = _lib().causal_conv1d_fwd_attributes(
+        _mode(route, torch.bfloat16 if bf16 else torch.float32, width, device),
+        ctypes.byref(regs), ctypes.byref(local))
+    if err:
+        _raise("causal_conv1d_fwd_attributes", err)
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def fwd_units(batch: int, seq: int, channels: int, esize: int) -> int:
+    """The staged forward's units: chunks of FWD_CHUNK_BYTES × batch ×
+    FWD_SEG-step segments."""
+    return -(-channels * esize // FWD_CHUNK_BYTES) * batch * -(-seq // FWD_SEG)
+
+
+def fwd_plan(batch: int, seq: int, channels: int, esize: int, sms: int, per_sm: int) -> int:
+    """The staged forward's grid for ``sms`` SMs that hold ``per_sm`` of its
+    blocks at once: a persistent grid of at most one wave, ``sms · per_sm``
+    blocks over the units, at least one each (the kernel gives block g the
+    units [g·units/grid, (g+1)·units/grid)). A short sequence (a decode
+    step: one segment a chunk and sequence) is a tile of one segment, so its
+    units spread over as many blocks as the card holds."""
+    return max(1, min(sms * per_sm, fwd_units(batch, seq, channels, esize)))
+
+
 def staged_units(batch: int, seq: int, channels: int, esize: int) -> Tuple[int, int]:
     """(the staged adjoint's units: chunks × batch × SEG-step segments, the
     units of one chunk)."""
@@ -233,6 +282,60 @@ def conv_checks(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         (-(-bsz * -(-s // L) // TILES_Y) <= MAX_GRID_Y, "at most MAX_GRID_Y blocks of tiles"))
 
 
+# the forward's layouts that passed its checks (``_layout_key``): (B, S, C,
+# x's element size, W, x's strides, the staged grid where the shape takes
+# that route, else 0, each route's mode bits, the device)
+_FWD_LAYOUTS: dict = {}
+
+
+def _layout_key(x, w, b, state) -> tuple:
+    """What :func:`conv_checks` reads of the forward's inputs: x's shape,
+    strides, dtype and device; w's, b's and the state's shape, dtype,
+    device and contiguity."""
+    return (x.shape, x.stride(), x.dtype, x.get_device(),
+            w.shape, w.dtype, w.get_device(), w.is_contiguous(),
+            b.shape, b.dtype, b.get_device(), b.is_contiguous(),
+            None if state is None else (state.shape, state.dtype, state.get_device(),
+                                        state.is_contiguous()))
+
+
+def _fwd_layout(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                state: Optional[torch.Tensor]) -> tuple:
+    """The forward's checks (:func:`conv_checks`, raising on a refusal) and,
+    where the shape takes the staged route, its grid (:func:`fwd_plan`),
+    made once a layout."""
+    key = _layout_key(x, w, b, state)
+    lay = _FWD_LAYOUTS.get(key)
+    if lay is None:
+        require("causal_conv1d_fwd", conv_checks(x, w, b, state), x, w, b, state)
+        (bsz, s, c), width, dtype, dev = x.shape, w.shape[0], x.dtype, x.get_device()
+        es = x.element_size()
+        xsb, xss, _ = x.stride()
+        grid = (fwd_plan(bsz, s, c, es, _sm_count(dev),
+                         _fwd_residency(dev, dtype == torch.bfloat16, width))
+                if fwd_route(s, c, es, xsb, xss, 0) == "staged" else 0)
+        lay = (bsz, s, c, es, width, xsb, xss, grid,
+               {r: _mode(r, dtype, width, dev) for r in FWD_ROUTES}, dev)
+        if len(_FWD_LAYOUTS) >= 4096:
+            _FWD_LAYOUTS.clear()
+        _FWD_LAYOUTS[key] = lay
+    return lay
+
+
+def fwd_route(steps: int, channels: int, esize: int, xsb: int, xss: int,
+              pointers: int) -> str:
+    """The forward's route for a layout: ``staged`` where C's bytes, x's
+    (b, s) strides and every pointer (``pointers``, their bits or-ed) are
+    16-byte aligned, as TMA takes them, and there is more than one step;
+    else ``vector`` where they are 8-byte aligned; else ``scalar``. A decode
+    step (S = 1) keeps the register-window kernel: it has no tile to stage,
+    and it timed faster there (PERF.md)."""
+    bits = channels * esize | xsb * esize | xss * esize | pointers
+    if bits % 16 == 0 and steps > 1:
+        return "staged"
+    return "vector" if bits % 8 == 0 else "scalar"
+
+
 def causal_conv1d_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                       state: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -240,35 +343,30 @@ def causal_conv1d_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     :func:`causal_conv1d_plain`: on the card one launch of the forward
     kernel on the current stream (x, w, b and state of one dtype, f32 or
     bf16; x at its (b, s) strides with the channels contiguous; w, b and
-    state contiguous; W <= ``MAX_W``); on the CPU the plain version."""
+    state contiguous; W <= ``MAX_W``), on :func:`fwd_route`'s route; on the
+    CPU the plain version."""
     if not x.is_cuda:
         return causal_conv1d_plain(x, w, b, state)
-    require("causal_conv1d_fwd", conv_checks(x, w, b, state), x, w, b, state)
-    (bsz, s, c), width, dtype, dev = x.shape, w.shape[0], x.dtype, x.get_device()
-    out = torch.empty((bsz, s, c), dtype=dtype, device=x.device)
+    bsz, s, c, es, width, xsb, xss, grid, modes, dev = _fwd_layout(x, w, b, state)
+    out = x.new_empty((bsz, s, c))
     if width == 1:
-        new_state = state if state is not None else x.new_zeros((bsz, 0, c))
-        ns = None
+        new_state, ns = (state if state is not None else x.new_zeros((bsz, 0, c))), 0
     else:
-        new_state = torch.empty((bsz, width - 1, c), dtype=dtype, device=x.device)
+        new_state = x.new_empty((bsz, width - 1, c))
         ns = new_state.data_ptr()
-    es = x.element_size()
-    xsb, xss, _ = x.stride()
     sp = 0 if state is None else state.data_ptr()
     xp, wp, bp, op = x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr()
-    vector = (c * es % 8 == 0 and (xsb * es | xss * es) % 8 == 0
-              and (xp | wp | bp | op | sp | (ns or 0)) % 8 == 0)
-    mode = _mode("vector" if vector else "scalar", dtype, width, dev)
-    err = _lib().causal_conv1d_fwd(mode, xp, sp or None, wp, bp, op, ns, bsz, s, c, xsb, xss,
-                                   torch._C._cuda_getCurrentRawStream(dev))
+    route = fwd_route(s, c, es, xsb, xss, xp | wp | bp | op | sp | ns)
+    err = _lib().causal_conv1d_fwd(modes[route], xp, sp or None, wp, bp, op, ns or None, bsz, s,
+                                   c, xsb, xss, grid, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _raise("causal_conv1d_fwd", err)
-    _count(causal_conv1d_fwd, "vector" if vector else "scalar")
+    _count(causal_conv1d_fwd, route)
     return out, new_state
 
 
 causal_conv1d_fwd.launches = 0
-causal_conv1d_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+causal_conv1d_fwd.launches_by_route = dict.fromkeys(FWD_ROUTES, 0)
 
 
 def _mode(route: str, dtype: torch.dtype, width: int, device: int) -> int:
@@ -404,6 +502,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ``csrc/causal_conv1d.cu`` (or a variant of it, as the probes build)."""
     lib.causal_conv1d_fwd.argtypes = _FWD_ARGTYPES
     lib.causal_conv1d_fwd.restype = ctypes.c_int
+    lib.causal_conv1d_fwd_residency.argtypes = [ctypes.c_int]
+    lib.causal_conv1d_fwd_residency.restype = ctypes.c_int
+    lib.causal_conv1d_fwd_attributes.argtypes = [ctypes.c_int, _IP, _IP]
+    lib.causal_conv1d_fwd_attributes.restype = ctypes.c_int
     lib.causal_conv1d_bwd.argtypes = _BWD_ARGTYPES
     lib.causal_conv1d_bwd.restype = ctypes.c_int
     lib.causal_conv1d_bwd_residency.argtypes = [ctypes.c_int]

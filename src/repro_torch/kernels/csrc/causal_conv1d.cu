@@ -34,14 +34,49 @@
 // What bounds both on this card: bytes. At mamba2-1.3b's training shape
 // (4 x 1024 steps, 4352 channels, bf16) the forward reads x and writes the
 // output: 71 MB, 0.021 ms at 3.35 TB/s; the adjoint reads x and G and
-// writes dx: 107 MB, 0.032 ms. Both are held as much by instructions as by
-// bytes: every tap's product and sum is rounded to the dtype.
+// writes dx: 107 MB, 0.032 ms. Both are held as much by instructions and
+// their latency as by bytes: every tap's product and sum is rounded to the
+// dtype, and the forward's SiLU is PyTorch's own, the exact expf and an IEEE
+// division (~20 instructions an element, two of them on the SFU).
 //
-// The forward (`causal_conv_fwd_kernel`): a thread owns 8 bytes of channels
-// (4 bf16 or 2 f32) over a tile of L time steps on the `vector` route,
-// where C and every row start are 8-byte aligned, else a channel (the
-// `scalar` route); the taps slide over the tile in registers, a row loaded
-// a step; 32 units by 8 tiles a block.
+// The forward's routes, by layout (kernels/causal_conv.py `fwd_route`):
+// * `staged` (`causal_conv_fwd_kernel`): every layout TMA takes with more
+//   than one step: x, out, the state and every pointer and row stride
+//   16-byte aligned, C a whole number of 16 bytes (the model's x|B|C slice
+//   of the projection, at training and prefill). A tile is 64 time steps of
+//   one sequence by 256 bytes of channels (128 bf16, 64 f32). TMA boxes at
+//   x's strides bring its 3 history rows (zero before t = 0) and one box a
+//   segment of 8 steps (zero past S and C) into a ring of two stages on
+//   mbarriers, 17 KB a stage. A warp forms one segment, a lane 8 bytes of
+//   the chunk: two words, each a bf16 pair (or one f32) whose pre-activation
+//   is packed `mul.rn.bf16x2`/`add.rn.bf16x2` (the adjoint's `pre_word`, each
+//   rounding the exact result once, so the plain chain's bits); a warp
+//   stores a step as 256 contiguous bytes. The segment's eight steps run
+//   straight-line. SiLU, in bf16: a fast form (ex2.approx, rcp.approx)
+//   wherever its f32 lies more than 32 ulps from a bf16 rounding boundary,
+//   where it rounds as the exact chain does; the few elements it does not
+//   settle are formed again after the loop by the exact chain (see the
+//   kernel); f32 takes the exact chain. Rows before t = 0 come from the
+//   state where one is given; the warp holding t = S - 1 writes the new
+//   state. The grid is persistent: the SMs times the blocks an SM holds
+//   (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`; `fwd_plan`), each over
+//   a contiguous range of (chunk, sequence, segment) units, so the blocks'
+//   work differs by one segment at most and the card runs one wave.
+//   `__launch_bounds__(256, 3)`: 80 registers (bf16, W = 4), no local
+//   memory, three blocks an SM. Held against the first design (8-byte
+//   units over 16 steps a thread, one row in flight, every tap rounded in
+//   f32, the exact SiLU) and against variants of its own in
+//   examples/norm_conv_variants_torch.py: 16-byte lanes (which spill), four
+//   blocks an SM (64 registers), one ring stage and the exact SiLU alone
+//   were slower; three stages, two blocks an SM or 32-step tiles no faster;
+//   left out, its SiLU costs a sixth of its time and its stores none.
+// * `vector` (`causal_conv_fwd_window_kernel`, 8-byte units): a decode step
+//   (S = 1, with the cache's state), where there is no tile to stage and
+//   this kernel timed faster, and layouts 8-byte but not 16-byte aligned. A
+//   thread owns 8 bytes of channels over 16 steps, a row loaded a step, the
+//   taps sliding in registers; 32 units by 8 tiles a block.
+// * `scalar`: the same kernel a channel a thread, for any other layout.
+// The route follows the layout alone; a launch or build error raises.
 //
 // The adjoint (`causal_conv_bwd_kernel`, the `vector` route) stages its
 // inputs in shared memory:
@@ -85,8 +120,8 @@
 // thread, with its own sum pass (`causal_conv_sum_rows`).
 //
 // Entry points: `causal_conv1d_fwd`, `causal_conv1d_bwd`, and
-// `causal_conv1d_bwd_residency` and `causal_conv1d_bwd_attributes` (what
-// the runtime reports of the adjoint's kernels), plain C functions that
+// `causal_conv1d_{fwd,bwd}_residency` and `causal_conv1d_{fwd,bwd}_attributes`
+// (what the runtime reports of each direction's kernels), plain C functions that
 // launch on the given stream of the given device and return 0 or an error
 // code that `causal_conv1d_error_string` names.
 
@@ -100,7 +135,7 @@
 
 namespace {
 
-constexpr int L = 16;              // forward and scalar adjoint: time steps a thread
+constexpr int L = 16;              // window forward and scalar adjoint: time steps a thread
 constexpr int UNITS_X = 32;        // channel units a block (threadIdx.x)
 constexpr int TILES_Y = 8;         // tiles a block (threadIdx.y)
 constexpr int MAX_W = 4;
@@ -120,11 +155,25 @@ constexpr int FLUSH_FLOATS = (MAX_W + 1) * 64;          // dw, db of a block: [r
 constexpr int SMEM_BYTES = 128 + NSTAGES * STAGE_BYTES + (2 * HEAD_FLOATS + FLUSH_FLOATS) * 4 +
                            8 * NSTAGES;
 
+// the staged forward's layout: a tile is FWD_WARPS segments of FWD_SEG steps
+// (a warp each) by FWD_ROW_BYTES of channels (8 bytes a lane)
+constexpr int FWD_SEG = 8;
+constexpr int FWD_WARPS = 8;
+constexpr int FWD_ROW_BYTES = 256;
+constexpr int FWD_STAGES = 2;
+constexpr int FWD_MIN_BLOCKS = 3;          // blocks an SM, for __launch_bounds__
+constexpr int FWD_STAGE_BYTES = (HALO + FWD_WARPS * FWD_SEG) * FWD_ROW_BYTES;
+// the forward's SiLU for bf16: the fast form where |x| < SILU_FAST_MAX and its
+// f32 lies more than SILU_SLACK ulps from a bf16 rounding boundary
+constexpr float SILU_FAST_MAX = 16.0f;
+constexpr unsigned SILU_SLACK = 32;
+constexpr int FWD_SMEM_BYTES = 128 + FWD_STAGES * FWD_STAGE_BYTES + 8 * FWD_STAGES;
+
 // An entry point's small arguments in one int: bits 0-1 the route (the
-// forward's: 1 for 8-byte units, 0 a channel; the adjoint's: ROUTE_*), bit
-// 2 the dtype (0 f32, 1 bf16), bits 3-5 the width W, the bits from 8 the
-// device.
+// forward's: FWD_*; the adjoint's: ROUTE_*), bit 2 the dtype (0 f32, 1
+// bf16), bits 3-5 the width W, the bits from 8 the device.
 constexpr int MODE_ROUTE = 3;
+constexpr int FWD_SCALAR = 0, FWD_VECTOR = 1, FWD_STAGED = 2;
 constexpr int ROUTE_SCALAR = 0, ROUTE_STAGED = 1;
 constexpr int MODE_DTYPE = 1 << 2;
 constexpr int MODE_W_SHIFT = 3;
@@ -144,8 +193,8 @@ struct Args {
   void* pre;              // staged adjoint: the recomputed pre-activation (B, S, C), or null
   float* part;            // adjoint: (slots, W + 1, C) f32
   long long B, S, C, xsb, xss;
-  long long units;        // staged adjoint: chunks x B x segments
-  long long nseg;         // staged adjoint: SEG-step segments a sequence
+  long long units;        // staged kernels: chunks x B x segments
+  long long nseg;         // staged kernels: segments a sequence
 };
 
 // xin[b][t + W - 1]'s unit at channel c: x[b][t] for 0 <= t < S, the state's
@@ -180,8 +229,12 @@ __device__ __forceinline__ void pre_act(const float (&xs)[W][V], const float (&w
 // the adjoint's sigmoid: a fast reciprocal (2 ulps), within its tolerance
 __device__ __forceinline__ float sigmoid(float v) { return __fdividef(1.0f, 1.0f + expf(-v)); }
 
+// The register-window forward: a thread owns a unit of channels (V
+// elements) over a tile of L steps, a row loaded a step, the taps sliding in
+// registers; 32 units by 8 tiles a block. The `vector` (V = 8 bytes) and
+// `scalar` (V = 1) routes.
 template <typename T, int V, int W>
-__global__ void __launch_bounds__(UNITS_X * TILES_Y) causal_conv_fwd_kernel(const Args a) {
+__global__ void __launch_bounds__(UNITS_X * TILES_Y) causal_conv_fwd_window_kernel(const Args a) {
   const long long units = a.C / V;
   const long long cu = static_cast<long long>(blockIdx.x) * UNITS_X + threadIdx.x;
   const long long tiles = (a.S + L - 1) / L;
@@ -450,6 +503,264 @@ __device__ __forceinline__ long long block_of(long long r, long long units, long
   return ((r + 1) * grid - 1) / units;
 }
 
+// A block's walk over its range [lo, hi) of (chunk, sequence, segment)
+// units (`nseg` segments of SEGL steps a sequence, `upc` = B x nseg units a
+// chunk), a tile of at most TILE segments of one sequence at a time: the
+// chunk, the sequence and the segment of the cursor, advanced without
+// dividing (the units fewer than 2^31: the entry points check)
+template <int SEGL, int TILE>
+struct Walk {
+  int unit, chunk, b, sg;
+  __device__ __forceinline__ void start(long long lo, long long upc, long long nseg) {
+    unit = static_cast<int>(lo);
+    chunk = static_cast<int>(lo / upc);
+    const int rem = static_cast<int>(lo - chunk * upc);
+    b = rem / static_cast<int>(nseg);
+    sg = rem - b * static_cast<int>(nseg);
+  }
+  // the tile at the cursor: its chunk, sequence and steps [t_lo, t_hi);
+  // then the cursor moves past it
+  __device__ __forceinline__ void next(long long hi, long long nseg, long long B, long long S,
+                                       long long& c, long long& bb, long long& t_lo,
+                                       long long& t_hi) {
+    const int n = min(TILE, min(static_cast<int>(hi) - unit, static_cast<int>(nseg) - sg));
+    c = chunk;
+    bb = b;
+    t_lo = static_cast<long long>(sg) * SEGL;
+    t_hi = min(static_cast<long long>(sg + n) * SEGL, S);
+    unit += n;
+    sg += n;
+    if (sg == nseg) {
+      sg = 0;
+      if (++b == B) {
+        b = 0;
+        ++chunk;
+      }
+    }
+  }
+};
+
+// SiLU as PyTorch's `F.silu` computes it: x / (1 + expf(-x)) in f32 with
+// the exact expf and IEEE division
+__device__ __forceinline__ float silu_exact(float v) { return v / (1.0f + expf(-v)); }
+
+// A cheaper SiLU for bf16 outputs: 2^(-x log2 e) by ex2.approx and the
+// reciprocal by rcp.approx, each product and sum rounded on its own (no
+// contraction, so one result an input wherever it is compiled)
+__device__ __forceinline__ float silu_fast(float v) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(__fmul_rn(v, -1.4426950408889634f)));
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(__fadd_rn(1.0f, e)));
+  return __fmul_rn(v, r);
+}
+
+// A lane's LW 4-byte words at p, in one load or store of 8 or 16 bytes
+template <int LW>
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[LW]) {
+  if constexpr (LW == 4) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  } else {
+    static_assert(LW == 2, "a lane holds 8 or 16 bytes");
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x; w[1] = u.y;
+  }
+}
+template <int LW>
+__device__ __forceinline__ void store_words(void* p, const uint32_t (&w)[LW]) {
+  if constexpr (LW == 4) *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+
+// The staged forward: a block walks its range of (chunk, sequence, segment)
+// units a tile at a time. Thread 0 keeps FWD_STAGES tiles in flight, each
+// brought by TMA boxes at x's strides: the HALO rows before the tile (zero
+// before t = 0) and one box a segment (zero past S and C). A warp forms its
+// segment's steps, a lane LW words of the chunk, the taps sliding in
+// registers over rows read from shared memory; a warp's store of a step is
+// FWD_ROW_BYTES contiguous bytes of out. The rows before t = 0 come from the
+// state where one is given. The warp holding step S - 1 writes the new state.
+//
+// SiLU: each element rounded once to T from silu_exact's f32, as `F.silu`
+// gives it. For bf16 the segment's loop is straight-line and takes the fast
+// form everywhere, noting the elements where |x| >= SILU_FAST_MAX or its f32
+// lies within SILU_SLACK ulps of a bf16 rounding boundary (the low 16 bits
+// that near 0x8000): elsewhere it rounds as the exact chain does. After the
+// loop a lane forms those few elements again from the stage by the exact
+// chain and stores them over the fast ones. What a bf16 pre-activation
+// gives is a function of it alone, so checking each of the 65,536 inputs
+// on the card (the `cuda` tests, chip_smoke.py) shows the output equal to
+// F.silu's everywhere.
+template <typename T, int W>
+__global__ void __launch_bounds__(FWD_WARPS * 32, FWD_MIN_BLOCKS)
+    causal_conv_fwd_kernel(const __grid_constant__ CUtensorMap tm_halo,
+                           const __grid_constant__ CUtensorMap tm_seg, const Args a) {
+  constexpr int NE = 4 / int(sizeof(T));                   // elements a word
+  constexpr int LW = FWD_ROW_BYTES / 128;                  // words a lane
+  constexpr int EPL = LW * NE;                             // elements a lane
+  constexpr int CH = FWD_ROW_BYTES / int(sizeof(T));       // channels a chunk
+  constexpr bool FAST = sizeof(T) == 2;
+  static_assert(FWD_SEG * EPL <= 64, "a segment's notes fit 64 bits");
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte aligned for TMA, as an offset into the array, so the rows are
+  // read with shared-memory loads
+  unsigned char* smem = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + FWD_STAGES * FWD_STAGE_BYTES);
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long S = a.S, C = a.C, nseg = a.nseg, upc = a.B * nseg;
+  const long long grid = gridDim.x, g = blockIdx.x;
+  const long long lo = g * a.units / grid, hi = (g + 1) * a.units / grid;
+  if (lo >= hi) return;
+
+  Walk<FWD_SEG, FWD_WARPS> load{};         // thread 0: the next tile to load
+  auto issue = [&](int s) {
+    long long chunk, b, t_lo, t_hi;
+    load.next(hi, nseg, a.B, S, chunk, b, t_lo, t_hi);
+    const int n = static_cast<int>((t_hi - t_lo + FWD_SEG - 1) / FWD_SEG);
+    const uint32_t bar = smem_u32(&full[s]);
+    const uint32_t dst = smem_u32(smem + s * FWD_STAGE_BYTES);
+    const int c0 = static_cast<int>(chunk * CH), bi = static_cast<int>(b);
+    mbar_expect_tx(bar, (HALO + n * FWD_SEG) * FWD_ROW_BYTES);
+    tma_load_3d(dst, &tm_halo, bar, c0, static_cast<int>(t_lo - HALO), bi);
+    for (int j = 0; j < n; ++j)
+      tma_load_3d(dst + (HALO + j * FWD_SEG) * FWD_ROW_BYTES, &tm_seg, bar, c0,
+                  static_cast<int>(t_lo + j * FWD_SEG), bi);
+  };
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < FWD_STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    load.start(lo, upc, nseg);
+    for (int s = 0; s < FWD_STAGES && load.unit < hi; ++s) issue(s);
+  }
+  __syncthreads();
+
+  // the lane's channels in the current chunk and their weights, word-major
+  long long cur_chunk = -1, c = 0;
+  bool live = false;
+  uint32_t ww[LW][W], bw[LW];
+  const T* state = static_cast<const T*>(a.state);
+  Walk<FWD_SEG, FWD_WARPS> walk;
+  walk.start(lo, upc, nseg);
+  for (int it = 0; walk.unit < hi; ++it) {
+    long long chunk, b, t_lo, t_hi;
+    walk.next(hi, nseg, a.B, S, chunk, b, t_lo, t_hi);
+    if (chunk != cur_chunk) {
+      cur_chunk = chunk;
+      c = chunk * CH + lane * EPL;
+      live = c < C;
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < W; ++i) {
+          uint32_t u[LW];
+          load_words<LW>(static_cast<const T*>(a.w) + i * C + c, u);
+#pragma unroll
+          for (int q = 0; q < LW; ++q) ww[q][i] = u[q];
+        }
+        load_words<LW>(static_cast<const T*>(a.b) + c, bw);
+      }
+    }
+    const int s = it % FWD_STAGES;
+    mbar_wait(smem_u32(&full[s]), (it / FWD_STAGES) & 1);
+    const long long seg_lo = t_lo + warp * FWD_SEG;
+    const int own =
+        static_cast<int>(max(0LL, min(static_cast<long long>(FWD_SEG), t_hi - seg_lo)));
+    if (own > 0 && live) {
+      // the lane's words of x at seg_lo + k, k from -HALO: in the stage, or
+      // in the state before t = 0 where one is given
+      const unsigned char* rows =
+          smem + s * FWD_STAGE_BYTES + (warp * FWD_SEG + HALO) * FWD_ROW_BYTES + lane * 4 * LW;
+      auto x_words = [&](int k, uint32_t (&u)[LW]) {
+        const long long t = seg_lo + k;
+        if (t < 0 && state != nullptr)
+          load_words<LW>(state + (b * (W - 1) + (W - 1) + t) * C + c, u);
+        else
+          load_words<LW>(rows + k * FWD_ROW_BYTES, u);
+      };
+      uint32_t xw[LW][W];                  // a word's inputs xin at t .. t + W - 1
+#pragma unroll
+      for (int i = 0; i + 1 < W; ++i) {
+        uint32_t u[LW];
+        x_words(i - (W - 1), u);
+#pragma unroll
+        for (int q = 0; q < LW; ++q) xw[q][i + 1] = u[q];
+      }
+      // every step of the segment is formed (its rows are in the stage: zero
+      // past S), so the loop is straight-line; steps past the tile are not
+      // stored
+      T* out = static_cast<T*>(a.out) + (b * S + seg_lo) * C + c;
+      unsigned long long redo = 0;         // bit k * EPL + j: element j of step k
+#pragma unroll
+      for (int k = 0; k < FWD_SEG; ++k) {
+        uint32_t u[LW], o[LW];
+        load_words<LW>(rows + k * FWD_ROW_BYTES, u);
+#pragma unroll
+        for (int q = 0; q < LW; ++q) {
+#pragma unroll
+          for (int i = 0; i + 1 < W; ++i) xw[q][i] = xw[q][i + 1];
+          xw[q][W - 1] = u[q];
+          float f[NE];
+          unpack<T>(pre_word<T, W>(xw[q], ww[q], bw[q]), f);
+#pragma unroll
+          for (int e = 0; e < NE; ++e) {
+            if constexpr (FAST) {
+              const float r = silu_fast(f[e]);
+              const bool ok = fabsf(f[e]) < SILU_FAST_MAX &&
+                              (__float_as_uint(r) & 0xffffu) - (0x8000u - SILU_SLACK) >
+                                  2u * SILU_SLACK;
+              redo |= static_cast<unsigned long long>(!ok) << (k * EPL + q * NE + e);
+              f[e] = r;
+            } else {
+              f[e] = silu_exact(f[e]);
+            }
+          }
+          o[q] = pack<T>(f);
+        }
+        if (k < own) store_words<LW>(out + k * C, o);
+      }
+      // the noted elements again, by the exact chain
+      if constexpr (FAST) {
+        while (redo != 0) {
+          const int j = __ffsll(static_cast<long long>(redo)) - 1;
+          redo &= redo - 1;
+          const int k = j / EPL, q = (j % EPL) / NE, e = j % NE;
+          if (k >= own) break;             // the notes go by step: the rest are not stored
+          uint32_t xv[W], wv[W], bv = 0;
+#pragma unroll
+          for (int i = 0; i < W; ++i) {
+            uint32_t u[LW];
+            x_words(k - (W - 1) + i, u);
+#pragma unroll
+            for (int r = 0; r < LW; ++r)
+              if (r == q) {
+                xv[i] = u[r];
+                wv[i] = ww[r][i];
+                bv = bw[r];
+              }
+          }
+          float f[NE];
+          unpack<T>(pre_word<T, W>(xv, wv, bv), f);
+          out[k * C + q * NE + e] = __float2bfloat16_rn(silu_exact(e == 0 ? f[0] : f[NE - 1]));
+        }
+      }
+      // the new state, xin[S .. S + W - 2]: x's rows S - W + 1 .. S - 1, the
+      // state's rows where those are before t = 0
+      if (a.new_state != nullptr && seg_lo + own == S) {
+        T* ns = static_cast<T*>(a.new_state) + b * (W - 1) * C + c;
+#pragma unroll
+        for (int k = 0; k + 1 < W; ++k) {
+          uint32_t u[LW];
+          x_words(static_cast<int>(S - (W - 1) + k - seg_lo), u);
+          store_words<LW>(ns + k * C, u);
+        }
+      }
+    }
+    __syncthreads();                       // the stage is read
+    if (threadIdx.x == 0 && load.unit < hi) issue(s);
+  }
+}
+
 template <typename T, int W>
 __global__ void __launch_bounds__(WARPS * 32, 3)
     causal_conv_bwd_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -470,40 +781,10 @@ __global__ void __launch_bounds__(WARPS * 32, 3)
   const long long lo = g * a.units / grid, hi = (g + 1) * a.units / grid;
   if (lo >= hi) return;
 
-  // A walk over the block's units, a tile at a time: the chunk, the
-  // sequence and the segment of the cursor, advanced without dividing
-  // (the units fewer than 2^31, the entry point checks)
-  struct Walk {
-    int unit, chunk, b, sg;
-  };
-  auto start = [&](Walk& w) {
-    w.unit = static_cast<int>(lo);
-    w.chunk = static_cast<int>(lo / upc);
-    const int rem = static_cast<int>(lo - w.chunk * upc);
-    w.b = rem / static_cast<int>(nseg);
-    w.sg = rem - w.b * static_cast<int>(nseg);
-  };
-  // the tile at w: n segments, steps [t_lo, t_hi); then w moves past it
-  auto next = [&](Walk& w, long long& chunk, long long& b, long long& t_lo, long long& t_hi) {
-    const int n = min(WARPS, min(static_cast<int>(hi) - w.unit, static_cast<int>(nseg) - w.sg));
-    chunk = w.chunk;
-    b = w.b;
-    t_lo = static_cast<long long>(w.sg) * SEG;
-    t_hi = min(static_cast<long long>(w.sg + n) * SEG, S);
-    w.unit += n;
-    w.sg += n;
-    if (w.sg == nseg) {
-      w.sg = 0;
-      if (++w.b == a.B) {
-        w.b = 0;
-        ++w.chunk;
-      }
-    }
-  };
-  Walk load{};                             // thread 0: the next tile to load
+  Walk<SEG, WARPS> load{};                 // thread 0: the next tile to load
   auto issue = [&](int s) {
     long long chunk, b, t_lo, t_hi;
-    next(load, chunk, b, t_lo, t_hi);
+    load.next(hi, nseg, a.B, S, chunk, b, t_lo, t_hi);
     const uint32_t bar = smem_u32(&full[s]);
     const uint32_t dst = smem_u32(smem + s * STAGE_BYTES);
     mbar_expect_tx(bar, STAGE_BYTES);
@@ -517,7 +798,7 @@ __global__ void __launch_bounds__(WARPS * 32, 3)
 #pragma unroll
     for (int s = 0; s < NSTAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    start(load);
+    load.start(lo, upc, nseg);
     for (int s = 0; s < NSTAGES && load.unit < hi; ++s) issue(s);
   }
   __syncthreads();
@@ -581,11 +862,11 @@ __global__ void __launch_bounds__(WARPS * 32, 3)
   };
   take_chunk(cur_chunk);
 
-  Walk walk;
-  start(walk);
+  Walk<SEG, WARPS> walk;
+  walk.start(lo, upc, nseg);
   for (int it = 0; walk.unit < hi; ++it) {
     long long chunk, b, t_lo, t_hi;
-    next(walk, chunk, b, t_lo, t_hi);
+    walk.next(hi, nseg, a.B, S, chunk, b, t_lo, t_hi);
     if (chunk != cur_chunk) {
       flush();
       take_chunk(chunk);
@@ -795,17 +1076,17 @@ EncodeTiledFn encode_fn() {
 }
 
 // A (C, S, B) tensor (channels innermost) at byte strides (ss, sb), read in
-// boxes of a chunk of channels by `rows` steps of one sequence; boxes past
-// its edges come back zero-filled
+// boxes of `row_bytes` of channels by `rows` steps of one sequence; boxes
+// past its edges come back zero-filled
 int encode(CUtensorMap* map, const void* ptr, bool bf16, long long B, long long S, long long C,
-           long long ss, long long sb, int rows) {
+           long long ss, long long sb, int rows, int row_bytes) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_ENTRY_POINT;
   const int esize = bf16 ? 2 : 4;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ss), static_cast<cuuint64_t>(sb)};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(ROW_BYTES / esize),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(row_bytes / esize),
                              static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult res =
@@ -838,6 +1119,30 @@ const void* scalar_kernel(int width) {
   }
 }
 
+// The forward's kernel of a route for (dtype, W), its block and its dynamic
+// shared memory
+template <typename T>
+const void* fwd_kernel_of(int route, int width) {
+#define B5_FWD_OF(W)                                                                          \
+  (route == FWD_STAGED ? reinterpret_cast<const void*>(causal_conv_fwd_kernel<T, W>)          \
+   : route == FWD_VECTOR                                                                      \
+       ? reinterpret_cast<const void*>(causal_conv_fwd_window_kernel<T, 8 / int(sizeof(T)), W>) \
+       : reinterpret_cast<const void*>(causal_conv_fwd_window_kernel<T, 1, W>))
+  switch (width) {
+    case 1: return B5_FWD_OF(1);
+    case 2: return B5_FWD_OF(2);
+    case 3: return B5_FWD_OF(3);
+    default: return B5_FWD_OF(4);
+  }
+#undef B5_FWD_OF
+}
+
+const void* fwd_kernel(int route, bool bf16, int width, int* block, int* smem) {
+  *block = route == FWD_STAGED ? FWD_WARPS * 32 : UNITS_X * TILES_Y;
+  *smem = route == FWD_STAGED ? FWD_SMEM_BYTES : 0;
+  return bf16 ? fwd_kernel_of<__nv_bfloat16>(route, width) : fwd_kernel_of<float>(route, width);
+}
+
 // The adjoint's kernel of a route, its block and its dynamic shared memory
 const void* bwd_kernel(int route, bool bf16, int width, int* block, int* smem) {
   *block = route == ROUTE_STAGED ? WARPS * 32 : UNITS_X * TILES_Y;
@@ -849,48 +1154,88 @@ const void* bwd_kernel(int route, bool bf16, int width, int* block, int* smem) {
 
 }  // namespace
 
-// The forward. mode as above (route 1: 8-byte units, 0: a channel); x (B,
-// S, C) at strides (xsb, xss, 1); state (B, W-1, C) or null; w (W, C), b
-// (C,); out (B, S, C) and new_state (B, W-1, C) or null, contiguous.
+// The forward. mode as above (the route one of FWD_*); x (B, S, C) at
+// strides (xsb, xss, 1); state (B, W-1, C) or null; w (W, C), b (C,); out
+// (B, S, C) and new_state (B, W-1, C) or null, contiguous. On the staged
+// route `grid` persistent blocks over the (chunk, sequence, segment) units
+// (`fwd_plan` in kernels/causal_conv.py); the other routes ignore it.
 extern "C" int causal_conv1d_fwd(int mode, const void* x, const void* state, const void* w,
                                  const void* b, void* out, void* new_state, long long B,
                                  long long S, long long C, long long xsb, long long xss,
-                                 void* stream) {
+                                 long long grid, void* stream) {
   const int route = mode & MODE_ROUTE;
-  const bool vector = route == 1, bf16 = mode & MODE_DTYPE;
+  const bool bf16 = mode & MODE_DTYPE;
   const int width = (mode >> MODE_W_SHIFT) & 7, device = mode >> MODE_DEVICE_SHIFT;
   Args a = {};
   a.x = x; a.state = state; a.w = w; a.b = b; a.out = out; a.new_state = new_state;
   a.B = B; a.S = S; a.C = C; a.xsb = xsb; a.xss = xss;
   const int esize = bf16 ? 2 : 4;
-  if (route > 1 || !args_ok(a, width, vector ? 8 : esize, esize, false) || S < 1 ||
+  const int unit = route == FWD_STAGED ? 16 : route == FWD_VECTOR ? 8 : esize;
+  if (route > FWD_STAGED || !args_ok(a, width, unit, esize, false) || S < 1 ||
       (width > 1 && B > 0 && !new_state))
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const int v = vector ? 8 / esize : 1;
+  OnDevice on(device);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int block, smem;
+  const void* fn = fwd_kernel(route, bf16, width, &block, &smem);
+  if (route == FWD_STAGED) {
+    a.nseg = (S + FWD_SEG - 1) / FWD_SEG;
+    a.units = (C * esize + FWD_ROW_BYTES - 1) / FWD_ROW_BYTES * B * a.nseg;
+    if (grid < 1 || grid > a.units || a.units > 0x7fffffffLL) return cudaErrorInvalidValue;
+    // cuTensorMapEncodeTiled needs a current context (see the adjoint)
+    const cudaError_t bound = cudaSetDevice(device);
+    if (bound != cudaSuccess) return bound;
+    CUtensorMap tm_halo, tm_seg;
+    const long long ss = xss * esize, sb = (B > 1 ? xsb : S * xss) * esize;
+    int err = encode(&tm_halo, x, bf16, B, S, C, ss, sb, HALO, FWD_ROW_BYTES);
+    if (err == 0) err = encode(&tm_seg, x, bf16, B, S, C, ss, sb, FWD_SEG, FWD_ROW_BYTES);
+    if (err != 0) return err;
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    void* params[] = {&tm_halo, &tm_seg, &a};
+    e = cudaLaunchKernel(fn, dim3(static_cast<unsigned>(grid)), dim3(block), params,
+                         static_cast<size_t>(smem), st);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
+  const int v = route == FWD_VECTOR ? 8 / esize : 1;
   const long long units = C / v, tiles = (S + L - 1) / L;
   const long long gy = (B * tiles + TILES_Y - 1) / TILES_Y;
   if (gy > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>((units + UNITS_X - 1) / UNITS_X), static_cast<unsigned>(gy));
-  const dim3 block(UNITS_X, TILES_Y);
-  OnDevice on(device);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define B5_FWD(T, V, W) causal_conv_fwd_kernel<T, V, W><<<grid, block, 0, st>>>(a)
-#define B5_FWD_W(T, V)                                                         \
-  switch (width) {                                                             \
-    case 1: B5_FWD(T, V, 1); break;                                            \
-    case 2: B5_FWD(T, V, 2); break;                                            \
-    case 3: B5_FWD(T, V, 3); break;                                            \
-    default: B5_FWD(T, V, 4); break;                                           \
-  }
-  if (bf16) {
-    if (vector) { B5_FWD_W(__nv_bfloat16, 4) } else { B5_FWD_W(__nv_bfloat16, 1) }
-  } else {
-    if (vector) { B5_FWD_W(float, 2) } else { B5_FWD_W(float, 1) }
-  }
-#undef B5_FWD_W
-#undef B5_FWD
-  return cudaGetLastError();
+  void* params[] = {&a};
+  const cudaError_t e = cudaLaunchKernel(
+      fn, dim3(static_cast<unsigned>((units + UNITS_X - 1) / UNITS_X), static_cast<unsigned>(gy)),
+      dim3(UNITS_X, TILES_Y), params, 0, st);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// Blocks of the forward's kernel for (route, dtype, W) that an SM of the
+// current device holds at once, or minus the error.
+extern "C" int causal_conv1d_fwd_residency(int mode) {
+  const int route = mode & MODE_ROUTE, width = (mode >> MODE_W_SHIFT) & 7;
+  if (route > FWD_STAGED || width < 1 || width > MAX_W) return -cudaErrorInvalidValue;
+  OnDevice on(mode >> MODE_DEVICE_SHIFT);
+  int block, smem, n = 0;
+  const void* fn = fwd_kernel(route, mode & MODE_DTYPE, width, &block, &smem);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, block, smem);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// The registers a thread and the local memory (stack frame, spills
+// included) of the forward's kernel for (route, dtype, W), from the runtime.
+extern "C" int causal_conv1d_fwd_attributes(int mode, int* regs, int* local_bytes) {
+  const int route = mode & MODE_ROUTE, width = (mode >> MODE_W_SHIFT) & 7;
+  if (route > FWD_STAGED || width < 1 || width > MAX_W || !regs || !local_bytes)
+    return cudaErrorInvalidValue;
+  OnDevice on(mode >> MODE_DEVICE_SHIFT);
+  int block, smem;
+  cudaFuncAttributes attr;
+  const cudaError_t err =
+      cudaFuncGetAttributes(&attr, fwd_kernel(route, mode & MODE_DTYPE, width, &block, &smem));
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return err;
 }
 
 // Blocks of the adjoint's kernel for (route, dtype, W) that an SM of the
@@ -970,8 +1315,9 @@ extern "C" int causal_conv1d_bwd(int mode, const void* x, const void* state, con
     if (bound != cudaSuccess) return bound;
     CUtensorMap tm_x, tm_g;
     int err = encode(&tm_x, x, bf16, B, S, C, xss * esize, (B > 1 ? xsb : S * xss) * esize,
-                     X_ROWS);
-    if (err == 0) err = encode(&tm_g, g, bf16, B, S, C, C * esize, S * C * esize, G_ROWS);
+                     X_ROWS, ROW_BYTES);
+    if (err == 0)
+      err = encode(&tm_g, g, bf16, B, S, C, C * esize, S * C * esize, G_ROWS, ROW_BYTES);
     if (err != 0) return err;
     int block, smem;
     const void* fn = bwd_kernel(route, bf16, width, &block, &smem);

@@ -418,7 +418,9 @@ def test_the_cu_constants_match_the_bindings():
         assert f"constexpr int {name} = {value};" in norm, name
     conv = (csrc / "causal_conv1d.cu").read_text()
     for name, value in (("L", cc.L), ("UNITS_X", cc.UNITS_X), ("TILES_Y", cc.TILES_Y),
-                        ("MAX_W", cc.MAX_W)):
+                        ("MAX_W", cc.MAX_W), ("FWD_SEG", cc.FWD_SEG),
+                        ("FWD_WARPS", cc.FWD_TL // cc.FWD_SEG),
+                        ("FWD_ROW_BYTES", cc.FWD_CHUNK_BYTES)):
         assert f"constexpr int {name} = {value};" in conv, name
 
 
@@ -464,6 +466,54 @@ def test_conv_plan_is_one_whole_wave_covering_every_tile(shape, sms, per_sm):
         lo, hi = chunk * per_chunk, (chunk + 1) * per_chunk
         meet = sum(1 for r0, r1 in ranges if r0 < hi and r1 > lo)
         assert meet <= slots, (chunk, meet, slots)
+
+
+# B5's staged forward: (B, S, C, bytes an element): mamba2-1.3b's training
+# shape and decode step, jamba's training shape, S < W-1, C off the 512-byte
+# chunk, f32, a ragged S
+FWD_PLANS = [(4, 1024, 4352, 2), (4, 1, 4352, 2), (4, 1024, 16640, 2), (3, 2, 40, 4),
+             (2, 300, 72, 2), (4, 1024, 4352, 4), (1, 37, 8, 2)]
+
+
+@pytest.mark.parametrize("shape", FWD_PLANS)
+@pytest.mark.parametrize("sms,per_sm", CARDS)
+def test_conv_fwd_plan_is_one_whole_wave_covering_every_tile(shape, sms, per_sm):
+    """``fwd_plan``'s grid is at most the blocks the card holds at once (one
+    wave) and at most a block a unit; the blocks' ranges of (chunk,
+    sequence, segment) units, as the kernel splits them, cover every unit
+    once, in order, each block's within one unit of every other's."""
+    b, s, c, es = shape
+    grid = cc.fwd_plan(b, s, c, es, sms, per_sm)
+    units = cc.fwd_units(b, s, c, es)
+    assert units == -(-c * es // cc.FWD_CHUNK_BYTES) * b * -(-s // cc.FWD_SEG)
+    assert 1 <= grid <= sms * per_sm and grid <= units
+    ranges = [(g * units // grid, (g + 1) * units // grid) for g in range(grid)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == units
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(grid - 1))
+    sizes = {hi - lo for lo, hi in ranges}
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert grid == min(units, sms * per_sm)         # a block a unit up to a full wave
+
+
+@pytest.mark.parametrize("layout,want", [
+    ((1024, 4352, 2, 8512 * 1024, 8512, 8192), "staged"),          # mamba2's x|B|C slice
+    ((1024, 16640, 2, 33280 * 1024, 33280, 32768), "staged"),       # jamba's
+    ((1, 4352, 2, 8512, 8512, 8192), "vector"),                    # mamba2's decode step
+    ((2, 4352, 2, 8512 * 2, 8512, 8192), "staged"),                # two steps
+    ((1024, 4352, 4, 4352 * 1024, 4352, 0), "staged"),             # contiguous f32
+    ((300, 72, 2, 72 * 300, 72, 0), "staged"),                     # C off the chunk
+    ((70, 4356, 2, 4364 * 70, 4364, 0), "vector"),                 # C 8-byte aligned
+    ((70, 4352, 2, 4356 * 70, 4356, 0), "vector"),                 # a row 8-byte aligned
+    ((70, 4352, 2, 4360 * 70, 4360, 8), "vector"),                 # x 8 bytes in
+    ((70, 4352, 2, 4360 * 70, 4360, 2), "scalar"),                 # x 2 bytes in
+    ((9, 77, 2, 77 * 9, 77, 0), "scalar"),                         # C odd
+    ((1, 77, 4, 77, 77, 0), "scalar")])
+def test_conv_fwd_route_follows_the_layout(layout, want):
+    """The forward's route from S, C's bytes, x's strides and the pointers'
+    alignment alone: TMA's 16 bytes and more than one step for the staged
+    kernel, 8 bytes for the register window's vector units (a decode step's
+    route), else a channel at a time."""
+    assert cc.fwd_route(*layout) == want
 
 
 @pytest.mark.parametrize("sms,per_sm", [(132, 4), (132, 2)])

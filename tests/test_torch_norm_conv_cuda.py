@@ -262,9 +262,12 @@ def test_conv_forward_bits_and_adjoint(dtype, c, with_state, s):
     gen = _gen(c + s)
     x, w, bias, state = _conv(2 if c > 5000 else 4, s, c, dtype, gen, with_state)
     route = "vector" if c * x.element_size() % 8 == 0 else "scalar"
+    # x's rows 16-byte apart: the staged forward but at a decode step
+    fwd_route = "staged" if route == "vector" and s > 1 else route
     before = dict(cc.causal_conv1d_fwd.launches_by_route)
     out, new_state = cc.causal_conv1d_fwd(x, w, bias, state)
-    assert _took(cc.causal_conv1d_fwd, before) == {r: int(r == route) for r in cc.ROUTES}
+    assert _took(cc.causal_conv1d_fwd, before) == {r: int(r == fwd_route)
+                                                   for r in cc.FWD_ROUTES}
     want, want_state = cc.causal_conv1d_plain(x, w, bias, state)
     assert torch.equal(_bits(out), _bits(want))
     assert torch.equal(_bits(new_state), _bits(want_state.contiguous()))
@@ -377,7 +380,7 @@ def test_conv_staged_adjoint_channels_off_the_chunk(dtype, c):
 def test_conv_adjoint_takes_the_scalar_route_off_tma_alignment(case):
     """A layout the staged kernel's tensor maps do not take (C or x's start
     8-byte but not 16-byte aligned) goes to the scalar route, counted there;
-    the forward still takes its 8-byte route."""
+    the forward takes the register-window kernel's 8-byte route."""
     gen = _gen(3)
     if case == "c_8_bytes":
         x, w, bias, state = _conv(2, 70, 4356, torch.bfloat16, gen, True)
@@ -387,7 +390,7 @@ def test_conv_adjoint_takes_the_scalar_route_off_tma_alignment(case):
         _, w, bias, state = _conv(2, 70, 4352, torch.bfloat16, gen, True)
     before = dict(cc.causal_conv1d_fwd.launches_by_route)
     cc.causal_conv1d_fwd(x, w, bias, state)
-    assert _took(cc.causal_conv1d_fwd, before) == {"vector": 1, "scalar": 0}
+    assert _took(cc.causal_conv1d_fwd, before) == {"staged": 0, "vector": 1, "scalar": 0}
     _conv_adjoint_close(x, w, bias, state, gen, "scalar")
     with pytest.raises(ValueError, match="16-byte"):
         cc.conv_preactivation(_randn(x.shape, gen, x.dtype), x, w, bias, state)
@@ -476,3 +479,118 @@ def test_plain_forward_caches_its_layout_and_keeps_its_refusals():
     for _ in range(2):
         with pytest.raises(ValueError):
             rn.rms_norm_fwd(x, scale.float())
+
+
+# ---------------------------------------------------------------------------
+# B5's staged forward at the edges of its plan
+# ---------------------------------------------------------------------------
+
+def _fwd_bits(x, w, bias, state, route):
+    """One forward call on ``route`` (counted there alone), its output and
+    new state equal to the plain version's bit for bit."""
+    before = dict(cc.causal_conv1d_fwd.launches_by_route)
+    out, new_state = cc.causal_conv1d_fwd(x, w, bias, state)
+    assert _took(cc.causal_conv1d_fwd, before) == {r: int(r == route) for r in cc.FWD_ROUTES}
+    want, want_state = cc.causal_conv1d_plain(x, w, bias, state)
+    assert torch.equal(_bits(out), _bits(want))
+    assert torch.equal(_bits(new_state), _bits(want_state.contiguous()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 2, 3, 8, 37, 63, 64, 65, 100, 127, 1024])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_conv_staged_forward_steps(dtype, s, with_state):
+    """S off the 8-step segment and the 64-step tile, S < W-1 (the new state
+    partly the old one's rows): x read in place from the wider projection.
+    The decode step (S = 1 with the cache's state) takes the register
+    window's 8-byte route."""
+    gen = _gen(s + 3)
+    x, w, bias, state = _conv(3, s, 4352, dtype, gen, with_state)
+    _fwd_bits(x, w, bias, state, "staged" if s > 1 else "vector")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [72, 4360])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_conv_staged_forward_channels_off_the_chunk(dtype, c, with_state):
+    """C a whole number of 16 bytes but not of the 512-byte chunk: TMA
+    zero-fills the last chunk's channels past C, whose lanes store nothing."""
+    gen = _gen(c + 5)
+    x, w, bias, state = _conv(2, 300, c, dtype, gen, with_state)
+    _fwd_bits(x, w, bias, state, "staged")
+
+
+@pytest.mark.parametrize("sms,per_sm", [(1, 1), (3, 1), (132, 3)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_staged_forward_on_small_grids(sms, per_sm, dtype, monkeypatch):
+    """One block walking every tile of every chunk and sequence, three blocks
+    whose ranges cross chunks and sequences mid-tile, and the card's wave."""
+    monkeypatch.setattr(cc, "_sm_count", lambda dev: sms)
+    monkeypatch.setattr(cc, "_fwd_residency", lambda *a: per_sm)
+    monkeypatch.setattr(cc, "_FWD_LAYOUTS", {})
+    gen = _gen(sms + 1)
+    x, w, bias, state = _conv(2, 200, 1088, dtype, gen, True)
+    _fwd_bits(x, w, bias, state, "staged")
+
+
+@pytest.mark.parametrize("case,route", [("c_8_bytes", "vector"), ("x_offset_8_bytes", "vector"),
+                                        ("row_stride_8_bytes", "vector"),
+                                        ("x_offset_2_bytes", "scalar")])
+def test_conv_forward_off_tma_alignment_takes_the_window_kernel(case, route):
+    """Layouts TMA does not take go to the register-window kernel: its 8-byte
+    route where C, the row strides and x's start are 8-byte aligned, else a
+    channel at a time; counted by route, the same bits."""
+    gen = _gen(17)
+    c = 4356 if case == "c_8_bytes" else 4352
+    width = {"row_stride_8_bytes": c + 4}.get(case, c + 8)
+    offset = {"x_offset_8_bytes": 4, "x_offset_2_bytes": 1}.get(case, 0)
+    x = _randn((2, 70, width), gen, torch.bfloat16)[..., offset:offset + c]
+    _, w, bias, state = _conv(2, 70, c, torch.bfloat16, gen, True)
+    _fwd_bits(x, w, bias, state, route)
+
+
+@pytest.mark.parametrize("s,routes", [(1, ("vector", "vector", "scalar")),
+                                      (2, ("staged", "vector", "scalar"))])
+def test_conv_forward_caches_its_layout_and_keeps_its_refusals(s, routes):
+    """A layout's checks, route and plan are made once (the cache holds it
+    after a call); the same layout 8 and 2 bytes off takes the 8-byte and
+    the scalar route; a refused layout raises every time, before and after a
+    cached one. A decode step's x|B|C slice and a two-step one."""
+    gen = _gen(41 + s)
+    full = _randn((4, s, 8512 + 8), gen, torch.bfloat16)
+    x = full[..., 3840:3840 + 4352]
+    _, w, bias, state = _conv(4, s, 4352, torch.bfloat16, gen, True)
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            cc.causal_conv1d_fwd(x, w.float(), bias, state)
+    for offset, route in zip((0, 4, 1), routes):
+        _fwd_bits(full[..., 3840 + offset:3840 + offset + 4352], w, bias, state, route)
+    assert cc._layout_key(x, w, bias, state) in cc._FWD_LAYOUTS
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            cc.causal_conv1d_fwd(x, w.float(), bias, state)
+
+
+@pytest.mark.parametrize("width", [1, 4])
+def test_conv_forward_silu_equals_f_silu_on_every_bf16_input(width):
+    """The staged forward's SiLU (a fast form, the exact chain near bf16
+    rounding boundaries) on each of the 65,536 bf16 bit patterns as a
+    pre-activation: w's last tap 1, the others and the bias 0, so the
+    pre-activation is x itself (-0 becomes +0, as in the plain chain). Width
+    1 takes every pattern, infinities and NaNs included; width 4 the finite
+    ones (a zero tap times an infinity is NaN). Every output equals the plain
+    version's bit for bit, NaN where it is NaN."""
+    pats = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    if width == 4:
+        pats = torch.where(torch.isfinite(pats), pats, torch.zeros_like(pats))
+    x = pats.reshape(1, 256, 256).cuda()
+    w = torch.zeros((width, 256), dtype=torch.bfloat16, device="cuda")
+    w[-1] = 1
+    bias = torch.zeros(256, dtype=torch.bfloat16, device="cuda")
+    before = dict(cc.causal_conv1d_fwd.launches_by_route)
+    out, _ = cc.causal_conv1d_fwd(x, w, bias)
+    assert _took(cc.causal_conv1d_fwd, before) == {"staged": 1, "vector": 0, "scalar": 0}
+    want, _ = cc.causal_conv1d_plain(x, w, bias)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(out), nan)
+    assert torch.equal(_bits(out)[~nan], _bits(want)[~nan])
