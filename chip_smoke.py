@@ -84,7 +84,18 @@ Run from the root of a checkout. Phases, one JSON line each:
    3072, olmoe's q/k rows, B5's forward at jamba's shape and mamba2's
    decode step) in turns with the plain versions and, for the plain forward,
    ``F.rms_norm`` (a yardstick never on the path), beside the bound by
-   bytes, with each kernel's own device time and each call's host µs;
+   bytes, with each kernel's own device time and each call's host µs; the
+   training loss (B6: ``cross_entropy_fwd`` and its adjoint) and RoPE of q
+   and k (B7: ``rope_qk_fwd`` and its adjoint) against their plain versions
+   (``check_loss_rope``: the loss at phi4-mini's, mamba2's, olmoe's, the
+   demo's and the smoke vocabularies and an odd width on the ``scalar``
+   route, within ``LOSS_REL_TOL``, the logits' gradient within one ulp;
+   RoPE at phi4's training shape, qwen3's prefill and decode step,
+   kimi-k2's head_dim 112, whisper's encoder, the demo's f32, an unaligned
+   layout and int32 positions, bit for bit or the differing count within
+   one ulp), timed at the trained and served shapes in turns with the plain
+   versions and, for the loss, ``F.cross_entropy`` (a yardstick never on
+   the path);
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -107,7 +118,9 @@ Run from the root of a checkout. Phases, one JSON line each:
      all on the ``vector`` route; an MoE model's
      prefill, run twice more and once with B2's plain versions, equals the
      served one bit for bit (B4 and B5 on their kernels in every run: the
-     check holds B2's bits);
+     check holds B2's bits); B7 once in every self-attention and encoder
+     layer of the prefill and every self-attention layer of every decode
+     step, on ``vector`` (``rope_counts``);
    - profile (qwen3-14b, mamba2-1.3b, olmoe-1b-7b): a ``torch.profiler``
      pass over one prefill and 8 decode steps gives the device's busy
      share; olmoe's device time split into K2, the expert and router
@@ -137,7 +150,10 @@ Run from the root of a checkout. Phases, one JSON line each:
      adjoint whose scale gradient is zeroed, and mamba2-1.3b cut to one
      layer through ``RmsNormFn``, ``GatedRmsNormFn`` and B5's
      ``CausalConv1dFn`` against their plain forwards, rejecting a
-     convolution adjoint whose dw is zeroed;
+     convolution adjoint whose dw is zeroed; then phi4-mini cut to one
+     layer through B6's ``CrossEntropyFn`` and B7's ``RopeFn`` against the
+     eager chains under autograd, rejecting a loss adjoint without its
+     one-hot term and a RoPE adjoint that rotates by +angle;
    - adamw_routes: phi4-mini-3.8b at full width cut to two layers, three
      steps from the same weights with B3, with ``adamw_update_plain`` in its
      place and with B3 again: every parameter and loss equal bit for bit
@@ -148,9 +164,10 @@ Run from the root of a checkout. Phases, one JSON line each:
      steps, then 8 with every kernel's count zeroed just before and read
      just after (K2's forward 2 x 32 a step, all ``sm90``; its backward
      32, all ``sm90``; B4's forward 2 x 64 + 1 and its adjoint 65, all
-     ``vector``; B3 once a step), the loss per step, step seconds,
+     ``vector``; B6 and its adjoint once a step, B7 2 x 32 and its adjoint
+     32, ``vector``; B3 once a step), the loss per step, step seconds,
      tokens/s, peak memory, and one more step under the profiler split into
-     K2's forward and backward, K3's forward and backward, B4's and B5's
+     K2's forward and backward, K3's forward and backward, B4's to B7's
      forward and adjoint kernels, cuBLAS, the optimizer (B3's kernel by
      name and the ops under its range) and the rest, the rest also by op
      and input shapes (``rest_by_op``); then mamba2-1.3b at full width and
@@ -176,7 +193,8 @@ Run from the root of a checkout. Phases, one JSON line each:
      and mamba2-1.3b's train step (4 x 1024) and prefill, each held first to
      the direct path it wraps (``train_step``'s losses, ``generate``'s logits
      and ids), then timed with every kernel's count zeroed just before and
-     read just after (K2 and K3 forward and backward, all on ``sm90``), seconds, tokens/s and peak memory beside the dry run's three roofline terms for the same shape on
+     read just after (K2 and K3 forward and backward, all on ``sm90``; phi4's
+     decode steps B4's and B7's per-step launches), seconds, tokens/s and peak memory beside the dry run's three roofline terms for the same shape on
      the 1×1 mesh and the time's multiple of the largest;
    - dryrun: ``run_one`` of every config at the 16×16 mesh and
      ``prefill_32k`` and ``decode_32k`` on the meta device: all 20 ok, each
@@ -276,8 +294,9 @@ its launches by route; K3's backward with its launches in mamba2's training
 run and mesh step; B3's with its launches in the three training runs and
 the two mesh train steps; B2's fill and combine with their launches in
 the MoE serve runs, olmoe's training run and the ``moe_mesh`` phase, and
-B2's two adjoints with theirs in olmoe's training run), the
-``nvidia-smi`` line,
+B2's two adjoints with theirs in olmoe's training run; B6's and B7's
+with theirs in the served models, the training runs and the mesh steps),
+the ``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a CUDA device, or without the repository beside it, it exits
@@ -483,7 +502,8 @@ TRAIN_CHECKS = (("phi4-mini-3.8b", {"num_layers": 1}, "attention"),
                 ("jamba-1.5-large-398b", {"layout_pattern": ("ssm_mlp",), "num_layers": 1}, "ssd"),
                 ("olmoe-1b-7b", {"num_layers": 1}, "moe"),
                 ("phi4-mini-3.8b", {"num_layers": 1}, "norm"),
-                ("mamba2-1.3b", {"num_layers": 1}, "norm_conv"))
+                ("mamba2-1.3b", {"num_layers": 1}, "norm_conv"),
+                ("phi4-mini-3.8b", {"num_layers": 1}, "loss_rope"))
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
 # train_ckpt: the 100M demo (f32) of examples/train_100m_torch.py at its batch
 # and sequence, a checkpoint at CKPT_AT of CKPT_STEPS, then the resume
@@ -1756,6 +1776,18 @@ def norm_conv_counts(cfg) -> dict:
             "ssm": sum(_kind_has_ssm(k) for k in layer_kinds(cfg))}
 
 
+def rope_counts(cfg) -> dict:
+    """B7's calls (q and k in one) from the config: ``layers`` a prefill's
+    self-attention layers (``attn``, ``attn_moe``; a ``cross`` layer
+    applies no RoPE), ``outside`` an encoder-decoder's encoder layers
+    (outside the decoder's remat'd repetitions in training), ``decode`` a
+    decode step's (its self-attention layers)."""
+    from repro_torch.models.transformer import _kind_has_self_attn, layer_kinds
+    self_attn = sum(_kind_has_self_attn(k) for k in layer_kinds(cfg))
+    return {"layers": self_attn, "outside": cfg.encoder_layers if cfg.is_encoder_decoder else 0,
+            "decode": self_attn}
+
+
 def expected_launches(cfg, decode_steps: int = 0) -> dict:
     """Kernel launches of one prefill and ``decode_steps`` decode steps, from
     the config: K2 once in every self-attention, cross-attention and
@@ -1763,7 +1795,10 @@ def expected_launches(cfg, decode_steps: int = 0) -> dict:
     B2's fill and combine once each in every MoE layer (``attn_moe``,
     ``ssm_moe``) of the prefill and of every decode step; B4's plain form
     once for every RMSNorm and its gated form and B5 once in every Mamba2
-    layer, in the prefill and in every decode step (``norm_conv_counts``)."""
+    layer, in the prefill and in every decode step (``norm_conv_counts``);
+    B7 once in every self-attention and encoder layer of the prefill and in
+    every self-attention layer of every decode step (``rope_counts``); the
+    loss (B6) never."""
     from repro_torch.models.config import ATTN, ATTN_MOE, CROSS, SSM_MOE
     from repro_torch.models.transformer import layer_kinds
     kinds = layer_kinds(cfg)
@@ -1773,6 +1808,7 @@ def expected_launches(cfg, decode_steps: int = 0) -> dict:
         k2 += self_attn + cfg.encoder_layers         # cross-attention, then the encoder
     b2 = sum(k in (ATTN_MOE, SSM_MOE) for k in kinds) * (1 + decode_steps)
     nc = norm_conv_counts(cfg)
+    rc = rope_counts(cfg)
     ssm = nc["ssm"] * (1 + decode_steps)
     return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
             "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
@@ -1780,7 +1816,10 @@ def expected_launches(cfg, decode_steps: int = 0) -> dict:
             "moe_combine_bwd": 0,
             "rms_norm_fwd": nc["layers"] + nc["outside"] + nc["decode"] * decode_steps,
             "gated_rms_norm_fwd": ssm, "causal_conv1d_fwd": ssm, "rms_norm_bwd": 0,
-            "gated_rms_norm_bwd": 0, "causal_conv1d_bwd": 0}
+            "gated_rms_norm_bwd": 0, "causal_conv1d_bwd": 0, "cross_entropy_fwd": 0,
+            "cross_entropy_bwd": 0,
+            "rope_qk_fwd": rc["layers"] + rc["outside"] + rc["decode"] * decode_steps,
+            "rope_qk_bwd": 0}
 
 
 def random_cross_src(cfg, batch: int, gen):
@@ -1819,6 +1858,13 @@ B5, B5_BWD = ("causal_conv1d_fwd",), ("causal_conv1d_bwd",)
 B4_GATED_B5 = ("gated_rms_norm_fwd", "causal_conv1d_fwd")
 B4_GATED_B5_BWD = ("gated_rms_norm_bwd", "causal_conv1d_bwd")
 NORM_CONV = B4 + B4_BWD + B5 + B5_BWD
+# B6 (the loss) and B7 (RoPE of q and k): the wrappers' names, forward then
+# adjoint, and the kernels of each part of a train step
+B6, B7 = ("cross_entropy_fwd", "cross_entropy_bwd"), ("rope_qk_fwd", "rope_qk_bwd")
+LOSS_ROPE = B6 + B7
+LOSS_ROPE_KERNELS = {"loss_forward": ("ce_fwd_kernel",), "loss_backward": ("ce_bwd_kernel",),
+                     "rope_forward": ("rope_qk_fwd_kernel",),
+                     "rope_backward": ("rope_qk_bwd_kernel",)}
 NORM_CONV_KERNELS = {"norm_forward": ("rms_norm_fwd_kernel",),
                      "norm_backward": ("rms_norm_bwd_kernel", "norm_sum_partials"),
                      "conv_forward": ("causal_conv_fwd_kernel", "causal_conv_fwd_window_kernel"),
@@ -1832,11 +1878,11 @@ CONV_FWD_ROUTES = {"staged": 0, "vector": 0, "scalar": 0}
 
 
 def nc_routes(want: dict, decode_convs: int = 0) -> dict:
-    """B4's and B5's launches in ``want`` by route: the norms and B5's
-    adjoint on ``vector``; B5's forward on ``staged`` but for the
+    """B4's to B7's launches in ``want`` by route: the norms, B5's
+    adjoint, the loss and RoPE on ``vector``; B5's forward on ``staged`` but for the
     ``decode_convs`` calls of decode steps (S = 1), which keep the register
     window's ``vector`` route."""
-    routes = {k: {"vector": want[k], "scalar": 0} for k in NORM_CONV}
+    routes = {k: {"vector": want[k], "scalar": 0} for k in NORM_CONV + LOSS_ROPE}
     n = want["causal_conv1d_fwd"]
     routes["causal_conv1d_fwd"] = {"staged": n - decode_convs, "vector": decode_convs,
                                    "scalar": 0}
@@ -1858,6 +1904,20 @@ def norm_conv_plain():
     with mock.patch.object(ops, "rms_norm_fwd", rms_norm.rms_norm_fwd_plain), \
             mock.patch.object(ops, "gated_rms_norm_fwd", rms_norm.gated_rms_norm_fwd_plain), \
             mock.patch.object(ops, "causal_conv1d_fwd", causal_conv.causal_conv1d_plain):
+        yield
+
+
+@contextlib.contextmanager
+def rope_plain_swap():
+    """B7's plain forward in place of its kernel (``ops.rope_qk_fwd``, which
+    ``ops.rope_qk`` calls outside grad)."""
+    from repro_torch.kernels import rope
+    ops = importlib.import_module("repro_torch.kernels.ops")
+
+    def plain(q, k, positions, theta):
+        return (rope.rope_plain(q, positions, theta),
+                None if k is None else rope.rope_plain(k, positions, theta))
+    with mock.patch.object(ops, "rope_qk_fwd", plain):
         yield
 
 
@@ -2102,6 +2162,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
                 stack.enter_context(mock.patch.object(ops, "ssd_scan", ssd_scan_plain))
                 stack.enter_context(b2_plain())
                 stack.enter_context(norm_conv_plain())
+                stack.enter_context(rope_plain_swap())
             stack.enter_context(routing("replay", list(chosen)))
             return forward_prefill(m, tokens, SERVE_PROMPT + 1, x)[0].float()
 
@@ -2164,7 +2225,8 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     res = generate(model, tokens, SERVE_NEW, cross)
     counted = read_counts(counters)
     counts = counted["launches"]
-    routes = {k: counted["routes"][k] for k in ("flash_attention", "ssd_scan") + B2 + NORM_CONV}
+    routes = {k: counted["routes"][k]
+              for k in ("flash_attention", "ssd_scan") + B2 + NORM_CONV + LOSS_ROPE}
     peak = torch.cuda.max_memory_allocated()
     want = expected_launches(cfg, SERVE_NEW)
     want_routes = {k: {"sm90": want[k], "simt": 0} for k in ("flash_attention", "ssd_scan")}
@@ -2251,7 +2313,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
         del caches
     del model, res, cross
     free()
-    return {k: counts[k] for k in ("flash_attention", "ssd_scan") + B2 + NORM_CONV}
+    return {k: counts[k] for k in ("flash_attention", "ssd_scan") + B2 + NORM_CONV + LOSS_ROPE}
 
 
 def attention_bwd_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
@@ -3653,6 +3715,239 @@ def check_norm_conv(gen, smi: str) -> dict:
     return result
 
 
+# B6, the loss: (label, dtype, (B, S), V): the trained vocabularies at 4 x
+# 1024 tokens (phi4-mini-3.8b, mamba2-1.3b, olmoe-1b-7b), the demo's f32,
+# the smoke width, and an odd width on the scalar route in both dtypes
+LOSS_CHECKS = (("phi4-mini-3.8b", "bfloat16", (4, 1024), 200064),
+               ("mamba2-1.3b", "bfloat16", (4, 1024), 50280),
+               ("olmoe-1b-7b", "bfloat16", (4, 1024), 50304),
+               ("demo-100m", "float32", (8, 128), 32768),
+               ("smoke", "bfloat16", (2, 8), 512),
+               ("odd width", "bfloat16", (3, 7), 1001),
+               ("odd width f32", "float32", (3, 7), 1001))
+LOSS_TIMED = ("phi4-mini-3.8b", "mamba2-1.3b", "olmoe-1b-7b", "demo-100m")
+# the loss against the plain chain's, relative: both sum the row's exp in
+# f32 (the kernel by ex2.approx in its own order), ~1e-7 apart
+LOSS_REL_TOL = 1e-5
+# B7, RoPE: (label, dtype, B, S, Hq, Hk, hd, theta, positions): phi4's
+# training shape, qwen3's prefill, kimi-k2's head_dim 112, a decode step at
+# position 1037, whisper's encoder (S 1500, hd 64), the demo's f32, q and k
+# one element off 16-byte alignment (the scalar route), int32 positions
+ROPE_CHECKS = (("phi4-mini-3.8b train", "bfloat16", 4, 1024, 24, 8, 128, 1e4, "arange"),
+               ("qwen3-14b prefill", "bfloat16", 4, 1024, 40, 8, 128, 1e6, "arange"),
+               ("kimi-k2 hd 112", "bfloat16", 4, 1024, 64, 8, 112, 5e4, "arange"),
+               ("qwen3-14b decode", "bfloat16", 4, 1, 40, 8, 128, 1e6, "decode"),
+               ("whisper-medium encoder", "bfloat16", 4, 1500, 16, 16, 64, 1e4, "arange"),
+               ("demo-100m", "float32", 8, 128, 8, 2, 64, 1e4, "arange"),
+               ("unaligned", "bfloat16", 2, 64, 8, 2, 128, 1e4, "unaligned"),
+               ("int32 positions", "bfloat16", 2, 64, 8, 2, 128, 1e4, "int32"))
+ROPE_TIMED = ("phi4-mini-3.8b train", "qwen3-14b prefill", "kimi-k2 hd 112",
+              "qwen3-14b decode")
+
+
+def ulps_apart(got, want) -> dict:
+    """Elements of ``got`` whose bits differ from ``want``'s, and the largest
+    distance in ulps of their dtype (bf16 or f32)."""
+    import torch
+    differ = bits(got) != bits(want)
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - (8 if got.dtype == torch.bfloat16 else 24))
+    far = float(((g - w).abs() / ulp.clamp_min(torch.finfo(want.dtype).tiny))[differ].max()
+                ) if bool(differ.any()) else 0.0
+    return {"differing": int(differ.sum()), "elements": int(differ.numel()), "max_ulps": far}
+
+
+def check_loss_rope(gen, smi: str) -> dict:
+    """B6 (``cross_entropy_fwd``, ``cross_entropy_bwd``) and B7
+    (``rope_qk_fwd``, ``rope_qk_bwd``) against their plain versions on the
+    card, one launch each on the route the layout gives (``vector``; the
+    odd widths and the unaligned q and k ``scalar``): the loss (the mean of
+    the rows' nll) within ``LOSS_REL_TOL`` of the eager chain's, the rows'
+    lse beside the plain ones, the logits' gradient against
+    ``cross_entropy_bwd_plain`` at the kernel's lse bit for bit or within
+    one ulp of the logits' dtype (``ulps_apart``); RoPE's outputs and its
+    adjoint's against ``rope_plain`` and ``rope_bwd_plain``, bit for bit or
+    the count of differing elements and their distance in ulps (at most
+    one). Then ``LOSS_TIMED`` and ``ROPE_TIMED`` in turns with the plain
+    versions and, for the loss, ``F.cross_entropy`` on the f32 logits
+    (forward; its backward alone from a kept graph): a yardstick never on
+    the path; none computes RoPE. Each beside its bound by bytes, with the
+    kernels' own device time, each call's host µs, their registers and
+    local memory. Returns the kernels line's entries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import cross_entropy as ce
+    from repro_torch.kernels import rope
+    dev = torch.device("cuda")
+    d = torch.cuda.current_device()
+
+    def took(fn, before):
+        return {r: fn.launches_by_route[r] - before[r] for r in fn.launches_by_route}
+
+    worst = dict.fromkeys(LOSS_ROPE, 0.0)
+    timed_loss, timed_rope = {}, {}
+    for label, dt, (b, s), v in LOSS_CHECKS:
+        dtype = getattr(torch, dt)
+        route = "vector" if v * (2 if dt == "bfloat16" else 4) % 16 == 0 else "scalar"
+        one = {r: int(r == route) for r in ce.ROUTES}
+        logits = (torch.randn((b, s, v), generator=gen, device=dev) * 2).to(dtype)
+        labels = torch.randint(0, v, (b, s), generator=gen, device=dev)
+        before = dict(ce.cross_entropy_fwd.launches_by_route)
+        lse, nll = ce.cross_entropy_fwd(logits, labels)
+        fwd_took = took(ce.cross_entropy_fwd, before)
+        loss = float(nll.mean())
+        want = float(ce.cross_entropy_plain(logits, labels))
+        want_lse, want_nll = ce.cross_entropy_fwd_plain(logits, labels)
+        grad = torch.ones((), device=dev)
+        before = dict(ce.cross_entropy_bwd.launches_by_route)
+        dx = ce.cross_entropy_bwd(grad, logits, lse, labels)
+        bwd_took = took(ce.cross_entropy_bwd, before)
+        wdx = ce.cross_entropy_bwd_plain(grad, logits, lse, labels)
+        torch.cuda.synchronize()
+        rel = abs(loss - want) / abs(want)
+        lse_rel = float(((lse - want_lse).abs() / want_lse.abs()).max())
+        adj = ulps_apart(dx, wdx)
+        ok = (rel <= LOSS_REL_TOL and adj["max_ulps"] <= 1 and fwd_took == one
+              and bwd_took == one and math.isfinite(loss))
+        worst["cross_entropy_fwd"] = max(worst["cross_entropy_fwd"],
+                                         float((nll - want_nll).abs().max()))
+        worst["cross_entropy_bwd"] = max(worst["cross_entropy_bwd"],
+                                         float((dx.float() - wdx.float()).abs().max()))
+        emit({"phase": "kernel_check", "kernel": "cross_entropy", "path": label, "dtype": dt,
+              "rows": b * s, "vocab": v, "route": route, "loss": loss, "plain_loss": want,
+              "loss_rel_diff": rel, "loss_tol": LOSS_REL_TOL, "lse_max_rel_diff": lse_rel,
+              "dlogits_vs_plain": adj, "launches": {"fwd": fwd_took, "bwd": bwd_took},
+              "ok": ok})
+        if not ok:
+            raise AssertionError(f"cross_entropy differs from its plain version at {label}: "
+                                 f"loss {loss} vs {want}, dlogits {adj}, launches {fwd_took} "
+                                 f"{bwd_took}")
+        if label in LOSS_TIMED:
+            timed_loss[label] = (logits, labels, lse)
+        del dx, wdx, want_lse, want_nll, nll
+    for label, dt, b, s, hq, hk, hd, theta, kind in ROPE_CHECKS:
+        dtype = getattr(torch, dt)
+
+        def draw(h):
+            if kind == "unaligned":       # one element past a 16-byte boundary, at its strides
+                return torch.randn((b, s, h, hd + 2), generator=gen, device=dev).to(
+                    dtype)[..., 1:hd + 1]
+            return torch.randn((b, s, h, hd), generator=gen, device=dev).to(dtype)
+        q, k, gq, gk = draw(hq), draw(hk), draw(hq), draw(hk)
+        if kind == "decode":
+            pos = torch.full((b, 1), 1037, dtype=torch.long, device=dev)
+        elif kind == "int32":
+            pos = torch.randint(0, 4096, (b, s), generator=gen, device=dev).int()
+        else:
+            pos = torch.arange(s, device=dev).expand(b, s)
+        route = "scalar" if kind == "unaligned" else "vector"
+        one = {r: int(r == route) for r in rope.ROUTES}
+        before = dict(rope.rope_qk_fwd.launches_by_route)
+        oq, ok_ = rope.rope_qk_fwd(q, k, pos, theta)
+        fwd_took = took(rope.rope_qk_fwd, before)
+        before = dict(rope.rope_qk_bwd.launches_by_route)
+        dq, dk = rope.rope_qk_bwd(gq, gk, pos, theta)
+        bwd_took = took(rope.rope_qk_bwd, before)
+        fwd = [ulps_apart(oq, rope.rope_plain(q, pos, theta)),
+               ulps_apart(ok_, rope.rope_plain(k, pos, theta))]
+        bwd = [ulps_apart(dq, rope.rope_bwd_plain(gq, pos, theta)),
+               ulps_apart(dk, rope.rope_bwd_plain(gk, pos, theta))]
+        torch.cuda.synchronize()
+        fwd_bits = all(r["differing"] == 0 for r in fwd)
+        bwd_bits = all(r["differing"] == 0 for r in bwd)
+        ok = (all(r["max_ulps"] <= 1 for r in fwd + bwd) and fwd_took == one
+              and bwd_took == one)
+        worst["rope_qk_fwd"] = max(worst["rope_qk_fwd"], max(
+            float((a.float() - rope.rope_plain(x, pos, theta).float()).abs().max())
+            for a, x in ((oq, q), (ok_, k))))
+        worst["rope_qk_bwd"] = max(worst["rope_qk_bwd"], max(
+            float((a.float() - rope.rope_bwd_plain(g, pos, theta).float()).abs().max())
+            for a, g in ((dq, gq), (dk, gk))))
+        emit({"phase": "kernel_check", "kernel": "rope_qk", "path": label, "dtype": dt,
+              "batch": b, "seq": s, "q_heads": hq, "k_heads": hk, "head_dim": hd,
+              "theta": theta, "positions": kind, "route": route,
+              "forward_bits_equal": fwd_bits, "adjoint_bits_equal": bwd_bits,
+              "forward_vs_plain": {"q": fwd[0], "k": fwd[1]},
+              "adjoint_vs_plain": {"q": bwd[0], "k": bwd[1]},
+              "launches": {"fwd": fwd_took, "bwd": bwd_took}, "ok": ok})
+        if not ok:
+            raise AssertionError(f"rope_qk differs from its plain version at {label}: "
+                                 f"{fwd} {bwd}, launches {fwd_took} {bwd_took}")
+        if label in ROPE_TIMED:
+            timed_rope[label] = (q, k, gq, gk, pos, theta)
+        del oq, ok_, dq, dk
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # timing, in turns
+    entries = {name: {} for name in LOSS_ROPE}
+
+    def add(name, label, shape, dtype, contenders, split, bound, resources):
+        t = timed_in_turns(contenders, NC_ITERS, split, 100)
+        entries[name][label] = dict(shape=shape, dtype=str(dtype), **t, **bound,
+                                    share_of_bound=bound["bound_ms"] / t["ms"],
+                                    resources=resources)
+    for label, (logits, labels, lse) in timed_loss.items():
+        rows, v = labels.numel(), logits.shape[-1]
+        es, n = logits.element_size(), logits.numel()
+        grad = torch.ones((), device=dev)
+        x32 = logits.float().requires_grad_(True)
+        lib_loss = F.cross_entropy(x32.view(-1, v), labels.view(-1))
+        add("cross_entropy_fwd", label, [rows, v], logits.dtype,
+            {"kernel": lambda: ce.cross_entropy_fwd(logits, labels)[1].mean(),
+             "plain": lambda: ce.cross_entropy_plain(logits, labels),
+             "library": lambda: F.cross_entropy(logits.float().view(-1, v), labels.view(-1))},
+            {"ce_fwd_kernel": 1}, nc_bound(n * es + rows * (8 + 4 + 4), 4 * n),
+            ce.attributes(logits.dtype, False, d))
+        add("cross_entropy_bwd", label, [rows, v], logits.dtype,
+            {"kernel": lambda: ce.cross_entropy_bwd(grad, logits, lse, labels),
+             "plain": lambda: ce.cross_entropy_bwd_plain(grad, logits, lse, labels),
+             "library": lambda: torch.autograd.grad(lib_loss, x32, retain_graph=True)},
+            {"ce_bwd_kernel": 1}, nc_bound(2 * n * es + rows * (8 + 4) + 4, 5 * n),
+            ce.attributes(logits.dtype, True, d))
+        del x32, lib_loss
+    for label, (q, k, gq, gk, pos, theta) in timed_rope.items():
+        es, n = q.element_size(), q.numel() + k.numel()
+        b, s, hq, hd = q.shape
+        pos_bytes = pos.untyped_storage().nbytes() if pos.stride(0) == 0 else pos.numel() * 8
+        nbytes = 2 * n * es + pos_bytes + hd // 2 * 4
+        shape = [b, s, hq, k.shape[2], hd]
+        add("rope_qk_fwd", label, shape, q.dtype,
+            {"kernel": lambda: rope.rope_qk_fwd(q, k, pos, theta),
+             "plain": lambda: (rope.rope_plain(q, pos, theta), rope.rope_plain(k, pos, theta))},
+            {"rope_qk_fwd_kernel": 1}, nc_bound(nbytes, 3 * n),
+            rope.attributes(q.dtype, False, d))
+        add("rope_qk_bwd", label, shape, q.dtype,
+            {"kernel": lambda: rope.rope_qk_bwd(gq, gk, pos, theta),
+             "plain": lambda: (rope.rope_bwd_plain(gq, pos, theta),
+                               rope.rope_bwd_plain(gk, pos, theta))},
+            {"rope_qk_bwd_kernel": 1}, nc_bound(nbytes, 3 * n),
+            rope.attributes(q.dtype, True, d))
+    for name, rows in entries.items():
+        for label, e in rows.items():
+            emit({"phase": "kernel_time", "kernel": name, "path": label, "smi": smi, **e})
+    del timed_loss, timed_rope
+    gc.collect()
+    torch.cuda.empty_cache()
+    libraries = {"cross_entropy_fwd": "F.cross_entropy of the f32 logits (its forward)",
+                 "cross_entropy_bwd": "F.cross_entropy's backward alone, from a kept graph, "
+                                      "to f32 logits (no cast back)"}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+            "share_of_bound", "host_us", "shape", "resources")
+    result = {}
+    for name in LOSS_ROPE:
+        first_label = next(iter(entries[name]))
+        first = entries[name].pop(first_label)
+        result[name] = {"max_abs_err": worst[name], "path": first_label,
+                        **{k: first[k] for k in keys},
+                        "other_shapes": {lb: {k: e[k] for k in keys if k != "host_us"}
+                                         for lb, e in entries[name].items()},
+                        "library_layout": libraries.get(name, "none: no one PyTorch call "
+                                                              "computes it")}
+    return result
+
+
 def kernel_split(fn, want: dict, calls: int = 3, tries: int = 5) -> dict:
     """Device ms per call of ``fn`` by kernel (``torch.profiler``) for the
     kernels in ``want``, each launched ``want[name]`` times a call. The
@@ -3689,12 +3984,14 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     and its backward (both passes, also apart), B2's forward kernels (fill
     and combine) and its adjoint kernels (also apart), B4's forward and
     adjoint kernels (both forms; the adjoint with its sum pass), B5's
-    likewise, cuBLAS, the optimizer's update (B3's kernel by its name,
-    launched through ``ctypes`` with no PyTorch op around it, and the ops
-    under the optimizer's ``record_function`` range: the bias corrections)
-    and the rest (RoPE, SwiGLU, the loss, the embedding's gradient, the
-    slices' gradients, copies). The split sums to the busy time, the rest
-    at least 0. ``rest_by_op``: the rest's device time by the PyTorch op
+    likewise, B6's (the loss: ``loss_forward``, ``loss_backward``) and
+    B7's (RoPE: ``rope_forward``, ``rope_backward``) by kernel name,
+    cuBLAS, the optimizer's update (B3's kernel by its name, launched
+    through ``ctypes`` with no PyTorch op around it, and the ops under the
+    optimizer's ``record_function`` range: the bias corrections) and the
+    rest (SwiGLU, the loss's mean, the embedding's gradient, the slices'
+    gradients, copies). The split sums to the busy time, the rest at least
+    0. ``rest_by_op``: the rest's device time by the PyTorch op
     that launched each kernel and its input shapes (the ops' own device
     time, ``key_averages(group_by_input_shape=True)``; products and the
     port's autograd Functions, whose kernels are counted by name, left
@@ -3733,7 +4030,7 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     moe_bwd = sum(moe_bwd_by_kernel.values())
     gemm = ms(lambda key: any(n in key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass")))
     norm_conv = {part: ms(lambda key, names=names: any(named(n, key) for n in names))
-                 for part, names in NORM_CONV_KERNELS.items()}
+                 for part, names in {**NORM_CONV_KERNELS, **LOSS_ROPE_KERNELS}.items()}
 
     def inside(e, name):
         p = e.cpu_parent
@@ -3776,13 +4073,50 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
 def train_swaps(kind: str):
     """What ``train_check`` swaps into ``ops`` for ``kind`` (``attention``:
     K2, ``ssd``: K3, ``moe``: B2, ``norm``: B4's plain form, ``norm_conv``:
-    B4's two forms and B5): {name there: a stand-in running the plain
-    forward, which autograd differentiates}, {name there: the kernels'
-    Function with a faulty backward} and that fault's name. The faults zero
-    the gradients of the two inputs the scores are formed from (dQ and dK;
-    dB and dC), the gates' gradient (the router's only path to the loss),
-    the norms' scale gradient, or the convolution's dw."""
+    B4's two forms and B5, ``loss_rope``: B6 and B7): {name there: a
+    stand-in running the plain forward, which autograd differentiates} and
+    {a fault's name: {name there: the kernels' Function with a faulty
+    backward}}. The faults zero the gradients of the two inputs the scores
+    are formed from (dQ and dK; dB and dC), the gates' gradient (the
+    router's only path to the loss), the norms' scale gradient, or the
+    convolution's dw; drop the loss's one-hot term (the softmax alone);
+    rotate RoPE's gradient by +angle (the forward's rotation)."""
     import torch
+    if kind == "loss_rope":
+        ce = importlib.import_module("repro_torch.kernels.cross_entropy")
+        rope = importlib.import_module("repro_torch.kernels.rope")
+
+        class PlainLoss:
+            @staticmethod
+            def apply(logits, labels):
+                return ce.cross_entropy_plain(logits, labels)
+
+        class PlainRope:
+            @staticmethod
+            def apply(q, k, positions, theta):
+                return (rope.rope_plain(q, positions, theta),
+                        None if k is None else rope.rope_plain(k, positions, theta))
+
+        class LostOnehot(ce.CrossEntropyFn):
+            @staticmethod
+            def backward(ctx, grad):
+                dx, dlabels = ce.CrossEntropyFn.backward(ctx, grad)
+                _, _, labels = ctx.saved_tensors
+                flat = dx.view(-1, dx.shape[-1])
+                rows = torch.arange(flat.shape[0], device=dx.device)
+                flat[rows, labels.reshape(-1)] += (grad / flat.shape[0]).to(dx.dtype)
+                return dx, dlabels
+
+        class RopeForwardSign(rope.RopeFn):
+            @staticmethod
+            def backward(ctx, gq, gk):
+                (positions,) = ctx.saved_tensors
+                dq, dk = rope.rope_qk_fwd(gq.contiguous(), gk.contiguous(), positions,
+                                          ctx.theta)
+                return dq, dk, None, None
+        return ({"CrossEntropyFn": PlainLoss, "RopeFn": PlainRope},
+                {"lost_onehot": {"CrossEntropyFn": LostOnehot},
+                 "rope_plus_angle": {"RopeFn": RopeForwardSign}})
     if kind in ("norm", "norm_conv"):
         rn = importlib.import_module("repro_torch.kernels.rms_norm")
         cc = importlib.import_module("repro_torch.kernels.causal_conv")
@@ -3814,9 +4148,9 @@ def train_swaps(kind: str):
                 dx, dw, db, dstate = cc.CausalConv1dFn.backward(ctx, g, g_state)
                 return dx, torch.zeros_like(dw), db, dstate
         if kind == "norm":
-            return {"RmsNormFn": PlainNorm}, {"RmsNormFn": LostDscale}, "lost_dscale"
+            return {"RmsNormFn": PlainNorm}, {"lost_dscale": {"RmsNormFn": LostDscale}}
         return ({"RmsNormFn": PlainNorm, "GatedRmsNormFn": PlainGated,
-                 "CausalConv1dFn": PlainConv}, {"CausalConv1dFn": LostConvDw}, "lost_conv_dw")
+                 "CausalConv1dFn": PlainConv}, {"lost_conv_dw": {"CausalConv1dFn": LostConvDw}})
     if kind == "moe":
         md = importlib.import_module("repro_torch.kernels.moe_dispatch")
 
@@ -3836,7 +4170,7 @@ def train_swaps(kind: str):
                 dy, ddest, dgate, *rest = md.MoeCombineFn.backward(ctx, grad_out)
                 return (dy, ddest, torch.zeros_like(dgate), *rest)
         return ({"MoeFillFn": PlainFill, "MoeCombineFn": PlainCombine},
-                {"MoeCombineFn": LostDgate}, "lost_dgate")
+                {"lost_dgate": {"MoeCombineFn": LostDgate}})
     if kind == "attention":
         fa = importlib.import_module("repro_torch.kernels.flash_attention")
 
@@ -3851,8 +4185,8 @@ def train_swaps(kind: str):
             def backward(ctx, do):
                 dq, dk, *rest = fa.FlashAttentionFn.backward(ctx, do)
                 return (torch.zeros_like(dq), torch.zeros_like(dk), *rest)
-        return ({"FlashAttentionFn": PlainAttention}, {"FlashAttentionFn": LostDqDk},
-                "lost_dq_dk")
+        return ({"FlashAttentionFn": PlainAttention},
+                {"lost_dq_dk": {"FlashAttentionFn": LostDqDk}})
     ssd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
     class PlainSsd:
@@ -3866,7 +4200,7 @@ def train_swaps(kind: str):
         def backward(ctx, dy, dstate):
             dx, ddt, dA, dB, dC, *rest = ssd.SsdScanFn.backward(ctx, dy, dstate)
             return (dx, ddt, dA, torch.zeros_like(dB), torch.zeros_like(dC), *rest)
-    return {"SsdScanFn": PlainSsd}, {"SsdScanFn": LostDbDc}, "lost_db_dc"
+    return {"SsdScanFn": PlainSsd}, {"lost_db_dc": {"SsdScanFn": LostDbDc}}
 
 
 def train_check(counters: dict, arch: str, cut, kind: str) -> None:
@@ -3878,8 +4212,8 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     with remat, each backward kernel once; all on ``sm90``), against the same with the kernels' Function
     swapped for the plain forward, which autograd differentiates. The loss
     within ``TRAIN_LOSS_TOL`` and every parameter's gradient within
-    ``TRAIN_GRAD_TOL`` (relative L2). Then the kernels again with the
-    backward's faulty stand-in: the same limits must reject that. For
+    ``TRAIN_GRAD_TOL`` (relative L2). Then the kernels again with each of
+    the backwards' faulty stand-ins: the same limits must reject each. For
     ``moe`` (olmoe-1b-7b) K2 runs in all three runs; only B2's Functions
     are swapped, both for the plain forwards, and the fault zeroes the
     gates' gradient."""
@@ -3895,7 +4229,7 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     data = MarkovDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                     batch_size=TRAIN_BATCH, seed=0))
     tokens, labels = (torch.from_numpy(a).to(dev, torch.int64) for a in next(data.batches()))
-    plain, faulty, fault = train_swaps(kind)
+    plain, faults = train_swaps(kind)
 
     def swapped(swaps):
         stack = contextlib.ExitStack()
@@ -3920,44 +4254,51 @@ def train_check(counters: dict, arch: str, cut, kind: str) -> None:
     counted = read_counts(counters)
     with swapped(plain):
         loss_p, grads_p = run()
-    with swapped(faulty):
-        loss_z, grads_z = run()
+    errs = rel(grads_k, grads_p)
+    fault_errs = {}
+    for fault, faulty in faults.items():
+        with swapped(faulty):
+            _, grads_z = run()
+        fault_errs[fault] = rel(grads_z, grads_p)
+        del grads_z
     torch.cuda.synchronize()
-    errs, errs_z = rel(grads_k, grads_p), rel(grads_z, grads_p)
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     want = train_launches(cfg, 1)
     finite = math.isfinite(loss_k) and all(bool(torch.isfinite(g).all()) for g in grads_k.values())
-    rejects_fault = max(errs_z.values()) > TRAIN_GRAD_TOL
+    rejected = {fault: max(e.values()) > TRAIN_GRAD_TOL for fault, e in fault_errs.items()}
     ok = (finite and loss_err <= TRAIN_LOSS_TOL and max(errs.values()) <= TRAIN_GRAD_TOL
           and counted["launches"] == want and counted["routes"] == train_routes(want)
-          and rejects_fault and len(grads_p) == sum(1 for _ in model.parameters()))
+          and all(rejected.values()) and len(grads_p) == sum(1 for _ in model.parameters()))
     emit({"phase": "train_check", "arch": cfg.name, "layers": cfg.num_layers,
           "pattern": cfg.layout_pattern, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "ssm_heads": cfg.ssm_heads, "ssm_groups": cfg.ssm_groups,
           "experts": cfg.num_experts, "top_k": cfg.experts_per_token, "batch": TRAIN_BATCH,
           "seq": TRAIN_SEQ, "loss": loss_k, "plain_loss": loss_p, "loss_rel_err": loss_err,
           "loss_tol": TRAIN_LOSS_TOL, "grad_rel_err": errs, "grad_tol": TRAIN_GRAD_TOL,
-          f"{fault}_grad_rel_err": errs_z, f"{fault}_rejected": rejects_fault,
+          **{f"{fault}_grad_rel_err": e for fault, e in fault_errs.items()},
+          **{f"{fault}_rejected": r for fault, r in rejected.items()},
           **counted, "want_launches": want, "ok": ok})
     if not ok:
         raise AssertionError(f"train_check {arch}: loss {loss_k} vs {loss_p}, gradients {errs}, "
-                             f"{counted} (want {want}), {fault} rejected {rejects_fault}")
-    del model, grads_k, grads_p, grads_z
+                             f"{counted} (want {want}), faults rejected {rejected}")
+    del model, grads_k, grads_p
     gc.collect()
     torch.cuda.empty_cache()
 
 
 def train_launches(cfg, steps: int, adamw_per_step: int = 0, remat: bool = True) -> dict:
     """Kernel launches of ``steps`` train steps: each forward kernel (K2, K3,
-    B2's fill and combine, B4's two forms and B5 inside the layers) twice a
-    layer and step with ``remat`` (the forward, then its recomputation in
-    the backward), once without; the norms outside the layers (the final
-    norm, an encoder's) once; each backward kernel (K2's, K3's, B2's two
-    adjoints, B4's and B5's) once for each forward call it differentiates;
-    and AdamW's ``adamw_per_step`` times a step (0 where no optimizer
-    runs)."""
+    B2's fill and combine, B4's two forms, B5 and B7 inside the layers)
+    twice a layer and step with ``remat`` (the forward, then its
+    recomputation in the backward), once without; the norms and RoPE
+    outside the layers (the final norm, an encoder's) once; each backward
+    kernel (K2's, K3's, B2's two adjoints, B4's, B5's and B7's) once for
+    each forward call it differentiates; the loss (B6) and its adjoint once
+    a step; and AdamW's ``adamw_per_step`` times a step (0 where no
+    optimizer runs)."""
     per = expected_launches(cfg)
     nc = norm_conv_counts(cfg)
+    rc = rope_counts(cfg)
     f = 2 if remat else 1
     want = dict.fromkeys(per, 0)
     want.update(flash_attention=f * per["flash_attention"] * steps,
@@ -3965,7 +4306,10 @@ def train_launches(cfg, steps: int, adamw_per_step: int = 0, remat: bool = True)
                 ssd_scan=f * per["ssd_scan"] * steps, ssd_scan_bwd=per["ssd_scan"] * steps,
                 adamw=adamw_per_step * steps,
                 rms_norm_fwd=(f * nc["layers"] + nc["outside"]) * steps,
-                rms_norm_bwd=(nc["layers"] + nc["outside"]) * steps)
+                rms_norm_bwd=(nc["layers"] + nc["outside"]) * steps,
+                rope_qk_fwd=(f * rc["layers"] + rc["outside"]) * steps,
+                rope_qk_bwd=(rc["layers"] + rc["outside"]) * steps,
+                cross_entropy_fwd=steps, cross_entropy_bwd=steps)
     for fwd, bwd in zip(B2 + B4_GATED_B5, B2_BWD + B4_GATED_B5_BWD):
         want.update({fwd: f * per[fwd] * steps, bwd: per[fwd] * steps})
     return want
@@ -4195,7 +4539,7 @@ def zero_counts(counters: dict) -> None:
     ssd_scan_bwd.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
     for name in B2 + B2_BWD:
         getattr(moe_dispatch, name).launches_by_route = dict.fromkeys(moe_dispatch.ROUTES, 0)
-    for name, fn in norm_conv_wrappers().items():
+    for name, fn in {**norm_conv_wrappers(), **loss_rope_wrappers()}.items():
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
@@ -4204,6 +4548,12 @@ def norm_conv_wrappers() -> dict:
     from repro_torch.kernels import causal_conv, rms_norm
     return {name: getattr(rms_norm if name in B4 + B4_BWD else causal_conv, name)
             for name in NORM_CONV}
+
+
+def loss_rope_wrappers() -> dict:
+    """B6's and B7's wrappers by name."""
+    from repro_torch.kernels import cross_entropy, rope
+    return {name: getattr(cross_entropy if name in B6 else rope, name) for name in LOSS_ROPE}
 
 
 def read_counts(counters: dict) -> dict:
@@ -4218,7 +4568,8 @@ def read_counts(counters: dict) -> dict:
                        **{name: dict(getattr(moe_dispatch, name).launches_by_route)
                           for name in B2 + B2_BWD},
                        **{name: dict(fn.launches_by_route)
-                          for name, fn in norm_conv_wrappers().items()}}}
+                          for name, fn in {**norm_conv_wrappers(),
+                                           **loss_rope_wrappers()}.items()}}}
 
 
 def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
@@ -4331,7 +4682,9 @@ def steps_phase(smi: str, counters: dict) -> dict:
     (logits within the bf16 tolerance, greedy ids equal); mamba2-1.3b's
     prefill likewise, through K3. Every kernel's count is zeroed just
     before each timed run and read just after: K2 forward and backward and
-    K3's forward and backward launch, all ``sm90``. Beside each time, the dry run's three terms for
+    K3's forward and backward launch, all ``sm90``; phi4's decode steps
+    launch what ``expected_launches`` gives the steps beyond the prefill
+    (B4 and B7 once a layer and step). Beside each time, the dry run's three terms for
     the same shape on the 1×1 mesh. Returns the launches by path."""
     import torch
     from repro_torch.configs import get_config
@@ -4343,7 +4696,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
     dev = torch.device("cuda")
     mesh = make_host_mesh()
     by_path = {"flash_attention": {}, "flash_attention_bwd": {}, "ssd_scan": {}, "ssd_scan_bwd": {},
-               "adamw": {}, **{name: {} for name in NORM_CONV}}
+               "adamw": {}, **{name: {} for name in NORM_CONV + LOSS_ROPE}}
     tol = TOL["bfloat16"]
 
     # train: the direct path's losses, then the mesh step's from the same start
@@ -4352,7 +4705,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
                                          "blocks.-1.ssm.out_proj"))):
         counted = steps_train(arch, held, mesh, smi, counters)
         for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
-                       "adamw", *NORM_CONV):
+                       "adamw", *NORM_CONV, *LOSS_ROPE):
             if counted[kernel]:
                 by_path[kernel][f"steps {arch} train"] = counted[kernel]
 
@@ -4378,13 +4731,21 @@ def steps_phase(smi: str, counters: dict) -> dict:
                                 SERVE_BATCH, "decode")
             decode, _ = make_decode_step(cfg, mesh, dshape)
             torch.cuda.synchronize()
+            zero_counts(counters)
             t0 = time.perf_counter()
             for _ in range(STEPS_DECODE):
                 out, caches, clen = decode(model, ids[-1], caches, clen)
                 ids.append(torch.argmax(out, dim=-1))
             torch.cuda.synchronize()
             decode_s = (time.perf_counter() - t0) / STEPS_DECODE
-            ok = ok and torch.equal(torch.cat(ids, dim=1), want.ids)
+            decoded = read_counts(counters)
+            # the decode steps' launches alone: those of the prefill and the
+            # steps less the prefill's
+            alone, steps = expected_launches(cfg), expected_launches(cfg, STEPS_DECODE)
+            decode_want = {k: steps[k] - alone[k] for k in steps}
+            ok = (ok and torch.equal(torch.cat(ids, dim=1), want.ids)
+                  and decoded["launches"] == decode_want
+                  and all(decoded["routes"][k] == v for k, v in nc_routes(decode_want).items()))
         del caches, logits
         zero_counts(counters)
         torch.cuda.reset_peak_memory_stats()
@@ -4416,6 +4777,8 @@ def steps_phase(smi: str, counters: dict) -> dict:
                   "peak_mem_gb": peak / 1e9, **counted, "want_launches": want_launches,
                   "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok}
         if with_decode:
+            record.update(decode_launches=decoded["launches"], decode_routes=decoded["routes"],
+                          decode_want_launches=decode_want)
             record.update(decode_s_per_token=decode_s, decode_tokens_per_s=SERVE_BATCH / decode_s,
                           decode_roofline=beside(decode_s, dry_terms(arch, cfg, "decode",
                                                                      SERVE_BATCH, SERVE_PROMPT)))
@@ -4423,13 +4786,17 @@ def steps_phase(smi: str, counters: dict) -> dict:
         if not ok:
             raise AssertionError(f"steps: {arch} prefill/decode: err {err}, {counted}")
         tally_conv_routes(counted["routes"])
+        if with_decode:
+            tally_conv_routes(decoded["routes"])
         if want_launches["flash_attention"]:
             by_path["flash_attention"][f"steps {arch} prefill"] = counted["launches"]["flash_attention"]
         if ssm:
             by_path["ssd_scan"][f"steps {arch} prefill"] = counted["launches"]["ssd_scan"]
-        for kernel in NORM_CONV:
+        for kernel in NORM_CONV + LOSS_ROPE:
             if counted["launches"][kernel]:
                 by_path[kernel][f"steps {arch} prefill"] = counted["launches"][kernel]
+            if with_decode and decoded["launches"][kernel]:
+                by_path[kernel][f"steps {arch} decode"] = decoded["launches"][kernel]
         del model, prefill, want
         gc.collect()
         torch.cuda.empty_cache()
@@ -4718,7 +5085,7 @@ def main() -> int:
                         "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "ssd_scan_bwd",
                         "ssd_scan_bwd_sm90",
                         "int8_quant", "int8_quant_sm90", "batchsim_advance", "adamw",
-                        "moe_dispatch", "rms_norm", "causal_conv1d"])
+                        "moe_dispatch", "rms_norm", "causal_conv1d", "cross_entropy", "rope"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -4735,7 +5102,9 @@ def main() -> int:
           "adamw_ptxas": ptxas_by_function(logs.get("adamw", "")),
           "moe_dispatch_ptxas": ptxas_by_function(logs.get("moe_dispatch", "")),
           "rms_norm_ptxas": ptxas_by_function(logs.get("rms_norm", "")),
-          "causal_conv1d_ptxas": ptxas_by_function(logs.get("causal_conv1d", ""))})
+          "causal_conv1d_ptxas": ptxas_by_function(logs.get("causal_conv1d", "")),
+          "cross_entropy_ptxas": ptxas_by_function(logs.get("cross_entropy", "")),
+          "rope_ptxas": ptxas_by_function(logs.get("rope", ""))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -4745,7 +5114,7 @@ def main() -> int:
                 "flash_attention_bwd": flash_attention_bwd, "ssd_scan_bwd": ssd_scan_bwd,
                 "adamw": adamw_update, "moe_fill": moe_fill, "moe_combine": moe_combine,
                 "moe_fill_bwd": moe_fill_bwd, "moe_combine_bwd": moe_combine_bwd,
-                **norm_conv_wrappers()}
+                **norm_conv_wrappers(), **loss_rope_wrappers()}
 
     # 3. kernel against plain --------------------------------------------------
     t0 = time.perf_counter()
@@ -4839,12 +5208,15 @@ def main() -> int:
     gen_nc = torch.Generator(device=dev)
     gen_nc.manual_seed(4)
     timings.update(check_norm_conv(gen_nc, smi))
+    gen_lr = torch.Generator(device=dev)
+    gen_lr.manual_seed(5)
+    timings.update(check_loss_rope(gen_lr, smi))
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     # 4. each served model: kernel-vs-plain check, serve, profile --------------
     t0 = time.perf_counter()
     by_path = {"flash_attention": {}, "ssd_scan": {}, "moe_fill": {}, "moe_combine": {},
-               **{name: {} for name in NORM_CONV}}
+               **{name: {} for name in NORM_CONV + LOSS_ROPE}}
     for arch, check_cut, serve_cut in SERVED_MODELS:
         for kernel, n in serve_model(arch, check_cut, serve_cut, gen, smi, counters).items():
             if n:
@@ -4878,7 +5250,7 @@ def main() -> int:
     by_path["flash_attention_bwd"][moe_train] = trained_moe["flash_attention_bwd"]
     for kernel in B2 + B2_BWD:
         by_path.setdefault(kernel, {})[moe_train] = trained_moe[kernel]
-    for kernel in NORM_CONV:
+    for kernel in NORM_CONV + LOSS_ROPE:
         for path, counted in ((f"{TRAIN_ARCH} train", trained), (f"{SSM_TRAIN_ARCH} train",
                                                                    trained_ssm),
                               (moe_train, trained_moe), ("demo-100m train", ckpt)):
@@ -5014,7 +5386,11 @@ def main() -> int:
               ("gated_rms_norm_fwd", "rms_norm", "src/repro/models/ssm.py:200"),
               ("gated_rms_norm_bwd", "rms_norm", "src/repro/models/ssm.py:200"),
               ("causal_conv1d_fwd", "causal_conv1d", "src/repro/models/ssm.py:76"),
-              ("causal_conv1d_bwd", "causal_conv1d", "src/repro/models/ssm.py:76")))]})
+              ("causal_conv1d_bwd", "causal_conv1d", "src/repro/models/ssm.py:76"),
+              ("cross_entropy_fwd", "cross_entropy", "src/repro/train/loop.py:41"),
+              ("cross_entropy_bwd", "cross_entropy", "src/repro/train/loop.py:41"),
+              ("rope_qk_fwd", "rope", "src/repro/models/layers.py:44"),
+              ("rope_qk_bwd", "rope", "src/repro/models/layers.py:44")))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

@@ -8,7 +8,8 @@ Each served model (full width and depth, bf16, random weights from seed 0)
 serves ``--reps`` times 4 requests of 1024 prompt tokens and
 ``--new-tokens`` greedy tokens through ``launch.serve.generate`` after one
 warm-up; phi4-mini-3.8b trains ``--train-steps`` steps (4 × 1024, AdamW,
-remat) through ``train.train_step`` after two warm-up steps. Uses only
+remat) through ``train.train_step`` after two warm-up steps (none with
+``--train-steps 0``). Uses only
 what every checkout of the port since its training slice has, and prints
 one JSON line per model and one for training, each step on the host clock
 around synchronised work, with ``nvidia-smi``'s name and power limit,
@@ -57,6 +58,8 @@ def main() -> None:
         del model, runs
         torch.cuda.empty_cache()
 
+    if not args.train_steps:
+        return
     cfg = get_config("phi4-mini-3.8b")
     model = init_params(cfg, seed=0, device=dev)
     model.requires_grad_(True)

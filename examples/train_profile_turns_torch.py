@@ -38,7 +38,9 @@ KERNELS = (("flash_attention", "flash_attention", "flash_attention"),
                                               "moe_combine_bwd")),
            *((n, "rms_norm", n) for n in ("rms_norm_fwd", "gated_rms_norm_fwd", "rms_norm_bwd",
                                           "gated_rms_norm_bwd")),
-           *((n, "causal_conv", n) for n in ("causal_conv1d_fwd", "causal_conv1d_bwd")))
+           *((n, "causal_conv", n) for n in ("causal_conv1d_fwd", "causal_conv1d_bwd")),
+           *((n, "cross_entropy", n) for n in ("cross_entropy_fwd", "cross_entropy_bwd")),
+           *((n, "rope", n) for n in ("rope_qk_fwd", "rope_qk_bwd")))
 HERE = Path(__file__).resolve().parents[1]
 
 
@@ -60,7 +62,8 @@ def main() -> None:
     csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
     build.build([n for n in ("flash_attention_sm90", "flash_attention_bwd_sm90", "ssd_scan_sm90",
                              "ssd_scan_bwd_sm90", "adamw", "moe_dispatch", "rms_norm",
-                             "causal_conv1d") if (csrc / f"{n}.cu").exists()])
+                             "causal_conv1d", "cross_entropy", "rope")
+                 if (csrc / f"{n}.cu").exists()])
     counters = {}
     for name, module, wrapper in KERNELS:
         try:

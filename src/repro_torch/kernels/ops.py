@@ -24,8 +24,11 @@ RMSNorm (B4, :func:`rms_norm`, through
 :class:`~repro_torch.kernels.rms_norm.RmsNormFn`), Mamba2's gated norm
 (:func:`gated_rms_norm`, :class:`~repro_torch.kernels.rms_norm.GatedRmsNormFn`)
 and its causal convolution (B5, :func:`causal_conv1d`,
-:class:`~repro_torch.kernels.causal_conv.CausalConv1dFn`); meta tensors (the
-dry run) keep their eager chains. The int8 quantizer
+:class:`~repro_torch.kernels.causal_conv.CausalConv1dFn`), the training
+loss (B6, :func:`cross_entropy_loss`,
+:class:`~repro_torch.kernels.cross_entropy.CrossEntropyFn`) and RoPE of q
+and k (B7, :func:`rope_qk`, :class:`~repro_torch.kernels.rope.RopeFn`);
+meta tensors (the dry run) keep their eager chains. The int8 quantizer
 is on no training path and has no backward: a CUDA input that requires a
 gradient raises (its output would carry no ``grad_fn`` and the gradient
 would be lost). On the CPU its plain version is ordinary differentiable
@@ -48,11 +51,13 @@ from typing import Optional, Tuple
 import torch
 
 from .causal_conv import CausalConv1dFn, causal_conv1d_fwd, causal_conv1d_plain
+from .cross_entropy import CrossEntropyFn, cross_entropy_fwd, cross_entropy_plain
 from .flash_attention import FlashAttentionFn, flash_attention
 from .int8_quant import quantize_int8
 from .moe_dispatch import MoeCombineFn, MoeFillFn, moe_combine, moe_fill
 from .rms_norm import (GatedRmsNormFn, RmsNormFn, gated_rms_norm_fwd, gated_rms_norm_plain,
                        rms_norm_fwd, rms_norm_plain)
+from .rope import RopeFn, rope_plain, rope_qk_fwd
 from .ssd_scan import SsdScanFn, ssd_scan
 
 
@@ -360,3 +365,61 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                                        for t in (x, w, b, state)):
         return CausalConv1dFn.apply(x, w, b, state)
     return causal_conv1d_fwd(x, w, b, state)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The mean softmax cross-entropy of logits (..., V) at int64 labels
+    (B6): f32 log-sum-exp a row, minus the label's logit, averaged. Under
+    grad :class:`CrossEntropyFn` (the forward kernel keeping each row's lse,
+    the adjoint kernel as its backward), else the forward kernel and
+    ``torch.mean`` of its rows; on the CPU their plain versions. Meta
+    tensors and ``DTensor``s keep the eager chain (a mesh's loss is
+    ``launch.steps.cross_entropy``'s one-hot form)."""
+    if logits.is_meta or _is_dtensor(logits):
+        return cross_entropy_plain(logits, labels)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return CrossEntropyFn.apply(logits, labels)
+    return cross_entropy_fwd(logits, labels)[1].mean()
+
+
+def _rope_on_shards(q, k, positions, theta):
+    """:func:`rope_qk` on the shards: per mesh dim, the batch or the
+    sequence (dims 0, 1) stay sharded where q and k are sharded alike, the
+    positions then sharded with them; the heads (dim 2) stay sharded as
+    each of q and k has them, the positions replicated; anything else is
+    gathered. Plain positions (a mesh step's ``arange``) are taken as
+    replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, r = q.device_mesh, Replicate()
+    if not _is_dtensor(positions):
+        positions = DTensor.from_local(positions, mesh, [r] * mesh.ndim, run_check=False)
+    qs, ks, ps = [], [], []
+    for i, pq in enumerate(q.placements):
+        pk = pq if k is None else k.placements[i]
+        if pq == pk and pq in (Shard(0), Shard(1)):
+            qs.append(pq), ks.append(pq), ps.append(pq)
+        else:
+            qs.append(pq if pq == Shard(2) else r)
+            ks.append(pk if pk == Shard(2) else r)
+            ps.append(r)
+
+    def local(q, k, positions):
+        return rope_qk(q, k, positions, theta)
+    return _on_shards(local, [q, k, positions], [qs, ks, ps], (qs, None if k is None else ks))
+
+
+def rope_qk(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
+            theta: float) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Half-split RoPE of q (B, S, Hq, hd) and k (B, S, Hk, hd) (or None) at
+    positions broadcastable to (B, S), in one launch (B7): (q rotated, k
+    rotated). Under grad :class:`RopeFn` (the kernel, then its adjoint
+    mode), else the kernel; on the CPU the plain version. Meta tensors keep
+    the eager chain, q's then k's; ``DTensor``s run on their shards."""
+    if q.is_meta:
+        return rope_plain(q, positions, theta), (None if k is None
+                                                 else rope_plain(k, positions, theta))
+    if _is_dtensor(q):
+        return _rope_on_shards(q, k, positions, theta)
+    if torch.is_grad_enabled() and (q.requires_grad or (k is not None and k.requires_grad)):
+        return RopeFn.apply(q, k, positions, theta)
+    return rope_qk_fwd(q, k, positions, theta)

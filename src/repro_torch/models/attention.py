@@ -16,7 +16,7 @@ import torch
 from ..kernels import ops
 from ..sharding import collectives as coll
 from ..sharding.context import matmul
-from .layers import apply_rope, rms_norm
+from .layers import rms_norm
 
 Params = Dict[str, torch.Tensor]
 
@@ -48,9 +48,8 @@ def project_qkv(
     if qk_norm:                          # per head over hd, before RoPE
         q = rms_norm(q, params["q_norm"], norm_eps)
         k = rms_norm(k, params["k_norm"], norm_eps)
-    if use_rope:
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+    if use_rope:                         # q and k in one launch (B7)
+        q, k = ops.rope_qk(q, k, positions, rope_theta)
     return q, k, v
 
 

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.rope import rope_frequencies  # noqa: F401  (the reference's name here)
 from ..sharding.context import matmul
 
 Params = Dict[str, torch.Tensor]
@@ -44,22 +45,13 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
 
 # -- RoPE -----------------------------------------------------------------
 
-def rope_frequencies(head_dim: int, theta: float,
-                     device: Optional[torch.device] = None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / torch.pow(theta, exps)             # f32, as theta ** f32 array in jnp
-
-
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Half-split RoPE. x: (..., S, H, hd); positions: broadcastable to (..., S)."""
-    hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)               # (hd/2,)
-    angles = positions[..., None].float() * freqs                # (..., S, hd/2)
-    cos = torch.cos(angles)[..., None, :]                        # (..., S, 1, hd/2)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    """Half-split RoPE. x: (B, S, H, hd); positions: broadcastable to (B, S).
+    B7 (:func:`repro_torch.kernels.ops.rope_qk`) on the card, its plain
+    version on the CPU, the eager chain on meta tensors; a ``DTensor`` on
+    its shards. The frequencies are ``rope_frequencies``, kept a (head_dim,
+    theta, device) on the card."""
+    return ops.rope_qk(x, None, positions, theta)[0]
 
 
 # -- initializers -------------------------------------------------------------

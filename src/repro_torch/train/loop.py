@@ -15,6 +15,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..kernels import ops
 from ..models.config import ModelConfig
 from ..models.convert import param_leaves
 from ..models.transformer import Transformer, forward_train, init_params
@@ -48,9 +49,10 @@ class TrainResult:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    lp = torch.log_softmax(logits.float(), dim=-1)
-    tgt = torch.gather(lp, -1, labels[..., None])[..., 0]
-    return -torch.mean(tgt)
+    """The reference's loss, ``-mean(log_softmax(f32 logits)[label])``: B6
+    (:func:`repro_torch.kernels.ops.cross_entropy_loss`) on the card, its
+    plain versions on the CPU, the eager chain on meta tensors."""
+    return ops.cross_entropy_loss(logits, labels)
 
 
 def train_step(model: Transformer, opt: Tuple[Callable, Callable], opt_state: OptState,
