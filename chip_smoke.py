@@ -95,7 +95,14 @@ Run from the root of a checkout. Phases, one JSON line each:
    layout and int32 positions, bit for bit or the differing count within
    one ulp), timed at the trained and served shapes in turns with the plain
    versions and, for the loss, ``F.cross_entropy`` (a yardstick never on
-   the path);
+   the path); SwiGLU's gate (B8: ``swiglu_fwd`` and its adjoint) against
+   ``F.silu(g) * u`` and the ops its autograd calls (``check_swiglu``: at
+   phi4-mini's training MLP, olmoe's and kimi-k2's expert buffers, qwen3's
+   prefill and decode step, the demo's f32 and an odd width on the
+   ``scalar`` route, bit for bit; every bf16 g with eight gradients each in
+   f32 and bf16, also against autograd, ``swiglu_sweep``), timed at the
+   first five in turns with the plain versions (no one PyTorch call
+   computes it);
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -120,14 +127,18 @@ Run from the root of a checkout. Phases, one JSON line each:
      served one bit for bit (B4 and B5 on their kernels in every run: the
      check holds B2's bits); B7 once in every self-attention and encoder
      layer of the prefill and every self-attention layer of every decode
-     step, on ``vector`` (``rope_counts``);
+     step, on ``vector`` (``rope_counts``); B8 once in every MLP and MoE
+     layer (and an encoder's) of the prefill and of every decode step, on
+     ``vector`` (``swiglu_counts``);
    - profile (qwen3-14b, mamba2-1.3b, olmoe-1b-7b): a ``torch.profiler``
      pass over one prefill and 8 decode steps gives the device's busy
      share; olmoe's device time split into K2, the expert and router
      products, the MoE dispatch, the other products and the rest, the
      dispatch further into the router's softmax and top-k, the plan, B2's
      fill and combine kernels and the ops around them, and SiLU·up
-     (``moe_profile``), its prefill in turns with B2's plain versions;
+     (``moe_profile``; SiLU·up B8's kernels launched inside
+     ``expert_swiglu`` and any op there but its products), its prefill in
+     turns with B2's plain versions;
    - moe_routes: olmoe-1b-7b at full width cut to two layers, 4 x 1024
      prompt tokens and 8 greedy tokens with B2's kernels, with their plain
      versions in their place and with the kernels again: logits and ids
@@ -153,7 +164,10 @@ Run from the root of a checkout. Phases, one JSON line each:
      convolution adjoint whose dw is zeroed; then phi4-mini cut to one
      layer through B6's ``CrossEntropyFn`` and B7's ``RopeFn`` against the
      eager chains under autograd, rejecting a loss adjoint without its
-     one-hot term and a RoPE adjoint that rotates by +angle;
+     one-hot term and a RoPE adjoint that rotates by +angle; then
+     phi4-mini and olmoe-1b-7b cut to one layer through B8's ``SwigluFn``
+     against ``F.silu(g) * u`` under autograd, rejecting an adjoint whose
+     SiLU derivative lacks its ``g·(1 − σ)`` term;
    - adamw_routes: phi4-mini-3.8b at full width cut to two layers, three
      steps from the same weights with B3, with ``adamw_update_plain`` in its
      place and with B3 again: every parameter and loss equal bit for bit
@@ -165,9 +179,10 @@ Run from the root of a checkout. Phases, one JSON line each:
      just after (K2's forward 2 x 32 a step, all ``sm90``; its backward
      32, all ``sm90``; B4's forward 2 x 64 + 1 and its adjoint 65, all
      ``vector``; B6 and its adjoint once a step, B7 2 x 32 and its adjoint
-     32, ``vector``; B3 once a step), the loss per step, step seconds,
-     tokens/s, peak memory, and one more step under the profiler split into
-     K2's forward and backward, K3's forward and backward, B4's to B7's
+     32, B8 2 x 32 and its adjoint 32, ``vector``; B3 once a step), the loss
+     per step, step seconds, tokens/s, peak memory, and one more step under
+     the profiler split into K2's forward and backward, K3's forward and
+     backward, B4's to B8's
      forward and adjoint kernels, cuBLAS, the optimizer (B3's kernel by
      name and the ops under its range) and the rest, the rest also by op
      and input shapes (``rest_by_op``); then mamba2-1.3b at full width and
@@ -194,7 +209,7 @@ Run from the root of a checkout. Phases, one JSON line each:
      the direct path it wraps (``train_step``'s losses, ``generate``'s logits
      and ids), then timed with every kernel's count zeroed just before and
      read just after (K2 and K3 forward and backward, all on ``sm90``; phi4's
-     decode steps B4's and B7's per-step launches), seconds, tokens/s and peak memory beside the dry run's three roofline terms for the same shape on
+     decode steps B4's, B7's and B8's per-step launches), seconds, tokens/s and peak memory beside the dry run's three roofline terms for the same shape on
      the 1×1 mesh and the time's multiple of the largest;
    - dryrun: ``run_one`` of every config at the 16×16 mesh and
      ``prefill_32k`` and ``decode_32k`` on the meta device: all 20 ok, each
@@ -294,8 +309,9 @@ its launches by route; K3's backward with its launches in mamba2's training
 run and mesh step; B3's with its launches in the three training runs and
 the two mesh train steps; B2's fill and combine with their launches in
 the MoE serve runs, olmoe's training run and the ``moe_mesh`` phase, and
-B2's two adjoints with theirs in olmoe's training run; B6's and B7's
-with theirs in the served models, the training runs and the mesh steps),
+B2's two adjoints with theirs in olmoe's training run; B6's, B7's and
+B8's with theirs in the served models, the training runs and the mesh
+steps),
 the ``nvidia-smi`` line,
 and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -503,7 +519,9 @@ TRAIN_CHECKS = (("phi4-mini-3.8b", {"num_layers": 1}, "attention"),
                 ("olmoe-1b-7b", {"num_layers": 1}, "moe"),
                 ("phi4-mini-3.8b", {"num_layers": 1}, "norm"),
                 ("mamba2-1.3b", {"num_layers": 1}, "norm_conv"),
-                ("phi4-mini-3.8b", {"num_layers": 1}, "loss_rope"))
+                ("phi4-mini-3.8b", {"num_layers": 1}, "loss_rope"),
+                ("phi4-mini-3.8b", {"num_layers": 1}, "swiglu"),
+                ("olmoe-1b-7b", {"num_layers": 1}, "swiglu"))
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-3, 5e-2
 # train_ckpt: the 100M demo (f32) of examples/train_100m_torch.py at its batch
 # and sequence, a checkpoint at CKPT_AT of CKPT_STEPS, then the resume
@@ -570,15 +588,37 @@ def named(name: str, key: str) -> bool:
     return name + "<" in key or name + "(" in key
 
 
+PROFILE_PAUSE_S = 0.005
+INCOMPLETE_PROFILES = []     # each short profile that missed launches, and each fallback
+
+
+@contextlib.contextmanager
+def profiled(*activities, **kw):
+    """``torch.profiler.profile`` over ``activities`` whose window opens and
+    closes on an idle device, with a pause of ``PROFILE_PAUSE_S`` inside
+    each end. The profiler drops launches of short windows without a word: of 40
+    windows of 5 calls of B7's forward, 2 recorded some and 1 none without
+    the pauses, all 80 every launch with pauses of 2 or 20 ms
+    (``examples/profiler_window_probe_torch.py``, a fresh process); later in
+    a long process it drops more (see ``kernel_split``)."""
+    import torch
+    from torch.profiler import profile
+    torch.cuda.synchronize()
+    with profile(activities=list(activities), **kw) as prof:
+        time.sleep(PROFILE_PAUSE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAUSE_S)
+
+
 def device_profile(fn) -> dict:
     """Kernel time on the device (``torch.profiler``) against the host clock
     for one call of ``fn``, with the port's own kernels apart; the
     profiler's own host cost inflates the wall."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+    with profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -733,9 +773,8 @@ def device_ms_per_call(fn, iters: int = 50):
     kernels, K1's kernels alone), or None where the profiler saw none."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+    with profiled(ProfilerActivity.CUDA) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1788,6 +1827,19 @@ def rope_counts(cfg) -> dict:
             "decode": self_attn}
 
 
+def swiglu_counts(cfg) -> dict:
+    """B8's calls from the config: ``layers`` a prefill's layers with an
+    MLP or an MoE FFN (``expert_swiglu`` once a MoE layer, its weights in
+    the buffer's dtype), ``outside`` an encoder-decoder's encoder layers
+    with one, ``decode`` a decode step's (the same layers as a prefill's)."""
+    from repro_torch.models.config import ATTN
+    from repro_torch.models.transformer import _kind_ffn, layer_kinds
+    ffn = sum(_kind_ffn(k, cfg) != "none" for k in layer_kinds(cfg))
+    outside = cfg.encoder_layers * (_kind_ffn(ATTN, cfg) != "none") if cfg.is_encoder_decoder \
+        else 0
+    return {"layers": ffn, "outside": outside, "decode": ffn}
+
+
 def expected_launches(cfg, decode_steps: int = 0) -> dict:
     """Kernel launches of one prefill and ``decode_steps`` decode steps, from
     the config: K2 once in every self-attention, cross-attention and
@@ -1797,7 +1849,9 @@ def expected_launches(cfg, decode_steps: int = 0) -> dict:
     once for every RMSNorm and its gated form and B5 once in every Mamba2
     layer, in the prefill and in every decode step (``norm_conv_counts``);
     B7 once in every self-attention and encoder layer of the prefill and in
-    every self-attention layer of every decode step (``rope_counts``); the
+    every self-attention layer of every decode step (``rope_counts``); B8
+    once in every MLP and MoE layer and encoder layer of the prefill and in
+    every MLP and MoE layer of every decode step (``swiglu_counts``); the
     loss (B6) never."""
     from repro_torch.models.config import ATTN, ATTN_MOE, CROSS, SSM_MOE
     from repro_torch.models.transformer import layer_kinds
@@ -1809,6 +1863,7 @@ def expected_launches(cfg, decode_steps: int = 0) -> dict:
     b2 = sum(k in (ATTN_MOE, SSM_MOE) for k in kinds) * (1 + decode_steps)
     nc = norm_conv_counts(cfg)
     rc = rope_counts(cfg)
+    sc = swiglu_counts(cfg)
     ssm = nc["ssm"] * (1 + decode_steps)
     return {"flash_attention": k2, "ssd_scan": sum(k.startswith("ssm") for k in kinds),
             "int8_quant": 0, "batchsim_advance": 0, "flash_attention_bwd": 0, "ssd_scan_bwd": 0,
@@ -1819,7 +1874,9 @@ def expected_launches(cfg, decode_steps: int = 0) -> dict:
             "gated_rms_norm_bwd": 0, "causal_conv1d_bwd": 0, "cross_entropy_fwd": 0,
             "cross_entropy_bwd": 0,
             "rope_qk_fwd": rc["layers"] + rc["outside"] + rc["decode"] * decode_steps,
-            "rope_qk_bwd": 0}
+            "rope_qk_bwd": 0,
+            "swiglu_fwd": sc["layers"] + sc["outside"] + sc["decode"] * decode_steps,
+            "swiglu_bwd": 0}
 
 
 def random_cross_src(cfg, batch: int, gen):
@@ -1862,6 +1919,12 @@ NORM_CONV = B4 + B4_BWD + B5 + B5_BWD
 # adjoint, and the kernels of each part of a train step
 B6, B7 = ("cross_entropy_fwd", "cross_entropy_bwd"), ("rope_qk_fwd", "rope_qk_bwd")
 LOSS_ROPE = B6 + B7
+# B8 (SwiGLU's gate): its wrappers' names, forward then adjoint, and its
+# kernels in a train step; FUSED: every wrapper of B4 to B8
+B8 = ("swiglu_fwd", "swiglu_bwd")
+SWIGLU_KERNELS = {"swiglu_forward": ("swiglu_fwd_kernel",),
+                  "swiglu_backward": ("swiglu_bwd_kernel",)}
+FUSED = NORM_CONV + LOSS_ROPE + B8
 LOSS_ROPE_KERNELS = {"loss_forward": ("ce_fwd_kernel",), "loss_backward": ("ce_bwd_kernel",),
                      "rope_forward": ("rope_qk_fwd_kernel",),
                      "rope_backward": ("rope_qk_bwd_kernel",)}
@@ -1878,11 +1941,11 @@ CONV_FWD_ROUTES = {"staged": 0, "vector": 0, "scalar": 0}
 
 
 def nc_routes(want: dict, decode_convs: int = 0) -> dict:
-    """B4's to B7's launches in ``want`` by route: the norms, B5's
-    adjoint, the loss and RoPE on ``vector``; B5's forward on ``staged`` but for the
+    """B4's to B8's launches in ``want`` by route: the norms, B5's
+    adjoint, the loss, RoPE and SwiGLU's gate on ``vector``; B5's forward on ``staged`` but for the
     ``decode_convs`` calls of decode steps (S = 1), which keep the register
     window's ``vector`` route."""
-    routes = {k: {"vector": want[k], "scalar": 0} for k in NORM_CONV + LOSS_ROPE}
+    routes = {k: {"vector": want[k], "scalar": 0} for k in FUSED}
     n = want["causal_conv1d_fwd"]
     routes["causal_conv1d_fwd"] = {"staged": n - decode_convs, "vector": decode_convs,
                                    "scalar": 0}
@@ -1922,6 +1985,16 @@ def rope_plain_swap():
 
 
 @contextlib.contextmanager
+def swiglu_plain_swap():
+    """B8's plain forward in place of its kernel (``ops.swiglu_fwd``, which
+    ``ops.silu_mul`` calls outside grad)."""
+    from repro_torch.kernels import swiglu
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    with mock.patch.object(ops, "swiglu_fwd", swiglu.swiglu_plain):
+        yield
+
+
+@contextlib.contextmanager
 def b2_plain():
     """B2's plain versions in place of its kernels (``ops.moe_fill``,
     ``ops.moe_combine``, which the MoE layer's entry points call)."""
@@ -1945,7 +2018,10 @@ def moe_profile(fn, tries: int = 3) -> dict:
     combine kernel and the ops around it (with the plain versions swapped
     in, those ops are the whole plain fill and combine; in a checkout from
     before the table, the combine's ops are the argsort's inverse), SiLU·up
-    (the rest of ``expert_swiglu``) and what is left. Each step runs inside a
+    (the rest of ``expert_swiglu``: its ops but the products, and B8's
+    kernels, which no op launches, counted by name and given to the MoE
+    layer in the share of B8's launches made inside ``expert_swiglu``) and
+    what is left. Each step runs inside a
     ``record_function`` range for this call only; an op's device time is
     the kernels it launched itself (``self_device_time_total`` of the aten
     ops in the range), and B2's kernels, which no op launches, are counted
@@ -1958,19 +2034,32 @@ def moe_profile(fn, tries: int = 3) -> dict:
     ``_combine`` under ``combine_ops``."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, record_function
     moe = importlib.import_module("repro_torch.models.moe")
     ops = importlib.import_module("repro_torch.kernels.ops")
     try:
         b2_wrappers = importlib.import_module("repro_torch.kernels.moe_dispatch")
     except ModuleNotFoundError:                   # a port from before B2
         b2_wrappers = None
+    try:
+        b8 = importlib.import_module("repro_torch.kernels.swiglu").swiglu_fwd
+    except ModuleNotFoundError:                   # a port from before B8
+        b8 = None
     transformer = importlib.import_module("repro_torch.models.transformer")
+    b8_inside, depth = [0], [0]                   # B8 launches inside expert_swiglu
 
     def ranged(name, f):
         def call(*args, **kw):
-            with record_function(name):
-                return f(*args, **kw)
+            outer = name == "moe_experts" and not depth[0]
+            depth[0] += name == "moe_experts"            # its per-expert recursion
+            before = b8.launches if b8 else 0
+            try:
+                with record_function(name):
+                    return f(*args, **kw)
+            finally:
+                depth[0] -= name == "moe_experts"
+                if outer and b8:
+                    b8_inside[0] += b8.launches - before
         return call
     patches = [(module, attr, name) for module, attr, name in (
         (transformer, "moe_ffn", "moe_ffn"), (moe, "expert_swiglu", "moe_experts"),
@@ -1983,18 +2072,19 @@ def moe_profile(fn, tries: int = 3) -> dict:
     for _ in range(tries):
         torch.cuda.synchronize()
         launched = {op: getattr(b2_wrappers, op).launches if b2_wrappers else 0 for op in B2}
+        b8_before, b8_inside[0] = (b8.launches if b8 else 0), 0
         with contextlib.ExitStack() as stack:
             for module, attr, name in patches:
                 stack.enter_context(mock.patch.object(module, attr,
                                                       ranged(name, getattr(module, attr))))
-            prof = stack.enter_context(profile(activities=[ProfilerActivity.CPU,
-                                                           ProfilerActivity.CUDA]))
+            prof = stack.enter_context(profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA))
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         launched = {op: (getattr(b2_wrappers, op).launches if b2_wrappers else 0) - n
                     for op, n in launched.items()}
+        b8_launched = (b8.launches if b8 else 0) - b8_before
         kernels = [e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.key not in MOE_RANGES]
         recorded = {op: sum(e.count for e in kernels if any(named(n, e.key) for n in names))
@@ -2003,6 +2093,7 @@ def moe_profile(fn, tries: int = 3) -> dict:
         calls = sum(e.name == "moe_ffn" for e in events)
         if recorded == launched == dict.fromkeys(B2, calls if on_kernels else 0):
             break
+        INCOMPLETE_PROFILES.append(("moe_profile", recorded))
     else:
         raise AssertionError(f"moe_profile: the profiler recorded {recorded} of B2's "
                              f"{launched} launches in {calls} MoE layers, {tries} times")
@@ -2028,18 +2119,22 @@ def moe_profile(fn, tries: int = 3) -> dict:
     router = sum(e.device_time_total for e in gemms
                  if inside(e, "moe_ffn") and not inside(e, "moe_experts")) / 1e3
     other_gemm = sum(e.device_time_total for e in gemms if not inside(e, "moe_ffn")) / 1e3
-    moe_ms = ops_ms("moe_ffn") + sum(b2.values())
+    b8_ms = sum(e.self_device_time_total for e in kernels
+                if named("swiglu_fwd_kernel", e.key)) / 1e3
+    b8_moe = b8_ms * b8_inside[0] / b8_launched if b8_launched else 0.0
+    moe_ms = ops_ms("moe_ffn") + sum(b2.values()) + b8_moe
     dispatch = moe_ms - experts - router
     parts = {"router_softmax_topk": ops_ms("moe_router") - router, "plan": ops_ms("moe_plan"),
              "fill_kernel": b2["moe_fill"], "fill_ops": ops_ms("moe_fill"),
              "combine_kernel": b2["moe_combine"], "combine_ops": ops_ms("moe_combine"),
-             "silu_up": ops_ms("moe_experts") - experts}
+             "silu_up": ops_ms("moe_experts") - experts + b8_moe}
     parts["rest"] = dispatch - sum(parts.values())
     split = {"flash_attention": k2, "expert_products": experts, "router_product": router,
              "dispatch": dispatch, "other_gemm": other_gemm,
              "elementwise_and_other": busy - k2 - moe_ms - other_gemm}
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "moe_ffn_ms": moe_ms,
             "moe_calls": calls, "b2_launches": launched,
+            "b8_launches": {"all": b8_launched, "in_moe": b8_inside[0], "ms": b8_ms},
             "split_ms": split,
             "dispatch_split_ms": parts,
             "top": [[e.key[:70], e.self_device_time_total / 1e3, e.count]
@@ -2163,6 +2258,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
                 stack.enter_context(b2_plain())
                 stack.enter_context(norm_conv_plain())
                 stack.enter_context(rope_plain_swap())
+                stack.enter_context(swiglu_plain_swap())
             stack.enter_context(routing("replay", list(chosen)))
             return forward_prefill(m, tokens, SERVE_PROMPT + 1, x)[0].float()
 
@@ -2226,7 +2322,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
     counted = read_counts(counters)
     counts = counted["launches"]
     routes = {k: counted["routes"][k]
-              for k in ("flash_attention", "ssd_scan") + B2 + NORM_CONV + LOSS_ROPE}
+              for k in ("flash_attention", "ssd_scan") + B2 + FUSED}
     peak = torch.cuda.max_memory_allocated()
     want = expected_launches(cfg, SERVE_NEW)
     want_routes = {k: {"sm90": want[k], "simt": 0} for k in ("flash_attention", "ssd_scan")}
@@ -2313,7 +2409,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
         del caches
     del model, res, cross
     free()
-    return {k: counts[k] for k in ("flash_attention", "ssd_scan") + B2 + NORM_CONV + LOSS_ROPE}
+    return {k: counts[k] for k in ("flash_attention", "ssd_scan") + B2 + FUSED}
 
 
 def attention_bwd_bound_ms(dtype: str, shape, causal: bool, window, q_offset: int):
@@ -3948,34 +4044,218 @@ def check_loss_rope(gen, smi: str) -> dict:
     return result
 
 
+# B8, SwiGLU's gate: (label, dtype, the shape of g and u): phi4-mini's
+# training MLP (4 x 1024 tokens, d_ff 8192), olmoe's expert buffer (64
+# experts x 640 slots, moe_d_ff 1024), qwen3-14b's prefill and decode step
+# (d_ff 17408), kimi-k2's expert buffer (384 experts x 107 slots at 4 x 1024
+# tokens, moe_d_ff 2048), the demo's f32 MLP (8 x 128, 2048), and an odd
+# width on the scalar route in both dtypes
+SWIGLU_CHECKS = (("phi4-mini-3.8b train", "bfloat16", (4, 1024, 8192)),
+                 ("olmoe-1b-7b experts", "bfloat16", (64, 640, 1024)),
+                 ("qwen3-14b prefill", "bfloat16", (4, 1024, 17408)),
+                 ("qwen3-14b decode", "bfloat16", (4, 1, 17408)),
+                 ("kimi-k2 experts", "bfloat16", (384, 107, 2048)),
+                 ("demo-100m", "float32", (8, 128, 2048)),
+                 ("odd width", "bfloat16", (3, 7, 1001)),
+                 ("odd width f32", "float32", (3, 7, 1001)))
+SWIGLU_TIMED = ("phi4-mini-3.8b train", "olmoe-1b-7b experts", "qwen3-14b prefill",
+                "qwen3-14b decode", "kimi-k2 experts")
+# f32 operations an element counted for the bound: the forward's negation,
+# exp, sum, quotient and product; the adjoint's exp, sum, two quotients,
+# four products, difference and fma (two)
+SWIGLU_FLOPS = {"swiglu_fwd": 5, "swiglu_bwd": 11}
+
+
+def bits_apart(got, want) -> dict:
+    """Elements of ``got`` whose bits differ from ``want``'s where ``want``
+    is a number, and whether ``got`` is NaN exactly where ``want`` is."""
+    import torch
+    nan = torch.isnan(want)
+    return {"differing": int((bits(got) != bits(want))[~nan].sum()),
+            "nan_where_want": bool(torch.equal(torch.isnan(got), nan))}
+
+
+def swiglu_sweep(dtype, gen, per_g: int = 8) -> dict:
+    """B8 on every bf16 bit pattern as g (in f32, its f32 value), each beside
+    ``per_g`` gradients dh and values u (normal, times 2, in the dtype): the
+    forward against ``F.silu(g) * u`` and the adjoint's dg and du against
+    that chain's autograd and against ``swiglu_bwd_plain``, each bit for bit
+    and NaN where they are NaN; one launch each on the ``vector`` route."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import swiglu as sw
+    pats = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    g = pats.cuda().to(dtype)[:, None].expand(-1, per_g).contiguous()
+    u, dh = ((torch.randn(g.shape, generator=gen, device="cuda") * 2).to(dtype) for _ in "ud")
+    before = (dict(sw.swiglu_fwd.launches_by_route), dict(sw.swiglu_bwd.launches_by_route))
+    h = sw.swiglu_fwd(g, u)
+    dg, du = sw.swiglu_bwd(dh, g, u)
+    took = [{r: fn.launches_by_route[r] - b[r] for r in sw.ROUTES}
+            for fn, b in zip((sw.swiglu_fwd, sw.swiglu_bwd), before)]
+    ga, ua = g.clone().requires_grad_(True), u.clone().requires_grad_(True)
+    want = F.silu(ga) * ua
+    want.backward(dh)
+    plain_dg, plain_du = sw.swiglu_bwd_plain(dh, g, u)
+    torch.cuda.synchronize()
+    checks = {"forward": bits_apart(h, want.detach()), "dg_autograd": bits_apart(dg, ga.grad),
+              "du_autograd": bits_apart(du, ua.grad), "dg_plain": bits_apart(dg, plain_dg),
+              "du_plain": bits_apart(du, plain_du)}
+    one = {"vector": 1, "scalar": 0}
+    ok = (all(c["differing"] == 0 and c["nan_where_want"] for c in checks.values())
+          and took == [one, one])
+    return {"dtype": str(dtype).split(".")[-1], "g_values": int(pats.numel()),
+            "inputs": int(g.numel()), **checks, "launches": took, "ok": ok}
+
+
+def check_swiglu(gen, smi: str, ptxas: dict) -> dict:
+    """B8 (``swiglu_fwd``, ``swiglu_bwd``) against their plain versions on
+    the card, one launch each on the route the width gives (``vector``; the
+    odd widths ``scalar``), at ``SWIGLU_CHECKS``: h against
+    ``swiglu_plain`` (``F.silu(g) * u``) and dg, du against
+    ``swiglu_bwd_plain`` (the ops autograd calls), bit for bit; then every
+    bf16 g with several gradients in f32 and bf16 (``swiglu_sweep``). Then
+    ``SWIGLU_TIMED`` in turns with the plain versions (no one PyTorch call
+    computes either), each beside its bound by bytes, with the kernels' own
+    device time, each call's host µs, their registers and local memory from
+    the runtime and ptxas's registers and spills (``ptxas``: this source's
+    log by entry function). Returns the kernels line's entries."""
+    import torch
+    from repro_torch.kernels import swiglu as sw
+    dev = torch.device("cuda")
+    d = torch.cuda.current_device()
+
+    def took(fn, before):
+        return {r: fn.launches_by_route[r] - before[r] for r in fn.launches_by_route}
+
+    worst = dict.fromkeys(B8, 0.0)
+    timed = {}
+    for label, dt, shape in SWIGLU_CHECKS:
+        dtype = getattr(torch, dt)
+        route = "vector" if shape[-1] * (2 if dt == "bfloat16" else 4) % 16 == 0 else "scalar"
+        one = {r: int(r == route) for r in sw.ROUTES}
+        g, u, dh = ((torch.randn(shape, generator=gen, device=dev) * 2).to(dtype)
+                    for _ in range(3))
+        before = dict(sw.swiglu_fwd.launches_by_route)
+        h = sw.swiglu_fwd(g, u)
+        fwd_took = took(sw.swiglu_fwd, before)
+        before = dict(sw.swiglu_bwd.launches_by_route)
+        dg, du = sw.swiglu_bwd(dh, g, u)
+        bwd_took = took(sw.swiglu_bwd, before)
+        want_h = sw.swiglu_plain(g, u)
+        want_dg, want_du = sw.swiglu_bwd_plain(dh, g, u)
+        torch.cuda.synchronize()
+        checks = {"h": bits_apart(h, want_h), "dg": bits_apart(dg, want_dg),
+                  "du": bits_apart(du, want_du)}
+        ok = (all(c["differing"] == 0 and c["nan_where_want"] for c in checks.values())
+              and fwd_took == one and bwd_took == one)
+        worst["swiglu_fwd"] = max(worst["swiglu_fwd"], float((h.float() - want_h.float())
+                                                             .abs().max()))
+        worst["swiglu_bwd"] = max(worst["swiglu_bwd"], *(
+            float((a.float() - b.float()).abs().max()) for a, b in ((dg, want_dg), (du, want_du))))
+        emit({"phase": "kernel_check", "kernel": "swiglu", "path": label, "dtype": dt,
+              "shape": list(shape), "route": route, "vs_plain": checks,
+              "launches": {"fwd": fwd_took, "bwd": bwd_took}, "ok": ok})
+        if not ok:
+            raise AssertionError(f"swiglu differs from its plain version at {label}: {checks}, "
+                                 f"launches {fwd_took} {bwd_took}")
+        if label in SWIGLU_TIMED:
+            timed[label] = (g, u, dh)
+        del h, dg, du, want_h, want_dg, want_du
+    for dtype in (torch.float32, torch.bfloat16):
+        sweep = swiglu_sweep(dtype, gen)
+        emit({"phase": "kernel_check", "kernel": "swiglu every bf16 g", **sweep})
+        if not sweep["ok"]:
+            raise AssertionError(f"swiglu differs from F.silu(g) * u or its autograd: {sweep}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    entries = {name: {} for name in B8}
+    for label, (g, u, dh) in timed.items():
+        n, es = g.numel(), g.element_size()
+        for name, nbytes, contenders in (
+                ("swiglu_fwd", 3 * n * es, {"kernel": lambda: sw.swiglu_fwd(g, u),
+                                            "plain": lambda: sw.swiglu_plain(g, u)}),
+                ("swiglu_bwd", 5 * n * es, {"kernel": lambda: sw.swiglu_bwd(dh, g, u),
+                                            "plain": lambda: sw.swiglu_bwd_plain(dh, g, u)})):
+            kernel = name + "_kernel"
+            t = timed_in_turns(contenders, NC_ITERS, {kernel: 1}, 100)
+            bound = nc_bound(nbytes, SWIGLU_FLOPS[name] * n)
+            entries[name][label] = dict(
+                shape=list(g.shape), dtype=str(g.dtype), **t, **bound,
+                share_of_bound=bound["bound_ms"] / t["ms"],
+                kernel_share_of_bound=bound["bound_ms"] / t["kernel_device_ms"],
+                resources={**sw.attributes(g.dtype, name == "swiglu_bwd", d),
+                           "ptxas": {k: v for k, v in ptxas.items() if kernel in k}})
+    for name, rows in entries.items():
+        for label, e in rows.items():
+            emit({"phase": "kernel_time", "kernel": name, "path": label, "smi": smi, **e})
+    del timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "kernel_device_ms",
+            "share_of_bound", "host_us", "shape", "resources")
+    result = {}
+    for name in B8:
+        first_label = next(iter(entries[name]))
+        first = entries[name].pop(first_label)
+        result[name] = {"max_abs_err": worst[name], "path": first_label,
+                        **{k: first[k] for k in keys},
+                        "other_shapes": {lb: {k: e[k] for k in keys if k != "host_us"}
+                                         for lb, e in entries[name].items()},
+                        "library_layout": "none: no one PyTorch call computes it (F.glu gates "
+                                          "by a sigmoid)"}
+    return result
+
+
 def kernel_split(fn, want: dict, calls: int = 3, tries: int = 5) -> dict:
     """Device ms per call of ``fn`` by kernel (``torch.profiler``) for the
     kernels in ``want``, each launched ``want[name]`` times a call. The
-    profiler can drop a launch's record (one of five of B2's fill adjoint in
-    five profiles running, in a full ``chip_smoke.py`` run), which divided
-    by the calls would read as less time: a complete profile (``calls`` ×
-    ``want[name]`` records of each) is taken where one of ``tries`` gives
-    it, else the last one's mean over the launches it recorded, times
-    ``want[name]``. More records than launches, or none, raise."""
+    profiler drops launches of short windows, more so late in a long
+    process (a full ``chip_smoke.py`` run: 4 of 5 in every window of B6's,
+    B7's and B8's timings with 5 ms pauses, none of 25 in five windows
+    without them; ``--drift`` of ``examples/profiler_window_probe_torch.py``:
+    none of 5 in each window after a minute of products), which divided by
+    the calls would read as less time. Each window opens and closes with a
+    launch of PyTorch's ``spin_kernel`` (``torch.cuda._sleep``, ~1 µs), in
+    case the record it loses is its first or last; a window is taken again until one records ``calls`` ×
+    ``want[name]`` launches of each (up to ``tries``); else their records are
+    pooled: each kernel's mean over the launches recorded, times
+    ``want[name]``. A kernel no window recorded is timed by CUDA events
+    over ``calls`` calls where it is the only one wanted (the call's other
+    launches and gaps included), and raises otherwise; more records than
+    launches raise. Each incomplete window and each fallback is listed in
+    ``INCOMPLETE_PROFILES``."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
-    torch.cuda.synchronize()
+    pooled = {n: [0, 0.0] for n in want}              # launches recorded, their µs
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiled(ProfilerActivity.CUDA) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         seen = {n: sum(e.count for e in events if named(n, e.key)) for n in want}
+        us = {n: sum(e.self_device_time_total for e in events if named(n, e.key)) for n in want}
+        if any(seen[n] > calls * want[n] for n in want):
+            raise AssertionError(f"kernel_split: the profiler recorded {seen} launches in "
+                                 f"{calls} calls of {want} a call")
         if all(seen[n] == calls * want[n] for n in want):
-            break
-    if not all(0 < seen[n] <= calls * want[n] for n in want):
-        raise AssertionError(f"kernel_split: the profiler recorded {seen} launches in {calls} "
-                             f"calls of {want} a call")
-    return {n: sum(e.self_device_time_total for e in events if named(n, e.key))
-            / seen[n] * want[n] / 1e3 for n in want}
+            return {n: us[n] / calls / 1e3 for n in want}
+        INCOMPLETE_PROFILES.append(("kernel_split", seen))
+        for n in want:
+            pooled[n][0] += seen[n]
+            pooled[n][1] += us[n]
+    missing = [n for n in want if not pooled[n][0]]
+    if missing and len(want) > 1:
+        raise AssertionError(f"kernel_split: the profiler recorded no launch of {missing} in "
+                             f"{tries} windows of {calls} calls of {want} a call")
+    if missing:
+        INCOMPLETE_PROFILES.append(("kernel_split by CUDA events", missing[0]))
+        return {missing[0]: cuda_ms(fn, iters=calls)}
+    return {n: pooled[n][1] / pooled[n][0] * want[n] / 1e3 for n in want}
 
 
 def train_profile(model, opt, state, tokens, labels) -> dict:
@@ -3984,13 +4264,14 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     and its backward (both passes, also apart), B2's forward kernels (fill
     and combine) and its adjoint kernels (also apart), B4's forward and
     adjoint kernels (both forms; the adjoint with its sum pass), B5's
-    likewise, B6's (the loss: ``loss_forward``, ``loss_backward``) and
-    B7's (RoPE: ``rope_forward``, ``rope_backward``) by kernel name,
-    cuBLAS, the optimizer's update (B3's kernel by its name, launched
-    through ``ctypes`` with no PyTorch op around it, and the ops under the
+    likewise, B6's (the loss: ``loss_forward``, ``loss_backward``), B7's
+    (RoPE: ``rope_forward``, ``rope_backward``) and B8's (SwiGLU's gate:
+    ``swiglu_forward``, ``swiglu_backward``) by kernel name, cuBLAS, the
+    optimizer's update (B3's kernel by its name, launched through
+    ``ctypes`` with no PyTorch op around it, and the ops under the
     optimizer's ``record_function`` range: the bias corrections) and the
-    rest (SwiGLU, the loss's mean, the embedding's gradient, the slices'
-    gradients, copies). The split sums to the busy time, the rest at least
+    rest (the loss's mean, the embedding's gradient, the residual adds,
+    the splits' gradients, copies). The split sums to the busy time, the rest at least
     0. ``rest_by_op``: the rest's device time by the PyTorch op
     that launched each kernel and its input shapes (the ops' own device
     time, ``key_averages(group_by_input_shape=True)``; products and the
@@ -3998,15 +4279,13 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     out), the 15 largest."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, record_function
     from repro_torch.train import train_step
 
     def update(*args):
         with record_function("optimizer"):
             return opt[1](*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with profiled(ProfilerActivity.CPU, ProfilerActivity.CUDA, record_shapes=True) as prof:
         t0 = time.perf_counter()
         state, loss = train_step(model, (opt[0], update), state, tokens, labels, None,
                                  remat=True)
@@ -4030,7 +4309,8 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     moe_bwd = sum(moe_bwd_by_kernel.values())
     gemm = ms(lambda key: any(n in key.lower() for n in ("gemm", "nvjet", "xmma", "cutlass")))
     norm_conv = {part: ms(lambda key, names=names: any(named(n, key) for n in names))
-                 for part, names in {**NORM_CONV_KERNELS, **LOSS_ROPE_KERNELS}.items()}
+                 for part, names in {**NORM_CONV_KERNELS, **LOSS_ROPE_KERNELS,
+                                     **SWIGLU_KERNELS}.items()}
 
     def inside(e, name):
         p = e.cpu_parent
@@ -4073,15 +4353,32 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
 def train_swaps(kind: str):
     """What ``train_check`` swaps into ``ops`` for ``kind`` (``attention``:
     K2, ``ssd``: K3, ``moe``: B2, ``norm``: B4's plain form, ``norm_conv``:
-    B4's two forms and B5, ``loss_rope``: B6 and B7): {name there: a
+    B4's two forms and B5, ``loss_rope``: B6 and B7, ``swiglu``: B8): {name there: a
     stand-in running the plain forward, which autograd differentiates} and
     {a fault's name: {name there: the kernels' Function with a faulty
     backward}}. The faults zero the gradients of the two inputs the scores
     are formed from (dQ and dK; dB and dC), the gates' gradient (the
     router's only path to the loss), the norms' scale gradient, or the
     convolution's dw; drop the loss's one-hot term (the softmax alone);
-    rotate RoPE's gradient by +angle (the forward's rotation)."""
+    rotate RoPE's gradient by +angle (the forward's rotation); take SiLU's
+    derivative as σ alone (its ``g·(1 − σ)`` term dropped)."""
     import torch
+    if kind == "swiglu":
+        sw = importlib.import_module("repro_torch.kernels.swiglu")
+
+        class PlainSwiglu:
+            @staticmethod
+            def apply(g, u):
+                return sw.swiglu_plain(g, u)
+
+        class LostSiluTerm(sw.SwigluFn):
+            @staticmethod
+            def backward(ctx, dh):
+                g, u = ctx.saved_tensors
+                dh = dh.to(g.dtype)
+                dg = ((dh * u).float() * torch.sigmoid(g.float())).to(g.dtype)
+                return dg, dh * torch.nn.functional.silu(g)
+        return {"SwigluFn": PlainSwiglu}, {"lost_silu_term": {"SwigluFn": LostSiluTerm}}
     if kind == "loss_rope":
         ce = importlib.import_module("repro_torch.kernels.cross_entropy")
         rope = importlib.import_module("repro_torch.kernels.rope")
@@ -4299,6 +4596,7 @@ def train_launches(cfg, steps: int, adamw_per_step: int = 0, remat: bool = True)
     per = expected_launches(cfg)
     nc = norm_conv_counts(cfg)
     rc = rope_counts(cfg)
+    sc = swiglu_counts(cfg)
     f = 2 if remat else 1
     want = dict.fromkeys(per, 0)
     want.update(flash_attention=f * per["flash_attention"] * steps,
@@ -4309,6 +4607,8 @@ def train_launches(cfg, steps: int, adamw_per_step: int = 0, remat: bool = True)
                 rms_norm_bwd=(nc["layers"] + nc["outside"]) * steps,
                 rope_qk_fwd=(f * rc["layers"] + rc["outside"]) * steps,
                 rope_qk_bwd=(rc["layers"] + rc["outside"]) * steps,
+                swiglu_fwd=(f * sc["layers"] + sc["outside"]) * steps,
+                swiglu_bwd=(sc["layers"] + sc["outside"]) * steps,
                 cross_entropy_fwd=steps, cross_entropy_bwd=steps)
     for fwd, bwd in zip(B2 + B4_GATED_B5, B2_BWD + B4_GATED_B5_BWD):
         want.update({fwd: f * per[fwd] * steps, bwd: per[fwd] * steps})
@@ -4539,7 +4839,7 @@ def zero_counts(counters: dict) -> None:
     ssd_scan_bwd.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
     for name in B2 + B2_BWD:
         getattr(moe_dispatch, name).launches_by_route = dict.fromkeys(moe_dispatch.ROUTES, 0)
-    for name, fn in {**norm_conv_wrappers(), **loss_rope_wrappers()}.items():
+    for name, fn in fused_wrappers().items():
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
@@ -4556,6 +4856,13 @@ def loss_rope_wrappers() -> dict:
     return {name: getattr(cross_entropy if name in B6 else rope, name) for name in LOSS_ROPE}
 
 
+def fused_wrappers() -> dict:
+    """B4's to B8's wrappers by name."""
+    from repro_torch.kernels import swiglu
+    return {**norm_conv_wrappers(), **loss_rope_wrappers(),
+            **{name: getattr(swiglu, name) for name in B8}}
+
+
 def read_counts(counters: dict) -> dict:
     from repro_torch.kernels import moe_dispatch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
@@ -4568,8 +4875,7 @@ def read_counts(counters: dict) -> dict:
                        **{name: dict(getattr(moe_dispatch, name).launches_by_route)
                           for name in B2 + B2_BWD},
                        **{name: dict(fn.launches_by_route)
-                          for name, fn in {**norm_conv_wrappers(),
-                                           **loss_rope_wrappers()}.items()}}}
+                          for name, fn in fused_wrappers().items()}}}
 
 
 def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
@@ -4684,7 +4990,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
     before each timed run and read just after: K2 forward and backward and
     K3's forward and backward launch, all ``sm90``; phi4's decode steps
     launch what ``expected_launches`` gives the steps beyond the prefill
-    (B4 and B7 once a layer and step). Beside each time, the dry run's three terms for
+    (B4, B7 and B8 once a layer and step). Beside each time, the dry run's three terms for
     the same shape on the 1×1 mesh. Returns the launches by path."""
     import torch
     from repro_torch.configs import get_config
@@ -4696,7 +5002,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
     dev = torch.device("cuda")
     mesh = make_host_mesh()
     by_path = {"flash_attention": {}, "flash_attention_bwd": {}, "ssd_scan": {}, "ssd_scan_bwd": {},
-               "adamw": {}, **{name: {} for name in NORM_CONV + LOSS_ROPE}}
+               "adamw": {}, **{name: {} for name in FUSED}}
     tol = TOL["bfloat16"]
 
     # train: the direct path's losses, then the mesh step's from the same start
@@ -4705,7 +5011,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
                                          "blocks.-1.ssm.out_proj"))):
         counted = steps_train(arch, held, mesh, smi, counters)
         for kernel in ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
-                       "adamw", *NORM_CONV, *LOSS_ROPE):
+                       "adamw", *FUSED):
             if counted[kernel]:
                 by_path[kernel][f"steps {arch} train"] = counted[kernel]
 
@@ -4792,7 +5098,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
             by_path["flash_attention"][f"steps {arch} prefill"] = counted["launches"]["flash_attention"]
         if ssm:
             by_path["ssd_scan"][f"steps {arch} prefill"] = counted["launches"]["ssd_scan"]
-        for kernel in NORM_CONV + LOSS_ROPE:
+        for kernel in FUSED:
             if counted["launches"][kernel]:
                 by_path[kernel][f"steps {arch} prefill"] = counted["launches"][kernel]
             if with_decode and decoded["launches"][kernel]:
@@ -4943,10 +5249,11 @@ def moe_mesh_phase(smi: str, counters: dict) -> None:
     """The mesh paths' per-device bodies on the card (``moe_mesh_check`` at
     ``MOE_MESH_ARCH``'s full width in bf16, ``decode_cp_check`` at
     ``CP_ARCH``'s decode in bf16 and f32), every kernel's count zeroed just
-    before and read just after: B2's fill and combine once each in every
-    rank's body and in the whole layer's ``moe_ffn``, all on the ``vector``
-    route, and no other kernel (the expert products are cuBLAS's, decode
-    attention plain). Returns B2's launches."""
+    before and read just after: B2's fill and combine and B8's forward
+    (``expert_swiglu``'s gate) once each in every rank's body and in the
+    whole layer's ``moe_ffn``, all on the ``vector`` route, and no other
+    kernel (the expert products are cuBLAS's, decode attention plain).
+    Returns B2's and B8's launches."""
     import torch
     from repro_torch.configs import get_config
     cfg = get_config(MOE_MESH_ARCH)
@@ -4967,20 +5274,21 @@ def moe_mesh_phase(smi: str, counters: dict) -> None:
     cp_ok = all(c["max_abs_err"] <= tol[dt] * c["max_abs_out"] for dt, cs in cp.items()
                 for c in cs)
     b2 = moe_rec["ranks"] + 1
-    want = {k: b2 if k in B2 else 0 for k in counts["launches"]}
+    layer = B2 + B8[:1]
+    want = {k: b2 if k in layer else 0 for k in counts["launches"]}
     launched_ok = (counts["launches"] == want
-                   and all(counts["routes"][k] == {"vector": b2, "scalar": 0} for k in B2))
+                   and all(counts["routes"][k] == {"vector": b2, "scalar": 0} for k in layer))
     emit({"phase": "moe_mesh", "arch": cfg.name, "tokens": MOE_MESH_TOKENS,
           "experts": cfg.num_experts, "top_k": cfg.experts_per_token, "d_model": cfg.d_model,
           "layout": MOE_MESH_LAYOUT, "moe": moe_rec, "moe_tol": tol["bfloat16"], "moe_s": moe_s,
           "decode_cp": {"arch": pc.name, "batch": CP_BATCH, "slots": CP_SLOTS,
                         "pieces": CP_PIECES, "cases": cp, "tol": tol},
-          "launches": counts["launches"], "b2_routes": {k: counts["routes"][k] for k in B2},
+          "launches": counts["launches"], "routes": {k: counts["routes"][k] for k in layer},
           "want_launches": want, "seconds": time.perf_counter() - t0, "smi": smi,
           "ok": moe_ok and cp_ok and launched_ok})
     if not (moe_ok and cp_ok and launched_ok):
         raise AssertionError(f"moe_mesh: MoE {moe_rec}, decode {cp}, launches {counts}")
-    return {k: counts["launches"][k] for k in B2}
+    return {k: counts["launches"][k] for k in layer}
 
 
 def lanes_phase(smi: str) -> dict:
@@ -5085,7 +5393,8 @@ def main() -> int:
                         "flash_attention_bwd_sm90", "ssd_scan", "ssd_scan_sm90", "ssd_scan_bwd",
                         "ssd_scan_bwd_sm90",
                         "int8_quant", "int8_quant_sm90", "batchsim_advance", "adamw",
-                        "moe_dispatch", "rms_norm", "causal_conv1d", "cross_entropy", "rope"])
+                        "moe_dispatch", "rms_norm", "causal_conv1d", "cross_entropy", "rope",
+                        "swiglu"])
     regs = sorted({line.split("Used ")[1].split(",")[0]
                    for log in logs.values() for line in log.splitlines() if "Used " in line})
     spills = {name: [sum(int(w) for w in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
@@ -5104,7 +5413,8 @@ def main() -> int:
           "rms_norm_ptxas": ptxas_by_function(logs.get("rms_norm", "")),
           "causal_conv1d_ptxas": ptxas_by_function(logs.get("causal_conv1d", "")),
           "cross_entropy_ptxas": ptxas_by_function(logs.get("cross_entropy", "")),
-          "rope_ptxas": ptxas_by_function(logs.get("rope", ""))})
+          "rope_ptxas": ptxas_by_function(logs.get("rope", "")),
+          "swiglu_ptxas": ptxas_by_function(logs.get("swiglu", ""))})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -5114,7 +5424,7 @@ def main() -> int:
                 "flash_attention_bwd": flash_attention_bwd, "ssd_scan_bwd": ssd_scan_bwd,
                 "adamw": adamw_update, "moe_fill": moe_fill, "moe_combine": moe_combine,
                 "moe_fill_bwd": moe_fill_bwd, "moe_combine_bwd": moe_combine_bwd,
-                **norm_conv_wrappers(), **loss_rope_wrappers()}
+                **fused_wrappers()}
 
     # 3. kernel against plain --------------------------------------------------
     t0 = time.perf_counter()
@@ -5211,12 +5521,15 @@ def main() -> int:
     gen_lr = torch.Generator(device=dev)
     gen_lr.manual_seed(5)
     timings.update(check_loss_rope(gen_lr, smi))
+    gen_sw = torch.Generator(device=dev)
+    gen_sw.manual_seed(6)
+    timings.update(check_swiglu(gen_sw, smi, ptxas_by_function(logs.get("swiglu", ""))))
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     # 4. each served model: kernel-vs-plain check, serve, profile --------------
     t0 = time.perf_counter()
     by_path = {"flash_attention": {}, "ssd_scan": {}, "moe_fill": {}, "moe_combine": {},
-               **{name: {} for name in NORM_CONV + LOSS_ROPE}}
+               **{name: {} for name in FUSED}}
     for arch, check_cut, serve_cut in SERVED_MODELS:
         for kernel, n in serve_model(arch, check_cut, serve_cut, gen, smi, counters).items():
             if n:
@@ -5250,7 +5563,7 @@ def main() -> int:
     by_path["flash_attention_bwd"][moe_train] = trained_moe["flash_attention_bwd"]
     for kernel in B2 + B2_BWD:
         by_path.setdefault(kernel, {})[moe_train] = trained_moe[kernel]
-    for kernel in NORM_CONV + LOSS_ROPE:
+    for kernel in FUSED:
         for path, counted in ((f"{TRAIN_ARCH} train", trained), (f"{SSM_TRAIN_ARCH} train",
                                                                    trained_ssm),
                               (moe_train, trained_moe), ("demo-100m train", ckpt)):
@@ -5309,7 +5622,8 @@ def main() -> int:
     if sum(CONV_FWD_ROUTES.values()) != launches["causal_conv1d_fwd"]:
         raise AssertionError(f"B5's forward: launches by route {CONV_FWD_ROUTES}, by path "
                              f"{by_path['causal_conv1d_fwd']}")
-    emit({"phase": "done", "seconds_since_build": time.perf_counter() - t_start})
+    emit({"phase": "done", "seconds_since_build": time.perf_counter() - t_start,
+          "incomplete_profiles": INCOMPLETE_PROFILES})
     emit({"kernels": [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
@@ -5390,7 +5704,9 @@ def main() -> int:
               ("cross_entropy_fwd", "cross_entropy", "src/repro/train/loop.py:41"),
               ("cross_entropy_bwd", "cross_entropy", "src/repro/train/loop.py:41"),
               ("rope_qk_fwd", "rope", "src/repro/models/layers.py:44"),
-              ("rope_qk_bwd", "rope", "src/repro/models/layers.py:44")))]})
+              ("rope_qk_bwd", "rope", "src/repro/models/layers.py:44"),
+              ("swiglu_fwd", "swiglu", "src/repro/models/layers.py:28"),
+              ("swiglu_bwd", "swiglu", "src/repro/models/layers.py:28")))]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}})
     return 0

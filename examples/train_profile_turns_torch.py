@@ -40,7 +40,8 @@ KERNELS = (("flash_attention", "flash_attention", "flash_attention"),
                                           "gated_rms_norm_bwd")),
            *((n, "causal_conv", n) for n in ("causal_conv1d_fwd", "causal_conv1d_bwd")),
            *((n, "cross_entropy", n) for n in ("cross_entropy_fwd", "cross_entropy_bwd")),
-           *((n, "rope", n) for n in ("rope_qk_fwd", "rope_qk_bwd")))
+           *((n, "rope", n) for n in ("rope_qk_fwd", "rope_qk_bwd")),
+           *((n, "swiglu", n) for n in ("swiglu_fwd", "swiglu_bwd")))
 HERE = Path(__file__).resolve().parents[1]
 
 
@@ -62,7 +63,7 @@ def main() -> None:
     csrc = root / "src" / "repro_torch" / "kernels" / "csrc"
     build.build([n for n in ("flash_attention_sm90", "flash_attention_bwd_sm90", "ssd_scan_sm90",
                              "ssd_scan_bwd_sm90", "adamw", "moe_dispatch", "rms_norm",
-                             "causal_conv1d", "cross_entropy", "rope")
+                             "causal_conv1d", "cross_entropy", "rope", "swiglu")
                  if (csrc / f"{n}.cu").exists()])
     counters = {}
     for name, module, wrapper in KERNELS:

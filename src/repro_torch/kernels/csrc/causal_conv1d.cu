@@ -540,10 +540,6 @@ struct Walk {
   }
 };
 
-// SiLU as PyTorch's `F.silu` computes it: x / (1 + expf(-x)) in f32 with
-// the exact expf and IEEE division
-__device__ __forceinline__ float silu_exact(float v) { return v / (1.0f + expf(-v)); }
-
 // A cheaper SiLU for bf16 outputs: 2^(-x log2 e) by ex2.approx and the
 // reciprocal by rcp.approx, each product and sum rounded on its own (no
 // contraction, so one result an input wherever it is compiled)

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's hand-written kernels (moe_dispatch.cu,
-// rms_norm.cu, causal_conv1d.cu): a host guard that makes a device current
-// for a launch, and the bf16/f32 element moves and roundings of the
-// elementwise kernels. kernels/build.py compiles each source with this
+// rms_norm.cu, causal_conv1d.cu, swiglu.cu, ...): a host guard that makes a
+// device current for a launch, the bf16/f32 element moves and roundings of
+// the elementwise kernels, and SiLU as `F.silu` computes it. kernels/build.py compiles each source with this
 // directory on the include path and keys its library on this file too.
 #pragma once
 
@@ -29,6 +29,10 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w 
 __device__ __forceinline__ uint32_t bf16_bits(float f) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(f)));
 }
+
+// SiLU as PyTorch's `F.silu` computes it: x / (1 + expf(-x)) in f32 with
+// the exact expf and IEEE division (a build without fast math)
+__device__ __forceinline__ float silu_exact(float v) { return v / (1.0f + expf(-v)); }
 
 // f rounded to T and widened back
 template <typename T> __device__ __forceinline__ float rnd(float f);

@@ -26,9 +26,11 @@ RMSNorm (B4, :func:`rms_norm`, through
 and its causal convolution (B5, :func:`causal_conv1d`,
 :class:`~repro_torch.kernels.causal_conv.CausalConv1dFn`), the training
 loss (B6, :func:`cross_entropy_loss`,
-:class:`~repro_torch.kernels.cross_entropy.CrossEntropyFn`) and RoPE of q
-and k (B7, :func:`rope_qk`, :class:`~repro_torch.kernels.rope.RopeFn`);
-meta tensors (the dry run) keep their eager chains. The int8 quantizer
+:class:`~repro_torch.kernels.cross_entropy.CrossEntropyFn`), RoPE of q
+and k (B7, :func:`rope_qk`, :class:`~repro_torch.kernels.rope.RopeFn`)
+and SwiGLU's gate ``silu(g)·u`` (B8, :func:`silu_mul`,
+:class:`~repro_torch.kernels.swiglu.SwigluFn`); meta tensors (the dry
+run) keep their eager chains. The int8 quantizer
 is on no training path and has no backward: a CUDA input that requires a
 gradient raises (its output would carry no ``grad_fn`` and the gradient
 would be lost). On the CPU its plain version is ordinary differentiable
@@ -59,6 +61,7 @@ from .rms_norm import (GatedRmsNormFn, RmsNormFn, gated_rms_norm_fwd, gated_rms_
                        rms_norm_fwd, rms_norm_plain)
 from .rope import RopeFn, rope_plain, rope_qk_fwd
 from .ssd_scan import SsdScanFn, ssd_scan
+from .swiglu import SwigluFn, swiglu_fwd, swiglu_plain
 
 
 def _no_cuda_grad(name: str, later: str, *tensors: Optional[torch.Tensor]) -> None:
@@ -423,3 +426,28 @@ def rope_qk(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or (k is not None and k.requires_grad)):
         return RopeFn.apply(q, k, positions, theta)
     return rope_qk_fwd(q, k, positions, theta)
+
+
+def _silu_on_shards(g, u):
+    """:func:`silu_mul` on the shards: every mesh dim keeps g's placement
+    (an elementwise gate splits as its operands do; column-parallel
+    products give g and u alike), u redistributed to it where it differs;
+    a partial sum, which SiLU cannot take, is reduced first."""
+    from torch.distributed.tensor import Replicate
+    kept = [Replicate() if p.is_partial() else p for p in g.placements]
+    return _on_shards(silu_mul, [g, u], [kept, kept], kept)
+
+
+def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's gate ``silu(g) · u`` (B8) for g and u of one shape and
+    dtype. Under grad :class:`SwigluFn` (the forward kernel, the adjoint
+    kernel as its backward), else the forward kernel; on the CPU their
+    plain versions. Meta tensors keep the eager chain; ``DTensor``s run on
+    their shards with g's placements (:func:`_silu_on_shards`)."""
+    if g.is_meta:
+        return swiglu_plain(g, u)
+    if _is_dtensor(g):
+        return _silu_on_shards(g, u)
+    if torch.is_grad_enabled() and (g.requires_grad or u.requires_grad):
+        return SwigluFn.apply(g, u)
+    return swiglu_fwd(g, u)

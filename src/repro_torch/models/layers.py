@@ -31,9 +31,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
+    """The gate ``silu(g) · u`` between the products is B8
+    (:func:`repro_torch.kernels.ops.silu_mul`) on the card, its plain
+    version on the CPU, the eager chain on meta tensors; a ``DTensor`` on
+    its shards."""
     g = matmul(x, w_gate)
     u = matmul(x, w_up)
-    return matmul(F.silu(g) * u, w_down)
+    return matmul(ops.silu_mul(g, u), w_down)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,

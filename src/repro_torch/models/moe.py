@@ -164,9 +164,10 @@ def expert_swiglu(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     """The experts as batched products: (E, C, D) → (E, C, D). Expert
     tensors of another dtype than ``buf`` are cast to it one expert at a
     time, each only while that expert's products run (a wide buffer over
-    narrow weights holds one expert's cast copy at a time)."""
+    narrow weights holds one expert's cast copy at a time). The gate
+    ``silu(g) · u`` is B8 (:func:`repro_torch.kernels.ops.silu_mul`)."""
     if w_gate.dtype == buf.dtype:
-        h = F.silu(torch.bmm(buf, w_gate)) * torch.bmm(buf, w_up)
+        h = ops.silu_mul(torch.bmm(buf, w_gate), torch.bmm(buf, w_up))
         return torch.bmm(h, w_down)
     return torch.cat([expert_swiglu(buf[e:e + 1], w_gate[e:e + 1].to(buf.dtype),
                                     w_up[e:e + 1].to(buf.dtype), w_down[e:e + 1].to(buf.dtype))

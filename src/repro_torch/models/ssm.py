@@ -76,6 +76,29 @@ def _split_proj(proj: torch.Tensor, d_inner: int, gn: int, heads: int):
     return z, x, b, c, dt
 
 
+def _cut_proj(proj: torch.Tensor, d_inner: int, gn: int, heads: int):
+    """(z, x|B|C, dt) of the input projection. On a plain tensor one
+    ``torch.split``, whose gradient is one ``cat`` of the three (the
+    reference splits ``proj`` and concatenates x|B|C, and XLA differentiates
+    that as one concatenation; basic slices would each fill a zero tensor
+    as wide as ``proj`` and add into it). Meta tensors and ``DTensor``s keep
+    the slices (the dry run's op counts, the mesh steps)."""
+    if proj.is_meta or ops._is_dtensor(proj):
+        z, _, _, _, dt = _split_proj(proj, d_inner, gn, heads)
+        # x|B|C are adjacent in proj: one slice, the reference's concatenation
+        return z, proj[..., d_inner:2 * d_inner + 2 * gn], dt
+    return torch.split(proj, [d_inner, d_inner + 2 * gn, heads], dim=-1)
+
+
+def _cut_xbc(xbc: torch.Tensor, d_inner: int, gn: int):
+    """(x, B, C) of the convolution's output: one ``torch.split`` on a plain
+    tensor (its gradient one ``cat``), the slices on meta tensors and
+    ``DTensor``s, as :func:`_cut_proj`."""
+    if xbc.is_meta or ops._is_dtensor(xbc):
+        return xbc[..., :d_inner], xbc[..., d_inner:d_inner + gn], xbc[..., d_inner + gn:]
+    return torch.split(xbc, [d_inner, gn, gn], dim=-1)
+
+
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                   state: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -155,13 +178,9 @@ def mamba2_mixer(
     gn = cfg.ssm_groups * cfg.ssm_state
     heads = cfg.ssm_heads
     proj = matmul(xin, params["in_proj"])
-    z, _, _, _, dt = _split_proj(proj, d_inner, gn, heads)
-    # x|B|C are adjacent in proj: one slice, the reference's concatenation
-    xbc = proj[..., d_inner:2 * d_inner + 2 * gn]
+    z, xbc, dt = _cut_proj(proj, d_inner, gn, heads)
     xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
-    x = xbc[..., :d_inner]
-    bm = xbc[..., d_inner:d_inner + gn]
-    cm = xbc[..., d_inner + gn:]
+    x, bm, cm = _cut_xbc(xbc, d_inner, gn)
     b_, s_, _ = x.shape
     xh = x.reshape(b_, s_, heads, cfg.ssm_head_dim)
     bmh = bm.reshape(b_, s_, cfg.ssm_groups, cfg.ssm_state)
@@ -190,12 +209,9 @@ def mamba2_decode_step(
     gn = cfg.ssm_groups * cfg.ssm_state
     heads = cfg.ssm_heads
     proj = matmul(xin, params["in_proj"])
-    z, _, _, _, dt = _split_proj(proj, d_inner, gn, heads)
-    xbc = proj[..., d_inner:2 * d_inner + 2 * gn]
+    z, xbc, dt = _cut_proj(proj, d_inner, gn, heads)
     xbc, new_conv_state = causal_conv1d(xbc, params["conv_w"], params["conv_b"], conv_state)
-    x = xbc[..., :d_inner]
-    bm = xbc[..., d_inner:d_inner + gn]
-    cm = xbc[..., d_inner + gn:]
+    x, bm, cm = _cut_xbc(xbc, d_inner, gn)
     b_ = x.shape[0]
     reps = heads // cfg.ssm_groups
     xh = x.reshape(b_, heads, cfg.ssm_head_dim).float()            # S=1 squeezed

@@ -10,9 +10,10 @@ writes the largest differences to ``<out>/rank<r>.json``; then the loss
 and every gradient of a train step's forward and backward (olmoe's and
 jamba's smoke configs) on the mesh against the plain model's. It also
 holds ``collectives.on_mesh`` over a group of both mesh dims to the
-``rank_by_rank``, and records how often B4 and B5 (the norms, Mamba2's
-gated norm and convolution) ran on the mesh's shards and every condition
-their kernels would refuse in the shards' layouts.
+``rank_by_rank``, and records how often B4, B5 and B8 (the norms,
+Mamba2's gated norm and convolution, SwiGLU's gate) ran on the mesh's
+shards and every condition their kernels would refuse in the shards'
+layouts.
 """
 import dataclasses
 import json
@@ -46,14 +47,16 @@ def _collectives(mesh) -> float:
 
 
 def _watch_norm_conv() -> dict:
-    """Counts the entries of B4's and B5's shard paths (``ops``'
-    ``_norm_on_shards``, ``_gated_on_shards``, ``_conv_on_shards``) and
-    lists each condition of the kernels' own checks (``norm_checks``,
-    ``gated_checks``, ``conv_checks``, which the card's wrappers apply) that
-    a wrapper's inputs fail here on the CPU, where the plain versions run."""
+    """Counts the entries of B4's, B5's and B8's shard paths (``ops``'
+    ``_norm_on_shards``, ``_gated_on_shards``, ``_conv_on_shards``,
+    ``_silu_on_shards``) and lists each condition of the kernels' own
+    checks (``norm_checks``, ``gated_checks``, ``conv_checks``,
+    ``swiglu_checks``, which the card's wrappers apply) that a wrapper's
+    inputs fail here on the CPU, where the plain versions run."""
     from repro_torch.kernels import causal_conv as cc
     from repro_torch.kernels import ops
     from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import swiglu as sw
     seen = {"shards": {}, "refused": []}
     checks = {
         (rn, "rms_norm_fwd"): lambda x, s, *_: rn.norm_checks(x, s, rn._row_stride(x)),
@@ -62,7 +65,9 @@ def _watch_norm_conv() -> dict:
         (rn, "gated_rms_norm_bwd"): lambda g, y, xh, D, z, s, *_: rn.gated_checks(
             y, xh, D, z, s),
         (cc, "causal_conv1d_fwd"): lambda x, w, b, st=None: cc.conv_checks(x, w, b, st),
-        (cc, "causal_conv1d_bwd"): lambda g, x, w, b, st=None, *_: cc.conv_checks(x, w, b, st)}
+        (cc, "causal_conv1d_bwd"): lambda g, x, w, b, st=None, *_: cc.conv_checks(x, w, b, st),
+        (sw, "swiglu_fwd"): lambda g, u: sw.swiglu_checks(g, u),
+        (sw, "swiglu_bwd"): lambda dh, g, u: sw.swiglu_checks(g, u, dh)}
     for (mod, name), check in checks.items():
         def watched(*args, _fn=getattr(mod, name), _name=name, _check=check, **kw):
             seen["refused"] += [[_name, msg] for ok, msg in _check(*args) if not ok]
@@ -70,7 +75,7 @@ def _watch_norm_conv() -> dict:
         setattr(mod, name, watched)
         if hasattr(ops, name):
             setattr(ops, name, watched)
-    for name in ("_norm_on_shards", "_gated_on_shards", "_conv_on_shards"):
+    for name in ("_norm_on_shards", "_gated_on_shards", "_conv_on_shards", "_silu_on_shards"):
         def counted(*args, _fn=getattr(ops, name), _name=name):
             seen["shards"][_name] = seen["shards"].get(_name, 0) + 1
             return _fn(*args)

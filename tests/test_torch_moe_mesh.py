@@ -167,9 +167,9 @@ def test_olmoe_steps_on_a_4_rank_gloo_group(tmp_path):
     train step's loss and every gradient (olmoe's and jamba's smoke
     configs) equal the plain model's within f32 rounding (each gradient
     within 1e-4 of its largest); ``collectives.on_mesh`` over both mesh
-    dims equals ``rank_by_rank``; B4 and B5 (every norm, jamba's gated norm
-    and convolution) ran on the mesh's shards, each shard in a layout their
-    kernels' checks take. Limited to ``GLOO_LIMIT_S`` seconds."""
+    dims equals ``rank_by_rank``; B4, B5 and B8 (every norm, jamba's gated
+    norm and convolution, its MLP's gate) ran on the mesh's shards, each
+    shard in a layout their kernels' checks take. Limited to ``GLOO_LIMIT_S`` seconds."""
     import torch.multiprocessing as mp
     t0 = time.monotonic()
     ctx = mp.start_processes(_gloo_mesh.run, args=(4, str(tmp_path / "store"), str(tmp_path)),
@@ -187,7 +187,7 @@ def test_olmoe_steps_on_a_4_rank_gloo_group(tmp_path):
         assert r["collectives"] == 0.0
         assert r["norm_conv"]["refused"] == []
         assert set(r["norm_conv"]["shards"]) == {"_norm_on_shards", "_gated_on_shards",
-                                                 "_conv_on_shards"}
+                                                 "_conv_on_shards", "_silu_on_shards"}
         assert r["cache_placements"] == ["S(0)", "S(1)"]
         assert r["prefill"] <= 1e-5 * r["prefill_scale"] and r["prefill_cache"] <= 1e-5
         assert all(d <= 1e-5 * s for d, s in zip(r["decode"], r["decode_scale"]))
