@@ -102,7 +102,12 @@ Run from the root of a checkout. Phases, one JSON line each:
    ``scalar`` route, bit for bit; every bf16 g with eight gradients each in
    f32 and bf16, also against autograd, ``swiglu_sweep``), timed at the
    first five in turns with the plain versions (no one PyTorch call
-   computes it);
+   computes it); K2 and K3, forward and backward, in the model's (B, S, H,
+   ·) layout (``check_layouts``: K2 at qwen3-14b's prefill, its backward at
+   phi4-mini's training shape, K3 and its backward on mamba2's
+   convolution views), bit for bit against the same kernels on flattened
+   operands and against the parent's layout copies around them, all three
+   timed in turns, the kernels' own device time apart;
 4. models: for each of ``SERVED_MODELS`` (qwen3-14b, mamba2-1.3b,
    olmoe-1b-7b, kimi-k2 cut to one layer, jamba cut to the first three
    positions of its pattern, whisper-medium, llama-3.2-vision-11b), bf16,
@@ -2341,7 +2346,7 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
                                     plain_b2.view(torch.int16))
         del again, plain_b2
     ok = (counts == want and routes == want_routes and same_bits in (None, True)
-          and b2_plain_bits in (None, True)
+          and b2_plain_bits in (None, True) and sm90_layout_copies(counted) == 0
           and tuple(res.ids.shape) == (SERVE_BATCH, SERVE_NEW + 1)
           and bool(((res.ids >= 0) & (res.ids < cfg.vocab_size)).all())
           and bool(torch.isfinite(res.prefill_logits).all())
@@ -2355,7 +2360,8 @@ def serve_model(arch: str, check_cut, serve_cut, gen, smi: str, counters: dict) 
           "decode_tok_s": SERVE_BATCH * SERVE_NEW / res.decode_s,
           "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / res.prefill_s,
           "peak_mem_gb": peak / 1e9, "launches": counts, "routes": routes,
-          "prefills_bit_equal": same_bits, "prefill_b2_plain_bit_equal": b2_plain_bits,
+          "layout_copies": counted["layout_copies"], "prefills_bit_equal": same_bits,
+          "prefill_b2_plain_bit_equal": b2_plain_bits,
           "sample_ids": res.ids[0, :8].tolist(), "device": torch.cuda.get_device_name(0),
           "smi": smi, "ok": ok})
     if not ok:
@@ -2660,6 +2666,134 @@ def check_ssd_bwd(gen, smi: str) -> dict:
                                  **{k: t[k] for k in ("ms", "simt_ms", "plain_ms", "bound_ms",
                                                       "library_ms", "forward_ms")})
     return result
+
+
+# K2 and K3 in the model's (B, S, H, ·) layout: K2's forward at qwen3-14b's
+# prefill (q, k, v as the projections and RoPE leave them), its backward at
+# phi4-mini-3.8b's training shape, K3 forward and backward at mamba2-1.3b's
+# (x, B and C views of the convolution's (4, 1024, 4352) output, dy in y's
+# layout); (B, S, H, Kv or G, hd or P, N, chunk)
+LAYOUT_K2 = ("qwen3-14b prefill", (4, 1024, 40, 8, 128))
+LAYOUT_K2_BWD = ("phi4-mini-3.8b train", (4, 1024, 24, 8, 128))
+LAYOUT_K3 = ("mamba2-1.3b", (4, 1024, 64, 1, 64, 128, 128))
+
+
+def check_layouts(gen, smi: str) -> dict:
+    """K2 and K3, forward and backward, reading and writing the model's
+    layout in place (``in_place``), timed in turns (in_place, flattened,
+    with_copies, with_copies, flattened, in_place, twice) against the same
+    kernel plus the layout copies the wrappers made before (``with_copies``:
+    q, k, v to (B·H, S, hd) and O back through the output projection's
+    reshape; dO to (B·H, S, hd) and dq, dk, dv back; x, dt, B, C to their
+    rows; dx, ddt, dB, dC back) and against the kernel alone on operands
+    already flattened (``flattened``, the layout it read before). The
+    results equal bit for bit across the three, the ``sm90`` route takes
+    every call and no layout copy is counted on it."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def rows(t):                          # (B, S, n, w) -> contiguous (B·n, S, w)
+        return t.transpose(1, 2).reshape(t.shape[0] * t.shape[2], t.shape[1],
+                                         *t.shape[3:]).contiguous()
+
+    def back(t, b):                       # (B·n, S, w) -> contiguous (B, S, n, w)
+        return t.reshape(b, t.shape[0] // b, *t.shape[1:]).transpose(1, 2).contiguous()
+
+    def measure(kernel, path, shape, fns, iters, flat, split):
+        """``fns``: who -> a call; ``flat(result)`` gives the flattened call's
+        result in the model's layout, to compare the three bit for bit;
+        ``split``: the kernels of a call (``kernel_split``), whose device
+        time is taken apart from the host's pace for the two layouts."""
+        copies = dict(kernel.layout_copies)
+        routes = dict(kernel.launches_by_route)
+        got = {who: fn() for who, fn in fns.items()}
+        torch.cuda.synchronize()
+        took = {r: kernel.launches_by_route[r] - routes[r] for r in routes}
+        got["flattened"] = flat(got["flattened"])
+        same = all(all(torch.equal(a, c) for a, c in zip(got["in_place"], res))
+                   for res in got.values())
+        turns = dict(zip(fns, in_turns(*fns.values(), iters=iters, rounds=2)))
+        best = {who: min(t) for who, t in turns.items()}
+        device = {"in_place": [], "flattened": []}          # the kernels' own, in turns
+        for who in ("in_place", "flattened", "flattened", "in_place"):
+            device[who].append(sum(kernel_split(fns[who], split, calls=5).values()))
+        rec = {"phase": "kernel_time", "kernel": kernel.__name__, "layout": "bshw",
+               "route": "sm90", "path": path, "shape": shape,
+               **{f"{who}_ms": t for who, t in best.items()}, "turns_ms": turns,
+               **{f"{who}_kernel_ms": min(t) for who, t in device.items()},
+               "kernel_turns_ms": device,
+               "bits_equal": same, "launches": took,
+               "sm90_layout_copies": kernel.layout_copies["sm90"] - copies["sm90"], "smi": smi}
+        rec["ok"] = (same and took == {"sm90": 3, "simt": 0} and rec["sm90_layout_copies"] == 0)
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"{kernel.__name__} in the model's layout: {rec}")
+        return {k: v for k, v in rec.items() if k.endswith("_ms") or k in ("path", "shape")}
+
+    k2_bwd = {n: 1 for n in ("bwd_prep_sm90_kernel", "dkdv_sm90_kernel", "dq_sm90_kernel")}
+    k3_bwd = {n: 1 for n in SSD_BWD_KERNELS if "sm90" in n}
+
+    out = {}
+    path, (b, s, h, kv, hd) = LAYOUT_K2
+    q, k, v = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd)
+    qf, kf, vf = rows(q), rows(k), rows(v)
+    g = h // kv
+    out["flash_attention"] = measure(flash_attention, path, (b, s, h, kv, hd), {
+        "in_place": lambda: [flash_attention(q, k, v, q_heads_per_kv=g).reshape(b, s, h * hd)],
+        "flattened": lambda: [flash_attention(qf, kf, vf, q_heads_per_kv=g)],
+        "with_copies": lambda: [flash_attention(rows(q), rows(k), rows(v), q_heads_per_kv=g)
+                                .reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)]},
+        50, lambda res: [back(res[0], b).reshape(b, s, h * hd)], {"flash_fwd_sm90_kernel": 1})
+    del q, k, v, qf, kf, vf
+    path, (b, s, h, kv, hd) = LAYOUT_K2_BWD
+    g = h // kv
+    q, k, v, do = rnd(b, s, h, hd), rnd(b, s, kv, hd), rnd(b, s, kv, hd), rnd(b, s, h, hd)
+    o, lse = flash_attention(q, k, v, q_heads_per_kv=g, return_lse=True)
+    qf, kf, vf, of, dof = (rows(t) for t in (q, k, v, o, do))
+    out["flash_attention_bwd"] = measure(flash_attention_bwd, path, (b, s, h, kv, hd), {
+        "in_place": lambda: flash_attention_bwd(q, k, v, o, lse, do, q_heads_per_kv=g),
+        "flattened": lambda: flash_attention_bwd(qf, kf, vf, of, lse, dof, q_heads_per_kv=g),
+        "with_copies": lambda: [back(t, b) for t in flash_attention_bwd(
+            qf, kf, vf, of, lse, rows(do), q_heads_per_kv=g)]},
+        20, lambda grads: [back(t, b) for t in grads], k2_bwd)
+    del q, k, v, do, o, lse, qf, kf, vf, of, dof
+    path, (b, s, h, grp, p, n, chunk) = LAYOUT_K3
+    xbc = rnd(b, s, h * p + 2 * grp * n)
+    xs, bs, cs = torch.split(xbc, [h * p, grp * n, grp * n], -1)
+    x, Bm, Cm = xs.unflatten(-1, (h, p)), bs.unflatten(-1, (grp, n)), cs.unflatten(-1, (grp, n))
+    Bm.mul_(0.3), Cm.mul_(0.3)
+    dt = torch.nn.functional.softplus(rnd(b, s, h, dtype=torch.float32)) * 2.0
+    A = -torch.linspace(1.0, 16.0, h // grp, device="cuda").repeat(b * grp)
+    kw = dict(chunk=chunk, heads_per_group=h // grp)
+    xf, dtf, Bf, Cf = rows(x), rows(dt), rows(Bm), rows(Cm)
+
+    def model_y(res):                      # y as (B, S, H, P) over its rows, the state's
+        y, state = res
+        return [y if y.dim() == 4 else y.view(b, h, s, p).transpose(1, 2),
+                state.view(b, h, n, p)]
+    out["ssd_scan"] = measure(ssd_scan, path, (b, s, h, grp, p, n, chunk), {
+        "in_place": lambda: model_y(ssd_scan(x, dt, A, Bm, Cm, **kw)),
+        "flattened": lambda: ssd_scan(xf, dtf, A, Bf, Cf, **kw),
+        "with_copies": lambda: model_y(ssd_scan(rows(x), rows(dt), A, rows(Bm), rows(Cm),
+                                                **kw))},
+        50, model_y, {"ssd_scan_sm90_kernel": 1})
+    dy = rnd(b, h, s, p).transpose(1, 2)              # y's own layout
+    dyf = dy.transpose(1, 2).reshape(b * h, s, p)     # a view: y's rows
+
+    def model_grads(grads):                # dx, ddt, dB, dC back to (B, S, ·), dA as it is
+        return [t if t.dim() == 1 else back(t, b) for t in grads[:5]]
+    out["ssd_scan_bwd"] = measure(ssd_scan_bwd, path + " train", (b, s, h, grp, p, n, chunk), {
+        "in_place": lambda: ssd_scan_bwd(x, dt, A, Bm, Cm, dy, None, **kw)[:5],
+        "flattened": lambda: ssd_scan_bwd(xf, dtf, A, Bf, Cf, dyf, None, **kw),
+        "with_copies": lambda: model_grads(ssd_scan_bwd(rows(x), rows(dt), A, rows(Bm),
+                                                        rows(Cm), dyf, None, **kw))},
+        20, model_grads, k3_bwd)
+    return out
 
 
 def time_ssd_bwd(case, inputs, smi: str, path: str) -> dict:
@@ -4258,7 +4392,26 @@ def kernel_split(fn, want: dict, calls: int = 3, tries: int = 5) -> dict:
     return {n: pooled[n][1] / pooled[n][0] * want[n] / 1e3 for n in want}
 
 
-def train_profile(model, opt, state, tokens, labels) -> dict:
+def k2k3_operand_shapes(cfg, batch: int, seq: int) -> list:
+    """The shapes in which K2's and K3's operands and their gradients would
+    be copied around the kernels: (B, S, n, w), (B, n, S, w) and (B·n, S,
+    w) for q, k and v (n = H, Kv; w = hd) and for x, B and C (n = the SSM's
+    heads, groups; w = P, N). dt's shapes are left out: its f32 cast from
+    the projection's slice is a ``copy_`` of the same shape in the
+    reference's arithmetic, not a layout copy."""
+    forms = []
+    if cfg.num_heads:
+        hd = cfg.resolved_head_dim
+        forms += [(cfg.num_heads, hd), (cfg.num_kv_heads, hd)]
+    if cfg.ssm_state:
+        forms += [(cfg.ssm_heads, cfg.ssm_head_dim), (cfg.ssm_groups, cfg.ssm_state)]
+    shapes = []
+    for n, w in forms:
+        shapes += [[batch, seq, n, w], [batch, n, seq, w], [batch * n, seq, w]]
+    return shapes
+
+
+def train_profile(model, opt, state, tokens, labels, operand_shapes=()) -> dict:
     """Device ms of one train step split by what runs: K2's forward, K2's
     backward (its three kernels on either route, also apart), K3's forward
     and its backward (both passes, also apart), B2's forward kernels (fill
@@ -4276,7 +4429,10 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
     that launched each kernel and its input shapes (the ops' own device
     time, ``key_averages(group_by_input_shape=True)``; products and the
     port's autograd Functions, whose kernels are counted by name, left
-    out), the 15 largest."""
+    out), the 15 largest. ``layout_copies``: each ``aten::copy_`` of the
+    step whose input is in one of ``operand_shapes``
+    (``k2k3_operand_shapes``), with its device ms: none when K2 and K3 read
+    and write the model's layout in place."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
@@ -4338,8 +4494,12 @@ def train_profile(model, opt, state, tokens, labels) -> dict:
              and not e.key.endswith(("Fn", "FnBackward"))]
     rest_by_op = [[e.key, str(e.input_shapes)[:160], e.self_device_time_total / 1e3, e.count]
                   for e in sorted(by_op, key=lambda e: -e.self_device_time_total)[:15]]
+    shapes = [list(s) for s in operand_shapes]
+    layout_copies = [[e.key, str(e.input_shapes)[:160], e.self_device_time_total / 1e3, e.count]
+                     for e in by_op if e.key == "aten::copy_"
+                     and any(list(s) in shapes for s in e.input_shapes)]
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "split_ms": split,
-            "rest_by_op": rest_by_op,
+            "rest_by_op": rest_by_op, "layout_copies": layout_copies,
             "optimizer_ms": {"adamw_kernel": adamw, "ops_in_range": optimizer_ops},
             "split_sum_ms": sum(split.values()),
             "attention_backward_ms": {n: t for n, t in bwd_by_kernel.items() if t},
@@ -4688,9 +4848,11 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
     peak = torch.cuda.max_memory_allocated()
     layers = cfg.num_layers
     want = train_launches(cfg, steps, adamw_per_step(cfg))
-    prof, state = train_profile(model, opt, state, *batches[-1])
+    prof, state = train_profile(model, opt, state, *batches[-1],
+                                operand_shapes=k2k3_operand_shapes(cfg, TRAIN_BATCH, TRAIN_SEQ))
     mean_s = sum(step_s) / len(step_s)
-    ok = (counts == want and routes == train_routes(want)
+    ok = (counts == want and routes == train_routes(want) and sm90_layout_copies(counted) == 0
+          and not prof["layout_copies"]
           and all(math.isfinite(x) for x in losses) and sum(losses[-3:]) < sum(losses[:3]))
     emit({"phase": "train", "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
           "full_layers": get_config(arch).num_layers, "experts": cfg.num_experts,
@@ -4701,11 +4863,12 @@ def train_phase(smi: str, counters: dict, arch: str = TRAIN_ARCH,
           "losses": losses, "ln_vocab": math.log(cfg.vocab_size), "loss_floor": data.entropy(),
           "step_s": step_s, "mean_step_s": mean_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / mean_s,
           "peak_mem_gb": peak / 1e9, "launches": counts, "want_launches": want,
-          "routes": routes, "profile": prof,
+          "routes": routes, "layout_copies": counted["layout_copies"], "profile": prof,
           "device": torch.cuda.get_device_name(0), "smi": smi, "ok": ok})
     if not ok:
         raise AssertionError(f"train {arch}: launches {counts} (want {want}), routes {routes}, "
-                             f"losses {losses}")
+                             f"layout copies {counted['layout_copies']} and in the profile "
+                             f"{prof['layout_copies']}, losses {losses}")
     tally_conv_routes(routes)
     del model, state, opt, batches
     gc.collect()
@@ -4837,6 +5000,8 @@ def zero_counts(counters: dict) -> None:
     flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     ssd_scan.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
     ssd_scan_bwd.launches_by_route = dict.fromkeys(SSD_ROUTES, 0)
+    for fn in (flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd):
+        fn.layout_copies = dict.fromkeys(fn.layout_copies, 0)
     for name in B2 + B2_BWD:
         getattr(moe_dispatch, name).launches_by_route = dict.fromkeys(moe_dispatch.ROUTES, 0)
     for name, fn in fused_wrappers().items():
@@ -4868,6 +5033,8 @@ def read_counts(counters: dict) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"launches": {k: c.launches for k, c in counters.items()},
+            "layout_copies": {fn.__name__: dict(fn.layout_copies) for fn in (
+                flash_attention, flash_attention_bwd, ssd_scan, ssd_scan_bwd)},
             "routes": {"flash_attention": dict(flash_attention.launches_by_route),
                        "flash_attention_bwd": dict(flash_attention_bwd.launches_by_route),
                        "ssd_scan": dict(ssd_scan.launches_by_route),
@@ -4958,6 +5125,7 @@ def steps_train(arch: str, held, mesh, smi: str, counters: dict) -> dict:
           and routes["ssd_scan"]["simt"] == 0 and routes["ssd_scan_bwd"]["simt"] == 0
           and routes["ssd_scan_bwd"]["sm90"] == want["ssd_scan_bwd"]
           and all(routes[k] == v for k, v in nc_routes(want).items())
+          and sm90_layout_copies(counted) == 0
           and all(math.isfinite(x) for x in losses))
     emit({"phase": "steps", "step": "make_train_step", "arch": cfg.name, "mesh": "1x1",
           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "optimizer": opt_name, "remat": True,
@@ -5050,7 +5218,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
             alone, steps = expected_launches(cfg), expected_launches(cfg, STEPS_DECODE)
             decode_want = {k: steps[k] - alone[k] for k in steps}
             ok = (ok and torch.equal(torch.cat(ids, dim=1), want.ids)
-                  and decoded["launches"] == decode_want
+                  and decoded["launches"] == decode_want and sm90_layout_copies(decoded) == 0
                   and all(decoded["routes"][k] == v for k, v in nc_routes(decode_want).items()))
         del caches, logits
         zero_counts(counters)
@@ -5067,7 +5235,7 @@ def steps_phase(smi: str, counters: dict) -> dict:
         peak = torch.cuda.max_memory_allocated()
         want_launches = {k: v * STEPS_REPS for k, v in expected_launches(cfg).items()}
         ssm = want_launches["ssd_scan"]
-        ok = (ok and counted["launches"] == want_launches
+        ok = (ok and counted["launches"] == want_launches and sm90_layout_copies(counted) == 0
               and counted["routes"]["flash_attention"]["simt"] == 0
               and counted["routes"]["ssd_scan"]["simt"] == 0
               and all(counted["routes"][k] == v for k, v in nc_routes(want_launches).items()))
@@ -5276,7 +5444,7 @@ def moe_mesh_phase(smi: str, counters: dict) -> None:
     b2 = moe_rec["ranks"] + 1
     layer = B2 + B8[:1]
     want = {k: b2 if k in layer else 0 for k in counts["launches"]}
-    launched_ok = (counts["launches"] == want
+    launched_ok = (counts["launches"] == want and sm90_layout_copies(counts) == 0
                    and all(counts["routes"][k] == {"vector": b2, "scalar": 0} for k in layer))
     emit({"phase": "moe_mesh", "arch": cfg.name, "tokens": MOE_MESH_TOKENS,
           "experts": cfg.num_experts, "top_k": cfg.experts_per_token, "d_model": cfg.d_model,
@@ -5284,7 +5452,7 @@ def moe_mesh_phase(smi: str, counters: dict) -> None:
           "decode_cp": {"arch": pc.name, "batch": CP_BATCH, "slots": CP_SLOTS,
                         "pieces": CP_PIECES, "cases": cp, "tol": tol},
           "launches": counts["launches"], "routes": {k: counts["routes"][k] for k in layer},
-          "want_launches": want, "seconds": time.perf_counter() - t0, "smi": smi,
+          "layout_copies": counts["layout_copies"], "want_launches": want, "seconds": time.perf_counter() - t0, "smi": smi,
           "ok": moe_ok and cp_ok and launched_ok})
     if not (moe_ok and cp_ok and launched_ok):
         raise AssertionError(f"moe_mesh: MoE {moe_rec}, decode {cp}, launches {counts}")
@@ -5347,6 +5515,13 @@ def lanes_phase(smi: str) -> dict:
           "nvlink_bw_datasheet": processors.H100_NVLINK_BW,
           "device": torch.cuda.get_device_name(0), "smi": smi})
     return measured
+
+
+def sm90_layout_copies(counted: dict) -> int:
+    """Tensors that K2's and K3's wrappers copied to or from a kernel's
+    layout on the ``sm90`` route since the counts were zeroed: the model's
+    (B, S, H, ·) layout reaches those kernels as it is, so 0."""
+    return sum(c["sm90"] for c in counted["layout_copies"].values())
 
 
 def main() -> int:
@@ -5524,6 +5699,10 @@ def main() -> int:
     gen_sw = torch.Generator(device=dev)
     gen_sw.manual_seed(6)
     timings.update(check_swiglu(gen_sw, smi, ptxas_by_function(logs.get("swiglu", ""))))
+    gen_layout = torch.Generator(device=dev)
+    gen_layout.manual_seed(7)
+    for kernel, rec in check_layouts(gen_layout, smi).items():
+        timings[kernel]["layout"] = rec
     emit({"phase": "kernels_done", "seconds": time.perf_counter() - t0})
 
     # 4. each served model: kernel-vs-plain check, serve, profile --------------

@@ -7,13 +7,16 @@
 // `blockwise_attention` (src/repro/models/attention.py). f32 inputs keep the
 // CUDA-core kernel of flash_attention_bwd.cu.
 //
-// Same contract as flash_attention_bwd.cu and `flash_attention_bwd_plain`:
-// q (BH, Sq, hd), k/v (BH/g, Sk, hd), GQA row i reads kv row i / g; scale
+// Same contract as flash_attention_bwd.cu and `flash_attention_bwd_plain`,
+// in the model's layout: q, o, dO (B, Sq, H, hd) and k/v (B, Sk, H/g, hd) at
+// any strides a tensor map takes (unit stride in hd, the others multiples
+// of 16 bytes), dq, dk and dv written at the strides of the tensors the
+// wrapper allocates; query head h reads kv head h / g (GQA); scale
 // hd^-0.5; causal masking with q_offset (may be negative), an optional
 // sliding window with or without causal, ragged Sq and Sk, Sq != Sk; head
 // dims 32, 64, 112 and 128. From the forward it takes o and the log-sum-exp
-// `lse` (f32 (BH, Sq), natural log) and recomputes P = exp(S * scale - lse);
-// with D = rowsum(dO * O):
+// `lse` (f32, natural log and recomputes P = exp(S * scale - lse);
+// (B*H, Sq), row b*H + h) with D = rowsum(dO * O):
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D),
 //   dQ = scale * dS K,  dK = scale * dS^T Q.
 // Every sum is f32; each gradient is rounded once to bf16. A masked score is
@@ -55,8 +58,10 @@
 //   transpose-B bit. The dQ kernel: S = Q K^T and dP = dO V^T (SS), dS in
 //   registers, dQ += dS K (RS, K MN-major). Nothing is transposed in memory
 //   and dS never goes through shared memory;
-// * tiles stay bf16 in shared memory and arrive by TMA from 3-D tensor maps
-//   (hd, S, rows), which zero-fill the ragged S edge. 128-byte swizzle
+// * tiles stay bf16 in shared memory and arrive by TMA from 4-D tensor maps
+//   (hd, S, H, B) at the operands' own strides, so nothing is transposed or
+//   copied before the kernel; the real extents of hd and S zero-fill the
+//   ragged S edge and hd 112's padding. 128-byte swizzle
 //   (64-byte at hd 32); a row wider than the swizzle span is two 64-column
 //   panels. hd 112 sits at a padded width of 128 as in the forward: its maps
 //   keep the true inner extent (224-byte rows), expect_tx counts the padded
@@ -130,13 +135,20 @@ struct Cfg {
   static constexpr int SMEM2 = 1024 + 2 * Q2_BYTES + 2 * NSTAGES * KT_BYTES + 8 * (1 + 2 * NSTAGES);
 };
 
+// Batch, sequence and head strides of a (B, S, H, hd) tensor, in elements.
+struct Strides {
+  long long b, s, h;
+};
+
 struct Params {
   int seq_q;
   int seq_k;
   int seq_q_pad;   // row stride of lse2 and dsum
   int group;       // query heads per kv head
-  int rows;        // BH
-  int kv_rows;     // BH / group
+  int heads;       // H: query heads
+  int kv_heads;    // H / group
+  int rows;        // B * H
+  int kv_rows;     // B * H / group
   int q_tiles;     // ceil(seq_q / BQ): the dK/dV kernel's streamed tiles per head
   int q_blocks;    // ceil(seq_q / BQ2): the dQ kernel's blocks per row
   int causal;
@@ -151,6 +163,7 @@ struct Params {
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
+  Strides s_dq, s_dk, s_dv;  // where the three gradients are written
 };
 
 // ---- shared memory, mbarriers, TMA -----------------------------------------
@@ -186,14 +199,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One box of a 3-D tensor map (coordinates innermost first) into shared
+// One box of a 4-D tensor map (coordinates innermost first) into shared
 // memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -378,7 +391,7 @@ __global__ void __launch_bounds__(256)
     bwd_prep_sm90_kernel(const __nv_bfloat16* __restrict__ o,
                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
                          float* __restrict__ lse2, float* __restrict__ dsum, int rows, int seq_q,
-                         int seq_q_pad) {
+                         int seq_q_pad, int heads, Strides so, Strides sdo) {
   constexpr int PIECES = HD / 8;
   constexpr int LPR = prep_lanes<HD>();
   const int lane = threadIdx.x % 32;
@@ -390,9 +403,11 @@ __global__ void __launch_bounds__(256)
   const int q = static_cast<int>(r % seq_q_pad);
   float acc = 0.f;
   if (in && q < seq_q && piece < PIECES) {
-    const size_t at = (static_cast<size_t>(row) * seq_q + q) * HD + piece * 8;
-    const uint4 a = *reinterpret_cast<const uint4*>(o + at);
-    const uint4 b = *reinterpret_cast<const uint4*>(dout + at);
+    const long long bi = row / heads, hq = row % heads;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + bi * so.b + hq * so.h + q * so.s +
+                                                    piece * 8);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + bi * sdo.b + hq * sdo.h +
+                                                    q * sdo.s + piece * 8);
     const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
     const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
 #pragma unroll
@@ -445,6 +460,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // the lowest kv tiles first (under causal the most q tiles reach them)
   const int kt = blockIdx.x / p.kv_rows;
   const int kv_row = blockIdx.x % p.kv_rows;
+  const int bi = kv_row / p.kv_heads;  // batch
+  const int hk = kv_row % p.kv_heads;  // kv head
   const int k0 = kt * BKV;
   const int k_valid = min(BKV, p.seq_k - k0);
 
@@ -467,8 +484,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
 #pragma unroll
       for (int pn = 0; pn < C::NPANEL; ++pn) {
-        tma_load_3d(sK + pn * BKV * C::SW, &tm_k, bar_kv, pn * C::PANEL, k0, kv_row);
-        tma_load_3d(sV + pn * BKV * C::SW, &tm_v, bar_kv, pn * C::PANEL, k0, kv_row);
+        tma_load_4d(sK + pn * BKV * C::SW, &tm_k, bar_kv, pn * C::PANEL, k0, hk, bi);
+        tma_load_4d(sV + pn * BKV * C::SW, &tm_v, bar_kv, pn * C::PANEL, k0, hk, bi);
       }
       int it = 0;
       for (int h = 0; h < p.group; ++h) {
@@ -483,9 +500,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
           mbar_expect_tx(bar_f + 8 * s, 2 * C::QT_BYTES + 2 * C::VEC_BYTES);
 #pragma unroll
           for (int pn = 0; pn < C::NPANEL; ++pn) {
-            tma_load_3d(st + pn * BQ * C::SW, &tm_q, bar_f + 8 * s, pn * C::PANEL, q0, row);
-            tma_load_3d(st + C::QT_BYTES + pn * BQ * C::SW, &tm_do, bar_f + 8 * s,
-                        pn * C::PANEL, q0, row);
+            tma_load_4d(st + pn * BQ * C::SW, &tm_q, bar_f + 8 * s, pn * C::PANEL, q0,
+                        hk * p.group + h, bi);
+            tma_load_4d(st + C::QT_BYTES + pn * BQ * C::SW, &tm_do, bar_f + 8 * s,
+                        pn * C::PANEL, q0, hk * p.group + h, bi);
           }
           const size_t vec = static_cast<size_t>(row) * p.seq_q_pad + q0;
           bulk_load(st + 2 * C::QT_BYTES, p.lse2 + vec, C::VEC_BYTES, bar_f + 8 * s);
@@ -623,23 +641,22 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       }
     }
 
-    // the real columns of the existing keys
-    const size_t off = static_cast<size_t>(kv_row) * p.seq_k;
+    // the real columns of the existing keys, at dk's and dv's strides
+    __nv_bfloat16* dkp = p.dk + bi * p.s_dk.b + hk * p.s_dk.h;
+    __nv_bfloat16* dvp = p.dv + bi * p.s_dv.b + hk * p.s_dv.h;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       const int col = 8 * j + c0;
       if (key0 < p.seq_k) {
-        const size_t at = (off + key0) * HD + col;
-        *reinterpret_cast<__nv_bfloat162*>(p.dk + at) =
+        *reinterpret_cast<__nv_bfloat162*>(dkp + key0 * p.s_dk.s + col) =
             __floats2bfloat162_rn(dk[4 * j] * p.scale, dk[4 * j + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(p.dv + at) =
+        *reinterpret_cast<__nv_bfloat162*>(dvp + key0 * p.s_dv.s + col) =
             __floats2bfloat162_rn(dv[4 * j], dv[4 * j + 1]);
       }
       if (key1 < p.seq_k) {
-        const size_t at = (off + key1) * HD + col;
-        *reinterpret_cast<__nv_bfloat162*>(p.dk + at) =
+        *reinterpret_cast<__nv_bfloat162*>(dkp + key1 * p.s_dk.s + col) =
             __floats2bfloat162_rn(dk[4 * j + 2] * p.scale, dk[4 * j + 3] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(p.dv + at) =
+        *reinterpret_cast<__nv_bfloat162*>(dvp + key1 * p.s_dv.s + col) =
             __floats2bfloat162_rn(dv[4 * j + 2], dv[4 * j + 3]);
       }
     }
@@ -668,7 +685,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // the last (heaviest, under causal) q tiles of every row first
   const int row = blockIdx.x % p.rows;
   const int q0 = (p.q_blocks - 1 - static_cast<int>(blockIdx.x / p.rows)) * BQ2;
-  const int kv_row = row / p.group;
+  const int bi = row / p.heads;     // batch
+  const int hq = row % p.heads;     // query head
+  const int hk = hq / p.group;      // its kv head
   const int q_valid = min(BQ2, p.seq_q - q0);
 
   // a row with no unmasked key has dS = 0 everywhere, so only the tiles the
@@ -704,8 +723,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_expect_tx(bar_q, 2 * C::Q2_BYTES);
 #pragma unroll
       for (int pn = 0; pn < C::NPANEL; ++pn) {
-        tma_load_3d(sQ + pn * BQ2 * C::SW, &tm_q, bar_q, pn * C::PANEL, q0, row);
-        tma_load_3d(sdO + pn * BQ2 * C::SW, &tm_do, bar_q, pn * C::PANEL, q0, row);
+        tma_load_4d(sQ + pn * BQ2 * C::SW, &tm_q, bar_q, pn * C::PANEL, q0, hq, bi);
+        tma_load_4d(sdO + pn * BQ2 * C::SW, &tm_do, bar_q, pn * C::PANEL, q0, hq, bi);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % NSTAGES;
@@ -715,10 +734,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_expect_tx(bar_f + 8 * s, 2 * C::KT_BYTES);
 #pragma unroll
         for (int pn = 0; pn < C::NPANEL; ++pn) {
-          tma_load_3d(sK + s * C::KT_BYTES + pn * BK2 * C::SW, &tm_k, bar_f + 8 * s,
-                      pn * C::PANEL, k0, kv_row);
-          tma_load_3d(sV + s * C::KT_BYTES + pn * BK2 * C::SW, &tm_v, bar_f + 8 * s,
-                      pn * C::PANEL, k0, kv_row);
+          tma_load_4d(sK + s * C::KT_BYTES + pn * BK2 * C::SW, &tm_k, bar_f + 8 * s,
+                      pn * C::PANEL, k0, hk, bi);
+          tma_load_4d(sV + s * C::KT_BYTES + pn * BK2 * C::SW, &tm_v, bar_f + 8 * s,
+                      pn * C::PANEL, k0, hk, bi);
         }
       }
     }
@@ -826,15 +845,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_arrive(bar_e + 8 * s);
     }
 
-    __nv_bfloat16* out = p.dq + (static_cast<size_t>(row) * p.seq_q + q0) * HD;
+    // the block's rows of dq at its strides; rows past Sq are not stored
+    __nv_bfloat16* out = p.dq + bi * p.s_dq.b + hq * p.s_dq.h + q0 * p.s_dq.s;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {  // the real columns only
       const int col = 8 * j + c0;
       if (r0 < q_valid)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0) * HD + col) =
+        *reinterpret_cast<__nv_bfloat162*>(out + r0 * p.s_dq.s + col) =
             __floats2bfloat162_rn(dq[4 * j] * p.scale, dq[4 * j + 1] * p.scale);
       if (r0 + 8 < q_valid)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0 + 8) * HD + col) =
+        *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * p.s_dq.s + col) =
             __floats2bfloat162_rn(dq[4 * j + 2] * p.scale, dq[4 * j + 3] * p.scale);
     }
   }
@@ -865,40 +885,46 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (hd, seq, rows) bf16, contiguous; boxes of one panel x box_rows x 1. The
-// extent is the real hd: a box past it comes back zero-filled.
+// (hd, seq, heads, batch) bf16 at the strides `st` in elements (hd's is 1);
+// boxes of one panel x box_rows x 1 x 1. The extents are the real hd and
+// seq: a box past either comes back zero-filled.
 template <int HD>
-int encode(CUtensorMap* map, const void* ptr, int seq, int rows, int box_rows) {
+int encode(CUtensorMap* map, const void* ptr, int seq, int heads, int batch, Strides st,
+           int box_rows) {
   using C = Cfg<HD>;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_ENTRY_POINT;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
-                                 static_cast<cuuint64_t>(seq) * HD * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(C::PANEL), static_cast<cuuint32_t>(box_rows),
-                             1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::PANEL), static_cast<cuuint32_t>(box_rows),
+                             1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                           strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
 }
 
+// st: the strides of q, k, v, o and dout in that order.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-           const float* lse, float* aux, const Params& p, cudaStream_t stream) {
+           const float* lse, float* aux, const Strides* st, int batch, const Params& p,
+           cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap tq1, tdo1, tk1, tv1, tq2, tdo2, tk2, tv2;
-  int err = encode<HD>(&tq1, q, p.seq_q, p.rows, BQ);
-  if (err == 0) err = encode<HD>(&tdo1, dout, p.seq_q, p.rows, BQ);
-  if (err == 0) err = encode<HD>(&tk1, k, p.seq_k, p.kv_rows, BKV);
-  if (err == 0) err = encode<HD>(&tv1, v, p.seq_k, p.kv_rows, BKV);
-  if (err == 0) err = encode<HD>(&tq2, q, p.seq_q, p.rows, BQ2);
-  if (err == 0) err = encode<HD>(&tdo2, dout, p.seq_q, p.rows, BQ2);
-  if (err == 0) err = encode<HD>(&tk2, k, p.seq_k, p.kv_rows, BK2);
-  if (err == 0) err = encode<HD>(&tv2, v, p.seq_k, p.kv_rows, BK2);
+  const int h = p.heads, hk = p.kv_heads;
+  int err = encode<HD>(&tq1, q, p.seq_q, h, batch, st[0], BQ);
+  if (err == 0) err = encode<HD>(&tdo1, dout, p.seq_q, h, batch, st[4], BQ);
+  if (err == 0) err = encode<HD>(&tk1, k, p.seq_k, hk, batch, st[1], BKV);
+  if (err == 0) err = encode<HD>(&tv1, v, p.seq_k, hk, batch, st[2], BKV);
+  if (err == 0) err = encode<HD>(&tq2, q, p.seq_q, h, batch, st[0], BQ2);
+  if (err == 0) err = encode<HD>(&tdo2, dout, p.seq_q, h, batch, st[4], BQ2);
+  if (err == 0) err = encode<HD>(&tk2, k, p.seq_k, hk, batch, st[1], BK2);
+  if (err == 0) err = encode<HD>(&tv2, v, p.seq_k, hk, batch, st[2], BK2);
   if (err != 0) return err;
 
   constexpr int PREP_ROWS_PER_BLOCK = 8 * 32 / prep_lanes<HD>();  // 8 warps
@@ -907,7 +933,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
                                                    PREP_ROWS_PER_BLOCK),
                              256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse, aux,
-      aux + prep_rows, p.rows, p.seq_q, p.seq_q_pad);
+      aux + prep_rows, p.rows, p.seq_q, p.seq_q_pad, p.heads, st[3], st[4]);
   cudaError_t cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return cerr;
 
@@ -929,20 +955,27 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 }  // namespace
 
-// q, o, dout, dq (bh, seq_q, head_dim); k, v, dk, dv (bh / group, seq_k,
-// head_dim); bf16, contiguous, 16-byte aligned. lse f32 (bh, seq_q). aux:
-// f32 scratch of 2 * bh * seq_q_pad, 16-byte aligned, seq_q_pad = seq_q
-// rounded up to a multiple of flash_attention_bwd_sm90_pad(). scale is
-// hd^-0.5.
+// q, o, dout, dq (batch, seq_q, heads, head_dim); k, v, dk, dv (batch,
+// seq_k, heads / group, head_dim): bf16, 16-byte aligned, hd contiguous;
+// `strides` holds the batch, sequence and head strides in elements of q, k,
+// v, o, dout, dq, dk and dv in that order (24 values), each a multiple of 8.
+// lse f32 (batch * heads, seq_q). aux: f32 scratch of 2 * batch * heads *
+// seq_q_pad, 16-byte aligned, seq_q_pad = seq_q rounded up to a multiple of
+// flash_attention_bwd_sm90_pad(). scale is hd^-0.5.
 extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const float* lse,
-                                        float* aux, void* dq, void* dk, void* dv, int bh,
+                                        float* aux, void* dq, void* dk, void* dv,
+                                        const long long* strides, int batch, int heads,
                                         int seq_q, int seq_k, int head_dim, int group,
                                         int causal, int has_window, long long window,
                                         long long q_offset, float scale, void* stream) {
-  if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || group <= 0 || bh % group) {
+  if (batch <= 0 || heads <= 0 || seq_q <= 0 || seq_k <= 0 || group <= 0 || heads % group) {
     return cudaErrorInvalidValue;
   }
+  const int bh = batch * heads;
+  Strides st[8];
+  for (int i = 0; i < 8; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const int seq_q_pad = (seq_q + PAD - 1) / PAD * PAD;
   // The tensor maps are encoded through the driver API, which needs a current
   // context. A thread that has made no runtime call yet (autograd's worker
@@ -959,17 +992,17 @@ extern "C" int flash_attention_bwd_sm90(const void* q, const void* k, const void
       static_cast<long long>(bh) * seq_q_pad / 8 > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
-  Params p{seq_q, seq_k, seq_q_pad, group, bh, bh / group, (seq_q + BQ - 1) / BQ, q_blocks,
-           causal, has_window, window, q_offset, scale, scale * LOG2E,
-           1.f / static_cast<float>(seq_k), aux, aux + static_cast<size_t>(bh) * seq_q_pad,
-           static_cast<__nv_bfloat16*>(dq), static_cast<__nv_bfloat16*>(dk),
-           static_cast<__nv_bfloat16*>(dv)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Params p{seq_q, seq_k, seq_q_pad, group, heads, heads / group, bh, bh / group,
+           (seq_q + BQ - 1) / BQ, q_blocks, causal, has_window, window, q_offset, scale,
+           scale * LOG2E, 1.f / static_cast<float>(seq_k), aux,
+           aux + static_cast<size_t>(bh) * seq_q_pad, static_cast<__nv_bfloat16*>(dq),
+           static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), st[5], st[6], st[7]};
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return launch<32>(q, k, v, o, dout, lse, aux, p, st);
-    case 64: return launch<64>(q, k, v, o, dout, lse, aux, p, st);
-    case 112: return launch<112>(q, k, v, o, dout, lse, aux, p, st);
-    case 128: return launch<128>(q, k, v, o, dout, lse, aux, p, st);
+    case 32: return launch<32>(q, k, v, o, dout, lse, aux, st, batch, p, cs);
+    case 64: return launch<64>(q, k, v, o, dout, lse, aux, st, batch, p, cs);
+    case 112: return launch<112>(q, k, v, o, dout, lse, aux, st, batch, p, cs);
+    case 128: return launch<128>(q, k, v, o, dout, lse, aux, st, batch, p, cs);
     default: return cudaErrorInvalidValue;
   }
 }

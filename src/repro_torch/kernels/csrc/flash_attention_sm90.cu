@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel `_flash_kernel` driven by `flash_attention`
 // (src/repro/kernels/flash_attention.py) for bf16 inputs; f32 inputs keep
 // the CUDA-core kernel of flash_attention.cu. Same function as that file's
-// header and `flash_attention_plain`: q (BH, Sq, hd), k/v (BH/g, Sk, hd),
-// GQA row i reads kv row i / g; scale hd^-0.5; causal masking with q_offset
+// header and `flash_attention_plain`, in the model's layout: q (B, Sq, H, hd)
+// and k/v (B, Sk, H/g, hd) at any strides a tensor map takes (unit stride in
+// hd, the others multiples of 16 bytes), o (B, Sq, H, hd) at its own strides;
+// query head h reads kv head h / g (GQA); scale hd^-0.5; causal masking with q_offset
 // (may be negative) and an optional sliding window, with or without causal;
 // ragged Sq and Sk; f32 m, l and acc; masked scores are the finite -1e30, so
 // a row whose keys are all masked averages V over all Sk keys; keys past Sk
@@ -32,10 +34,14 @@
 //   layout (the m64nNk16 accumulator fragment of S is that layout), and V
 //   is the B operand as stored, (BK, hd) with hd contiguous: MN-major, read
 //   with the transpose-B bit, never transposed in memory;
-// * tiles stay bf16 in shared memory and arrive by TMA from 3-D tensor maps
-//   (hd, S, rows), so the ragged S edge is zero-filled and never reads the
-//   next head's rows. 128-byte swizzle (64-byte at hd 32); a row wider than
-//   the swizzle span is two 64-column panels, two boxes per tile;
+// * tiles stay bf16 in shared memory and arrive by TMA from 4-D tensor maps
+//   (hd, S, H, B) at the operands' own strides, so q, k and v are read where
+//   the model made them (slices of a fused projection, transposed views) and
+//   no layout copy precedes the kernel; hd and S keep their real extents, so
+//   the ragged S edge and hd 112's columns 112-127 are zero-filled and never
+//   read the next token's or head's elements. 128-byte swizzle (64-byte at hd
+//   32); a row wider than the swizzle span is two 64-column panels, two
+//   boxes per tile;
 // * warp specialisation: one producer warp issues the TMA loads of Q once
 //   and of K and V into a ring of NSTAGES stages with full/empty mbarriers;
 //   two consumer warpgroups of 64 query rows each wait on `full`, run both
@@ -54,7 +60,7 @@
 // TMA store of O.
 //
 // Optional output for training: the log-sum-exp of each query row, f32
-// (BH, Sq), m * ln 2 + log(l) in the natural-log domain, written by the
+// (B*H, Sq) (row b*H + h), m * ln 2 + log(l) in the natural-log domain, written by the
 // quad's first lane only when its pointer is not null (the serving path
 // passes null). A row with no unmasked key keeps m = -1e30 and gets
 // exactly -1e30, which the backward (flash_attention_bwd.cu) reads as
@@ -107,7 +113,8 @@ struct Params {
   int seq_q;
   int seq_k;
   int group;       // query heads per kv head
-  int rows;        // BH
+  int heads;       // H: query heads
+  int rows;        // B * H
   int q_tiles;     // ceil(seq_q / BQ)
   int causal;
   int has_window;
@@ -115,6 +122,7 @@ struct Params {
   long long q_offset;
   float scale_log2;  // hd^-0.5 * log2(e)
   __nv_bfloat16* o;
+  long long o_sb, o_ss, o_sh;  // o's batch, sequence and head strides (elements)
   float* lse;        // (rows, seq_q) or null
 };
 
@@ -151,14 +159,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One box of a 3-D tensor map (coordinates innermost first) into shared
+// One box of a 4-D tensor map (coordinates innermost first) into shared
 // memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -346,7 +354,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // heaviest q tiles first; neighbouring blocks share a kv head
   const int row = blockIdx.x % p.rows;
   const int q0 = (p.q_tiles - 1 - static_cast<int>(blockIdx.x / p.rows)) * BQ;
-  const int kv_row = row / p.group;
+  const int bi = row / p.heads;     // batch
+  const int hq = row % p.heads;     // query head
+  const int hk = hq / p.group;      // its kv head
   const int q_valid = min(BQ, p.seq_q - q0);
 
   const long long qpos_first = p.q_offset + q0;
@@ -381,7 +391,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_expect_tx(bar_q, C::Q_BYTES);
 #pragma unroll
       for (int pn = 0; pn < C::NPANEL; ++pn)
-        tma_load_3d(sQ + pn * BQ * C::SW, &tm_q, bar_q, pn * C::PANEL, q0, row);
+        tma_load_4d(sQ + pn * BQ * C::SW, &tm_q, bar_q, pn * C::PANEL, q0, hq, bi);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % NSTAGES;
         const uint32_t phase = (it / NSTAGES) & 1;
@@ -390,13 +400,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_expect_tx(bar_k + 8 * s, C::KV_BYTES);
 #pragma unroll
         for (int pn = 0; pn < C::NPANEL; ++pn)
-          tma_load_3d(sK + s * C::KV_BYTES + pn * BK * C::SW, &tm_k, bar_k + 8 * s,
-                      pn * C::PANEL, k0, kv_row);
+          tma_load_4d(sK + s * C::KV_BYTES + pn * BK * C::SW, &tm_k, bar_k + 8 * s,
+                      pn * C::PANEL, k0, hk, bi);
         mbar_expect_tx(bar_v + 8 * s, C::KV_BYTES);
 #pragma unroll
         for (int pn = 0; pn < C::NPANEL; ++pn)
-          tma_load_3d(sV + s * C::KV_BYTES + pn * BK * C::SW, &tm_v, bar_v + 8 * s,
-                      pn * C::PANEL, k0, kv_row);
+          tma_load_4d(sV + s * C::KV_BYTES + pn * BK * C::SW, &tm_v, bar_v + 8 * s,
+                      pn * C::PANEL, k0, hk, bi);
       }
     }
   } else {
@@ -516,15 +526,16 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (r0 < q_valid) lse[r0] = m0 < 0.5f * NEG_INF ? NEG_INF : m0 * LN2 + logf(tot0);
       if (r0 + 8 < q_valid) lse[r0 + 8] = m1 < 0.5f * NEG_INF ? NEG_INF : m1 * LN2 + logf(tot1);
     }
-    __nv_bfloat16* out = p.o + (static_cast<size_t>(row) * p.seq_q + q0) * HD;
+    // the block's rows of o at its strides; rows past Sq are not stored
+    __nv_bfloat16* out = p.o + bi * p.o_sb + hq * p.o_sh + q0 * p.o_ss;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {  // the real columns only
       const int col = 8 * j + c0;
       if (r0 < q_valid)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0) * HD + col) =
+        *reinterpret_cast<__nv_bfloat162*>(out + r0 * p.o_ss + col) =
             __floats2bfloat162_rn(o[4 * j] / den0, o[4 * j + 1] / den0);
       if (r0 + 8 < q_valid)
-        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(r0 + 8) * HD + col) =
+        *reinterpret_cast<__nv_bfloat162*>(out + (r0 + 8) * p.o_ss + col) =
             __floats2bfloat162_rn(o[4 * j + 2] / den1, o[4 * j + 3] / den1);
     }
   }
@@ -555,21 +566,24 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (hd, seq, rows) bf16, contiguous; boxes of one panel x box_rows x 1. The
-// extent is the real hd: a box past it comes back zero-filled.
+// (hd, seq, heads, batch) bf16 at the strides st = {batch, seq, head} in
+// elements (hd's is 1); boxes of one panel x box_rows x 1 x 1. The extents
+// are the real hd and seq: a box past either comes back zero-filled.
 template <int HD>
-int encode(CUtensorMap* map, const void* ptr, int seq, int rows, int box_rows) {
+int encode(CUtensorMap* map, const void* ptr, int seq, int heads, int batch,
+           const long long* st, int box_rows) {
   using C = Cfg<HD>;
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_ENTRY_POINT;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(seq),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(HD) * 2,
-                                 static_cast<cuuint64_t>(seq) * HD * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(C::PANEL), static_cast<cuuint32_t>(box_rows),
-                             1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st[1]) * 2,
+                                 static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::PANEL), static_cast<cuuint32_t>(box_rows),
+                             1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                           strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -577,33 +591,38 @@ int encode(CUtensorMap* map, const void* ptr, int seq, int rows, int box_rows) {
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, int bh, const Params& p,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const long long* st, int batch,
+           const Params& p, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = encode<HD>(&tq, q, p.seq_q, bh, BQ);
-  if (err == 0) err = encode<HD>(&tk, k, p.seq_k, bh / p.group, BK);
-  if (err == 0) err = encode<HD>(&tv, v, p.seq_k, bh / p.group, BK);
+  const int kv_heads = p.heads / p.group;
+  int err = encode<HD>(&tq, q, p.seq_q, p.heads, batch, st, BQ);
+  if (err == 0) err = encode<HD>(&tk, k, p.seq_k, kv_heads, batch, st + 3, BK);
+  if (err == 0) err = encode<HD>(&tv, v, p.seq_k, kv_heads, batch, st + 6, BK);
   if (err != 0) return err;
   constexpr int smem = Cfg<HD>::SMEM;
   cudaError_t cerr = cudaFuncSetAttribute(flash_fwd_sm90_kernel<HD>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return cerr;
-  flash_fwd_sm90_kernel<HD><<<bh * p.q_tiles, NTHREADS, smem, stream>>>(tq, tk, tv, p);
+  flash_fwd_sm90_kernel<HD><<<p.rows * p.q_tiles, NTHREADS, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (bh, seq_q, head_dim), k and v (bh / group, seq_k, head_dim), o like q;
-// bf16, contiguous, 16-byte aligned. scale is hd^-0.5. lse: f32 (bh, seq_q),
-// or null.
+// q (batch, seq_q, heads, head_dim), k and v (batch, seq_k, heads / group,
+// head_dim), o (batch, seq_q, heads, head_dim): bf16, 16-byte aligned, hd
+// contiguous; `strides` holds the batch, sequence and head strides in
+// elements of q, k, v and o in that order (12 values), each but o's a
+// multiple of 8. scale is hd^-0.5. lse: f32 (batch * heads, seq_q), or null.
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                        float* lse, int bh, int seq_q, int seq_k, int head_dim, int group,
+                                        float* lse, const long long* strides, int batch,
+                                        int heads, int seq_q, int seq_k, int head_dim, int group,
                                         int causal, int has_window, long long window,
                                         long long q_offset, float scale, void* stream) {
-  if (bh <= 0 || seq_q <= 0 || seq_k <= 0 || group <= 0 || bh % group) {
+  if (batch <= 0 || heads <= 0 || seq_q <= 0 || seq_k <= 0 || group <= 0 || heads % group) {
     return cudaErrorInvalidValue;
   }
+  const int bh = batch * heads;
   const int q_tiles = (seq_q + BQ - 1) / BQ;
   // The tensor maps are encoded through the driver API, which needs a current
   // context. A thread that has made no runtime call yet (autograd's worker
@@ -614,14 +633,15 @@ extern "C" int flash_attention_sm90_fwd(const void* q, const void* k, const void
   if (cerr == cudaSuccess) cerr = cudaSetDevice(device);
   if (cerr != cudaSuccess) return cerr;
   if (static_cast<long long>(bh) * q_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  Params p{seq_q, seq_k, group, bh, q_tiles, causal, has_window, window, q_offset,
-           scale * LOG2E, static_cast<__nv_bfloat16*>(o), lse};
+  Params p{seq_q, seq_k, group, heads, bh, q_tiles, causal, has_window, window, q_offset,
+           scale * LOG2E, static_cast<__nv_bfloat16*>(o), strides[9], strides[10],
+           strides[11], lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return launch<32>(q, k, v, bh, p, st);
-    case 64: return launch<64>(q, k, v, bh, p, st);
-    case 112: return launch<112>(q, k, v, bh, p, st);
-    case 128: return launch<128>(q, k, v, bh, p, st);
+    case 32: return launch<32>(q, k, v, strides, batch, p, st);
+    case 64: return launch<64>(q, k, v, strides, batch, p, st);
+    case 112: return launch<112>(q, k, v, strides, batch, p, st);
+    case 128: return launch<128>(q, k, v, strides, batch, p, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,12 @@
 // gradient of K3's forward (csrc/ssd_scan_sm90.cu) for bf16 inputs whose N
 // and P are multiples of 8 with P <= 128, the shapes that forward takes; f32
 // and every other bf16 shape keep the CUDA-core backward of ssd_scan_bwd.cu.
-// Same function as that file's header and `ssd_scan_bwd_plain`. Per row and
+// Same function as that file's header and `ssd_scan_bwd_plain`, in the
+// model's layout as the forward takes it: x, dy (B, S, H, P) and B, C (B, S,
+// G, N) bf16 read through tensor maps at their own strides, dt (B, S, H) f32
+// at its strides; dx (B, S, H, P), dB, dC (B, S, G, N) and ddt (B, S, H)
+// written at the strides of the tensors the wrapper allocates; A, dA (B*H,)
+// and the states (B*H, N, P), row b*H + h. Per row and
 // chunk of Q steps, with s_in the state entering the chunk, cum the
 // within-chunk cumulative sum of dt * A, T = cum[Q-1], L[i][j] = exp(cum_i -
 // cum_j) for j <= i, G = C B^T, W = G o L o dt_j, u = exp(T - cum) o dt:
@@ -85,8 +90,10 @@
 // * 2,048 (row, chunk) pairs run in parallel instead of 256 serial rows;
 //   the states pass is one coalesced, elementwise sweep (16-byte loads);
 // * every product runs on the tensor cores with bf16 operands;
-// * C, B, X, dY and the bf16 states arrive by TMA from 4-D tensor maps
-//   (width, rows, chunks, heads) with boxes of 64 columns by 64 or 128 rows
+// * C, B, X and dY arrive by TMA from 5-D tensor maps (width, chunk,
+//   chunks, heads, batch) at their own strides, so no layout copy precedes
+//   the kernels, and the bf16 states from 4-D maps (width, N, chunks, rows)
+//   of their scratch; boxes of 64 columns by 64 or 128 rows
 //   and 128-byte swizzle; rows past the chunk or past N are out of bounds
 //   and come as zeros, so any chunk from 1 to 128 works; a producer warp
 //   keeps the next head's tiles in flight through a ring of mbarrier stages
@@ -169,8 +176,14 @@ struct Cfg {
   static_assert(T_SMEM <= 232448 && X_SMEM <= 232448 && D_SMEM <= 232448, "shared memory");
 };
 
+// Batch, sequence and head strides of a (B, S, H, W) tensor, in elements.
+struct Strides {
+  long long b, s, h;
+};
+
 struct Params {
   int bh;
+  int heads;       // H
   int seq;
   int p;
   int n;
@@ -199,6 +212,7 @@ struct Params {
   float* ts;               // (bh, yb, nc): partial sums of dS_out o s_in
   float* part;             // (2, bh / hb, seq, n): dB, then dC
   double* pda;             // (bh, nc)
+  Strides s_dt, s_ddt, s_dx, s_db, s_dc;
 };
 
 // ---- shared memory, mbarriers, TMA -----------------------------------------
@@ -232,6 +246,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// One box of a 5-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
+      : "memory");
 }
 
 // One box of a 4-D tensor map (coordinates innermost first) into shared
@@ -407,10 +433,12 @@ struct RowDt {
 };
 
 __device__ __forceinline__ RowDt load_dt(const Params& p, int row, int c, int lane) {
-  const float* dtr = p.dt + static_cast<size_t>(row) * p.seq + static_cast<size_t>(c) * p.chunk;
+  const Strides& st = p.s_dt;
+  const float* dtr = p.dt + (row / p.heads) * st.b + (row % p.heads) * st.h +
+                     static_cast<long long>(c) * p.chunk * st.s;
   RowDt r;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) r.d[i] = 4 * lane + i < p.chunk ? dtr[4 * lane + i] : 0.f;
+  for (int i = 0; i < 4; ++i) r.d[i] = 4 * lane + i < p.chunk ? dtr[(4 * lane + i) * st.s] : 0.f;
   r.a = p.A[row];
   return r;
 }
@@ -469,15 +497,16 @@ __device__ __forceinline__ void scale_x_dy(uint8_t* xs, uint8_t* dys, int qb, fl
   }
 }
 
-// Loads C and B of (group row, chunk) onto `bar` (once per block).
+// Loads C and B of (the group row row reads, chunk) onto `bar` (once per block).
 template <int NPAN>
 __device__ __forceinline__ void load_cb(uint32_t base, uint32_t bar, const CUtensorMap* tc,
-                                        const CUtensorMap* tb, int c, int grow, int qb) {
-  mbar_expect_tx(bar, 2 * NPAN * qb * 128);
+                                        const CUtensorMap* tb, int c, int row, const Params& p) {
+  const int bi = row / p.heads, gi = (row % p.heads) / p.group;
+  mbar_expect_tx(bar, 2 * NPAN * p.qb * 128);
 #pragma unroll
   for (int pn = 0; pn < NPAN; ++pn) {
-    tma_load_4d(base + pn * PANEL, tc, bar, pn * 64, 0, c, grow);
-    tma_load_4d(base + (NPAN + pn) * PANEL, tb, bar, pn * 64, 0, c, grow);
+    tma_load_5d(base + pn * PANEL, tc, bar, pn * 64, 0, c, gi, bi);
+    tma_load_5d(base + (NPAN + pn) * PANEL, tb, bar, pn * 64, 0, c, gi, bi);
   }
 }
 
@@ -486,13 +515,14 @@ __device__ __forceinline__ void load_cb(uint32_t base, uint32_t bar, const CUten
 template <int PPAN>
 __device__ __forceinline__ void load_head(uint32_t stage, uint32_t bar, const CUtensorMap* tx,
                                           const CUtensorMap* tdy, const CUtensorMap* tsin,
-                                          const CUtensorMap* tds, int c, int row, int qb, int nb,
+                                          const CUtensorMap* tds, int c, int row, const Params& p,
                                           bool states) {
-  mbar_expect_tx(bar, 2 * PPAN * qb * 128 + (states ? 2 * PPAN * nb * 128 : 0));
+  const int bi = row / p.heads, h = row % p.heads;
+  mbar_expect_tx(bar, 2 * PPAN * p.qb * 128 + (states ? 2 * PPAN * p.nb * 128 : 0));
 #pragma unroll
   for (int pp = 0; pp < PPAN; ++pp) {
-    tma_load_4d(stage + pp * PANEL, tx, bar, pp * 64, 0, c, row);
-    tma_load_4d(stage + (PPAN + pp) * PANEL, tdy, bar, pp * 64, 0, c, row);
+    tma_load_5d(stage + pp * PANEL, tx, bar, pp * 64, 0, c, h, bi);
+    tma_load_5d(stage + (PPAN + pp) * PANEL, tdy, bar, pp * 64, 0, c, h, bi);
     if (states) {
       tma_load_4d(stage + (2 * PPAN + pp) * PANEL, tsin, bar, pp * 64, 0, c, row);
       tma_load_4d(stage + (3 * PPAN + pp) * PANEL, tds, bar, pp * 64, 0, c, row);
@@ -546,12 +576,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (wg == NCONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == NCONSUMERS * 128) {
-      load_cb<NPAN>(base, bar_cb, &tm_c, &tm_b, c, row0 / p.group, p.qb);
+      load_cb<NPAN>(base, bar_cb, &tm_c, &tm_b, c, row0, p);
       for (int k = 0; k < p.hb; ++k) {
         const int s = k % NST;
         mbar_wait(bar_empty + 8 * s, ((k / NST) & 1) ^ 1);
         load_head<PPAN>(base + Cf::CB + s * Cf::T_STAGE, bar_full + 8 * s, &tm_x, &tm_dy,
-                        nullptr, nullptr, c, row0 + k, p.qb, p.nb, false);
+                        nullptr, nullptr, c, row0 + k, p, false);
       }
     }
     return;
@@ -814,13 +844,15 @@ __device__ __forceinline__ void dx_epilogue(const Params& p, const float* wcum, 
   double excl = __shfl_down_sync(0xffffffffu, incl, 1);
   if (lane == 31) excl = 0.0;
   double da = 0.0;
-  float* ddt = p.ddt + static_cast<size_t>(row) * p.seq + static_cast<size_t>(c) * p.chunk;
+  const Strides& sd = p.s_ddt;
+  float* ddt = p.ddt + (row / p.heads) * sd.b + (row % p.heads) * sd.h +
+               static_cast<long long>(c) * p.chunk * sd.s;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int i = 4 * lane + q;
     if (i < p.chunk) {
       const double rc = sfx[q] + excl;
-      ddt[i] = ddtL[i] + ex2(tot2 - wcum[i]) * vv[i] + a * static_cast<float>(rc);
+      ddt[i * sd.s] = ddtL[i] + ex2(tot2 - wcum[i]) * vv[i] + a * static_cast<float>(rc);
       da += static_cast<double>(wdt[i]) * rc;
     }
   }
@@ -991,8 +1023,9 @@ __device__ __forceinline__ void dx_consumer(const Params& p, uint8_t* gbase, uin
     reg_fence(acc);
     reg_fence(pa);
     {
-      __nv_bfloat16* out = p.dx + (static_cast<size_t>(row) * p.seq +
-                                   static_cast<size_t>(c) * p.chunk) * p.p;
+      const Strides& sx = p.s_dx;
+      __nv_bfloat16* out = p.dx + (row / p.heads) * sx.b + (row % p.heads) * sx.h +
+                           static_cast<long long>(c) * p.chunk * sx.s;
 #pragma unroll
       for (int jj = 0; jj < PP / 8; ++jj)
 #pragma unroll
@@ -1000,7 +1033,7 @@ __device__ __forceinline__ void dx_consumer(const Params& p, uint8_t* gbase, uin
           const int j = r0 + 8 * h;
           const int col = 8 * jj + c0;
           if (j < p.chunk && col < p.p)
-            *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(j) * p.p + col) =
+            *reinterpret_cast<uint32_t*>(out + j * sx.s + col) =
                 pack_bf16(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
         }
     }
@@ -1082,12 +1115,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (wg == NCONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == NCONSUMERS * 128) {
-      load_cb<NPAN>(base, bar_cb, &tm_c, &tm_b, c, row0 / p.group, p.qb);
+      load_cb<NPAN>(base, bar_cb, &tm_c, &tm_b, c, row0, p);
       for (int k = 0; k < p.hb; ++k) {
         const int s = k % NST;
         mbar_wait(bar_empty + 8 * s, ((k / NST) & 1) ^ 1);
         load_head<PPAN>(base + Cf::CB + s * Cf::STAGE, bar_full + 8 * s, &tm_x, &tm_dy,
-                        &tm_sin, &tm_ds, c, row0 + k, p.qb, p.nb, true);
+                        &tm_sin, &tm_ds, c, row0 + k, p, true);
       }
     }
     return;
@@ -1306,14 +1339,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   if (wg == NCONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == NCONSUMERS * 128) {
-      load_cb<NPAN>(base, bar_cb, &tm_c, &tm_b, c, row0 / p.group, p.qb);
+      load_cb<NPAN>(base, bar_cb, &tm_c, &tm_b, c, row0, p);
       // items 0 .. hb-1: X and dY of each head (phase 1); hb .. 2hb-1: X,
       // dY, s_in and dS_out of each head (phase 3)
       for (int item = 0; item < 2 * p.hb; ++item) {
         const int s = item % NST;
         mbar_wait(bar_empty + 8 * s, ((item / NST) & 1) ^ 1);
         load_head<PPAN>(base + Cf::CB + s * Cf::STAGE, bar_full + 8 * s, &tm_x, &tm_dy,
-                        &tm_sin, &tm_ds, c, row0 + item % p.hb, p.qb, p.nb, item >= p.hb);
+                        &tm_sin, &tm_ds, c, row0 + item % p.hb, p, item >= p.hb);
       }
     }
     return;
@@ -1341,7 +1374,13 @@ __global__ void ssd_bwd_sum_sm90_kernel(const Params p) {
       const float* src = p.part + which * part_one + grow * blocks * per + rem % per;
       float s = 0.f;
       for (int k = 0; k < blocks; ++k) s += src[static_cast<size_t>(k) * per];
-      (which ? p.dC : p.dB)[rem] = __float2bfloat16(s);
+      // (group row, token, state entry) of rem, at dB's or dC's strides
+      const Strides& so = which ? p.s_dc : p.s_db;
+      const long long groups = p.heads / p.group;
+      const long long t = static_cast<long long>(rem % per) / p.n;
+      const long long gr = static_cast<long long>(grow);
+      (which ? p.dC : p.dB)[(gr / groups) * so.b + (gr % groups) * so.h + t * so.s +
+                            static_cast<long long>(rem % p.n)] = __float2bfloat16(s);
     } else {
       const size_t row = idx - 2 * bc;
       double s = 0.0;
@@ -1376,7 +1415,30 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (width, rows, chunks, heads) bf16, contiguous; boxes of 64 columns x
+// (width, chunk, chunks, heads, batch) bf16 at the strides st = {batch,
+// token, head} in elements (width's is 1); boxes of 64 columns x qb tokens
+// of one chunk. Columns past `width` and tokens past the chunk are out of
+// bounds and arrive as zeros.
+int encode_bshw(CUtensorMap* map, const void* ptr, int width, int chunk, int n_chunks, int heads,
+                int batch, Strides st, int qb) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return ERR_ENTRY_POINT;
+  const cuuint64_t tok = static_cast<cuuint64_t>(st.s) * 2;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(chunk),
+                              static_cast<cuuint64_t>(n_chunks), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[4] = {tok, tok * chunk, static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t boxd[5] = {64, static_cast<cuuint32_t>(qb), 1, 1, 1};
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims,
+                          strides, boxd, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : ERR_ENCODE + static_cast<int>(res);
+}
+
+// (width, rows, chunks, heads) bf16, contiguous (the states' scratch); boxes of 64 columns x
 // `box` rows of one chunk. Columns past `width` and rows past `rows` are
 // out of bounds and arrive as zeros.
 int encode(CUtensorMap* map, const void* ptr, int width, int rows, int n_chunks, int heads,
@@ -1438,43 +1500,62 @@ extern "C" int ssd_scan_bwd_sm90_state_blocks(int n, int p) {
   return (n * p + STATE_BLOCK - 1) / STATE_BLOCK;
 }
 
-// x, dy, dx (bh, seq, p) and B, C, dB, dC (bh / heads_per_group, seq, n):
-// bf16; dt, ddt (bh, seq) and A, dA (bh,) f32; init and dinit null or
-// (bh, n, p) f32, both or neither; dfinal null (zero) or (bh, n, p) f32.
+// x, dy, dx (batch, seq, heads, p) and B, C, dB, dC (batch, seq, heads /
+// heads_per_group, n): bf16, 16-byte aligned, the last dim contiguous; dt,
+// ddt (batch, seq, heads) f32; `strides` holds the batch, sequence and head
+// strides in elements of x, dy, B, C, dt, dx, ddt, dB and dC in that order
+// (27 values), each bf16 tensor's a multiple of 8. A, dA (bh,) f32, bh =
+// batch * heads; init and dinit null or (bh, n, p) f32, both or neither;
+// dfinal null (zero) or (bh, n, p) f32.
 // Scratch: states f32 (2, bh, seq / chunk, n, p), states16 bf16 (the same),
 // decay f32 (bh, seq / chunk), ts f32 (bh, state_blocks, seq / chunk), part
-// f32 (2, bh / heads_per_block, seq, n), pda f64 (bh, seq / chunk). All
-// contiguous; x, dy, B and C 16-byte aligned. seq a multiple of chunk
+// f32 (2, bh / heads_per_block, seq, n), pda f64 (bh, seq / chunk), all
+// contiguous. seq a multiple of chunk
 // (1 .. 128); n and p multiples of 8 up to 128; heads_per_block divides
 // heads_per_group.
 extern "C" int ssd_scan_bwd_sm90(const void* x, const void* dt, const void* A, const void* B,
                                  const void* C, const void* init_state, const void* dy,
                                  const void* dfinal, void* dx, void* ddt, void* dA, void* dB,
                                  void* dC, void* dinit, void* states, void* states16,
-                                 void* decay, void* ts, void* part, void* pda, int bh, int seq,
+                                 void* decay, void* ts, void* part, void* pda,
+                                 const long long* strides, int batch, int heads, int seq,
                                  int p, int n, int chunk, int heads_per_group,
                                  int heads_per_block, void* stream) {
-  if (bh <= 0 || seq <= 0 || chunk <= 0 || chunk > QMAX || seq % chunk || p <= 0 || p > 128 ||
-      p % 8 || n <= 0 || n > 128 || n % 8 || heads_per_group <= 0 || bh % heads_per_group ||
-      heads_per_block <= 0 || heads_per_group % heads_per_block || bh > 65535 ||
-      (init_state == nullptr) != (dinit == nullptr)) {
+  const int bh = batch * heads;
+  if (batch <= 0 || heads <= 0 || seq <= 0 || chunk <= 0 || chunk > QMAX || seq % chunk ||
+      p <= 0 || p > 128 || p % 8 || n <= 0 || n > 128 || n % 8 || heads_per_group <= 0 ||
+      heads % heads_per_group || heads_per_block <= 0 || heads_per_group % heads_per_block ||
+      bh > 65535 || (init_state == nullptr) != (dinit == nullptr)) {
     return cudaErrorInvalidValue;
   }
+  // cuTensorMapEncodeTiled, which encodes the tensor maps, needs a current
+  // context. A thread that has made no runtime call yet (autograd's worker
+  // thread can be one) has none until cudaSetDevice binds its device's
+  // primary context.
+  int device = 0;
+  cudaError_t cerr = cudaGetDevice(&device);
+  if (cerr == cudaSuccess) cerr = cudaSetDevice(device);
+  if (cerr != cudaSuccess) return cerr;
+  Strides st[9];
+  for (int i = 0; i < 9; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const int groups = heads / heads_per_group;
   const int nc = seq / chunk;
   const int qb = chunk <= 64 ? 64 : 128;
   const int nb = n <= 64 ? 64 : 128;
   const size_t plane = static_cast<size_t>(bh) * nc * n * p;
   Maps m;
-  int err = encode(&m.x, x, p, chunk, nc, bh, qb);
-  if (err == 0) err = encode(&m.dy, dy, p, chunk, nc, bh, qb);
-  if (err == 0) err = encode(&m.b, B, n, chunk, nc, bh / heads_per_group, qb);
-  if (err == 0) err = encode(&m.c, C, n, chunk, nc, bh / heads_per_group, qb);
+  int err = encode_bshw(&m.x, x, p, chunk, nc, heads, batch, st[0], qb);
+  if (err == 0) err = encode_bshw(&m.dy, dy, p, chunk, nc, heads, batch, st[1], qb);
+  if (err == 0) err = encode_bshw(&m.b, B, n, chunk, nc, groups, batch, st[2], qb);
+  if (err == 0) err = encode_bshw(&m.c, C, n, chunk, nc, groups, batch, st[3], qb);
   if (err == 0) err = encode(&m.sin, states16, p, n, nc, bh, nb);
   if (err == 0)
     err = encode(&m.ds, static_cast<const __nv_bfloat16*>(states16) + plane, p, n, nc, bh, nb);
   if (err != 0) return err;
   Params prm{};
   prm.bh = bh;
+  prm.heads = heads;
   prm.seq = seq;
   prm.p = p;
   prm.n = n;
@@ -1503,12 +1584,17 @@ extern "C" int ssd_scan_bwd_sm90(const void* x, const void* dt, const void* A, c
   prm.ts = static_cast<float*>(ts);
   prm.part = static_cast<float*>(part);
   prm.pda = static_cast<double*>(pda);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  prm.s_dt = st[4];
+  prm.s_dx = st[5];
+  prm.s_ddt = st[6];
+  prm.s_db = st[7];
+  prm.s_dc = st[8];
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
   const bool n2 = n > 64, p2 = p > 64;
-  if (n2 && p2) return launch<2, 2>(m, prm, st);
-  if (n2) return launch<2, 1>(m, prm, st);
-  if (p2) return launch<1, 2>(m, prm, st);
-  return launch<1, 1>(m, prm, st);
+  if (n2 && p2) return launch<2, 2>(m, prm, cs);
+  if (n2) return launch<2, 1>(m, prm, cs);
+  if (p2) return launch<1, 2>(m, prm, cs);
+  return launch<1, 1>(m, prm, cs);
 }
 
 extern "C" const char* ssd_scan_bwd_sm90_error_string(int err) {

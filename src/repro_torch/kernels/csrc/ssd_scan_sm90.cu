@@ -3,16 +3,20 @@
 // Replaces the Pallas TPU kernel `_ssd_kernel` driven by `ssd_scan`
 // (src/repro/kernels/ssd_scan.py) for bf16 inputs; f32 inputs keep the
 // CUDA-core kernel of ssd_scan.cu. Same function as that file's header and
-// `ssd_scan_plain`: x (BH, S, P) bf16, dt (BH, S) f32, A (BH,) f32, B and C
-// (BH / heads_per_group, S, N) bf16; y (BH, S, P) bf16 and the final state
-// (BH, N, P) f32. Per chunk of Q tokens, with an (N, P) f32 state carried
+// `ssd_scan_plain`, reading the model's layout in place: x (B, S, H, P) bf16
+// and B, C (B, S, G, N) bf16 at any strides a tensor map takes (unit stride
+// in P and N, the others multiples of 16 bytes: in mamba2 they are views of
+// the convolution's output at its token stride), dt (B, S, H) f32 at its
+// strides, A (B*H,) f32; y (B*H, S, P) bf16, row b*H + h (the layout the
+// gated norm reads in place), and the final state (B*H, N, P) f32. Per
+// chunk of Q tokens, with an (N, P) f32 state carried
 // from chunk to chunk:
 //   cum = cumsum(dt * A)                   (restarts at 0 in every chunk)
 //   W[i][j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j   for j <= i, else 0
 //   y = W X + exp(cum) * (C state)
 //   state' = exp(total) * state + B^T (exp(total - cum) * dt * X)
-// Row `bh` reads group row `bh / heads_per_group` of B and C; the groups are
-// never broadcast in memory. A null initial state means zeros. Q is any
+// Head h reads group h / heads_per_group of B and C; the groups are never
+// broadcast in memory. A null initial state means zeros. Q is any
 // length from 1 to 128; N and P are multiples of 8 up to 128 (16-byte rows
 // for TMA).
 //
@@ -35,8 +39,9 @@
 //   from S's accumulator fragment in registers and X read MN-major with the
 //   transpose-B bit; state += B^T.(wd.X) in SS form with the B tile read
 //   MN-major through the transpose-A bit and wd.X MN-major;
-// * C, B and X stay bf16 in shared memory and arrive by TMA from 4-D tensor
-//   maps (width, chunk, S / chunk, rows) with boxes of 64 columns by 64 or
+// * C, B and X stay bf16 in shared memory and arrive by TMA from 5-D tensor
+//   maps (width, chunk, S / chunk, heads, batch) at the operands' own strides
+//   (no layout copy precedes the kernel), with boxes of 64 columns by 64 or
 //   128 tokens and 128-byte swizzle: tokens past the chunk are out of bounds
 //   and come as zeros, so any chunk from 1 to 128 works and no box reads
 //   the next chunk; N or P wider than 64 is two panels;
@@ -110,8 +115,10 @@ struct Params {
   int n;
   int chunk;
   int group;       // heads per group
+  int heads;       // H
   int n_chunks;    // seq / chunk
   int qb;          // tokens per box: 64 if chunk <= 64, else 128
+  long long dt_sb, dt_ss, dt_sh;  // dt's batch, sequence and head strides (elements)
   const float* dt;
   const float* A;
   const float* init;
@@ -152,14 +159,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
-// One box of a 4-D tensor map (coordinates innermost first) into shared
+// One box of a 5-D tensor map (coordinates innermost first) into shared
 // memory; completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
   asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(c4)
       : "memory");
 }
 
@@ -396,7 +404,9 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* gbase, uint32
   const uint32_t bar_full = base + Cf::BAR_OFF;
   const uint32_t bar_empty = bar_full + 8 * Cf::NSTAGES;
   const float a = p.A[row];
-  const float* dtr = p.dt + static_cast<size_t>(row) * p.seq;
+  // this head's dt, token t at dtr[t * dt_ss]
+  const float* dtr = p.dt + (row / p.heads) * p.dt_sb + (row % p.heads) * p.dt_sh;
+  const long long dss = p.dt_ss;
 
   // the state, f32 in registers for the whole loop
   float st[PP / 2];
@@ -422,7 +432,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* gbase, uint32
   // dt of the next chunk, prefetched: lane holds tokens 4*lane .. 4*lane+3
   float dtn[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) dtn[i] = 4 * lane + i < p.chunk ? dtr[4 * lane + i] : 0.f;
+  for (int i = 0; i < 4; ++i) dtn[i] = 4 * lane + i < p.chunk ? dtr[(4 * lane + i) * dss] : 0.f;
 
   for (int ci = 0; ci < p.n_chunks; ++ci) {
     const int s = ci % Cf::NSTAGES;
@@ -456,7 +466,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* gbase, uint32
     if (ci + 1 < p.n_chunks) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        dtn[i] = 4 * lane + i < p.chunk ? dtr[t0 + p.chunk + 4 * lane + i] : 0.f;
+        dtn[i] = 4 * lane + i < p.chunk ? dtr[(t0 + p.chunk + 4 * lane + i) * dss] : 0.f;
     }
     const float tot2 = wcum[QMAX - 1];
     // the state decays by exp(total) before this chunk's update; scaled here,
@@ -611,7 +621,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // ---- producer: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x == NCONSUMERS * 128) {
-      const int grow = row / p.group;
+      const int bi = row / p.heads, h = row % p.heads, gi = h / p.group;
       const uint32_t bytes = (2 * NPAN + PPAN) * p.qb * 128;
       for (int ci = 0; ci < p.n_chunks; ++ci) {
         const int s = ci % Cf::NSTAGES;
@@ -621,14 +631,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         mbar_expect_tx(bar_full + 8 * s, bytes);
 #pragma unroll
         for (int pn = 0; pn < NPAN; ++pn) {
-          tma_load_4d(stage + pn * PANEL, &tm_c, bar_full + 8 * s, pn * 64, 0, ci, grow);
-          tma_load_4d(stage + (NPAN + pn) * PANEL, &tm_b, bar_full + 8 * s, pn * 64, 0, ci,
-                      grow);
+          tma_load_5d(stage + pn * PANEL, &tm_c, bar_full + 8 * s, pn * 64, 0, ci, gi, bi);
+          tma_load_5d(stage + (NPAN + pn) * PANEL, &tm_b, bar_full + 8 * s, pn * 64, 0, ci,
+                      gi, bi);
         }
 #pragma unroll
         for (int pp = 0; pp < PPAN; ++pp)
-          tma_load_4d(stage + (2 * NPAN + pp) * PANEL, &tm_x, bar_full + 8 * s, pp * 64, 0, ci,
-                      row);
+          tma_load_5d(stage + (2 * NPAN + pp) * PANEL, &tm_x, bar_full + 8 * s, pp * 64, 0, ci,
+                      h, bi);
       }
     }
   } else {
@@ -664,20 +674,23 @@ EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// (width, chunk, seq / chunk, rows) bf16, contiguous; boxes of 64 columns x
-// qb tokens of one chunk. Columns past `width` and tokens past the chunk
-// are out of bounds and arrive as zeros.
-int encode(CUtensorMap* map, const void* ptr, int width, int chunk, int n_chunks, int rows,
-           int qb) {
+// (width, chunk, seq / chunk, heads, batch) bf16 at the strides st =
+// {batch, token, head} in elements (width's is 1); boxes of 64 columns x qb
+// tokens of one chunk. Columns past `width` and tokens past the chunk are
+// out of bounds and arrive as zeros.
+int encode(CUtensorMap* map, const void* ptr, int width, int chunk, int n_chunks, int heads,
+           int batch, const long long* st, int qb) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_ENTRY_POINT;
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(width) * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(chunk),
-                              static_cast<cuuint64_t>(n_chunks), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[3] = {row_bytes, row_bytes * chunk, row_bytes * chunk * n_chunks};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(qb), 1, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const cuuint64_t tok = static_cast<cuuint64_t>(st[1]) * 2;
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(chunk),
+                              static_cast<cuuint64_t>(n_chunks), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[4] = {tok, tok * chunk, static_cast<cuuint64_t>(st[2]) * 2,
+                                 static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[5] = {64, static_cast<cuuint32_t>(qb), 1, 1, 1};
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims,
                           strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -697,26 +710,43 @@ int launch(const CUtensorMap& tx, const CUtensorMap& tb, const CUtensorMap& tc, 
 
 }  // namespace
 
-// x (bh, seq, p), B and C (bh / heads_per_group, seq, n), y like x: bf16;
-// dt (bh, seq) and A (bh,) f32; init_state null or (bh, n, p) f32;
-// state_out (bh, n, p) f32. All contiguous; x, B and C 16-byte aligned.
-// seq a multiple of chunk (1 .. 128); n and p multiples of 8 up to 128.
+// x (batch, seq, heads, p) and B, C (batch, seq, heads / heads_per_group,
+// n): bf16, 16-byte aligned, the last dim contiguous; dt (batch, seq, heads)
+// f32; `strides` holds the batch, sequence and head strides in elements of
+// x, B, C and dt in that order (12 values), x's, B's and C's multiples of 8.
+// A (batch * heads,) f32; init_state null or (batch * heads, n, p) f32; y
+// (batch * heads, seq, p) bf16 and state_out (batch * heads, n, p) f32,
+// contiguous. seq a multiple of chunk (1 .. 128); n and p multiples of 8 up
+// to 128.
 extern "C" int ssd_scan_sm90_fwd(const void* x, const void* dt, const void* A, const void* B,
                                  const void* C, const void* init_state, void* y,
-                                 void* state_out, int bh, int seq, int p, int n, int chunk,
+                                 void* state_out, const long long* strides, int batch,
+                                 int heads, int seq, int p, int n, int chunk,
                                  int heads_per_group, void* stream) {
-  if (bh <= 0 || seq <= 0 || chunk <= 0 || chunk > QMAX || seq % chunk || p <= 0 || p > 128 ||
-      p % 8 || n <= 0 || n > 128 || n % 8 || heads_per_group <= 0 || bh % heads_per_group) {
+  if (batch <= 0 || heads <= 0 || seq <= 0 || chunk <= 0 || chunk > QMAX || seq % chunk ||
+      p <= 0 || p > 128 || p % 8 || n <= 0 || n > 128 || n % 8 || heads_per_group <= 0 ||
+      heads % heads_per_group) {
     return cudaErrorInvalidValue;
   }
+  // cuTensorMapEncodeTiled, which encodes the tensor maps, needs a current
+  // context. A thread that has made no runtime call yet (autograd's worker
+  // thread can be one) has none until cudaSetDevice binds its device's
+  // primary context.
+  int device = 0;
+  cudaError_t cerr = cudaGetDevice(&device);
+  if (cerr == cudaSuccess) cerr = cudaSetDevice(device);
+  if (cerr != cudaSuccess) return cerr;
+  const int bh = batch * heads;
+  const int groups = heads / heads_per_group;
   const int qb = chunk <= 64 ? 64 : 128;
   const int n_chunks = seq / chunk;
   CUtensorMap tx, tb, tc;
-  int err = encode(&tx, x, p, chunk, n_chunks, bh, qb);
-  if (err == 0) err = encode(&tb, B, n, chunk, n_chunks, bh / heads_per_group, qb);
-  if (err == 0) err = encode(&tc, C, n, chunk, n_chunks, bh / heads_per_group, qb);
+  int err = encode(&tx, x, p, chunk, n_chunks, heads, batch, strides, qb);
+  if (err == 0) err = encode(&tb, B, n, chunk, n_chunks, groups, batch, strides + 3, qb);
+  if (err == 0) err = encode(&tc, C, n, chunk, n_chunks, groups, batch, strides + 6, qb);
   if (err != 0) return err;
-  const Params prm{seq, p, n, chunk, heads_per_group, n_chunks, qb,
+  const Params prm{seq, p, n, chunk, heads_per_group, heads, n_chunks, qb,
+                   strides[9], strides[10], strides[11],
                    static_cast<const float*>(dt), static_cast<const float*>(A),
                    static_cast<const float*>(init_state), static_cast<__nv_bfloat16*>(y),
                    static_cast<float*>(state_out)};

@@ -16,15 +16,26 @@ nothing falls back to the other kernel. :func:`_flash_attention_simt`
 reaches the ``simt`` kernel at bf16 too, for timing the two designs side by
 side; the main path never calls it.
 
-Layout: q (BH, Sq, hd), k/v (BH / q_heads_per_kv, Sk, hd); row i of q reads
-kv row ``i // q_heads_per_kv`` (GQA). Scale ``hd ** -0.5``; masked scores are
+Layouts: the model's q (B, Sq, H, hd) and k/v (B, Sk, H / q_heads_per_kv,
+hd), query head h reading kv head ``h // q_heads_per_kv`` (GQA), returning
+a contiguous (B, Sq, H, hd); or the flattened q (BH, Sq, hd) and k/v
+(BH / q_heads_per_kv, Sk, hd), contiguous, row i of q reading kv row
+``i // q_heads_per_kv``. The ``sm90`` kernels read the model's layout in
+place at any strides a tensor map takes (:mod:`.layout`) and write their
+outputs at the strides of the tensors the wrapper allocates; the ``simt``
+kernels and the plain versions take the flattened layout, and the wrapper
+copies a (B, S, H, hd) call to it and back (``layout_copies`` counts those
+tensors by route). The log-sum-exp is (B·H, Sq) either way, row
+``b·H + h``. Scale ``hd ** -0.5``; masked scores are
 the finite ``-1e30``; the output is ``acc / max(l, 1e-30)`` in q's dtype.
 The ``sm90`` kernel rounds P to bf16 before P·V, as FlashAttention-2/3 and
 SDPA do; the plain version keeps P in f32.
 
 A CPU tensor goes to :func:`flash_attention_plain`; a CUDA tensor goes to a
 kernel or raises. ``flash_attention.launches`` counts kernel launches and
-``flash_attention.launches_by_route`` splits them by route, under a lock.
+``flash_attention.launches_by_route`` splits them by route, under a lock;
+``flash_attention.layout_copies`` counts the operands and outputs a route
+copied to or from its kernel's layout (0 on ``sm90``).
 
 Training: with ``return_lse=True`` the forward also returns each query
 row's log-sum-exp (f32 (BH, Sq), natural log; exactly ``NEG_INF`` for a row
@@ -58,6 +69,7 @@ import numpy as np
 import torch
 
 from .build import load_library
+from .layout import bshw_as_rows, count_copies, kernel_strides, rows_to_bshw
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 112, 128)
@@ -84,7 +96,17 @@ def flash_attention_plain(
     tile of ``block_k`` keys at a time. Keys past ``Sk`` do not exist here,
     as in the oracle, so a fully masked row averages V over all ``Sk`` keys.
     With ``return_lse`` also returns ``m + log(l)`` per row (BH, Sq), f32.
+    A (B, S, H, hd) call runs on its flattened copies and returns a
+    contiguous (B, Sq, H, hd).
     """
+    if q.dim() == 4:
+        res = flash_attention_plain(
+            bshw_as_rows(q), bshw_as_rows(k), bshw_as_rows(v), q_heads_per_kv=q_heads_per_kv,
+            causal=causal, window=window, q_offset=q_offset, block_k=block_k,
+            return_lse=return_lse)
+        out, lse = res if return_lse else (res, None)
+        out = rows_to_bshw(out, q.shape[2])
+        return (out, lse) if return_lse else out
     bh, sq, hd = q.shape
     bkv, sk, _ = k.shape
     g = q_heads_per_kv
@@ -140,8 +162,15 @@ def flash_attention_bwd_plain(
     ``dK = scale·dSᵀ Q``; all in f32, each gradient rounded once to its
     input's dtype. A row whose ``lse`` is ``NEG_INF`` had no unmasked key and
     averaged V over all ``Sk`` keys: its P is ``1/Sk`` everywhere, its dS 0.
-    Returns (dq, dk, dv).
+    Returns (dq, dk, dv); contiguous (B, S, ·, hd) for a (B, S, H, hd) call.
     """
+    if q.dim() == 4:
+        grads = flash_attention_bwd_plain(
+            *(bshw_as_rows(t) for t in (q, k, v, o)), lse, bshw_as_rows(do),
+            q_heads_per_kv=q_heads_per_kv, causal=causal, window=window, q_offset=q_offset,
+            block_k=block_k)
+        return tuple(rows_to_bshw(t, h) for t, h in zip(grads, (q.shape[2], k.shape[2],
+                                                                k.shape[2])))
     bh, sq, hd = q.shape
     bkv, sk, _ = k.shape
     g = q_heads_per_kv
@@ -181,11 +210,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int) -> None:
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q, k, v must share a dtype in {list(_DTYPE_CODE)}; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
-        raise ValueError(f"want q (BH,Sq,hd), k = v (BKv,Sk,hd); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    bh, sq, hd = q.shape
-    if g < 1 or bh != k.shape[0] * g or k.shape[2] != hd:
+    if q.dim() not in (3, 4) or k.dim() != q.dim() or k.shape != v.shape:
+        raise ValueError(f"want q (BH,Sq,hd), k = v (BKv,Sk,hd), or q (B,Sq,H,hd), k = v "
+                         f"(B,Sk,Kv,hd); got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.dim() == 3:
+        bh, sq, hd = q.shape
+        match = g >= 1 and bh == k.shape[0] * g and k.shape[2] == hd
+    else:
+        b, sq, h, hd = q.shape
+        match = (g >= 1 and b == k.shape[0] and h == k.shape[2] * g and k.shape[3] == hd)
+    if not match:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)} "
                          f"with q_heads_per_kv={g}")
     if sq < 1 or k.shape[1] < 1:
@@ -214,8 +249,8 @@ def flash_attention(
     q_offset: int = 0,
     return_lse: bool = False,
 ):
-    """Fused attention over flattened (batch×heads) leading dims; with
-    ``return_lse``, (out, lse (BH, Sq) f32).
+    """Fused attention over the model's (B, S, H, hd) layout or the flattened
+    (batch×heads) one; with ``return_lse``, (out, lse (B·H, Sq) f32).
 
     A tensor on the CPU or the card goes to :func:`_direct`; a meta tensor
     (the dry run, on each device's shards) to the custom op
@@ -236,7 +271,7 @@ def _direct(q, k, v, g, causal, window, q_offset, return_lse):
                                      q_offset=q_offset, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(_route(q.dtype, q.shape[2]), q, k, v, g, causal, window, q_offset,
+    return _launch(_route(q.dtype, q.shape[-1]), q, k, v, g, causal, window, q_offset,
                    return_lse)
 
 
@@ -254,8 +289,13 @@ def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: in
 
 @_flash_attention_op.register_fake
 def _flash_attention_fake(q, k, v, g, causal, window, q_offset, return_lse):
-    lse_shape = tuple(q.shape[:2]) if return_lse else (0,)
-    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+    lse_shape = _lse_shape(q) if return_lse else (0,)
+    return q.new_empty(q.shape), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _lse_shape(q: torch.Tensor) -> Tuple[int, int]:
+    """(B·H, Sq) of either layout."""
+    return (q.shape[0], q.shape[1]) if q.dim() == 3 else (q.shape[0] * q.shape[2], q.shape[1])
 
 
 def _flash_attention_simt(
@@ -283,29 +323,55 @@ def _check_cuda_operands(**tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _bsh(q: torch.Tensor, g: int) -> Tuple[int, int, int]:
+    """(B, Sq, H) of q in either layout: a flattened (BH, Sq, hd) call is
+    the (BH / g, Sq, g, hd) layout, one kv head a batch."""
+    return (q.shape[0], q.shape[1], q.shape[2]) if q.dim() == 4 else (q.shape[0] // g,
+                                                                        q.shape[1], g)
+
+
 def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: int,
             causal: bool, window: Optional[int], q_offset: int, return_lse: bool = False):
-    """Checks what the kernel of ``route`` takes, then launches it on q's stream."""
-    bh, sq, hd = q.shape
+    """Checks what the kernel of ``route`` takes, then launches it on q's
+    stream. The ``sm90`` kernel reads a (B, S, H, hd) call at its strides and
+    writes a contiguous (B, Sq, H, hd); a flattened call must be contiguous.
+    The ``simt`` kernel takes the flattened layout only: a (B, S, H, hd) call
+    is copied to it and its output back."""
+    hd = q.shape[-1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if route == "sm90" and q.dtype != torch.bfloat16:
         raise ValueError(f"the sm90 kernel takes bf16, got {q.dtype}")
-    _check_cuda_operands(q=q, k=k, v=v)
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    if route == "simt" and q.dim() == 4:
+        rows = [bshw_as_rows(t) for t in (q, k, v)]
+        res = _launch(route, *rows, g, causal, window, q_offset, return_lse)
+        out, lse = res if return_lse else (res, None)
+        o4 = rows_to_bshw(out, q.shape[2])
+        count_copies(flash_attention, route, [*zip(rows, (q, k, v)), (o4, out)])
+        return (o4, lse) if return_lse else o4
+    if q.dim() == 3:
+        _check_cuda_operands(q=q, k=k, v=v)
+    out = q.new_empty(q.shape)
+    lse = (torch.empty(_lse_shape(q), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr())
-    params = (bh, sq, k.shape[1], hd, g, int(causal), int(window is not None),
-              int(window or 0), int(q_offset), hd ** -0.5, stream)
     if route == "sm90":
+        strides = kernel_strides((("q", q, g, True), ("k", k, 1, True), ("v", v, 1, True),
+                                  ("o", out, g, True)))
+        b, sq, h = _bsh(q, g)
         lib = _lib_sm90()
-        err = lib.flash_attention_sm90_fwd(*args, *params)
+        err = lib.flash_attention_sm90_fwd(
+            *args, strides, b, h, sq, k.shape[1], hd, g, int(causal), int(window is not None),
+            int(window or 0), int(q_offset), hd ** -0.5, stream)
         error_string = lib.flash_attention_sm90_error_string
     else:
+        bh, sq, _ = q.shape
         lib = _lib()
-        err = lib.flash_attention_fwd(*args, _DTYPE_CODE[q.dtype], *params)
+        err = lib.flash_attention_fwd(*args, _DTYPE_CODE[q.dtype], bh, sq, k.shape[1], hd, g,
+                                      int(causal), int(window is not None), int(window or 0),
+                                      int(q_offset), hd ** -0.5, stream)
         error_string = lib.flash_attention_error_string
     if err != 0:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: "
@@ -316,6 +382,7 @@ def _launch(route: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, g: in
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.layout_copies = dict.fromkeys(ROUTES, 0)
 
 
 def _count_launch(route: str) -> None:
@@ -340,7 +407,7 @@ def _lib() -> ctypes.CDLL:
 def _lib_sm90() -> ctypes.CDLL:
     lib = load_library("flash_attention_sm90")
     lib.flash_attention_sm90_fwd.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_sm90_fwd.restype = ctypes.c_int
     lib.flash_attention_sm90_error_string.argtypes = [ctypes.c_int]
@@ -397,13 +464,13 @@ def _direct_bwd(q, k, v, o, lse, do, g, causal, window, q_offset):
                                          window=window, q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch_bwd(_route(q.dtype, q.shape[2]), q, k, v, o, lse, do, g, causal, window,
+    return _launch_bwd(_route(q.dtype, q.shape[-1]), q, k, v, o, lse, do, g, causal, window,
                        q_offset)
 
 
 @_flash_attention_bwd_op.register_fake
 def _flash_attention_bwd_fake(q, k, v, o, lse, do, g, causal, window, q_offset):
-    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
 def _flash_attention_bwd_simt(
@@ -431,8 +498,8 @@ def _check_bwd(q, k, v, o, lse, do, g: int) -> None:
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o and do must match q {tuple(q.shape)} {q.dtype}; got "
                          f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} {do.dtype}")
-    if lse.shape != q.shape[:2] or lse.dtype != torch.float32:
-        raise ValueError(f"lse must be f32 {tuple(q.shape[:2])}, got {tuple(lse.shape)} {lse.dtype}")
+    if tuple(lse.shape) != _lse_shape(q) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be f32 {_lse_shape(q)}, got {tuple(lse.shape)} {lse.dtype}")
     if not (o.device == lse.device == do.device == q.device):
         raise ValueError("q, o, lse and do on different devices")
 
@@ -440,32 +507,51 @@ def _check_bwd(q, k, v, o, lse, do, g: int) -> None:
 def _launch_bwd(route: str, q, k, v, o, lse, do, g: int, causal: bool, window: Optional[int],
                 q_offset: int):
     """Checks what the backward kernel of ``route`` takes, then launches it
-    on q's stream."""
-    bh, sq, hd = q.shape
+    on q's stream. As :func:`_launch`: the ``sm90`` kernel reads a (B, S, H,
+    hd) call at its strides and writes contiguous (B, S, ·, hd) gradients;
+    the ``simt`` kernel takes the flattened layout, copied to and back."""
+    hd = q.shape[-1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if route == "sm90" and q.dtype != torch.bfloat16:
         raise ValueError(f"the sm90 backward takes bf16, got {q.dtype}")
-    _check_cuda_operands(q=q, k=k, v=v, o=o, lse=lse, do=do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if route == "simt" and q.dim() == 4:
+        ins = (q, k, v, o, do)
+        rows = [bshw_as_rows(t) for t in ins]
+        grads = _launch_bwd(route, *rows[:4], lse, rows[4], g, causal, window, q_offset)
+        outs = [rows_to_bshw(t, h) for t, h in zip(grads, (q.shape[2], k.shape[2], k.shape[2]))]
+        count_copies(flash_attention_bwd, route, [*zip(rows, ins), *zip(outs, grads)])
+        return tuple(outs)
+    if q.dim() == 3:
+        _check_cuda_operands(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    elif not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    dq, dk, dv = q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr())
     outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    params = (bh, sq, k.shape[1], hd, g, int(causal), int(window is not None),
-              int(window or 0), int(q_offset), hd ** -0.5, stream)
+    tail = (int(causal), int(window is not None), int(window or 0), int(q_offset), hd ** -0.5,
+            stream)
     if route == "sm90":
+        strides = kernel_strides(tuple((name, t, heads, True) for name, t, heads in (
+            ("q", q, g), ("k", k, 1), ("v", v, 1), ("o", o, g), ("do", do, g), ("dq", dq, g),
+            ("dk", dk, 1), ("dv", dv, 1))))
+        b, sq, h = _bsh(q, g)
         lib = _lib_bwd_sm90()
         pad = lib.flash_attention_bwd_sm90_pad()
         # lse·log2(e) and D = rowsum(dO∘O), rows padded to a multiple of pad
-        aux = torch.empty(2 * bh * (-(-sq // pad) * pad), dtype=torch.float32, device=q.device)
-        err = lib.flash_attention_bwd_sm90(*ptrs, aux.data_ptr(), *outs, *params)
+        aux = torch.empty(2 * b * h * (-(-sq // pad) * pad), dtype=torch.float32,
+                          device=q.device)
+        err = lib.flash_attention_bwd_sm90(*ptrs, aux.data_ptr(), *outs, strides, b, h, sq,
+                                           k.shape[1], hd, g, *tail)
         error_string = lib.flash_attention_bwd_sm90_error_string
     else:
+        bh, sq, _ = q.shape
         lib = _lib_bwd()
         dsum = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-        err = lib.flash_attention_bwd(*ptrs, dsum.data_ptr(), *outs, _DTYPE_CODE[q.dtype],
-                                      *params)
+        err = lib.flash_attention_bwd(*ptrs, dsum.data_ptr(), *outs, _DTYPE_CODE[q.dtype], bh,
+                                      sq, k.shape[1], hd, g, *tail)
         error_string = lib.flash_attention_bwd_error_string
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd {route} kernel launch failed: "
@@ -476,6 +562,7 @@ def _launch_bwd(route: str, q, k, v, o, lse, do, g: int, causal: bool, window: O
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention_bwd.layout_copies = dict.fromkeys(ROUTES, 0)
 
 
 def _count_bwd_launch(route: str) -> None:
@@ -500,7 +587,7 @@ def _lib_bwd() -> ctypes.CDLL:
 def _lib_bwd_sm90() -> ctypes.CDLL:
     lib = load_library("flash_attention_bwd_sm90")
     lib.flash_attention_bwd_sm90.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 10 + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 8
         + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_bwd_sm90.restype = ctypes.c_int
     lib.flash_attention_bwd_sm90_pad.argtypes = []
@@ -513,7 +600,10 @@ def _lib_bwd_sm90() -> ctypes.CDLL:
 class FlashAttentionFn(torch.autograd.Function):
     """:func:`flash_attention` for autograd: the forward is K2 with its
     log-sum-exp saved, the backward :func:`flash_attention_bwd`. On the CPU
-    both directions take their plain versions inside this same Function."""
+    both directions take their plain versions inside this same Function. In
+    the model's (B, S, H, hd) layout dO is read as it comes (the output
+    projection's gradient) and dq, dk, dv leave contiguous in that layout;
+    the flattened layout keeps its contiguous dO."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_heads_per_kv: int, causal: bool, window: Optional[int],
@@ -528,7 +618,9 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), **ctx.opts)
+        if do.dim() == 3:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.opts)
         return dq, dk, dv, None, None, None, None
 
 
@@ -545,8 +637,8 @@ def attended_pairs(sq: int, sk: int, causal: bool, window: Optional[int], q_offs
 
 
 def _pairs_of(q_shape, k_shape, causal, window, q_offset) -> int:
-    bh, sq, hd = q_shape
-    return bh * attended_pairs(sq, k_shape[1], causal, window, q_offset)
+    bh = q_shape[0] * (q_shape[2] if len(q_shape) == 4 else 1)
+    return bh * attended_pairs(q_shape[1], k_shape[1], causal, window, q_offset)
 
 
 def register_flop_formulas() -> None:
@@ -559,8 +651,8 @@ def register_flop_formulas() -> None:
 
     @register_flop_formula(torch.ops.repro_torch.flash_attention)
     def _fwd(q, k, v, g, causal, window, q_offset, return_lse, *args, **kwargs) -> int:
-        return 4 * q[2] * _pairs_of(q, k, causal, window, q_offset)
+        return 4 * q[-1] * _pairs_of(q, k, causal, window, q_offset)
 
     @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
     def _bwd(q, k, v, o, lse, do, g, causal, window, q_offset, *args, **kwargs) -> int:
-        return 10 * q[2] * _pairs_of(q, k, causal, window, q_offset)
+        return 10 * q[-1] * _pairs_of(q, k, causal, window, q_offset)

@@ -1,8 +1,9 @@
 """Model-layer entry points around the kernels.
 
-They adapt model layouts to the kernels' layouts, e.g. (B, S, H, hd) GQA
-attention → the flattened (B·H, S, hd) layout of
-:func:`repro_torch.kernels.flash_attention.flash_attention`. Each kernel is
+They hand the model's tensors to the kernels; K2 and K3 take the model's
+(B, S, H, ·) layout as it comes, at its strides (slices of a fused
+projection, views of the convolution's output), so no layout copy is made
+around them on the ``sm90`` route. Each kernel is
 called as an attribute of this module, so a caller can swap in its plain
 version; callers in turn call these entry points as attributes of this
 module (the runtime's Worker calls :func:`quantize_rows`).
@@ -132,22 +133,17 @@ def flash_attention_bshd(
     window: Optional[int] = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """GQA flash attention on (B, S, H, hd); returns (B, Sq, H, hd)."""
+    """GQA flash attention on (B, S, H, hd) as the model made them, at their
+    strides; returns a contiguous (B, Sq, H, hd), so the output projection's
+    reshape is a view."""
     if _is_dtensor(q):
         return attention_on_shards(
             lambda q, k, v: flash_attention_bshd(q, k, v, causal, window, q_offset), q, k, v)
-    b, sq, h, hd = q.shape
-    kv = k.shape[2]
-    g = h // kv
-    qf = q.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
-    kf = k.transpose(1, 2).reshape(b * kv, k.shape[1], hd).contiguous()
-    vf = v.transpose(1, 2).reshape(b * kv, v.shape[1], hd).contiguous()
+    g = q.shape[2] // k.shape[2]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttentionFn.apply(qf, kf, vf, g, causal, window, q_offset)
-    else:
-        out = flash_attention(qf, kf, vf, q_heads_per_kv=g, causal=causal,
-                              window=window, q_offset=q_offset)
-    return out.reshape(b, h, sq, hd).transpose(1, 2)
+        return FlashAttentionFn.apply(q, k, v, g, causal, window, q_offset)
+    return flash_attention(q, k, v, q_heads_per_kv=g, causal=causal, window=window,
+                           q_offset=q_offset)
 
 
 def ssd_bshp(
@@ -159,30 +155,26 @@ def ssd_bshp(
     chunk: int = 128,
     initial_state: Optional[torch.Tensor] = None,   # (B, H, P, N) f32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mamba2 SSD on (B, S, H, P) + groups; returns (y (B, S, H, P),
+    """Mamba2 SSD on (B, S, H, P) + groups, x, dt, B and C read as the model
+    made them, at their strides (x, B and C views of the convolution's
+    output); returns (y (B, S, H, P), a view of a contiguous (B, H, S, P),
     final state (B, H, P, N) f32). The groups are not broadcast to heads:
-    the kernel reads group row ``bh // (H // G)``."""
+    head h reads group ``h // (H // G)``."""
     if _is_dtensor(x):
         return _ssd_on_shards(x, dt, A, Bm, Cm, chunk, initial_state)
-    b, s, h, p = x.shape
-    g, n = Bm.shape[2], Bm.shape[3]
-    xf = x.transpose(1, 2).reshape(b * h, s, p).contiguous()
-    dtf = dt.transpose(1, 2).reshape(b * h, s).contiguous()
-    Bf = Bm.transpose(1, 2).reshape(b * g, s, n).contiguous()
-    Cf = Cm.transpose(1, 2).reshape(b * g, s, n).contiguous()
+    b, h = x.shape[0], x.shape[2]
+    g = h // Bm.shape[2]
     Af = A.repeat(b)
     init = None
-    if initial_state is not None:
-        init = initial_state.transpose(2, 3).reshape(b * h, n, p).contiguous()
+    if initial_state is not None:        # a stateful prefill's (B, H, P, N) state
+        init = initial_state.transpose(2, 3).contiguous()
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, dt, A, Bm, Cm, initial_state)):
-        y, state = SsdScanFn.apply(xf, dtf, Af, Bf, Cf, chunk, h // g, init)
+        y, state = SsdScanFn.apply(x, dt, Af, Bm, Cm, chunk, g, init)
     else:
-        y, state = ssd_scan(xf, dtf, Af, Bf, Cf, chunk=chunk, heads_per_group=h // g,
+        y, state = ssd_scan(x, dt, Af, Bm, Cm, chunk=chunk, heads_per_group=g,
                             initial_state=init)
-    y = y.reshape(b, h, s, p).transpose(1, 2)
-    state = state.reshape(b, h, n, p).transpose(2, 3)
-    return y, state
+    return y, state.transpose(2, 3)
 
 
 def _ssd_on_shards(x, dt, A, Bm, Cm, chunk, initial_state):

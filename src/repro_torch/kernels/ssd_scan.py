@@ -18,12 +18,22 @@ both kernels share (chunk and N in 1..128) raise. :func:`_ssd_scan_simt`
 reaches the ``simt`` kernel at bf16 for any shape, for timing the two
 designs side by side; the main path never calls it.
 
-Layout: x (BH, S, P); dt (BH, S) f32, post-softplus; A (BH,) f32, negative;
-B and C (BH / heads_per_group, S, N), row ``i`` of x reading group row
-``i // heads_per_group`` (with ``heads_per_group=1`` this is the TPU
-kernel's per-head interface). Returns y (BH, S, P) in x's dtype and the
-final state (BH, N, P) f32. ``S`` must be a multiple of ``chunk``; an
-optional ``initial_state`` (BH, N, P) f32 replaces the zero state. The
+Layouts: the model's x (B, S, H, P), dt (B, S, H) f32 post-softplus, A
+(B·H,) f32 negative (row ``b·H + h``), B and C (B, S, G, N), head h reading
+group ``h // heads_per_group``, an optional ``initial_state`` (B, H, N, P)
+f32; returns y (B, S, H, P) in x's dtype, a view of a contiguous (B, H, S,
+P) (the layout the gated norm reads in place), and the final state (B, H,
+N, P) f32. Or the flattened x (BH, S, P), dt (BH, S), A (BH,), B and C
+(BH / heads_per_group, S, N), row ``i`` of x reading group row ``i //
+heads_per_group`` (with ``heads_per_group=1`` the TPU kernel's per-head
+interface), contiguous; returns y (BH, S, P) and the final state (BH, N,
+P), with an optional ``initial_state`` (BH, N, P). The ``sm90`` kernels
+read the model's layout in place at any strides a tensor map takes
+(:mod:`.layout`; dt element by element at its strides) and write the
+gradients at the strides of the tensors the wrapper allocates; the
+``simt`` kernels and the plain versions take the flattened layout, and the
+wrapper copies a (B, S, H, P) call to it and back (``layout_copies``
+counts those tensors by route). ``S`` must be a multiple of ``chunk``. The
 ``sm90`` kernel rounds W, the state that C·state reads and the decayed X to
 bf16 before their products; the plain version keeps them in f32.
 
@@ -53,6 +63,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from .build import load_library
+from .layout import bshw_as_rows, count_copies, kernel_strides, rows_as_bshw, rows_to_bshw
 
 MAX_CHUNK = 128
 MAX_STATE = 128
@@ -74,7 +85,15 @@ def ssd_scan_plain(
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The TPU kernel's arithmetic in PyTorch: f32 throughout, one chunk at a
-    time, every row at once."""
+    time, every row at once. A (B, S, H, P) call runs on its flattened
+    copies and returns the kernels' layouts."""
+    if x.dim() == 4:
+        b, h = x.shape[0], x.shape[2]
+        init = None if initial_state is None else initial_state.flatten(0, 1)
+        y, state = ssd_scan_plain(bshw_as_rows(x), bshw_as_rows(dt), A, bshw_as_rows(Bm),
+                                  bshw_as_rows(Cm), chunk=chunk, heads_per_group=heads_per_group,
+                                  initial_state=init)
+        return rows_as_bshw(y, h), state.unflatten(0, (b, h))
     bh, s, p = x.shape
     n = Bm.shape[-1]
     bm = torch.repeat_interleave(Bm, heads_per_group, dim=0).float()
@@ -137,7 +156,17 @@ def ssd_scan_bwd_plain(
     into ddt and dA through the within-chunk reverse cumulative sum. dx is in
     x's dtype, dB and dC in B's (summed over the ``heads_per_group`` rows
     that read each group row), ddt, dA and the initial state's gradient f32;
-    the last is None when ``initial_state`` is."""
+    the last is None when ``initial_state`` is. A (B, S, H, P) call runs on
+    its flattened copies and returns contiguous gradients in its layouts."""
+    if x.dim() == 4:
+        b, h, grp = x.shape[0], x.shape[2], Bm.shape[2]
+        flat = [None if t is None else t.flatten(0, 1) for t in (dfinal, initial_state)]
+        dx, ddt, da, db, dc, dinit = ssd_scan_bwd_plain(
+            *(bshw_as_rows(t) for t in (x, dt)), A, *(bshw_as_rows(t) for t in (Bm, Cm)),
+            bshw_as_rows(dy), flat[0], chunk=chunk, heads_per_group=heads_per_group,
+            initial_state=flat[1])
+        return (rows_to_bshw(dx, h), rows_as_bshw(ddt, h), da, rows_to_bshw(db, grp),
+                rows_to_bshw(dc, grp), None if dinit is None else dinit.unflatten(0, (b, h)))
     bh, s, p = x.shape
     n = Bm.shape[-1]
     g = heads_per_group
@@ -222,20 +251,29 @@ def _check(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                         f"{x.dtype}, {Bm.dtype}, {Cm.dtype}")
     if dt.dtype != torch.float32 or A.dtype != torch.float32:
         raise TypeError(f"dt and A must be float32; got {dt.dtype}, {A.dtype}")
-    if x.dim() != 3 or Bm.dim() != 3 or Bm.shape != Cm.shape:
-        raise ValueError(f"want x (BH,S,P), B = C (BG,S,N); got {tuple(x.shape)}, "
-                         f"{tuple(Bm.shape)}, {tuple(Cm.shape)}")
-    bh, s, p = x.shape
+    if x.dim() not in (3, 4) or Bm.dim() != x.dim() or Bm.shape != Cm.shape:
+        raise ValueError(f"want x (BH,S,P), B = C (BG,S,N), or x (B,S,H,P), B = C "
+                         f"(B,S,G,N); got {tuple(x.shape)}, {tuple(Bm.shape)}, "
+                         f"{tuple(Cm.shape)}")
     n = Bm.shape[-1]
-    if g < 1 or bh != Bm.shape[0] * g or Bm.shape[1] != s:
+    if x.dim() == 3:
+        bh, s, p = x.shape
+        match = g >= 1 and bh == Bm.shape[0] * g and Bm.shape[1] == s
+        want_dt, want_state = (bh, s), (bh, n, p)
+    else:
+        b, s, h, p = x.shape
+        bh = b * h
+        match = (g >= 1 and Bm.shape[0] == b and h == Bm.shape[2] * g and Bm.shape[1] == s)
+        want_dt, want_state = (b, s, h), (b, h, n, p)
+    if not match:
         raise ValueError(f"x {tuple(x.shape)} does not match B {tuple(Bm.shape)} "
                          f"with heads_per_group={g}")
-    if tuple(dt.shape) != (bh, s) or tuple(A.shape) != (bh,):
-        raise ValueError(f"want dt ({bh}, {s}) and A ({bh},); got {tuple(dt.shape)}, "
+    if tuple(dt.shape) != want_dt or tuple(A.shape) != (bh,):
+        raise ValueError(f"want dt {want_dt} and A ({bh},); got {tuple(dt.shape)}, "
                          f"{tuple(A.shape)}")
-    if initial_state is not None and (tuple(initial_state.shape) != (bh, n, p)
+    if initial_state is not None and (tuple(initial_state.shape) != want_state
                                       or initial_state.dtype != torch.float32):
-        raise ValueError(f"initial_state must be float32 ({bh}, {n}, {p}); got "
+        raise ValueError(f"initial_state must be float32 {want_state}; got "
                          f"{initial_state.dtype} {tuple(initial_state.shape)}")
     if s < 1 or chunk < 1 or s % chunk:
         raise ValueError(f"seq {s} is not a positive multiple of chunk {chunk}")
@@ -273,7 +311,8 @@ def ssd_scan(
     heads_per_group: int = 1,
     initial_state: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (BH, S, P), final_state (BH, N, P) f32).
+    """Returns (y, final_state f32) in the layout of the call: (B, S, H, P)
+    and (B, H, N, P), or (BH, S, P) and (BH, N, P).
 
     A tensor on the CPU or the card goes to :func:`_direct`; a meta tensor
     (the dry run, on each device's shards) to the custom op
@@ -302,14 +341,18 @@ def _direct(x, dt, A, Bm, Cm, chunk, g, initial_state):
                               initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    route = _route(x.dtype, x.shape[2], Bm.shape[2], chunk)
+    route = _route(x.dtype, x.shape[-1], Bm.shape[-1], chunk)
     return _launch(route, x, dt, A, Bm, Cm, chunk, g, initial_state)
 
 
 @_ssd_scan_op.register_fake
 def _ssd_scan_fake(x, dt, A, Bm, Cm, chunk, g, initial_state):
-    bh, _, p = x.shape
-    return torch.empty_like(x), x.new_empty((bh, Bm.shape[2], p), dtype=torch.float32)
+    if x.dim() == 3:
+        bh, _, p = x.shape
+        return x.new_empty(x.shape), x.new_empty((bh, Bm.shape[2], p), dtype=torch.float32)
+    b, s, h, p = x.shape
+    return (x.new_empty((b, h, s, p)).transpose(1, 2),
+            x.new_empty((b, h, Bm.shape[3], p), dtype=torch.float32))
 
 
 def _ssd_scan_simt(
@@ -330,12 +373,27 @@ def _ssd_scan_simt(
     return _launch("simt", x, dt, A, Bm, Cm, chunk, heads_per_group, initial_state)
 
 
+def _check_contiguous(**tensors: Optional[torch.Tensor]) -> None:
+    for name, t in tensors.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _bh(x: torch.Tensor, g: int) -> Tuple[int, int]:
+    """(B, H) of x in either layout: a flattened (BH, S, P) call is the
+    (BH / g, S, g, P) layout, one group a batch."""
+    return (x.shape[0], x.shape[2]) if x.dim() == 4 else (x.shape[0] // g, g)
+
+
 def _launch(route: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
             Cm: torch.Tensor, chunk: int, g: int,
             initial_state: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Checks what the kernel of ``route`` takes, then launches it on x's stream."""
-    bh, s, p = x.shape
-    n = Bm.shape[-1]
+    """Checks what the kernel of ``route`` takes, then launches it on x's
+    stream. The ``sm90`` kernel reads a (B, S, H, P) call at its strides; a
+    flattened call must be contiguous. The ``simt`` kernel takes the
+    flattened layout only: a (B, S, H, P) call is copied to it (y and the
+    state come back as views)."""
+    p, n = x.shape[-1], Bm.shape[-1]
     if route == "sm90":
         if x.dtype != torch.bfloat16 or _route(x.dtype, p, n, chunk) != "sm90":
             raise ValueError(f"the sm90 kernel takes bf16 with N and P multiples of 8 and "
@@ -343,39 +401,49 @@ def _launch(route: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: 
     elif chunk > MAX_CHUNK or n > MAX_STATE:
         raise ValueError(f"chunk {chunk} and state size {n} must be at most "
                          f"{MAX_CHUNK} and {MAX_STATE}")
-    named = [("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm)]
-    if initial_state is not None:
-        named.append(("initial_state", initial_state))
-    for name, t in named:
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if route == "sm90":                  # TMA reads x, B and C
-        for name, t in (("x", x), ("B", Bm), ("C", Cm)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
-    y = torch.empty_like(x)
-    state = torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
+    four = x.dim() == 4
+    if route == "simt" and four:
+        b, h = x.shape[0], x.shape[2]
+        init = None if initial_state is None else initial_state.flatten(0, 1)
+        ins = (x, dt, Bm, Cm)
+        rows = [bshw_as_rows(t) for t in ins]
+        y, state = _launch(route, rows[0], rows[1], A, rows[2], rows[3], chunk, g, init)
+        count_copies(ssd_scan, route, zip(rows, ins))
+        return rows_as_bshw(y, h), state.unflatten(0, (b, h))
+    if four:
+        _check_contiguous(A=A, initial_state=initial_state)
+    else:
+        _check_contiguous(x=x, dt=dt, A=A, B=Bm, C=Cm, initial_state=initial_state)
+    (b, h), s = _bh(x, g), x.shape[1]
+    if route == "sm90":                  # TMA reads x, B and C; raises before any load
+        strides = kernel_strides((("x", x, g, True), ("B", Bm, 1, True), ("C", Cm, 1, True),
+                                  ("dt", dt, g, False)))
+    y = x.new_empty((b * h, s, p))
+    state = torch.empty((b * h, n, p), dtype=torch.float32, device=x.device)
     args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             None if initial_state is None else initial_state.data_ptr(),
             y.data_ptr(), state.data_ptr())
-    shape = (bh, s, p, n, chunk, g, torch.cuda.current_stream(x.device).cuda_stream)
+    tail = (s, p, n, chunk, g, torch.cuda.current_stream(x.device).cuda_stream)
     if route == "sm90":
         lib = _lib_sm90()
-        err = lib.ssd_scan_sm90_fwd(*args, *shape)
+        err = lib.ssd_scan_sm90_fwd(*args, strides, b, h, *tail)
         error_string = lib.ssd_scan_sm90_error_string
     else:
         lib = _lib()
-        err = lib.ssd_scan_fwd(*args, _DTYPE_CODE[x.dtype], *shape)
+        err = lib.ssd_scan_fwd(*args, _DTYPE_CODE[x.dtype], b * h, *tail)
         error_string = lib.ssd_scan_error_string
     if err != 0:
         raise RuntimeError(f"ssd_scan {route} kernel launch failed: "
                            f"{error_string(err).decode()} ({err})")
     _count_launch(route)
+    if four:
+        return y.view(b, h, s, p).transpose(1, 2), state.view(b, h, n, p)
     return y, state
 
 
 ssd_scan.launches = 0
 ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
+ssd_scan.layout_copies = dict.fromkeys(ROUTES, 0)
 
 
 def _count_launch(route: str) -> None:
@@ -397,8 +465,8 @@ def _lib() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _lib_sm90() -> ctypes.CDLL:
     lib = load_library("ssd_scan_sm90")
-    lib.ssd_scan_sm90_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                                      + [ctypes.c_void_p])
+    lib.ssd_scan_sm90_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)]
+                                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.ssd_scan_sm90_fwd.restype = ctypes.c_int
     lib.ssd_scan_sm90_error_string.argtypes = [ctypes.c_int]
     lib.ssd_scan_sm90_error_string.restype = ctypes.c_char_p
@@ -458,13 +526,13 @@ def _direct_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state):
                                   initial_state=initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    route = _route(x.dtype, x.shape[2], Bm.shape[2], chunk)
+    route = _route(x.dtype, x.shape[-1], Bm.shape[-1], chunk)
     return _launch_bwd(route, x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state)
 
 
 @_ssd_scan_bwd_op.register_fake
 def _ssd_scan_bwd_fake(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state):
-    return [torch.empty_like(t) for t in (x, dt, A, Bm, Cm, initial_state) if t is not None]
+    return [t.new_empty(t.shape) for t in (x, dt, A, Bm, Cm, initial_state) if t is not None]
 
 
 def _ssd_scan_bwd_simt(
@@ -493,7 +561,8 @@ def _check_bwd(x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state) 
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy must match x {tuple(x.shape)} {x.dtype}; got "
                          f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
-    want = (x.shape[0], Bm.shape[2], x.shape[2])
+    want = ((x.shape[0], Bm.shape[2], x.shape[2]) if x.dim() == 3
+            else (x.shape[0], x.shape[2], Bm.shape[3], x.shape[3]))
     if dfinal is not None and (tuple(dfinal.shape) != want or dfinal.dtype != torch.float32
                                or dfinal.device != x.device):
         raise ValueError(f"dfinal must be float32 {want} on {x.device}; got {dfinal.dtype} "
@@ -510,33 +579,50 @@ def bwd_heads_per_block(g: int) -> int:
 
 def _launch_bwd(route: str, x, dt, A, Bm, Cm, dy, dfinal, chunk: int, g: int, initial_state):
     """Checks what the backward kernel of ``route`` takes, then launches its
-    kernels on x's stream."""
-    bh, s, p = x.shape
-    n = Bm.shape[-1]
+    kernels on x's stream. As :func:`_launch`: the ``sm90`` kernels read a
+    (B, S, H, P) call (dy included) at its strides and write contiguous
+    gradients in its layouts; the ``simt`` kernels take the flattened
+    layout, copied to and back."""
+    p, n = x.shape[-1], Bm.shape[-1]
     if route == "sm90":
         if x.dtype != torch.bfloat16 or _route(x.dtype, p, n, chunk) != "sm90":
             raise ValueError(f"the sm90 kernel takes bf16 with N and P multiples of 8 and "
                              f"P up to {SM90_MAX_WIDTH}; got {x.dtype}, N {n}, P {p}")
     else:
         _route(x.dtype, p, n, chunk)     # chunk and N in range, the dtype known
-    named = [("x", x), ("dt", dt), ("A", A), ("B", Bm), ("C", Cm), ("dy", dy),
-             ("dfinal", dfinal), ("initial_state", initial_state)]
-    for name, t in named:
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if route == "sm90":                  # TMA reads x, dy, B and C
-        for name, t in (("x", x), ("dy", dy), ("B", Bm), ("C", Cm)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned")
-    dx = torch.empty_like(x)
-    ddt = torch.empty_like(dt)
+    four = x.dim() == 4
+    if route == "simt" and four:
+        b, h, grp = x.shape[0], x.shape[2], Bm.shape[2]
+        flat = [None if t is None else t.flatten(0, 1) for t in (dfinal, initial_state)]
+        ins = (x, dt, Bm, Cm, dy)
+        rows = [bshw_as_rows(t) for t in ins]
+        dx, ddt, dA, dB, dC, dinit = _launch_bwd(route, rows[0], rows[1], A, *rows[2:],
+                                                 flat[0], chunk, g, flat[1])
+        outs = [rows_to_bshw(t, n) for t, n in ((dx, h), (dB, grp), (dC, grp))]
+        count_copies(ssd_scan_bwd, route, [*zip(rows, ins), *zip(outs, (dx, dB, dC))])
+        return (outs[0], rows_as_bshw(ddt, h), dA, outs[1], outs[2],
+                None if dinit is None else dinit.unflatten(0, (b, h)))
+    if four:
+        _check_contiguous(A=A, dfinal=dfinal, initial_state=initial_state)
+    else:
+        _check_contiguous(x=x, dt=dt, A=A, B=Bm, C=Cm, dy=dy, dfinal=dfinal,
+                          initial_state=initial_state)
+    dx, dB, dC = (t.new_empty(t.shape) for t in (x, Bm, Cm))
+    # ddt (B, S, H) over (B, H, S) memory, the layout autograd gave it from
+    # the flattened (B·H, S) one: softplus's adjoint and dt_bias's sum after
+    # it then see the strides they saw before, and sum in the same order
+    ddt = (dt.new_empty((x.shape[0], x.shape[2], x.shape[1])).transpose(1, 2) if four
+           else dt.new_empty(dt.shape))
     dA = torch.empty_like(A)
-    dB = torch.empty_like(Bm)
-    dC = torch.empty_like(Cm)
     dinit = None if initial_state is None else torch.empty_like(initial_state)
     if route == "sm90":
+        strides = kernel_strides((
+            ("x", x, g, True), ("dy", dy, g, True), ("B", Bm, 1, True), ("C", Cm, 1, True),
+            ("dt", dt, g, False), ("dx", dx, g, True), ("ddt", ddt, g, False),
+            ("dB", dB, 1, True), ("dC", dC, 1, True)))
+        b, h = _bh(x, g)
         _launch_bwd_sm90(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
-                         dx, ddt, dA, dB, dC, dinit)
+                         dx, ddt, dA, dB, dC, dinit, strides, b, h)
     else:
         _launch_bwd_simt(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
                          dx, ddt, dA, dB, dC, dinit)
@@ -574,8 +660,8 @@ def _launch_bwd_simt(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
 
 
 def _launch_bwd_sm90(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
-                     dx, ddt, dA, dB, dC, dinit) -> None:
-    bh, s, p = x.shape
+                     dx, ddt, dA, dB, dC, dinit, strides, b: int, h: int) -> None:
+    bh, s, p = b * h, x.shape[1], x.shape[-1]
     n = Bm.shape[-1]
     nc = s // chunk
     hb = bwd_heads_per_block(g)
@@ -598,7 +684,8 @@ def _launch_bwd_sm90(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
         _ptr(x), _ptr(dt), _ptr(A), _ptr(Bm), _ptr(Cm), _ptr(initial_state), _ptr(dy),
         _ptr(dfinal), _ptr(dx), _ptr(ddt), _ptr(dA), _ptr(dB), _ptr(dC), _ptr(dinit),
         _ptr(states), _ptr(states16), _ptr(decay), _ptr(ts_part), _ptr(part_bc),
-        _ptr(part_da), bh, s, p, n, chunk, g, hb, torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(part_da), strides, b, h, s, p, n, chunk, g, hb,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan_bwd sm90 kernel launch failed: "
                            f"{lib.ssd_scan_bwd_sm90_error_string(err).decode()} ({err})")
@@ -606,6 +693,7 @@ def _launch_bwd_sm90(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state,
 
 ssd_scan_bwd.launches = 0
 ssd_scan_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
+ssd_scan_bwd.layout_copies = dict.fromkeys(ROUTES, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -623,8 +711,8 @@ def _lib_bwd() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _lib_bwd_sm90() -> ctypes.CDLL:
     lib = load_library("ssd_scan_bwd_sm90")
-    lib.ssd_scan_bwd_sm90.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 7
-                                      + [ctypes.c_void_p])
+    lib.ssd_scan_bwd_sm90.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.POINTER(ctypes.c_longlong)]
+                                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     lib.ssd_scan_bwd_sm90.restype = ctypes.c_int
     lib.ssd_scan_bwd_sm90_state_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.ssd_scan_bwd_sm90_state_blocks.restype = ctypes.c_int
@@ -638,7 +726,9 @@ class SsdScanFn(torch.autograd.Function):
     backward :func:`ssd_scan_bwd`, which saves nothing but the inputs and
     recomputes the states. Gradients are not materialised, so an unused
     final state costs nothing. On the CPU both directions take their plain
-    versions inside this same Function."""
+    versions inside this same Function. In the model's (B, S, H, P) layout dy
+    is read as it comes (y's layout) and the gradients leave contiguous in
+    that layout; the flattened layout keeps its contiguous dy."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk: int, heads_per_group: int,
@@ -653,7 +743,10 @@ class SsdScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dstate):
         x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
-        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dy is None:
+            dy = torch.zeros_like(x)
+        elif dy.dim() == 3:
+            dy = dy.contiguous()
         dx, ddt, dA, dB, dC, dinit = ssd_scan_bwd(
             x, dt, A, Bm, Cm, dy, None if dstate is None else dstate.contiguous(),
             initial_state=initial_state, **ctx.opts)
@@ -675,16 +768,24 @@ def register_flop_formulas() -> None:
 
     @register_flop_formula(torch.ops.repro_torch.ssd_scan)
     def _flops(x, dt, A, Bm, Cm, chunk, g, initial_state, *args, **kwargs) -> int:
-        bh, s, p = x
-        n = Bm[2]
+        bh, s, p = _rows_seq_width(x)
+        n = Bm[-1]
         return bh * (s // chunk) * (2 * chunk * chunk * (n + p) + 4 * chunk * n * p)
 
     @register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
     def _bwd_flops(x, dt, A, Bm, Cm, dy, dfinal, chunk, g, initial_state, *args,
                    **kwargs) -> int:
-        bh, s, p = x
-        n = Bm[2]
+        bh, s, p = _rows_seq_width(x)
+        n = Bm[-1]
         return bh * (s // chunk) * bwd_flops_per_chunk(chunk, n, p)
+
+
+def _rows_seq_width(x_shape) -> Tuple[int, int, int]:
+    """(B·H, S, P) of x's shape in either layout."""
+    if len(x_shape) == 3:
+        return tuple(x_shape)
+    b, s, h, p = x_shape
+    return b * h, s, p
 
 
 def bwd_flops_per_chunk(q: int, n: int, p: int) -> int:
